@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (sparf_tpu_torch) on one NVIDIA GPU.
+
+Usage (from the repository root, on a machine with a CUDA card and nvcc):
+
+    python3 chip_smoke.py                 # all phases
+    python3 chip_smoke.py --kernels-only  # build + kernel checks, no training
+
+Phases, one line each; any failure raises and the process exits non-zero:
+  1. device: name, power limit, TF32 off for matmuls and cuDNN;
+  2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a;
+  3. kernels: K1 (fused MLP forward) and K2 (backward) at the full 8x256
+     width, ragged T, both view_dep settings and an active coarse-to-fine
+     mask, against their plain torch versions; K2 run twice must give the
+     same bits; median times at T = 262,144;
+  4. slice: one step of the tiny sparf config on the card against the same
+     step on the CPU (plain versions, same parameters and draws), in both
+     stages; then the SPARF joint pose+NeRF trainer built through
+     define_trainer on device "cuda" at the bench.py full shape, 3+ steps in
+     the joint coarse stage and 3+ in the fine stage, with the K1/K2 launch
+     counts of those steps.
+Then a JSON line with every kernel, and last {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# tolerances (fp32 everywhere; the kernels and the plain versions sum in other
+# orders): forward outputs within 1e-4 of the largest output magnitude; every
+# gradient (d_pts, d_view, each dW and db) within 1e-3 of its own largest
+# magnitude (weight gradients sum over up to 262k points). A ReLU whose
+# pre-activation lies within fp32 rounding of 0 can switch between two
+# summation orders and change that point's gradients by O(|W| |g|), so the
+# backward check gives zero output gradient to the points whose smallest
+# |pre-activation| is below UNAMBIGUOUS_Z; their masks are then the same in
+# the kernel and the reference and nothing is excused.
+FWD_RTOL = 1e-4
+BWD_RTOL = 1e-3
+UNAMBIGUOUS_Z = 1e-4
+
+
+def phase(name: str, msg: str) -> None:
+    print(f"[{name}] {msg}", flush=True)
+
+
+def rel_err(a, b) -> tuple:
+    """(max abs error, max abs error / max abs reference)."""
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return err, err / max(scale, 1e-6)
+
+
+def median_ms(fn, n: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers, stack and spills of each kernel, from nvcc's -Xptxas -v output."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _last_component(m.group(1))
+            kernels[name] = []
+        elif name and ("registers" in line or "spill" in line):
+            kernels[name].append(line.split(" : ")[-1].strip())
+    return "; ".join(f"{k}: {', '.join(v)}" for k, v in kernels.items())
+
+
+def _last_component(mangled: str) -> str:
+    """The function's own name in an Itanium-mangled (possibly nested) name."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    last = mangled
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        last, rest = rest[len(n): len(n) + int(n)], rest[len(n) + int(n):]
+    return last
+
+
+def kernel_inputs(view_dep: bool, T: int, seed: int):
+    """Full-width MLP, encoded inputs of T random points, output gradients."""
+    import torch
+
+    from sparf_tpu_torch.models import nerf_mlp
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    cfg = nerf_mlp.MLPConfig(view_dep=view_dep, barf_c2f=(0.4, 0.7))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = nerf_mlp.init_nerf_params(gen, cfg, device="cuda")
+    weights = fm.flat_weights(params)
+    for li in range(1, len(weights), 2):  # non-zero biases exercise the bias path
+        weights[li].normal_(0.0, 0.1, generator=gen)
+    progress = 0.55  # c2f mask active (frequencies partly on)
+    pts = torch.randn((T, 3), generator=gen, device="cuda") * 1.5
+    pts_enc = nerf_mlp.encode_points(cfg, pts, progress).contiguous()
+    if view_dep:
+        rays = nerf_mlp.unit_rays(torch.randn((T, 3), generator=gen, device="cuda"))
+        view_enc = nerf_mlp.encode_views(cfg, rays, progress).contiguous()
+    else:
+        view_enc = torch.zeros((T, 0), device="cuda")
+    g_density = torch.randn(T, generator=gen, device="cuda")
+    g_rgb = torch.randn((T, 3), generator=gen, device="cuda")
+    return fm.FusedMeta.from_cfg(cfg), pts_enc, view_enc, weights, g_density, g_rgb
+
+
+def min_abs_preactivation(meta, pts_enc, view_enc, weights):
+    """Per point, the smallest |pre-activation| over every ReLU of the chain."""
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    _, _, xs = fm._forward_chain(meta, pts_enc, view_enc, weights)
+    out = torch.full((pts_enc.shape[0],), float("inf"), device=pts_enc.device)
+    for li, x in enumerate(xs[:-1]):
+        z = torch.addmm(weights[2 * li + 1], x, weights[2 * li].t())
+        if li == meta.n_feat - 1:
+            z = z[:, 1:]
+        out = torch.minimum(out, z.abs().amin(dim=1))
+    return out
+
+
+def check_kernels() -> dict:
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    worst = {"K1": 0.0, "K2": 0.0}
+    for view_dep in (True, False):
+        for T in (131071, 262145):
+            meta, pts_enc, view_enc, weights, g_d, g_rgb = kernel_inputs(view_dep, T, seed=T)
+            dens_k, rgb_k = fm._launch_k1(meta, pts_enc, view_enc, weights)
+            dens_p, rgb_p = fm.fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
+            torch.cuda.synchronize()
+            for name, a, b in (("density", dens_k, dens_p), ("rgb", rgb_k, rgb_p)):
+                err, rel = rel_err(a, b)
+                worst["K1"] = max(worst["K1"], err)
+                if not rel <= FWD_RTOL:
+                    raise AssertionError(f"K1 {name} view_dep={view_dep} T={T}: "
+                                         f"err {err:.3g} (rel {rel:.3g}) > {FWD_RTOL}")
+
+            keep = (min_abs_preactivation(meta, pts_enc, view_enc, weights)
+                    >= UNAMBIGUOUS_Z).float()
+            g_d, g_rgb = g_d * keep, g_rgb * keep[:, None]
+            out_k = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
+            out_k2 = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
+            torch.cuda.synchronize()
+            flat_k = [out_k[0], out_k[1], *out_k[2]]
+            flat_k2 = [out_k2[0], out_k2[1], *out_k2[2]]
+            if not all(torch.equal(a, b) for a, b in zip(flat_k, flat_k2)):
+                raise AssertionError(f"K2 not deterministic (view_dep={view_dep}, T={T})")
+            out_p = fm.fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_d, g_rgb)
+            flat_p = [out_p[0], out_p[1], *out_p[2]]
+            # autograd through the plain chain
+            leaves = [t.detach().requires_grad_(True) for t in (pts_enc, view_enc, *weights)]
+            d, rgb = fm.fused_mlp_forward_plain(meta, leaves[0], leaves[1], leaves[2:])
+            flat_a = torch.autograd.grad((d * g_d).sum() + (rgb * g_rgb).sum(), leaves,
+                                         allow_unused=True)
+            flat_a = [torch.zeros_like(l) if g is None else g for g, l in zip(flat_a, leaves)]
+            names = ["d_pts", "d_view"] + [f"{'W' if i % 2 == 0 else 'b'}{i // 2}"
+                                           for i in range(len(weights))]
+            worst_rel = 0.0
+            for ref_name, flat_ref in (("plain", flat_p), ("autograd", flat_a)):
+                for name, a, b in zip(names, flat_k, flat_ref):
+                    err, rel = rel_err(a, b)
+                    worst["K2"] = max(worst["K2"], err)
+                    worst_rel = max(worst_rel, rel)
+                    if not rel <= BWD_RTOL:
+                        raise AssertionError(
+                            f"K2 {name} vs {ref_name} view_dep={view_dep} T={T}: "
+                            f"err {err:.3g} (rel {rel:.3g}) > {BWD_RTOL}")
+            del out_k, out_k2, out_p, flat_a, leaves
+            phase("kernels", f"view_dep={view_dep} T={T}: K1 and K2 agree with the plain "
+                             f"versions (worst relative error K2 {worst_rel:.3g}), K2 "
+                             f"bit-identical on rerun; {1 - float(keep.mean()):.4f} of the "
+                             f"points held out of the backward check (|z| < {UNAMBIGUOUS_Z})")
+            torch.cuda.empty_cache()
+
+    meta, pts_enc, view_enc, weights, g_d, g_rgb = kernel_inputs(True, 262144, seed=1)
+    times = {
+        "K1": median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights)),
+        "K1_plain": median_ms(lambda: fm.fused_mlp_forward_plain(meta, pts_enc, view_enc,
+                                                                  weights)),
+        "K2": median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)),
+        "K2_plain": median_ms(lambda: fm.fused_mlp_backward_plain(meta, pts_enc, view_enc,
+                                                                   weights, g_d, g_rgb)),
+    }
+    phase("kernels", "median ms at T=262144 (8x256, view_dep): "
+          + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    return {"max_abs_err": worst, "ms": times}
+
+
+TINY_SPARF = dict(
+    env={}, scene="spheres", max_iter=1000, use_gt_correspondences=True, min_nbr_matches=10,
+    synthetic=dict(H=24, W=32, n_train=3, n_test=1),
+    arch=dict(layers_feat=[None, 64, 64, 64, 64], layers_rgb=[None, 32, 3], skip=[2]),
+    nerf=dict(sample_intvs=32, sample_intvs_fine=16, rand_rays=16), depth_cons_nbr_rays=16)
+
+
+class RecordingDraws:
+    """Draws that also keep every array they hand out, for a replay elsewhere."""
+
+    def __init__(self, draws):
+        self.draws, self.recorded = draws, []
+
+    def _keep(self, x):
+        self.recorded.append(x.cpu().numpy())
+        return x
+
+    def uniform(self, shape):
+        return self._keep(self.draws.uniform(shape))
+
+    def randint(self, shape, low, high):
+        return self._keep(self.draws.randint(shape, low, high))
+
+    def normal(self, shape):
+        return self._keep(self.draws.normal(shape))
+
+
+def check_step_cuda_vs_cpu() -> None:
+    """One step of the tiny sparf config on the card (kernels) and on the CPU
+    (plain versions) from the same parameters and draws, in both stages.
+    Losses within rtol 1e-4, gradients (Adam's first moment / 0.1) within
+    1e-3 of each tensor's largest magnitude, updated parameters within 1e-5."""
+    import dataclasses
+
+    from sparf_tpu_torch.training import engine
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+    from sparf_tpu_torch.utils.draws import Draws, ReplayDraws
+
+    def trainer_on(device):
+        cfg = build_config("joint_pose_nerf_training/synthetic", "sparf", TINY_SPARF)
+        return define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_tiny_"),
+                              device=device, save_option=False)
+
+    cpu, gpu = trainer_on("cpu"), trainer_on("cuda")
+    for it in (0, 350):
+        st_c = dataclasses.replace(cpu.state, iteration=it, iteration_nerf=it)
+        st_g = dataclasses.replace(
+            gpu.state, iteration=it, iteration_nerf=it,
+            nerf_params=engine.tree_unflatten(
+                cpu.state.nerf_params,
+                [x.cuda() for x in engine.tree_leaves(cpu.state.nerf_params)]),
+            pose_params={k: v.cuda() for k, v in cpu.state.pose_params.items()})
+        rec = RecordingDraws(Draws(it, "cpu"))
+        new_c, stats_c = cpu.get_step(it)(st_c, rec)
+        new_g, stats_g = gpu.get_step(it)(st_g, ReplayDraws(rec.recorded, "cuda"))
+        for k, v in stats_c.items():
+            a, b = float(stats_g[k]), float(v)
+            if not abs(a - b) <= 1e-6 + 1e-4 * abs(b):
+                raise AssertionError(f"step at {it}: {k} cuda {a} vs cpu {b}")
+        pairs = list(zip(new_g.opt_state_nerf.mu, new_c.opt_state_nerf.mu))
+        if new_c.opt_state_pose is not None:
+            pairs += list(zip(new_g.opt_state_pose.mu, new_c.opt_state_pose.mu))
+        for a, b in pairs:
+            err, rel = rel_err(a.cpu(), b)
+            if not rel <= 1e-3:
+                raise AssertionError(f"step at {it}: gradient off by {err:.3g} (rel {rel:.3g})")
+        for a, b in zip(engine.tree_leaves(new_g.nerf_params) + list(new_g.pose_params.values()),
+                        engine.tree_leaves(new_c.nerf_params) + list(new_c.pose_params.values())):
+            if not float((a.cpu() - b).abs().max()) <= 1e-5:
+                raise AssertionError(f"step at {it}: updated parameters differ")
+        phase("slice-check", f"tiny sparf step at iteration {it}: cuda (kernels) matches cpu "
+                             f"(plain versions), loss all={float(stats_g['all']):.6g}")
+
+
+def run_slice(steps: int) -> dict:
+    import dataclasses
+
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+
+    cfg = build_config("joint_pose_nerf_training/synthetic", "sparf", dict(
+        env={}, scene="spheres", max_iter=100000, use_gt_correspondences=True,
+        min_nbr_matches=100, synthetic=dict(H=300, W=400, n_train=3, n_test=1)))
+    workspace = tempfile.mkdtemp(prefix="sparf_torch_smoke_")
+    t0 = time.perf_counter()
+    trainer = define_trainer(cfg, workspace=workspace, device="cuda", save_option=False)
+    phase("slice", f"trainer built in {time.perf_counter() - t0:.1f} s "
+                   f"({trainer.n_train_views} views {trainer.H}x{trainer.W}, "
+                   f"{trainer.corres_pools['n_pairs']} correspondence pairs)")
+    ratio = float(cfg.ratio_end_joint_nerf_pose_refinement)
+    stages = (("joint_coarse", 0), ("fine", int(cfg.max_iter * (ratio + 0.05))))
+    result = {}
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = 0  # count only the main path's launches from here
+    for name, it0 in stages:
+        state = dataclasses.replace(trainer.state, iteration=it0, iteration_nerf=it0)
+        step = trainer.get_step(it0)
+        poses_before = trainer.current_poses_w2c(state).clone()
+        before = (fm.K1_LAUNCHES, fm.K2_LAUNCHES)
+        state, stats = step(state, trainer.draws)  # warm-up (allocator, first launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, stats = step(state, trainer.draws)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        launches = {"K1": fm.K1_LAUNCHES - before[0], "K2": fm.K2_LAUNCHES - before[1]}
+        losses = {k: float(v) for k, v in stats.items() if v.numel() == 1}
+        bad = [k for k, v in losses.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"{name}: non-finite stats {bad}")
+        if int(state.nan_count) != 0:
+            raise AssertionError(f"{name}: {int(state.nan_count)} skipped non-finite updates")
+        if launches["K1"] == 0 or launches["K2"] == 0:
+            raise AssertionError(f"{name}: kernels not on the main path: {launches}")
+        moved = float((trainer.current_poses_w2c(state) - poses_before).abs().max())
+        if name == "joint_coarse" and not moved > 0:
+            raise AssertionError("joint stage: pose parameters did not change")
+        result[name] = 1.0 / dt
+        phase("slice", f"{name} (iteration {it0}): {1.0 / dt:.3f} it/s over {steps} steps "
+                       f"after 1 warm-up step, loss all={losses['all']:.5g} "
+                       f"render={losses['render']:.5g} corres={losses['corres']:.5g} "
+                       f"depth_cons={losses['depth_cons']:.5g}, pose change {moved:.3g}, "
+                       f"launches {launches}")
+    result["launches"] = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES}
+    return result
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true")
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "sparf_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+
+    # 1. device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    phase("device", f"{kind}, {torch.cuda.device_count()} visible, torch {torch.__version__} "
+                    f"cuda {torch.version.cuda}, TF32 off")
+
+    # 2. build
+    from sparf_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    phase("build", f"{time.perf_counter() - t0:.1f} s, {_build.BuildInfo.path.name}; "
+          + ptxas_summary(_build.BuildInfo.log))
+
+    # 3. kernels
+    checks = check_kernels()
+    if args.kernels_only:
+        print(json.dumps(checks))
+        return 0
+
+    # 4. slice: the tiny step on the card against the CPU, then the full shape
+    check_step_cuda_vs_cpu()
+    sl = run_slice(steps=3)
+    src = "sparf_tpu_torch/csrc/fused_mlp.cu"
+    kernels = [
+        {"name": "K1_fused_mlp_forward", "route": "cuda", "source": src,
+         "replaces": "sparf_tpu/ops/fused_mlp_vjp.py:175", "launches": sl["launches"]["K1"],
+         "max_abs_err": checks["max_abs_err"]["K1"], "ms": checks["ms"]["K1"],
+         "plain_ms": checks["ms"]["K1_plain"]},
+        {"name": "K2_fused_mlp_backward", "route": "cuda", "source": src,
+         "replaces": "sparf_tpu/ops/fused_mlp_vjp.py:86", "launches": sl["launches"]["K2"],
+         "max_abs_err": checks["max_abs_err"]["K2"], "ms": checks["ms"]["K2"],
+         "plain_ms": checks["ms"]["K2_plain"]},
+    ]
+    print(json.dumps({"kernels": kernels, "it_per_sec": {k: sl[k] for k in
+                                                          ("joint_coarse", "fine")}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

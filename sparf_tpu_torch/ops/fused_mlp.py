@@ -1,0 +1,298 @@
+"""The fused NeRF-MLP chain as an autograd op: CUDA kernels K1 (forward) and
+K2 (backward) on CUDA tensors, their plain torch versions on CPU tensors.
+
+K1 replaces `_fwd_kernel` and K2 replaces `_bwd_kernel` of
+sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl). The kernels live in
+sparf_tpu_torch/csrc/fused_mlp.cu, whose header note says what bounds them on
+an H100 and what their design does about it.
+
+  - `fused_mlp_forward_plain` is the eager chain.
+  - `fused_mlp_backward_plain` is K2's algorithm in torch, not autograd:
+    recompute the forward keeping each layer's input, take the ReLU masks
+    from the next layer's input > 0, split the skip and view segments.
+  - `FusedMLPFunction` launches K1 in forward (saving only the inputs and the
+    weights) and K2 in backward. For a CUDA tensor it launches the kernel or
+    raises; the plain versions are taken only for CPU tensors.
+  - `K1_LAUNCHES` / `K2_LAUNCHES` count kernel launches (not plain calls).
+
+PE, the density activation and the sigmoid stay outside, in torch.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from sparf_tpu_torch.models import nerf_mlp
+from sparf_tpu_torch.models.nerf_mlp import MLPConfig
+
+K1_LAUNCHES = 0
+K2_LAUNCHES = 0
+
+K2_TILE = 16  # points per K2 tile (csrc/fused_mlp.cu kTile2)
+
+_DESC_ERRORS = {
+    -1: "between 1 and 16 layers with at least one trunk and one RGB layer",
+    -2: "every layer at most 288 outputs and 512 inputs",
+    -3: "a chain whose widths match (layer 0 takes pts_enc, no skip at layer 0, 3 RGB outputs)",
+    -4: "activations that fit the 227 KB of shared memory of one block",
+    -5: "at least one point and 1 <= n_blocks <= n_tiles",
+}
+
+
+@dataclass(frozen=True)
+class FusedMeta:
+    """Static shape of the chain the kernels run."""
+
+    n_feat: int
+    n_rgb: int
+    skip: Tuple[int, ...]
+    view_dep: bool
+    d_in: int
+    d_view: int
+
+    @classmethod
+    def from_cfg(cls, cfg: MLPConfig) -> "FusedMeta":
+        return cls(len(cfg.layers_feat), len(cfg.layers_rgb), tuple(cfg.skip), cfg.view_dep,
+                   cfg.input_3d_dim, cfg.input_view_dim)
+
+    def dims(self, weights: Sequence[torch.Tensor]) -> List[int]:
+        out = [self.n_feat, self.n_rgb, self.d_in, self.d_view, int(self.view_dep)]
+        for li in range(self.n_feat + self.n_rgb):
+            W = weights[2 * li]
+            out += [int(W.shape[0]), int(W.shape[1]), int(li < self.n_feat and li in self.skip)]
+        return out
+
+
+def flat_weights(params: Dict[str, Any]) -> List[torch.Tensor]:
+    """[W0, b0, W1, b1, ...] over the trunk then the RGB head."""
+    return [t for W, b in list(params["feat"]) + list(params["rgb"]) for t in (W, b)]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
+    """Forward keeping every layer's input; returns (raw_density, raw_rgb, xs)."""
+    xs = []
+    feat = pts_enc
+    raw_density = raw_rgb = None
+    for li in range(meta.n_feat):
+        W, b = weights[2 * li], weights[2 * li + 1]
+        x = torch.cat([feat, pts_enc], dim=-1) if li in meta.skip else feat
+        xs.append(x)
+        z = torch.addmm(b, x, W.t())
+        if li == meta.n_feat - 1:
+            raw_density = z[:, 0]
+            feat = F.relu(z[:, 1:])
+        else:
+            feat = F.relu(z)
+    if meta.view_dep:
+        feat = torch.cat([feat, view_enc], dim=-1)
+    for lr in range(meta.n_rgb):
+        li = meta.n_feat + lr
+        W, b = weights[2 * li], weights[2 * li + 1]
+        xs.append(feat)
+        z = torch.addmm(b, feat, W.t())
+        if lr == meta.n_rgb - 1:
+            raw_rgb = z[:, :3]
+        else:
+            feat = F.relu(z)
+    return raw_density, raw_rgb, xs
+
+
+def fused_mlp_forward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch.Tensor,
+                            weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(raw_density (T,), raw_rgb (T,3)) by the eager chain."""
+    raw_density, raw_rgb, _ = _forward_chain(meta, pts_enc, view_enc, weights)
+    return raw_density, raw_rgb
+
+
+def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch.Tensor,
+                             weights: Sequence[torch.Tensor], g_density: torch.Tensor,
+                             g_rgb: torch.Tensor):
+    """K2's algorithm in torch: (d_pts (T,d_in), d_view (T,d_view), [dW0, db0, ...])."""
+    n_layers = meta.n_feat + meta.n_rgb
+    with torch.no_grad():
+        _, _, xs = _forward_chain(meta, pts_enc, view_enc, weights)
+        feat_dim = weights[2 * meta.n_feat - 2].shape[0] - 1
+        grads: List[Optional[torch.Tensor]] = [None] * (2 * n_layers)
+        d_pts = torch.zeros_like(pts_enc)
+        d_view = torch.zeros_like(view_enc)
+
+        def mask_into(li):
+            """ReLU mask of the previous layer = (feature part of layer li's input) > 0."""
+            x = xs[li]
+            if li < meta.n_feat and li in meta.skip:
+                return x[:, : x.shape[1] - meta.d_in] > 0
+            if li == meta.n_feat and meta.view_dep:
+                return x[:, :feat_dim] > 0
+            return x > 0
+
+        g_z = g_rgb
+        for li in range(n_layers - 1, -1, -1):
+            x, W = xs[li], weights[2 * li]
+            grads[2 * li] = g_z.t() @ x
+            grads[2 * li + 1] = g_z.sum(0)
+            g_x = g_z @ W
+            if li == meta.n_feat:
+                if meta.view_dep:
+                    d_view = g_x[:, feat_dim:]
+                g_z = torch.cat([g_density[:, None], g_x[:, :feat_dim] * mask_into(li)], dim=-1)
+            elif li > 0 and li in meta.skip and li < meta.n_feat:
+                prev = x.shape[1] - meta.d_in
+                d_pts = d_pts + g_x[:, prev:]
+                g_z = g_x[:, :prev] * mask_into(li)
+            elif li > 0:
+                g_z = g_x * mask_into(li)
+            else:
+                d_pts = d_pts + g_x
+    return d_pts, d_view, grads
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(pts_enc, view_enc, weights, *extra):
+    dev = pts_enc.device
+    for t in (pts_enc, view_enc, *weights, *extra):
+        if t.device != dev:
+            raise ValueError(f"fused MLP operands on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused MLP kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("fused MLP kernels take contiguous tensors")
+
+
+def _raise_rc(lib, rc: int, which: str):
+    if rc < 0:
+        raise ValueError(f"{which}: the kernels take {_DESC_ERRORS.get(rc, 'rc=%d' % rc)}")
+    if rc > 0:
+        raise RuntimeError(f"{which} launch failed: {lib.sparf_cuda_error_string(rc).decode()}")
+
+
+def _ptrs(weights):
+    return (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
+
+
+def _dims(meta, weights):
+    dims = meta.dims(weights)
+    return (ctypes.c_int * len(dims))(*dims)
+
+
+def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
+    global K1_LAUNCHES
+    from sparf_tpu_torch.ops._build import load_library
+
+    _check_operands(pts_enc, view_enc, weights)
+    lib = load_library()
+    T = pts_enc.shape[0]
+    out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
+    stream = torch.cuda.current_stream(pts_enc.device).cuda_stream
+    rc = lib.sparf_fused_mlp_forward(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T,
+                                     _dims(meta, weights), _ptrs(weights), stream)
+    _raise_rc(lib, rc, "K1 (fused MLP forward)")
+    K1_LAUNCHES += 1
+    return out[:, 0], out[:, 1:4]
+
+
+def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
+    global K2_LAUNCHES
+    from sparf_tpu_torch.ops._build import load_library
+
+    gout = torch.cat([g_density[:, None], g_rgb], dim=-1).contiguous()
+    _check_operands(pts_enc, view_enc, weights, gout)
+    lib = load_library()
+    T = pts_enc.shape[0]
+    dev = pts_enc.device
+    dims = _dims(meta, weights)
+    n_params = lib.sparf_fused_mlp_n_params(dims)
+    _raise_rc(lib, min(n_params, 0), "K2 (fused MLP backward)")
+    n_tiles = -(-T // K2_TILE)
+    n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    d_pts = torch.empty_like(pts_enc)
+    d_view = torch.empty_like(view_enc)
+    d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
+    partial = torch.empty(n_blocks * n_params, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.sparf_fused_mlp_backward(
+        pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
+        d_view.data_ptr(), d_params.data_ptr(), partial.data_ptr(), T, n_blocks, dims,
+        _ptrs(weights), stream)
+    _raise_rc(lib, rc, "K2 (fused MLP backward)")
+    K2_LAUNCHES += 1
+    grads, ofs = [], 0
+    for w in weights:
+        grads.append(d_params[ofs: ofs + w.numel()].view(w.shape))
+        ofs += w.numel()
+    return d_pts, d_view, grads
+
+
+def fused_mlp_forward(meta, pts_enc, view_enc, weights):
+    """K1 on a CUDA tensor, the plain chain on a CPU tensor."""
+    if pts_enc.device.type == "cuda":
+        return _launch_k1(meta, pts_enc, view_enc, weights)
+    if pts_enc.device.type == "cpu":
+        return fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
+    raise ValueError(f"fused MLP: no kernel for device {pts_enc.device}")
+
+
+def fused_mlp_backward(meta, pts_enc, view_enc, weights, g_density, g_rgb):
+    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    if pts_enc.device.type == "cuda":
+        return _launch_k2(meta, pts_enc, view_enc, weights, g_density, g_rgb)
+    if pts_enc.device.type == "cpu":
+        return fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_density, g_rgb)
+    raise ValueError(f"fused MLP: no kernel for device {pts_enc.device}")
+
+
+class FusedMLPFunction(torch.autograd.Function):
+    """(raw_density (T,), raw_rgb (T,3)) = MLP(pts_enc (T,d_in), view_enc (T,d_view))."""
+
+    @staticmethod
+    def forward(ctx, meta: FusedMeta, pts_enc, view_enc, *weights):
+        raw_density, raw_rgb = fused_mlp_forward(meta, pts_enc, view_enc, weights)
+        ctx.meta = meta
+        ctx.save_for_backward(pts_enc, view_enc, *weights)
+        return raw_density, raw_rgb
+
+    @staticmethod
+    def backward(ctx, g_density, g_rgb):
+        pts_enc, view_enc, *weights = ctx.saved_tensors
+        T = pts_enc.shape[0]
+        if g_density is None:
+            g_density = pts_enc.new_zeros(T)
+        if g_rgb is None:
+            g_rgb = pts_enc.new_zeros((T, 3))
+        d_pts, d_view, grads = fused_mlp_backward(
+            ctx.meta, pts_enc, view_enc, weights, g_density.contiguous(), g_rgb.contiguous())
+        return (None, d_pts, d_view, *grads)
+
+
+def nerf_apply_fused(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor,
+                     ray: torch.Tensor, progress: float,
+                     density_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """nerf_mlp.nerf_apply with the MLP chain through FusedMLPFunction."""
+    B, R, S, _ = pts.shape
+    T = B * R * S
+    pts_enc = nerf_mlp.encode_points(cfg, pts, progress).reshape(T, -1)
+    if cfg.view_dep:
+        view = nerf_mlp.encode_views(cfg, nerf_mlp.unit_rays(ray), progress)
+        view_enc = view[:, :, None, :].expand(B, R, S, view.shape[-1]).reshape(T, -1)
+    else:
+        view_enc = pts_enc.new_zeros((T, 0))
+    raw_density, raw_rgb = FusedMLPFunction.apply(
+        FusedMeta.from_cfg(cfg), pts_enc.contiguous(), view_enc.contiguous(),
+        *flat_weights(params))
+    if density_noise is not None and cfg.density_noise_reg:
+        raw_density = raw_density + density_noise.reshape(T) * cfg.density_noise_reg
+    density = nerf_mlp.density_activation(raw_density, cfg.density_activ)
+    return dict(rgb_samples=torch.sigmoid(raw_rgb).reshape(B, R, S, 3),
+                density_samples=density.reshape(B, R, S))

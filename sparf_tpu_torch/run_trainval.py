@@ -1,0 +1,76 @@
+#!/usr/bin/env python
+"""Training entry point of the PyTorch port (counterpart of run_trainval.py).
+
+Usage:
+  python -m sparf_tpu_torch.run_trainval joint_pose_nerf_training/synthetic sparf \\
+      --scene spheres --debug True --device cuda
+Extra config overrides: --k.k=v (dotted keys, yaml-parsed values).
+The matchers are not ported yet, so correspondences come from GT depth
+(use_gt_correspondences=True) unless an override asks for a matcher, which
+then raises. Evaluation, video rendering and resuming from snapshots are not
+ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def build_env(args, cfg):
+    """Machine-local paths: local settings / env vars, overridden by CLI args."""
+    from sparf_tpu.admin import env_settings
+
+    env = env_settings()
+    if args.workspace_dir:
+        env.workspace_dir = args.workspace_dir
+    if args.data_root:
+        env.llff = env.dtu = env.replica = args.data_root
+    if args.dtu_mask_root:
+        env.dtu_mask = args.dtu_mask_root
+    if args.dtu_depth_root:
+        env.dtu_depth = args.dtu_depth_root
+    cfg.env = env
+    return cfg
+
+
+def run_training(args, extra_overrides):
+    from sparf_tpu.configs.config import parse_dotted_args
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+
+    cfg = build_config(args.train_module, args.train_name)
+    cfg.scene = args.scene
+    if args.train_sub is not None:
+        cfg.train_sub = args.train_sub if args.train_sub > 0 else None
+    cfg.seed = args.seed
+    cfg.use_gt_correspondences = True  # the port has only the gt_depth matcher backend
+    cfg = build_env(args, cfg)
+    if extra_overrides:
+        parse_dotted_args(extra_overrides, base=cfg)
+    project = os.path.join(args.train_module, args.train_name,
+                           f"{args.scene}" + (f"_sub{args.train_sub}" if args.train_sub else ""))
+    trainer = define_trainer(cfg, workspace=os.path.join(args.workspace_dir, project),
+                             debug=args.debug, device=args.device)
+    trainer.run()
+    return trainer
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="sparf_tpu_torch training")
+    parser.add_argument("train_module", help="e.g. joint_pose_nerf_training/synthetic")
+    parser.add_argument("train_name", help="e.g. sparf | barf | nerf")
+    parser.add_argument("--scene", required=True)
+    parser.add_argument("--train_sub", type=int, default=None)
+    parser.add_argument("--data_root", default="")
+    parser.add_argument("--dtu_mask_root", default=None)
+    parser.add_argument("--dtu_depth_root", default=None)
+    parser.add_argument("--workspace_dir", default="./workspace")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--debug", type=lambda x: str(x).lower() in ("1", "true"), default=False)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; 'cuda' fails when no GPU is present")
+    args, extra = parser.parse_known_args(argv)
+    return run_training(args, extra)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,106 @@
+"""The fused NeRF-MLP op of sparf_tpu_torch (ops/fused_mlp.py, kernels K1/K2).
+
+On the CPU, FusedMLPFunction runs its plain versions; they are held against
+the JAX fused custom-VJP in Pallas interpret mode (forward within 1e-5,
+parameter and point gradients within 1e-4, as tests/test_ops.py holds the
+Pallas kernels), and K2's plain algorithm against torch autograd. The CUDA
+kernels themselves are checked on the card by chip_smoke.py, at the full width.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import assert_close, interpret_pallas, t, to_np
+
+from sparf_tpu.models import nerf_mlp as jmlp
+from sparf_tpu_torch.convert import nerf_params_from_jax
+from sparf_tpu_torch.models import nerf_mlp as tmlp
+from sparf_tpu_torch.ops import fused_mlp as fm
+
+SMALL = dict(layers_feat=(64,) * 5, layers_rgb=(32, 3), skip=(2,), L_3D=6, L_view=2)
+
+
+def _loss_j(apply_fn, cfg, p, pts, ray):
+    o = apply_fn(p, cfg, pts, ray, jnp.asarray(0.8))
+    return jnp.sum(o["rgb_samples"] ** 2) + jnp.sum(jnp.sin(o["density_samples"]))
+
+
+@pytest.mark.parametrize("view_dep", [True, False])
+@pytest.mark.parametrize("R", [13, 19])  # odd T = R * 4 exercises the ragged tile
+def test_fused_function_matches_pallas_vjp(monkeypatch, view_dep, R):
+    fv = interpret_pallas(monkeypatch)
+    cfg_j = jmlp.MLPConfig(view_dep=view_dep, barf_c2f=(0.2, 0.9), **SMALL)
+    cfg_t = tmlp.MLPConfig(view_dep=view_dep, barf_c2f=(0.2, 0.9), **SMALL)
+    params_j = jmlp.init_nerf_params(jax.random.PRNGKey(0), cfg_j)
+    rng = np.random.RandomState(R)
+    pts = rng.normal(size=(1, R, 4, 3)).astype(np.float32)
+    ray = rng.normal(size=(1, R, 3)).astype(np.float32)
+
+    out_j = fv.nerf_apply_fused_vjp(params_j, cfg_j, pts, ray, jnp.asarray(0.8))
+    l_j, (g_pj, g_xj) = jax.value_and_grad(
+        lambda p, x: _loss_j(fv.nerf_apply_fused_vjp, cfg_j, p, x, ray), argnums=(0, 1)
+    )(params_j, pts)
+
+    launches = (fm.K1_LAUNCHES, fm.K2_LAUNCHES)
+    params_t = nerf_params_from_jax(to_np(params_j))
+    weights = fm.flat_weights(params_t)
+    for w in weights:
+        w.requires_grad_(True)
+    x = t(pts, requires_grad=True)
+    out_t = fm.nerf_apply_fused(params_t, cfg_t, x, t(ray), 0.8)
+    assert_close(out_t["rgb_samples"], out_j["rgb_samples"], atol=1e-5)
+    assert_close(out_t["density_samples"], out_j["density_samples"], atol=1e-5)
+    l_t = torch.sum(out_t["rgb_samples"] ** 2) + torch.sum(torch.sin(out_t["density_samples"]))
+    l_t.backward()
+    assert_close(l_t, l_j, atol=0, rtol=1e-6)
+    assert_close(x.grad, g_xj, atol=1e-4)
+    g_leaves = [g for layer in g_pj["feat"] + g_pj["rgb"] for g in layer]
+    for w, g in zip(weights, g_leaves):
+        assert_close(w.grad, g, atol=1e-4)
+    # CPU tensors take the plain versions: no kernel launch is counted
+    assert (fm.K1_LAUNCHES, fm.K2_LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("view_dep", [True, False])
+def test_backward_plain_matches_autograd(view_dep):
+    """K2's algorithm (recompute, masks from the next layer's input, skip and
+    view split) against torch autograd through the plain chain."""
+    cfg = tmlp.MLPConfig(view_dep=view_dep, **SMALL)
+    gen = torch.Generator().manual_seed(0)
+    weights = fm.flat_weights(tmlp.init_nerf_params(gen, cfg))
+    for i in range(1, len(weights), 2):
+        weights[i].normal_(0.0, 0.1, generator=gen)
+    T = 37
+    pts_enc = tmlp.encode_points(cfg, torch.randn(T, 3, generator=gen), 1.0)
+    view_enc = (tmlp.encode_views(cfg, torch.randn(T, 3, generator=gen), 1.0) if view_dep
+                else torch.zeros(T, 0))
+    g_d, g_rgb = torch.randn(T, generator=gen), torch.randn(T, 3, generator=gen)
+    meta = fm.FusedMeta.from_cfg(cfg)
+    d_pts, d_view, grads = fm.fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_d,
+                                                       g_rgb)
+    leaves = [x.clone().requires_grad_(True) for x in (pts_enc, view_enc, *weights)]
+    d, rgb = fm.fused_mlp_forward_plain(meta, leaves[0], leaves[1], leaves[2:])
+    ref = torch.autograd.grad((d * g_d).sum() + (rgb * g_rgb).sum(), leaves, allow_unused=True)
+    assert_close(d_pts, ref[0], atol=1e-5)
+    if view_dep:
+        assert_close(d_view, ref[1], atol=1e-5)
+    for g, r in zip(grads, ref[2:]):
+        assert_close(g, r, atol=1e-5)
+
+
+def test_meta_dims_and_cuda_only_dispatch():
+    cfg = tmlp.MLPConfig()
+    meta = fm.FusedMeta.from_cfg(cfg)
+    weights = fm.flat_weights(tmlp.init_nerf_params(torch.Generator().manual_seed(0), cfg))
+    dims = meta.dims(weights)
+    assert dims[:5] == [8, 2, 63, 27, 1]
+    per_layer = np.array(dims[5:]).reshape(-1, 3)
+    assert per_layer[4].tolist() == [256, 319, 1]   # skip layer: [feat | pts_enc]
+    assert per_layer[7].tolist() == [257, 256, 0]   # density unit + 256 features
+    assert per_layer[8].tolist() == [128, 283, 0]   # [feat | view_enc]
+    with pytest.raises(ValueError):
+        fm.fused_mlp_forward(meta, torch.zeros(4, 63, device="meta"),
+                             torch.zeros(4, 27, device="meta"), weights)
+
