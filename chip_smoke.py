@@ -9,16 +9,26 @@ Usage (from the repository root, on a machine with a CUDA card and nvcc):
 Phases, one line each; any failure raises and the process exits non-zero:
   1. device: name, power limit, TF32 off for matmuls and cuDNN;
   2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a;
-  3. kernels: K1 (fused MLP forward) and K2 (backward) at the full 8x256
-     width, ragged T, both view_dep settings and an active coarse-to-fine
-     mask, against their plain torch versions; K2 run twice must give the
-     same bits; median times at T = 262,144;
+  3. kernels: K1 (fused MLP forward), K2 (backward) and K3 (forward on
+     packed weights) at the full 8x256 width, ragged T, both view_dep
+     settings and an active coarse-to-fine mask, against their plain torch
+     versions (K3 also against K1's); K2 run twice must give the same bits;
+     median times at T = 262,144;
   4. slice: one step of the tiny sparf config on the card against the same
      step on the CPU (plain versions, same parameters and draws), in both
      stages; then the SPARF joint pose+NeRF trainer built through
      define_trainer on device "cuda" at the bench.py full shape, 3+ steps in
-     the joint coarse stage and 3+ in the fine stage, with the K1/K2 launch
-     counts of those steps.
+     the joint coarse stage and 3+ in the fine stage, with the kernels'
+     launch counts of those steps (the depth-consistency visibility pass
+     runs K3);
+  5. eval-check: with cuDNN TF32 at PyTorch's default (on), evaluate_full of
+     the tiny config with test-time pose refinement on the card against the
+     same call on the CPU (same state, replayed pixel draws); a snapshot
+     saved on the card loads on the CPU with the same bits;
+  6. eval: the port's eval.run_eval on the full-shape trainer after its
+     fine-stage steps: one 300x400 test view, with and without 100 steps of
+     test-time refinement; seconds per full-image render and per
+     refinement, launch counts, metrics.
 Then a JSON line with every kernel, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -100,7 +110,8 @@ def _last_component(mangled: str) -> str:
 
 
 def kernel_inputs(view_dep: bool, T: int, seed: int):
-    """Full-width MLP, encoded inputs of T random points, output gradients."""
+    """Full-width MLP (as flat weights and as the parameter tree), encoded
+    inputs of T random points, output gradients."""
     import torch
 
     from sparf_tpu_torch.models import nerf_mlp
@@ -122,7 +133,7 @@ def kernel_inputs(view_dep: bool, T: int, seed: int):
         view_enc = torch.zeros((T, 0), device="cuda")
     g_density = torch.randn(T, generator=gen, device="cuda")
     g_rgb = torch.randn((T, 3), generator=gen, device="cuda")
-    return fm.FusedMeta.from_cfg(cfg), pts_enc, view_enc, weights, g_density, g_rgb
+    return fm.FusedMeta.from_cfg(cfg), pts_enc, view_enc, weights, g_density, g_rgb, params
 
 
 def min_abs_preactivation(meta, pts_enc, view_enc, weights):
@@ -146,19 +157,28 @@ def check_kernels() -> dict:
 
     from sparf_tpu_torch.ops import fused_mlp as fm
 
-    worst = {"K1": 0.0, "K2": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     for view_dep in (True, False):
         for T in (131071, 262145):
-            meta, pts_enc, view_enc, weights, g_d, g_rgb = kernel_inputs(view_dep, T, seed=T)
+            meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(view_dep, T,
+                                                                                 seed=T)
+            packed = fm.pack_weights(params, meta)
             dens_k, rgb_k = fm._launch_k1(meta, pts_enc, view_enc, weights)
+            dens_3, rgb_3 = fm._launch_k3(meta, pts_enc, view_enc, packed)
             dens_p, rgb_p = fm.fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
+            dens_pp, rgb_pp = fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
             torch.cuda.synchronize()
-            for name, a, b in (("density", dens_k, dens_p), ("rgb", rgb_k, rgb_p)):
-                err, rel = rel_err(a, b)
-                worst["K1"] = max(worst["K1"], err)
-                if not rel <= FWD_RTOL:
-                    raise AssertionError(f"K1 {name} view_dep={view_dep} T={T}: "
-                                         f"err {err:.3g} (rel {rel:.3g}) > {FWD_RTOL}")
+            for kname, ref_name, (a_d, a_r), (b_d, b_r) in (
+                    ("K1", "K1 plain", (dens_k, rgb_k), (dens_p, rgb_p)),
+                    ("K3", "K3 plain", (dens_3, rgb_3), (dens_pp, rgb_pp)),
+                    ("K3", "K1 plain", (dens_3, rgb_3), (dens_p, rgb_p))):
+                for name, a, b in (("density", a_d, b_d), ("rgb", a_r, b_r)):
+                    err, rel = rel_err(a, b)
+                    worst[kname] = max(worst[kname], err)
+                    if not rel <= FWD_RTOL:
+                        raise AssertionError(f"{kname} {name} vs {ref_name} view_dep={view_dep} "
+                                             f"T={T}: err {err:.3g} (rel {rel:.3g}) > {FWD_RTOL}")
+            k3_same_bits = torch.equal(dens_3, dens_k) and torch.equal(rgb_3, rgb_k)
 
             keep = (min_abs_preactivation(meta, pts_enc, view_enc, weights)
                     >= UNAMBIGUOUS_Z).float()
@@ -191,17 +211,22 @@ def check_kernels() -> dict:
                             f"K2 {name} vs {ref_name} view_dep={view_dep} T={T}: "
                             f"err {err:.3g} (rel {rel:.3g}) > {BWD_RTOL}")
             del out_k, out_k2, out_p, flat_a, leaves
-            phase("kernels", f"view_dep={view_dep} T={T}: K1 and K2 agree with the plain "
+            phase("kernels", f"view_dep={view_dep} T={T}: K1, K2 and K3 agree with the plain "
                              f"versions (worst relative error K2 {worst_rel:.3g}), K2 "
-                             f"bit-identical on rerun; {1 - float(keep.mean()):.4f} of the "
+                             f"bit-identical on rerun, K3 {'' if k3_same_bits else 'not '}"
+                             f"bit-identical to K1; {1 - float(keep.mean()):.4f} of the "
                              f"points held out of the backward check (|z| < {UNAMBIGUOUS_Z})")
             torch.cuda.empty_cache()
 
-    meta, pts_enc, view_enc, weights, g_d, g_rgb = kernel_inputs(True, 262144, seed=1)
+    meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(True, 262144, seed=1)
+    packed = fm.pack_weights(params, meta)
     times = {
         "K1": median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights)),
         "K1_plain": median_ms(lambda: fm.fused_mlp_forward_plain(meta, pts_enc, view_enc,
                                                                   weights)),
+        "K3": median_ms(lambda: fm._launch_k3(meta, pts_enc, view_enc, packed)),
+        "K3_plain": median_ms(lambda: fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc,
+                                                                         packed)),
         "K2": median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)),
         "K2_plain": median_ms(lambda: fm.fused_mlp_backward_plain(meta, pts_enc, view_enc,
                                                                    weights, g_d, g_rgb)),
@@ -285,6 +310,102 @@ def check_step_cuda_vs_cpu() -> None:
                              f"(plain versions), loss all={float(stats_g['all']):.6g}")
 
 
+# Tiny config of the eval-check: 4 point and 2 view PE frequencies instead of
+# 10 and 4, because at 10 the pose-twist gradient of the refinement is
+# ill-conditioned in float32 (a 1e-7 change of the pose moves it by ~5%;
+# tests/test_torch_eval.py), so no two float32 implementations agree on it.
+TINY_EVAL = dict(TINY_SPARF, optim=dict(test_photo=True, test_iter=5),
+                 arch=dict(TINY_SPARF["arch"], posenc=dict(L_3D=4, L_view=2)))
+# tolerances of the eval-check, absolute: PSNR in dB; the rotation that the
+# refinement made, in degrees (an arccos of a trace near 3, where float32
+# rounding of the rotation moves the angle by ~1e-3 deg); the other metrics;
+# the refined twists
+EVAL_TOL = {"psnr": 1e-3, "deg": 1e-2, "other": 1e-4, "twist": 1e-4}
+
+
+def check_eval_cuda_vs_cpu() -> None:
+    """evaluate_full (with test-time refinement) of the tiny config on the card
+    against the CPU, from the same state and pixel draws, with cuDNN's TF32 at
+    PyTorch's default: the metrics must switch it off themselves. Then a
+    snapshot saved on the card must load on the CPU with the same bits."""
+    import dataclasses
+
+    import torch
+
+    from sparf_tpu_torch.training import checkpointing, engine
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+    from sparf_tpu_torch.utils.draws import ReplayDraws
+
+    def trainer_on(device):
+        cfg = build_config("joint_pose_nerf_training/synthetic", "sparf", TINY_EVAL)
+        return define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_eval_"),
+                              device=device, save_option=False)
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    cpu, gpu = trainer_on("cpu"), trainer_on("cuda")
+    it = 350  # fine sampling on
+    cpu.state = dataclasses.replace(cpu.state, iteration=it, iteration_nerf=it)
+    gpu.state = dataclasses.replace(
+        cpu.state, nerf_params=engine.tree_unflatten(
+            cpu.state.nerf_params, [x.cuda() for x in engine.tree_leaves(cpu.state.nerf_params)]),
+        pose_params={k: v.cuda() for k, v in cpu.state.pose_params.items()},
+        opt_state_nerf=gpu.state.opt_state_nerf, opt_state_pose=gpu.state.opt_state_pose,
+        nan_count=gpu.state.nan_count)
+
+    # the CPU run records its pixel draws, the card replays them
+    recorded = {}
+    make_draws = cpu.test_optim_draws
+
+    def cpu_draws(idx):
+        recorded[idx] = RecordingDraws(make_draws(idx))
+        return recorded[idx]
+
+    cpu.test_optim_draws = cpu_draws
+    gpu.test_optim_draws = lambda idx: ReplayDraws(recorded[idx].recorded, "cuda")
+    twists = {"cpu": [], "card": []}
+
+    def keep_twists(tr, out):
+        refine = tr.run_test_time_photometric_optim
+
+        def call(*a):
+            out.append(refine(*a))
+            return out[-1]
+
+        tr.run_test_time_photometric_optim = call
+
+    keep_twists(cpu, twists["cpu"])
+    keep_twists(gpu, twists["card"])
+    res = {"cpu": cpu.evaluate_full(out_dir=cpu.workspace, with_test_optim=True),
+           "card": gpu.evaluate_full(out_dir=gpu.workspace, with_test_optim=True)}
+    worst = dict.fromkeys(EVAL_TOL, 0.0)
+    for pc, pg in zip(res["cpu"]["per_image"], res["card"]["per_image"]):
+        for k, v in pc.items():
+            kind = ("psnr" if k.startswith("psnr") or k == "refine_psnr_delta"
+                    else "deg" if k.endswith("_deg") else "other")
+            worst[kind] = max(worst[kind], abs(pg[k] - v))
+    for tc, tg in zip(twists["cpu"], twists["card"]):
+        worst["twist"] = max(worst["twist"], float((tg.cpu() - tc).abs().max()))
+    if not twists["cpu"] or any(not worst[k] <= EVAL_TOL[k] for k in worst):
+        raise AssertionError(f"eval cuda vs cpu: worst differences {worst} > {EVAL_TOL}")
+
+    gpu.save_snapshot()
+    loaded, _ = checkpointing.load_snapshot(gpu.workspace, cpu.state, "latest")
+    pairs = list(zip(engine.tree_leaves(loaded.nerf_params) + list(loaded.pose_params.values()),
+                     engine.tree_leaves(gpu.state.nerf_params)
+                     + list(gpu.state.pose_params.values())))
+    if not all(a.device.type == "cpu" and torch.equal(a, b.cpu()) for a, b in pairs):
+        raise AssertionError("a snapshot saved on the card did not load on the CPU bit for bit")
+    m = res["card"]["per_image"][0]
+    phase("eval-check", f"cuDNN TF32 on (PyTorch default): evaluate_full on cuda matches cpu "
+                        f"with test-time refinement ({len(twists['card'])} view, "
+                        f"{int(cpu.cfg.optim.test_iter)} steps), worst |diff| psnr "
+                        f"{worst['psnr']:.3g} dB, refinement angle {worst['deg']:.3g} deg, "
+                        f"other metrics {worst['other']:.3g}, twist {worst['twist']:.3g} "
+                        f"(psnr={m['psnr']:.4f} ssim={m['ssim']:.4f} "
+                        f"lpips={m['lpips']:.4f}); snapshot saved on cuda loads on cpu "
+                        f"bit-identical ({len(pairs)} tensors)")
+
+
 def run_slice(steps: int) -> dict:
     import dataclasses
 
@@ -305,12 +426,12 @@ def run_slice(steps: int) -> dict:
     ratio = float(cfg.ratio_end_joint_nerf_pose_refinement)
     stages = (("joint_coarse", 0), ("fine", int(cfg.max_iter * (ratio + 0.05))))
     result = {}
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = 0  # count only the main path's launches from here
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = 0  # the main path's launches from here
     for name, it0 in stages:
         state = dataclasses.replace(trainer.state, iteration=it0, iteration_nerf=it0)
         step = trainer.get_step(it0)
         poses_before = trainer.current_poses_w2c(state).clone()
-        before = (fm.K1_LAUNCHES, fm.K2_LAUNCHES)
+        before = (fm.K1_LAUNCHES, fm.K2_LAUNCHES, fm.K3_LAUNCHES)
         state, stats = step(state, trainer.draws)  # warm-up (allocator, first launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -318,14 +439,15 @@ def run_slice(steps: int) -> dict:
             state, stats = step(state, trainer.draws)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / steps
-        launches = {"K1": fm.K1_LAUNCHES - before[0], "K2": fm.K2_LAUNCHES - before[1]}
+        launches = {"K1": fm.K1_LAUNCHES - before[0], "K2": fm.K2_LAUNCHES - before[1],
+                    "K3": fm.K3_LAUNCHES - before[2]}
         losses = {k: float(v) for k, v in stats.items() if v.numel() == 1}
         bad = [k for k, v in losses.items() if v != v or abs(v) == float("inf")]
         if bad:
             raise AssertionError(f"{name}: non-finite stats {bad}")
         if int(state.nan_count) != 0:
             raise AssertionError(f"{name}: {int(state.nan_count)} skipped non-finite updates")
-        if launches["K1"] == 0 or launches["K2"] == 0:
+        if 0 in launches.values():
             raise AssertionError(f"{name}: kernels not on the main path: {launches}")
         moved = float((trainer.current_poses_w2c(state) - poses_before).abs().max())
         if name == "joint_coarse" and not moved > 0:
@@ -335,9 +457,64 @@ def run_slice(steps: int) -> dict:
                        f"after 1 warm-up step, loss all={losses['all']:.5g} "
                        f"render={losses['render']:.5g} corres={losses['corres']:.5g} "
                        f"depth_cons={losses['depth_cons']:.5g}, pose change {moved:.3g}, "
-                       f"launches {launches}")
-    result["launches"] = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES}
+                       f"launches {launches} (K3: the visibility pass)")
+    result["launches"] = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES}
+    trainer.state = state
+    result["trainer"] = trainer
     return result
+
+
+def run_eval_phase(trainer) -> dict:
+    """The port's eval entry point (eval.run_eval) on the trainer's state: one
+    full-size test view with and without test-time refinement."""
+    import math
+
+    import torch
+
+    from sparf_tpu_torch import eval as teval
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    renders, refines = [], []
+    render, refine = trainer.render_full_image, trainer.run_test_time_photometric_optim
+
+    def timed(fn, log):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            before, t0 = (fm.K1_LAUNCHES, fm.K2_LAUNCHES, fm.K3_LAUNCHES), time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t0, fm.K1_LAUNCHES - before[0],
+                        fm.K2_LAUNCHES - before[1], fm.K3_LAUNCHES - before[2]))
+            return out
+        return call
+
+    trainer.render_full_image = timed(render, renders)
+    trainer.run_test_time_photometric_optim = timed(refine, refines)
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = 0  # the eval path's launches from here
+    t0 = time.perf_counter()
+    results = teval.run_eval(trainer, trainer.cfg, tempfile.mkdtemp(prefix="sparf_torch_eval_"),
+                             "smoke_eval")
+    total = time.perf_counter() - t0
+    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES}
+    if 0 in launches.values():
+        raise AssertionError(f"eval: kernels not on the eval path: {launches}")
+    H, W = trainer.val_scene_np["image"].shape[-2:]
+    for tag in ("w_test_optim", "without_test_optim"):
+        bad = [k for k, v in results[tag].items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"eval {tag}: non-finite metrics {bad}")
+    phase("eval", f"{len(renders)} full-image renders of {H}x{W}: "
+                  + ", ".join(f"{dt:.3f} s ({k3} K3)" for dt, _, _, k3 in renders)
+                  + f"; test-time refinement ({int(trainer.cfg.optim.test_iter)} steps of "
+                  f"{int(trainer.cfg.nerf.rand_rays)} rays): "
+                  + ", ".join(f"{dt:.3f} s ({k1} K1, {k2} K2)" for dt, k1, k2, _ in refines)
+                  + f"; run_eval {total:.3f} s, launches {launches}")
+    for tag in ("w_test_optim", "without_test_optim"):
+        phase("eval", f"{tag}: " + " ".join(f"{k}={v:.5g}" for k, v in results[tag].items()
+                                             if isinstance(v, float)))
+    return {"launches": launches, "render_s": [r[0] for r in renders],
+            "refine_s": [r[0] for r in refines]}
 
 
 def main() -> int:
@@ -382,19 +559,23 @@ def main() -> int:
     # 4. slice: the tiny step on the card against the CPU, then the full shape
     check_step_cuda_vs_cpu()
     sl = run_slice(steps=3)
+    # 5. eval-check: the tiny evaluation on the card against the CPU
+    check_eval_cuda_vs_cpu()
+    # 6. eval: the full-shape trainer's state through the eval entry point
+    ev = run_eval_phase(sl["trainer"])
+
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
-    kernels = [
-        {"name": "K1_fused_mlp_forward", "route": "cuda", "source": src,
-         "replaces": "sparf_tpu/ops/fused_mlp_vjp.py:175", "launches": sl["launches"]["K1"],
-         "max_abs_err": checks["max_abs_err"]["K1"], "ms": checks["ms"]["K1"],
-         "plain_ms": checks["ms"]["K1_plain"]},
-        {"name": "K2_fused_mlp_backward", "route": "cuda", "source": src,
-         "replaces": "sparf_tpu/ops/fused_mlp_vjp.py:86", "launches": sl["launches"]["K2"],
-         "max_abs_err": checks["max_abs_err"]["K2"], "ms": checks["ms"]["K2"],
-         "plain_ms": checks["ms"]["K2_plain"]},
-    ]
-    print(json.dumps({"kernels": kernels, "it_per_sec": {k: sl[k] for k in
-                                                          ("joint_coarse", "fine")}}))
+    replaces = {"K1": "sparf_tpu/ops/fused_mlp_vjp.py:175", "K2": "sparf_tpu/ops/fused_mlp_vjp.py:86",
+                "K3": "sparf_tpu/ops/fused_mlp.py:97"}
+    names = {"K1": "K1_fused_mlp_forward", "K2": "K2_fused_mlp_backward",
+             "K3": "K3_fused_mlp_forward_packed"}
+    kernels = [{"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
+                "launches": sl["launches"][k] + ev["launches"][k],
+                "max_abs_err": checks["max_abs_err"][k], "ms": checks["ms"][k],
+                "plain_ms": checks["ms"][f"{k}_plain"]} for k in ("K1", "K2", "K3")]
+    print(json.dumps({"kernels": kernels,
+                      "it_per_sec": {k: sl[k] for k in ("joint_coarse", "fine")},
+                      "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,12 @@
-// Fused NeRF-MLP forward (K1) and backward (K2) for Hopper (sm_90a), fp32.
+// Fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper (sm_90a), fp32.
 //
 // Replaces the Pallas TPU kernels of sparf_tpu/ops/fused_mlp_vjp.py:
 //   K1 = _fwd_kernel (launched by _core_forward), K2 = _bwd_kernel (launched
-//   by _core_bwd, the custom_vjp backward).
+//   by _core_bwd, the custom_vjp backward);
+// and of sparf_tpu/ops/fused_mlp.py:
+//   K3 = _kernel (launched by fused_mlp_forward), the forward-only chain on
+//   weights packed once per call (the no-gradient renders: full images at
+//   validation and evaluation, the depth-consistency visibility pass).
 // They compute the 10-matmul NeRF chain: trunk layers with ReLU, pts_enc
 // concatenated at the skip layers, raw density from unit 0 of the last trunk
 // layer, [features | view_enc] through the RGB head. K1 writes only
@@ -52,6 +56,12 @@
 //     latency of one pass's loads either.
 //   * The ragged last tile is masked in the kernels: points past T load
 //     zeros, get zero output gradients, and store nothing.
+//   * K3 is K1's kernel with another weight layout: its operands come packed
+//     as (in, out_pad) matrices, out_pad = 32 * ceil(out / 32), zero past
+//     `out` (ops/fused_mlp.py::pack_weights). A chunk of kKC input rows is
+//     then one contiguous block, staged with 16-byte cp.async copies and no
+//     transpose, where K1 stages 4-byte transposing copies. Both run the one
+//     layer loop, forward_layer_j, templated on the layout.
 //
 // Interface: plain C, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() (> 0), a
@@ -84,7 +94,7 @@ struct MLPDesc {
   int w1[kMaxLayers];           // width of input segment 1 (features; pts_enc for layer 0)
   int w_off[kMaxLayers], b_off[kMaxLayers];  // offsets in the flat parameter gradient
   int x_off[kMaxLayers];        // K2: shared-memory offset of layer li's stored input
-  const float* W[kMaxLayers];   // (out, in), row-major
+  const float* W[kMaxLayers];   // K1, K2: (out, in); K3: (in, 32 * ceil(out / 32)); row-major
   const float* b[kMaxLayers];
 };
 
@@ -161,6 +171,12 @@ __device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
+// 16-byte asynchronous copy; both addresses 16-byte aligned (K3's staging).
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -181,6 +197,16 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ W, int out
   cp_async_commit();
 }
 
+// Starts copying rows [row0, row0 + kc) of a packed W (in, ldw) into Ws, as
+// they are: Ws[kk * ldw + o] = W[row0 + kk, o]. The rows are one contiguous
+// block of kc * ldw floats (ldw a multiple of 32), copied 16 bytes a thread.
+__device__ __forceinline__ void stage_chunk_packed(const float* __restrict__ W, int ldw,
+                                                   int row0, int kc, float* Ws) {
+  const float* src = W + (size_t)row0 * ldw;
+  for (int i = threadIdx.x; i < kc * ldw / 4; i += kThreads) cp_async_16(Ws + 4 * i, src + 4 * i);
+  cp_async_commit();
+}
+
 // One layer forward over a tile of 8 * PPT points held in shared memory.
 // Thread (tx, ty) owns points ty*PPT .. ty*PPT+PPT-1 and output units
 // tx + 32 j, j < J. The input columns come in chunks of kKC: chunk ch + 1
@@ -188,7 +214,10 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ W, int out
 // Epilogue modes: 0 = ReLU into Y; 1 = last trunk layer (unit 0 is raw
 // density, to out_g[:, 0] when out_g is given; ReLU of units 1.. into Y);
 // 2 = last RGB layer (raw rgb to out_g[:, 1:4]).
-template <int PPT, int J>
+// kPacked: W is packed (in, 32 J) and staged as it is (K3); otherwise W is
+// (out, in) and staged transposed (K1, K2). A staged chunk's row stride is
+// ldw either way.
+template <int PPT, int J, bool kPacked>
 __device__ __forceinline__ void forward_layer_j(const MLPDesc& d, int li, const float* X1,
                                                 const float* X2, float* Ws, float* Y,
                                                 float* out_g, int p0, int T) {
@@ -198,6 +227,7 @@ __device__ __forceinline__ void forward_layer_j(const MLPDesc& d, int li, const 
   const float* __restrict__ B = d.b[li];
   const int mode = (li == d.n_layers - 1) ? 2 : (li == d.n_feat - 1 ? 1 : 0);
   const int ldy = (mode == 2) ? 0 : d.w1[li + 1];
+  constexpr int ldw = kPacked ? 32 * J : kLDS;
 
   float acc[PPT][J];
 #pragma unroll
@@ -212,14 +242,20 @@ __device__ __forceinline__ void forward_layer_j(const MLPDesc& d, int li, const 
   auto k0_of = [&](int ch) { return (ch < n1 ? ch : ch - n1) * kKC; };
   auto kc_of = [&](int ch) { return min(kKC, (ch < n1 ? w1 : w2) - k0_of(ch)); };
   auto col0_of = [&](int ch) { return (ch < n1 ? 0 : w1) + k0_of(ch); };
+  // column col0 of W (out, in) is row col0 of the packed W (in, out_pad)
+  auto stage = [&](int ch, float* dst) {
+    if constexpr (kPacked)
+      stage_chunk_packed(W, ldw, col0_of(ch), kc_of(ch), dst);
+    else
+      stage_chunk(W, out, in, col0_of(ch), kc_of(ch), dst);
+  };
 
   __syncthreads();  // both halves of Ws free, previous epilogue visible
-  stage_chunk(W, out, in, col0_of(0), kc_of(0), Ws);
+  stage(0, Ws);
   for (int ch = 0; ch < n_chunks; ++ch) {
     cp_async_wait_all();
     __syncthreads();  // chunk ch visible; every thread is done reading chunk ch - 1
-    if (ch + 1 < n_chunks)
-      stage_chunk(W, out, in, col0_of(ch + 1), kc_of(ch + 1), Ws + ((ch + 1) & 1) * kKC * kLDS);
+    if (ch + 1 < n_chunks) stage(ch + 1, Ws + ((ch + 1) & 1) * kKC * kLDS);
     const float* X = ch < n1 ? X1 : X2;
     const int w = ch < n1 ? w1 : w2, k0 = k0_of(ch), kc = kc_of(ch);
     const float* Wc = Ws + (ch & 1) * kKC * kLDS;
@@ -229,7 +265,7 @@ __device__ __forceinline__ void forward_layer_j(const MLPDesc& d, int li, const 
       for (int i = 0; i < PPT; ++i) xv[i] = X[(ty * PPT + i) * w + k0 + kk];
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        const float wv = Wc[kk * kLDS + tx + 32 * j];
+        const float wv = Wc[kk * ldw + tx + 32 * j];
 #pragma unroll
         for (int i = 0; i < PPT; ++i) acc[i][j] = fmaf(xv[i], wv, acc[i][j]);
       }
@@ -259,20 +295,20 @@ __device__ __forceinline__ void forward_layer_j(const MLPDesc& d, int li, const 
   }
 }
 
-template <int PPT>
+template <int PPT, bool kPacked>
 __device__ __forceinline__ void forward_layer(const MLPDesc& d, int li, const float* X1,
                                               const float* X2, float* Ws, float* Y,
                                               float* out_g, int p0, int T) {
   switch ((d.out_dim[li] + 31) / 32) {
-    case 1: forward_layer_j<PPT, 1>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 2: forward_layer_j<PPT, 2>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 3: forward_layer_j<PPT, 3>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 4: forward_layer_j<PPT, 4>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 5: forward_layer_j<PPT, 5>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 6: forward_layer_j<PPT, 6>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 7: forward_layer_j<PPT, 7>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 8: forward_layer_j<PPT, 8>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    default: forward_layer_j<PPT, 9>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 1: forward_layer_j<PPT, 1, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 2: forward_layer_j<PPT, 2, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 3: forward_layer_j<PPT, 3, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 4: forward_layer_j<PPT, 4, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 5: forward_layer_j<PPT, 5, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 6: forward_layer_j<PPT, 6, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 7: forward_layer_j<PPT, 7, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    case 8: forward_layer_j<PPT, 8, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+    default: forward_layer_j<PPT, 9, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
   }
 }
 
@@ -285,9 +321,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-k1_forward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
-           float* __restrict__ out, int T) {
+// The whole chain over one kTile1-point tile: K1 (kPacked false) and K3.
+template <bool kPacked>
+__device__ __forceinline__ void forward_tile(const MLPDesc& d, const float* __restrict__ pts,
+                                             const float* __restrict__ view,
+                                             float* __restrict__ out, int T) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* s_pts = smem;
@@ -300,9 +338,21 @@ k1_forward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ v
   if (d.d_view > 0) load_rows(s_view, view, d.d_view, kTile1, p0, T);
   for (int li = 0; li < d.n_layers; ++li) {
     const float* x1 = (li == 0) ? s_pts : s_buf[(li - 1) & 1];
-    forward_layer<kTile1 / 8>(d, li, x1, second_segment(d, li, s_pts, s_view), s_w,
-                              s_buf[li & 1], out, p0, T);
+    forward_layer<kTile1 / 8, kPacked>(d, li, x1, second_segment(d, li, s_pts, s_view), s_w,
+                                       s_buf[li & 1], out, p0, T);
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+k1_forward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
+           float* __restrict__ out, int T) {
+  forward_tile<false>(d, pts, view, out, T);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+k3_forward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
+           float* __restrict__ out, int T) {
+  forward_tile<true>(d, pts, view, out, T);
 }
 
 // One layer backward over a 16-point tile. gz holds this layer's output
@@ -460,8 +510,8 @@ k2_backward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ 
     // output is not needed)
     for (int li = 0; li < d.n_layers - 1; ++li) {
       const float* x1 = (li == 0) ? s_pts : s_x + d.x_off[li];
-      forward_layer<kTile2 / 8>(d, li, x1, second_segment(d, li, s_pts, s_view), s_work,
-                                s_x + d.x_off[li + 1], nullptr, p0, T);
+      forward_layer<kTile2 / 8, false>(d, li, x1, second_segment(d, li, s_pts, s_view), s_work,
+                                       s_x + d.x_off[li + 1], nullptr, p0, T);
     }
     __syncthreads();
 
@@ -501,6 +551,22 @@ __global__ void k2_reduce(const float* __restrict__ partial, float* __restrict__
   out[j] = s;
 }
 
+using ForwardKernel = void (*)(MLPDesc, const float*, const float*, float*, int);
+
+int launch_forward(ForwardKernel kernel, const float* pts, const float* view, float* out, int T,
+                   const int* dims, const void* const* params, void* stream) {
+  MLPDesc d;
+  int rc = build_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  const int smem = k1_smem_bytes(d);
+  if (smem > kMaxSmem) return -4;
+  if (T <= 0) return 0;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (T + kTile1 - 1) / kTile1;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(d, pts, view, out, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -513,19 +579,17 @@ int sparf_fused_mlp_n_params(const int* dims) {
   return rc < 0 ? rc : d.n_params;
 }
 
-// out (T, 4) = [raw_density | raw_rgb].
+// K1: out (T, 4) = [raw_density | raw_rgb]; params = [W (out, in), b (out), ...].
 int sparf_fused_mlp_forward(const float* pts, const float* view, float* out, int T,
                             const int* dims, const void* const* params, void* stream) {
-  MLPDesc d;
-  int rc = build_desc(dims, params, &d);
-  if (rc < 0) return rc;
-  const int smem = k1_smem_bytes(d);
-  if (smem > kMaxSmem) return -4;
-  if (T <= 0) return 0;
-  cudaFuncSetAttribute(k1_forward, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int blocks = (T + kTile1 - 1) / kTile1;
-  k1_forward<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(d, pts, view, out, T);
-  return static_cast<int>(cudaGetLastError());
+  return launch_forward(k1_forward, pts, view, out, T, dims, params, stream);
+}
+
+// K3: as K1, with params = [W (in, 32 * ceil(out / 32)), b (out), ...] packed,
+// each W 16-byte aligned; dims name the real (out, in) of each layer.
+int sparf_fused_mlp_forward_packed(const float* pts, const float* view, float* out, int T,
+                                   const int* dims, const void* const* params, void* stream) {
+  return launch_forward(k3_forward, pts, view, out, T, dims, params, stream);
 }
 
 // gout (T, 4) = [g_density | g_rgb]; d_params (n_params,) in the order

@@ -5,14 +5,16 @@ stratified and hierarchical depth sampling, the MLP call, compositing.
   - `render_to_max` renders up to a per-ray max depth; its `all_cumulated`
     is the visibility signal of the depth-consistency loss;
   - `render_bundles` renders the RayBundles a training step's losses ask for,
-    one render call per bundle.
+    one render call per bundle;
+  - `render_image_chunked` renders a full image deterministically, in chunks
+    of rays, without gradients (validation and evaluation).
 
 The MLP runs through sparf_tpu_torch.ops.fused_mlp: the CUDA kernels on CUDA
 tensors, their plain versions on CPU tensors. Random numbers come from a Draws object
 (sparf_tpu_torch.utils.draws), consumed in the JAX package's order.
 
 Not ported yet: the merged multi-bundle render (`cfg.tpu.merged_render`,
-off by default), the sharded MLP call and `render_image_chunked`.
+off by default) and the sharded MLP call.
 """
 from __future__ import annotations
 
@@ -217,6 +219,37 @@ def render_at_pixels(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: torch.
     center, ray = _geometry(cfg, pose_w2c, intr, pixels)
     return render_rays(params, cfg, center, ray, depth_range, progress, draws, stratified,
                        fine_enabled)
+
+
+def render_image_chunked(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: torch.Tensor,
+                         intr: torch.Tensor, H: int, W: int, depth_range: torch.Tensor,
+                         progress: float, fine_enabled: bool = False,
+                         chunk: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Full-image deterministic render, `chunk` rays at a time, no gradients.
+
+    H*W is padded up to a multiple of `chunk` with pixel (0, 0) and the result
+    cropped back, as the JAX package does. Returns rgb, depth, ... of shape
+    (B, H*W, k), all_cumulated (B, H*W), and their _fine twins when the fine
+    network runs.
+    """
+    chunk = chunk or cfg.rand_rays
+    HW = H * W
+    n_chunks = -(-HW // chunk)
+    pixels = camera.get_pixel_grid(H, W, pose_w2c.device)
+    pixels = torch.cat([pixels, pixels.new_zeros((n_chunks * chunk - HW, 2))], dim=0)
+    keep = ["rgb", "rgb_var", "depth", "depth_var", "opacity", "all_cumulated"]
+    if cfg.fine_sampling and fine_enabled:
+        keep += [k + "_fine" for k in keep]
+    parts: Dict[str, list] = {}
+    with torch.no_grad():
+        for c in range(n_chunks):
+            out = render_at_pixels(params, cfg, pose_w2c, intr, pixels[c * chunk: (c + 1) * chunk],
+                                   depth_range, progress, draws=None, stratified=False,
+                                   fine_enabled=fine_enabled)
+            for k in keep:
+                if k in out:
+                    parts.setdefault(k, []).append(out[k])
+    return {k: torch.cat(v, dim=1)[:, :HW] for k, v in parts.items()}
 
 
 def render_to_max(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: torch.Tensor,

@@ -85,6 +85,8 @@ def load_library() -> ctypes.CDLL:
         lib.sparf_fused_mlp_n_params.restype = i
         lib.sparf_fused_mlp_forward.argtypes = [p, p, p, i, p, p, p]
         lib.sparf_fused_mlp_forward.restype = i
+        lib.sparf_fused_mlp_forward_packed.argtypes = [p, p, p, i, p, p, p]
+        lib.sparf_fused_mlp_forward_packed.restype = i
         lib.sparf_fused_mlp_backward.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
         lib.sparf_fused_mlp_backward.restype = i
         lib.sparf_cuda_error_string.argtypes = [i]

@@ -1,8 +1,10 @@
-"""The fused NeRF-MLP chain as an autograd op: CUDA kernels K1 (forward) and
-K2 (backward) on CUDA tensors, their plain torch versions on CPU tensors.
+"""The fused NeRF-MLP chain: CUDA kernels K1 (forward) and K2 (backward) as
+an autograd op, K3 (forward only, packed weights) for renders that need no
+gradient; their plain torch versions on CPU tensors.
 
 K1 replaces `_fwd_kernel` and K2 replaces `_bwd_kernel` of
-sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl). The kernels live in
+sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl); K3 replaces `_kernel`
+of sparf_tpu/ops/fused_mlp.py (the `pallas` impl). The kernels live in
 sparf_tpu_torch/csrc/fused_mlp.cu, whose header note says what bounds them on
 an H100 and what their design does about it.
 
@@ -10,10 +12,16 @@ an H100 and what their design does about it.
   - `fused_mlp_backward_plain` is K2's algorithm in torch, not autograd:
     recompute the forward keeping each layer's input, take the ReLU masks
     from the next layer's input > 0, split the skip and view segments.
+  - `pack_weights` lays the weights out for K3: (in, out_pad) operands,
+    out_pad = 32 * ceil(out / 32); `fused_mlp_forward_packed_plain` is the
+    eager chain on them.
   - `FusedMLPFunction` launches K1 in forward (saving only the inputs and the
     weights) and K2 in backward. For a CUDA tensor it launches the kernel or
     raises; the plain versions are taken only for CPU tensors.
-  - `K1_LAUNCHES` / `K2_LAUNCHES` count kernel launches (not plain calls).
+  - `nerf_apply_fused` takes K1/K2 when autograd will ask for a gradient,
+    K3 otherwise.
+  - `K1_LAUNCHES` / `K2_LAUNCHES` / `K3_LAUNCHES` count kernel launches (not
+    plain calls).
 
 PE, the density activation and the sigmoid stay outside, in torch.
 """
@@ -31,6 +39,7 @@ from sparf_tpu_torch.models.nerf_mlp import MLPConfig
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K3_LAUNCHES = 0
 
 K2_TILE = 16  # points per K2 tile (csrc/fused_mlp.cu kTile2)
 
@@ -59,11 +68,13 @@ class FusedMeta:
         return cls(len(cfg.layers_feat), len(cfg.layers_rgb), tuple(cfg.skip), cfg.view_dep,
                    cfg.input_3d_dim, cfg.input_view_dim)
 
-    def dims(self, weights: Sequence[torch.Tensor]) -> List[int]:
+    def dims(self, weights: Sequence[torch.Tensor], packed: bool = False) -> List[int]:
+        """[n_feat, n_rgb, d_in, d_view, view_dep, (out, in, skip) per layer]."""
         out = [self.n_feat, self.n_rgb, self.d_in, self.d_view, int(self.view_dep)]
         for li in range(self.n_feat + self.n_rgb):
-            W = weights[2 * li]
-            out += [int(W.shape[0]), int(W.shape[1]), int(li < self.n_feat and li in self.skip)]
+            W, b = weights[2 * li], weights[2 * li + 1]
+            n_out, n_in = (b.shape[0], W.shape[0]) if packed else W.shape
+            out += [int(n_out), int(n_in), int(li < self.n_feat and li in self.skip)]
         return out
 
 
@@ -72,13 +83,35 @@ def flat_weights(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [t for W, b in list(params["feat"]) + list(params["rgb"]) for t in (W, b)]
 
 
+def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> List[torch.Tensor]:
+    """K3's operands [W0p, b0, W1p, b1, ...]: each W (out, in) as W.T padded
+    with zero columns to (in, out_pad), out_pad = 32 * ceil(out / 32); b as
+    it is. The input rows keep the chain's concat order, [feat | pts_enc] at a
+    skip layer and [feat | view_enc] at the first RGB layer."""
+    weights = flat_weights(params)
+    if len(weights) != 2 * (meta.n_feat + meta.n_rgb):
+        raise ValueError(f"pack_weights: {len(weights) // 2} layers, meta says "
+                         f"{meta.n_feat} + {meta.n_rgb}")
+    packed = []
+    for W, b in zip(weights[::2], weights[1::2]):
+        n_out = W.shape[0]
+        packed += [F.pad(W.detach().t(), (0, -(-n_out // 32) * 32 - n_out)).contiguous(),
+                   b.detach().contiguous()]
+    return packed
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
 
-def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
-    """Forward keeping every layer's input; returns (raw_density, raw_rgb, xs)."""
+def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights, packed: bool = False):
+    """Forward keeping every layer's input; returns (raw_density, raw_rgb, xs).
+    packed: the weights come from pack_weights."""
+
+    def linear(x, W, b):
+        return torch.addmm(b, x, W[:, : b.shape[0]] if packed else W.t())
+
     xs = []
     feat = pts_enc
     raw_density = raw_rgb = None
@@ -86,7 +119,7 @@ def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
         W, b = weights[2 * li], weights[2 * li + 1]
         x = torch.cat([feat, pts_enc], dim=-1) if li in meta.skip else feat
         xs.append(x)
-        z = torch.addmm(b, x, W.t())
+        z = linear(x, W, b)
         if li == meta.n_feat - 1:
             raw_density = z[:, 0]
             feat = F.relu(z[:, 1:])
@@ -98,7 +131,7 @@ def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
         li = meta.n_feat + lr
         W, b = weights[2 * li], weights[2 * li + 1]
         xs.append(feat)
-        z = torch.addmm(b, feat, W.t())
+        z = linear(feat, W, b)
         if lr == meta.n_rgb - 1:
             raw_rgb = z[:, :3]
         else:
@@ -110,6 +143,14 @@ def fused_mlp_forward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: to
                             weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """(raw_density (T,), raw_rgb (T,3)) by the eager chain."""
     raw_density, raw_rgb, _ = _forward_chain(meta, pts_enc, view_enc, weights)
+    return raw_density, raw_rgb
+
+
+def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
+                                   view_enc: torch.Tensor, packed: Sequence[torch.Tensor]
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's plain version: the eager chain on pack_weights' operands."""
+    raw_density, raw_rgb, _ = _forward_chain(meta, pts_enc, view_enc, packed, packed=True)
     return raw_density, raw_rgb
 
 
@@ -182,8 +223,8 @@ def _ptrs(weights):
     return (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
 
 
-def _dims(meta, weights):
-    dims = meta.dims(weights)
+def _dims(meta, weights, packed: bool = False):
+    dims = meta.dims(weights, packed)
     return (ctypes.c_int * len(dims))(*dims)
 
 
@@ -200,6 +241,27 @@ def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
                                      _dims(meta, weights), _ptrs(weights), stream)
     _raise_rc(lib, rc, "K1 (fused MLP forward)")
     K1_LAUNCHES += 1
+    return out[:, 0], out[:, 1:4]
+
+
+def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed):
+    global K3_LAUNCHES
+    from sparf_tpu_torch.ops._build import load_library
+
+    _check_operands(pts_enc, view_enc, packed)
+    for W, b in zip(packed[::2], packed[1::2]):
+        if W.shape[1] != -(-b.shape[0] // 32) * 32 or W.data_ptr() % 16:
+            raise ValueError("K3 takes 16-byte aligned (in, 32 * ceil(out / 32)) weights "
+                             "from pack_weights")
+    lib = load_library()
+    T = pts_enc.shape[0]
+    out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
+    stream = torch.cuda.current_stream(pts_enc.device).cuda_stream
+    rc = lib.sparf_fused_mlp_forward_packed(pts_enc.data_ptr(), view_enc.data_ptr(),
+                                            out.data_ptr(), T, _dims(meta, packed, packed=True),
+                                            _ptrs(packed), stream)
+    _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights)")
+    K3_LAUNCHES += 1
     return out[:, 0], out[:, 1:4]
 
 
@@ -244,6 +306,15 @@ def fused_mlp_forward(meta, pts_enc, view_enc, weights):
     raise ValueError(f"fused MLP: no kernel for device {pts_enc.device}")
 
 
+def fused_mlp_forward_packed(meta, pts_enc, view_enc, packed):
+    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
+    if pts_enc.device.type == "cuda":
+        return _launch_k3(meta, pts_enc, view_enc, packed)
+    if pts_enc.device.type == "cpu":
+        return fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
+    raise ValueError(f"fused MLP: no kernel for device {pts_enc.device}")
+
+
 def fused_mlp_backward(meta, pts_enc, view_enc, weights, g_density, g_rgb):
     """K2 on a CUDA tensor, its plain version on a CPU tensor."""
     if pts_enc.device.type == "cuda":
@@ -279,7 +350,9 @@ class FusedMLPFunction(torch.autograd.Function):
 def nerf_apply_fused(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor,
                      ray: torch.Tensor, progress: float,
                      density_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """nerf_mlp.nerf_apply with the MLP chain through FusedMLPFunction."""
+    """nerf_mlp.nerf_apply with the MLP chain through the fused kernels:
+    FusedMLPFunction (K1, K2) when autograd will ask for a gradient of the
+    points, the views or the weights; K3 on packed weights otherwise."""
     B, R, S, _ = pts.shape
     T = B * R * S
     pts_enc = nerf_mlp.encode_points(cfg, pts, progress).reshape(T, -1)
@@ -288,9 +361,13 @@ def nerf_apply_fused(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor,
         view_enc = view[:, :, None, :].expand(B, R, S, view.shape[-1]).reshape(T, -1)
     else:
         view_enc = pts_enc.new_zeros((T, 0))
-    raw_density, raw_rgb = FusedMLPFunction.apply(
-        FusedMeta.from_cfg(cfg), pts_enc.contiguous(), view_enc.contiguous(),
-        *flat_weights(params))
+    meta, weights = FusedMeta.from_cfg(cfg), flat_weights(params)
+    pts_enc, view_enc = pts_enc.contiguous(), view_enc.contiguous()
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (pts_enc, view_enc, *weights)):
+        raw_density, raw_rgb = FusedMLPFunction.apply(meta, pts_enc, view_enc, *weights)
+    else:
+        raw_density, raw_rgb = fused_mlp_forward_packed(meta, pts_enc, view_enc,
+                                                        pack_weights(params, meta))
     if density_noise is not None and cfg.density_noise_reg:
         raw_density = raw_density + density_noise.reshape(T) * cfg.density_noise_reg
     density = nerf_mlp.density_activation(raw_density, cfg.density_activ)

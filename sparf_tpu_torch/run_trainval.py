@@ -1,14 +1,16 @@
 #!/usr/bin/env python
-"""Training entry point of the PyTorch port (counterpart of run_trainval.py).
+"""Train+eval entry point of the PyTorch port (counterpart of run_trainval.py).
 
 Usage:
   python -m sparf_tpu_torch.run_trainval joint_pose_nerf_training/synthetic sparf \\
       --scene spheres --debug True --device cuda
 Extra config overrides: --k.k=v (dotted keys, yaml-parsed values).
+A run resumes from the workspace's latest snapshot unless --no_resume, and
+ends with `evaluate_full` on the test split (unless --debug or do_eval is
+off); --test_metrics_only evaluates the latest snapshot without training.
 The matchers are not ported yet, so correspondences come from GT depth
 (use_gt_correspondences=True) unless an override asks for a matcher, which
-then raises. Evaluation, video rendering and resuming from snapshots are not
-ported yet.
+then raises. Video rendering (--render_video_only) is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ def build_env(args, cfg):
     env = env_settings()
     if args.workspace_dir:
         env.workspace_dir = args.workspace_dir
+    env.eval_dir = env.get("eval_dir") or os.path.join(env.workspace_dir, "eval")
     if args.data_root:
         env.llff = env.dtu = env.replica = args.data_root
     if args.dtu_mask_root:
@@ -48,9 +51,20 @@ def run_training(args, extra_overrides):
         parse_dotted_args(extra_overrides, base=cfg)
     project = os.path.join(args.train_module, args.train_name,
                            f"{args.scene}" + (f"_sub{args.train_sub}" if args.train_sub else ""))
-    trainer = define_trainer(cfg, workspace=os.path.join(args.workspace_dir, project),
-                             debug=args.debug, device=args.device)
-    trainer.run()
+    workspace = os.path.join(args.workspace_dir, project)
+    if args.render_video_only:
+        raise NotImplementedError("--render_video_only is not ported to sparf_tpu_torch: the "
+                                  "videos need imageio/matplotlib")
+    trainer = define_trainer(cfg, workspace=workspace, debug=args.debug, device=args.device)
+    eval_dir = os.path.join(cfg.env.eval_dir, project)
+    if args.test_metrics_only:
+        if not trainer.load_snapshot("latest"):
+            raise FileNotFoundError(f"no snapshot to evaluate in {workspace}")
+        trainer.evaluate_full(out_dir=eval_dir)
+        return trainer
+    trainer.run(load_latest=not args.no_resume)
+    if cfg.get("do_eval", True) and not args.debug:
+        trainer.evaluate_full(out_dir=eval_dir)
     return trainer
 
 
@@ -68,6 +82,9 @@ def main(argv=None):
     parser.add_argument("--debug", type=lambda x: str(x).lower() in ("1", "true"), default=False)
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' fails when no GPU is present")
+    parser.add_argument("--no_resume", action="store_true")
+    parser.add_argument("--render_video_only", action="store_true")
+    parser.add_argument("--test_metrics_only", action="store_true")
     args, extra = parser.parse_known_args(argv)
     return run_training(args, extra)
 

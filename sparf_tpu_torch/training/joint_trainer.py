@@ -1,16 +1,20 @@
-"""Joint pose + NeRF trainer, SPARF's main trainer, training only (torch port
-of sparf_tpu/training/joint_trainer.py).
+"""Joint pose + NeRF trainer, SPARF's main trainer (torch port of
+sparf_tpu/training/joint_trainer.py).
 
   - initial poses: identity (+ translation centering), noisy GT (se(3)
     noise drawn from a seeded torch.Generator), or given by the caller;
   - pose parametrization from sparf_tpu_torch.models.pose_params;
   - two Adam optimizers (NeRF and poses, each with its own schedule);
-  - a joint stage, then frozen poses (optionally re-initializing the NeRF).
-SfM initial poses, test-time pose refinement and evaluation are not ported yet.
+  - a joint stage, then frozen poses (optionally re-initializing the NeRF);
+  - pose evaluation through sim3 alignment; val and test poses backtracked
+    through the saved sim3;
+  - test-time photometric pose refinement: an Adam loop over a 6-dof twist
+    per test view, `test_iter` steps of `rand_rays` rays.
+SfM initial poses are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,8 +24,23 @@ from sparf_tpu_torch.models import pose_params as pose_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.models.pose_params import PoseConfig
 from sparf_tpu_torch.training import engine
+from sparf_tpu_torch.training.losses import base as loss_base
 from sparf_tpu_torch.training.trainer import NerfTrainerPerScene
 from sparf_tpu_torch.utils import camera
+from sparf_tpu_torch.utils.draws import Draws
+
+
+def _refine_stats(pose_pre: torch.Tensor, pose_post: torch.Tensor) -> Dict[str, Any]:
+    """How far test-time refinement moved a test pose: rotation (deg) and
+    camera-center distance, plus the pre-refinement pose, so that evaluation
+    can also render without the refinement."""
+    pre = pose_pre.detach().cpu().numpy().reshape(3, 4)
+    post = pose_post.detach().cpu().numpy().reshape(3, 4)
+    rot = float(alignment.rotation_distance_np(pre[None, :, :3], post[None, :, :3])[0])
+    c_pre = -pre[:, :3].T @ pre[:, 3]
+    c_post = -post[:, :3].T @ post[:, 3]
+    return {"rot_deg": rot * 180.0 / np.pi, "trans": float(np.linalg.norm(c_post - c_pre)),
+            "pose_pre": pose_pre}
 
 
 class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
@@ -33,6 +52,8 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
     """
 
     model_name = "joint_pose_nerf_training"
+    _test_optim_enabled = True
+    _last_refine: Optional[Dict[str, Any]] = None
 
     def __init__(self, cfg, workspace: Optional[str] = None, debug: bool = False,
                  device="cuda", initial_poses_w2c: Optional[np.ndarray] = None):
@@ -52,6 +73,7 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
             np.asarray(initial_poses_w2c[:, :3]), np.asarray(self.train_scene_np["pose"]))
         self.logger.info(f"initial pose error: {self.initial_pose_error}")
         self.pose_cfg = PoseConfig.from_config(self.cfg, nbr_poses=self.n_train_views)
+        self.sim3_est_to_gt_c2w = alignment.identity_sim3()
 
     def set_initial_poses(self) -> np.ndarray:
         """(N,4,4) float32 initial w2c poses."""
@@ -133,3 +155,97 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
 
     def make_results_dict_low_freq(self) -> Dict[str, float]:
         return self.evaluate_poses()
+
+    def update_sim3(self):
+        """The sim3 from the optimized to the GT c2w poses, used to backtrack
+        val and test poses into the optimized frame."""
+        pose = self.current_poses_w2c().detach().cpu().numpy()
+        pose_GT = np.asarray(self.train_scene_np["pose"])
+        if pose.shape[0] > 9:
+            _, self.sim3_est_to_gt_c2w = alignment.prealign_w2c_large_camera_systems(pose, pose_GT)
+        else:
+            _, self.sim3_est_to_gt_c2w = alignment.prealign_w2c_small_camera_systems(pose, pose_GT)
+
+    def _backtracked(self, pose_GT: np.ndarray) -> torch.Tensor:
+        pose = alignment.backtrack_gt_through_sim3(np.asarray(pose_GT), self.sim3_est_to_gt_c2w)
+        return torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
+
+    # -------------------------------------------------------------- val / eval
+
+    def val_pose_and_scale(self, idx: int) -> Tuple[torch.Tensor, float]:
+        self.update_sim3()
+        pose = self._backtracked(self.val_scene_np["pose"][idx: idx + 1])
+        return pose, float(self.sim3_est_to_gt_c2w.s)
+
+    def test_pose_and_scale(self, test_scene, idx: int) -> Tuple[torch.Tensor, float]:
+        self.update_sim3()
+        pose = self._backtracked(test_scene["pose"][idx: idx + 1].cpu().numpy())
+        scale = float(self.sim3_est_to_gt_c2w.s)
+        self._last_refine = None
+        if self.cfg.optim.get("test_photo", False) and self._test_optim_enabled:
+            twist = self.run_test_time_photometric_optim(test_scene, idx, pose)
+            pose_pre = pose
+            pose = camera.pose_compose([camera.se3_to_SE3(twist), pose])
+            self._last_refine = _refine_stats(pose_pre, pose)
+        return pose, scale
+
+    # ------------------------------------------------ test-time pose refinement
+
+    def test_optim_draws(self, idx: int):
+        """The pixel draws of test view idx's refinement: a generator seeded
+        by (seed, 1000 + idx)."""
+        seed = np.random.SeedSequence([int(self.cfg.get("seed", 0)), 1000 + idx])
+        return Draws(int(seed.generate_state(1)[0]), self.device)
+
+    def run_test_time_photometric_optim(self, test_scene, idx: int, pose: torch.Tensor
+                                        ) -> torch.Tensor:
+        """(1,6) twist that refines the w2c `pose` of test view idx: `test_iter`
+        Adam steps (lr_pose, no clipping) on the photometric loss of
+        `rand_rays` random pixels, rendered with the frozen NeRF. Only the
+        twist's gradient is asked for."""
+        cfg = self.cfg
+        n_iter = int(cfg.optim.get("test_iter", 100))
+        tx = engine.Adam(engine.exponential_lr(float(cfg.optim.lr_pose), None, 1))
+        loss_fn = loss_base.huber_loss if cfg.huber_loss_for_photometric else loss_base.mse_loss
+        fine_enabled = self.fine_enabled_at(cfg.max_iter)
+        H, W = test_scene["image"].shape[-2:]
+        rand_rays = int(cfg.nerf.rand_rays)
+        nerf_params = engine.tree_unflatten(
+            self.state.nerf_params, [t.detach() for t in engine.tree_leaves(self.state.nerf_params)])
+        image_flat = test_scene["image"][idx: idx + 1].reshape(1, 3, -1).permute(0, 2, 1)
+        intr = test_scene["intr"][idx: idx + 1]
+        depth_range = renderer_mod.render_depth_range(cfg, test_scene)
+        draws = self.test_optim_draws(idx)
+        twist = torch.zeros((1, 6), device=self.device)
+        opt_state = tx.init([twist])
+        for _ in range(n_iter):
+            ray_idx = draws.randint((rand_rays,), 0, H * W)
+            pixels = torch.stack([(ray_idx % W).to(torch.float32) + 0.5,
+                                  (ray_idx // W).to(torch.float32) + 0.5], dim=-1)
+            leaf = twist.detach().requires_grad_(True)
+            pose_refined = camera.pose_compose([camera.se3_to_SE3(leaf), pose])
+            out = renderer_mod.render_at_pixels(nerf_params, self.render_cfg, pose_refined, intr,
+                                                pixels, depth_range, 1.0, draws=None,
+                                                stratified=False, fine_enabled=fine_enabled)
+            gt = image_flat[:, ray_idx]
+            loss = loss_fn(out["rgb"], gt)
+            if "rgb_fine" in out:
+                loss = loss + loss_fn(out["rgb_fine"], gt)
+            (grad,) = torch.autograd.grad(loss, [leaf])
+            (upd,), opt_state = tx.update([grad], opt_state)
+            twist = twist + upd
+        return twist
+
+    def evaluate_full(self, save_ind_files: bool = False, out_dir: Optional[str] = None,
+                      with_test_optim: Optional[bool] = None, plot: bool = False) -> Dict:
+        """Adds the pose metrics to the evaluation."""
+        if with_test_optim is not None:
+            self._test_optim_enabled = with_test_optim
+        result = super().evaluate_full(save_ind_files, out_dir, plot=plot)
+        pose_stats = self.evaluate_poses()
+        result["mean"].update({"rot_error": pose_stats["error_R"],
+                               "trans_error": pose_stats["error_t"],
+                               "init_rot_error": self.initial_pose_error["error_R_before_align"],
+                               "init_trans_error": self.initial_pose_error["error_t_before_align"]})
+        self.write_eval_json(result, out_dir)
+        return result

@@ -1,14 +1,20 @@
-"""Per-scene trainer, training loop only (torch port of sparf_tpu/training/trainer.py).
+"""Per-scene trainer (torch port of sparf_tpu/training/trainer.py).
 
 The Python loop feeds the step counter, picks the step of the current stage
-(precrop window, fine sampling, pose optimization) and logs. Validation,
-snapshots and visualisation are not ported yet.
+(precrop window, fine sampling, pose optimization), logs, validates on
+full-image renders with best-model tracking, and saves snapshots; a run
+resumes from the latest one. `evaluate_full` renders the test split and
+writes the metrics as JSON. Not ported: the training-view visualisation
+(`visualize_train_view` logs that it is skipped) and the eval panels and
+per-image files (`plot`, `save_ind_files`), which need matplotlib/imageio.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,7 +23,8 @@ from sparf_tpu.training.logging_utils import SummaryBoard, TensorboardWriter, Ti
 from sparf_tpu_torch.datasets import create_dataset
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.models.renderer import RenderConfig
-from sparf_tpu_torch.training import engine
+from sparf_tpu_torch.training import checkpointing, engine
+from sparf_tpu_torch.training import metrics as metrics_mod
 from sparf_tpu_torch.training.sampling import make_ray_sampler
 from sparf_tpu_torch.utils.draws import Draws
 
@@ -48,8 +55,12 @@ class NerfTrainerPerScene:
         self.device = resolve_device(device)
         self.workspace = workspace or cfg.get("workspace") or "./workspace"
         os.makedirs(self.workspace, exist_ok=True)
-        self.logger = create_logger(os.path.join(self.workspace, "train.log"),
-                                    name="sparf_tpu_torch")
+        # one logger per workspace: create_logger attaches its file handler
+        # once per logger name, so a shared name would send every later
+        # trainer's log (e.g. eval after training) to the first workspace
+        self.logger = create_logger(
+            os.path.join(self.workspace, "train.log"),
+            name=f"sparf_tpu_torch:{os.path.abspath(self.workspace)}")
         self.writer = TensorboardWriter(cfg.get("tensorboard_dir")
                                         or os.path.join(self.workspace, "tb"))
         self.timer = Timer()
@@ -78,20 +89,26 @@ class NerfTrainerPerScene:
             initial_poses_w2c=getattr(self, "initial_poses_w2c", None),
             tx_pose=getattr(self, "tx_pose", None))
         self.define_loss_module()
+        self.best_val = float("inf")
+        self.epoch_of_best_val = 0
         self._step_cache: Dict[Tuple, Any] = {}
+        self._lpips = None
+        self._vis_logged = False
 
     # ------------------------------------------------------------------ setup
 
     def load_dataset(self):
         cfg = self.cfg
         self.train_scene_np = create_dataset(cfg, "train")
+        self.val_scene_np = create_dataset(cfg, "val")
         self.train_scene = scene_to_device(self.train_scene_np, self.device)
+        self.val_scene = scene_to_device(self.val_scene_np, self.device)
         self.sampler = make_ray_sampler(cfg, self.train_scene_np, self.device)
         self.H, self.W = self.train_scene_np["image"].shape[-2:]
         self.n_train_views = self.train_scene_np["image"].shape[0]
         self.logger.info(f"loaded scene {self.train_scene_np.get('scene')} "
-                         f"({self.n_train_views} train views, {self.H}x{self.W}) "
-                         f"on {self.device}")
+                         f"({self.n_train_views} train / {self.val_scene_np['image'].shape[0]} "
+                         f"val views, {self.H}x{self.W}) on {self.device}")
 
     def build_networks(self):
         self.render_cfg = RenderConfig.from_config(self.cfg)
@@ -194,12 +211,16 @@ class NerfTrainerPerScene:
 
     # ------------------------------------------------------------------- run
 
-    def run(self):
+    def run(self, load_latest: bool = True):
         cfg = self.cfg
+        if cfg.get("resume_snapshot"):
+            # weights-only warm start from another run: parameters are taken,
+            # the optimizers and the iteration start fresh
+            self.load_weights_only(cfg.resume_snapshot)
+        if load_latest:
+            self.load_snapshot("latest")
         self.logger.info(f"training from iteration {self.iteration} to {cfg.max_iter} "
                          f"on {self.device}")
-        self.logger.info("validation, snapshots and visualisation are not ported to "
-                         "sparf_tpu_torch yet: this run trains and logs only")
         t_start = t_last_log = time.time()
         it_last_log = it = self.iteration
         while it < cfg.max_iter:
@@ -225,8 +246,18 @@ class NerfTrainerPerScene:
                                         "error_R", "error_t"))
                     + f" it/s={its:.1f}")
                 self.timer.reset()
+            if it % cfg.vis_steps == 0:
+                self.visualize_train_view(it)
+            if it % cfg.val_steps == 0:
+                self.record_pose_history(it)
+                self.validate(it)
+            if it % cfg.snapshot_steps == 0:
+                self.save_snapshot()
         self.logger.info(f"training done in {time.time() - t_start:.1f}s, "
                          f"{int(self.state.nan_count)} skipped non-finite updates")
+        self.save_snapshot()
+        if cfg.get("do_eval", True):
+            self.validate(it)
 
     def on_iteration_start(self, iteration: int):
         pass
@@ -234,6 +265,210 @@ class NerfTrainerPerScene:
     def make_results_dict_low_freq(self) -> Dict[str, float]:
         return {}
 
+    def visualize_train_view(self, iteration: int):
+        """The JAX package logs a render panel of a train view here; the panel
+        needs matplotlib, which the port does not use yet."""
+        if not self._vis_logged:
+            self.logger.info("visualize_train_view is not ported to sparf_tpu_torch: "
+                             "no train-view panels are written")
+            self._vis_logged = True
+
+    def record_pose_history(self, iteration: int):
+        """Append the current pose estimates to workspace/pose_history.npz, as
+        (iteration, N x 3 x 4 w2c) entries. Only pose-optimizing trainers record."""
+        if not hasattr(self, "pose_cfg"):
+            return
+        path = os.path.join(self.workspace, "pose_history.npz")
+        iters: List[int] = []
+        poses: List[np.ndarray] = []
+        if os.path.exists(path):
+            with np.load(path) as z:
+                iters, poses = list(z["iters"]), list(z["poses"])
+        if iters and int(iters[-1]) == int(iteration):
+            return
+        iters.append(int(iteration))
+        poses.append(self.current_poses_w2c().detach().cpu().numpy().astype(np.float32))
+        np.savez(path, iters=np.asarray(iters), poses=np.stack(poses))
+
     def current_poses_w2c(self, state: Optional[engine.TrainState] = None) -> torch.Tensor:
         """Current w2c estimates of the train views (GT here)."""
         return self.train_scene["pose"]
+
+    # ------------------------------------------------------------ validation
+
+    def progress(self) -> float:
+        """PE progress of the current parameters; it travels with the
+        snapshot as iteration_nerf."""
+        if self.cfg.get("barf_c2f") is None:
+            return 1.0
+        return min(1.0, int(self.state.iteration_nerf) / self.cfg.max_iter)
+
+    def render_full_image(self, scene: Dict[str, Any], idx: int, pose: torch.Tensor,
+                          fine_enabled: bool) -> Dict[str, torch.Tensor]:
+        H, W = scene["image"].shape[-2:]
+        return renderer_mod.render_image_chunked(
+            self.state.nerf_params, self.render_cfg, pose, scene["intr"][idx: idx + 1], H, W,
+            renderer_mod.render_depth_range(self.cfg, scene), self.progress(),
+            fine_enabled=fine_enabled, chunk=self.cfg.nerf.rand_rays)
+
+    def val_pose_and_scale(self, idx: int) -> Tuple[torch.Tensor, float]:
+        """w2c pose used to render val image idx, and the depth scaling factor."""
+        return self.val_scene["pose"][idx: idx + 1], 1.0
+
+    def render_full_val_image(self, idx: int, fine_enabled: bool) -> Dict[str, torch.Tensor]:
+        pose, _ = self.val_pose_and_scale(idx)
+        return self.render_full_image(self.val_scene, idx, pose, fine_enabled)
+
+    def get_lpips(self):
+        if self._lpips is None:
+            from sparf_tpu_torch.training.lpips import LPIPS
+
+            self._lpips = LPIPS()
+        return self._lpips
+
+    @staticmethod
+    def _gt_of(scene: Dict[str, Any], idx: int) -> Dict[str, Optional[torch.Tensor]]:
+        """The reference maps of view idx that the metrics take."""
+        return dict(
+            depth_gt=scene["depth_gt"][idx: idx + 1].reshape(1, -1, 1)
+            if "depth_gt" in scene else None,
+            valid_depth_gt=scene["valid_depth_gt"][idx: idx + 1].reshape(1, -1)
+            if "valid_depth_gt" in scene else None,
+            fg_mask=scene["fg_mask"][idx: idx + 1] if "fg_mask" in scene else None)
+
+    @staticmethod
+    def _mean(results: List[Dict[str, float]]) -> Dict[str, float]:
+        """Per-key means, leaving out keys whose mean is NaN."""
+        mean = {k: float(np.mean([r[k] for r in results])) for k in results[0]} if results else {}
+        return {k: v for k, v in mean.items() if not np.isnan(v)}
+
+    def validate(self, iteration: int) -> Dict[str, float]:
+        """Full-image renders over the val split (the first 2 views in debug
+        runs) with the full metric set (PSNR/SSIM/LPIPS + masked + depth,
+        coarse and _fine), and best-model tracking by -PSNR of the finest head."""
+        H, W = self.val_scene_np["image"].shape[-2:]
+        n = self.val_scene_np["image"].shape[0]
+        if self.debug:
+            n = min(n, 2)
+        fine_enabled = self.fine_enabled_at(iteration)
+        lpips = self.get_lpips()
+        results = []
+        for idx in range(n):
+            out = self.render_full_val_image(idx, fine_enabled)
+            gt = self.val_scene["image"][idx: idx + 1]
+            refs = self._gt_of(self.val_scene, idx)
+
+            def metrics_of(key, dkey, suffix):
+                pred = out[key].reshape(1, H, W, 3).permute(0, 3, 1, 2)
+                return metrics_mod.compute_metrics(pred, gt, pred_depth=out[dkey].reshape(1, -1, 1),
+                                                   lpips_fn=lpips, suffix=suffix, **refs)
+
+            res = metrics_of("rgb", "depth", "")
+            if "rgb_fine" in out:
+                res.update(metrics_of("rgb_fine", "depth_fine", "_fine"))
+            results.append(res)
+        mean = self._mean(results)
+        self.writer.write_event("val", mean, iteration)
+        self.logger.info(f"validation @ {iteration}: "
+                         + " ".join(f"{k}={v:.3f}" for k, v in mean.items()))
+        val_score = -mean.get("psnr_fine", mean.get("psnr", 0.0))
+        if val_score < self.best_val:
+            self.best_val = val_score
+            self.epoch_of_best_val = iteration
+            self.save_snapshot(is_best=True)
+        return mean
+
+    # ------------------------------------------------------------ evaluation
+
+    def evaluate_full(self, save_ind_files: bool = False, out_dir: Optional[str] = None,
+                      plot: bool = False) -> Dict:
+        """Test-split evaluation with depth and masked metrics, written as
+        JSON to out_dir/<expname>.json."""
+        if plot or save_ind_files:
+            raise NotImplementedError("evaluate_full(plot=True / save_ind_files=True) is not "
+                                      "ported to sparf_tpu_torch: it needs imageio/matplotlib")
+        cfg = self.cfg
+        test_scene_np = create_dataset(cfg, "test")
+        test_scene = scene_to_device(test_scene_np, self.device)
+        H, W = test_scene_np["image"].shape[-2:]
+        fine_enabled = self.fine_enabled_at(self.iteration)
+        lpips = self.get_lpips()
+        per_image = []
+        for idx in range(test_scene_np["image"].shape[0]):
+            pose, depth_scale = self.test_pose_and_scale(test_scene, idx)
+            out = self.render_full_image(test_scene, idx, pose, fine_enabled)
+            key = "rgb_fine" if "rgb_fine" in out else "rgb"
+            dkey = "depth_fine" if "depth_fine" in out else "depth"
+            pred_rgb = out[key].reshape(1, H, W, 3).permute(0, 3, 1, 2)
+            gt_rgb = test_scene["image"][idx: idx + 1]
+            res = metrics_mod.compute_metrics(
+                pred_rgb, gt_rgb, pred_depth=out[dkey].reshape(1, -1, 1), lpips_fn=lpips,
+                scaling_factor_for_pred_depth=depth_scale, **self._gt_of(test_scene, idx))
+            refine = getattr(self, "_last_refine", None)
+            if refine is not None:
+                # what test-time pose refinement bought on this view: how far it
+                # moved the pose, and the PSNR against a render at the unrefined
+                # (backtracked GT) pose
+                res["refine_rot_deg"] = refine["rot_deg"]
+                res["refine_trans"] = refine["trans"]
+                out_pre = self.render_full_image(test_scene, idx, refine["pose_pre"],
+                                                 fine_enabled)
+                pre_rgb = out_pre[key].reshape(1, H, W, 3).permute(0, 3, 1, 2)
+                mse_pre = float(torch.mean((pre_rgb - gt_rgb) ** 2))
+                res["psnr_no_refine"] = -10.0 * np.log10(max(mse_pre, 1e-12))
+                res["refine_psnr_delta"] = res["psnr"] - res["psnr_no_refine"]
+            per_image.append(res)
+        mean: Dict[str, Any] = self._mean(per_image)
+        mean["iteration"] = self.iteration
+        mean["lpips_tag"] = lpips.weight_tag
+        result = {"mean": mean, "per_image": per_image}
+        self.write_eval_json(result, out_dir)
+        self.logger.info("eval: " + " ".join(f"{k}={v:.4g}" for k, v in mean.items()
+                                             if isinstance(v, float)))
+        return result
+
+    def write_eval_json(self, result: Dict, out_dir: Optional[str] = None) -> str:
+        out_dir = out_dir or self.workspace
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{self.cfg.get('expname', 'eval')}.json")
+        with open(path, "w") as f:
+            json.dump(result, f, indent=2, default=float)
+        return path
+
+    def test_pose_and_scale(self, test_scene, idx: int) -> Tuple[torch.Tensor, float]:
+        return test_scene["pose"][idx: idx + 1], 1.0
+
+    # ---------------------------------------------------------- checkpointing
+
+    def save_snapshot(self, is_best: bool = False):
+        path = checkpointing.save_snapshot(self.workspace, self.state, self.best_val,
+                                           self.epoch_of_best_val, is_best=is_best)
+        self.logger.info(f"saved snapshot {os.path.basename(path)}"
+                         + (" and model_best" if is_best else ""))
+
+    def load_weights_only(self, snapshot_path: str) -> bool:
+        """Warm start: take the NeRF and pose parameters of a snapshot, keep
+        fresh optimizers and iteration 0. Without c2f the PE progress counts
+        as converged (iteration_nerf = max_iter)."""
+        workspace, which = os.path.split(os.path.abspath(snapshot_path))
+        loaded = checkpointing.load_snapshot(workspace, self.state, which)
+        if loaded is None:
+            self.logger.warning(f"resume_snapshot: nothing at {snapshot_path}")
+            return False
+        other, meta = loaded
+        self.state = dataclasses.replace(
+            self.state, nerf_params=other.nerf_params, pose_params=other.pose_params,
+            iteration_nerf=(int(self.cfg.max_iter) if self.cfg.get("barf_c2f") is None
+                            else other.iteration_nerf))
+        self.logger.info(f"warm-started weights from {snapshot_path} (iter {meta['iteration']})")
+        return True
+
+    def load_snapshot(self, which: str = "latest") -> bool:
+        loaded = checkpointing.load_snapshot(self.workspace, self.state, which)
+        if loaded is None:
+            return False
+        self.state, meta = loaded
+        self.best_val = meta["best_val"]
+        self.epoch_of_best_val = meta["epoch_of_best_val"]
+        self.logger.info(f"resumed from snapshot at iteration {meta['iteration']}")
+        return True

@@ -1,6 +1,9 @@
-"""The port's entry point and its import boundary: the CLI trains 10 debug
-iterations on the CPU; sparf_tpu_torch imports without JAX; asking for a CUDA
-device that is not there raises instead of falling back."""
+"""The port's entry points and its import boundary: the CLI trains 10 debug
+iterations on the CPU, with validation and snapshots, resumes, and evaluates;
+the eval entry point writes the means with and without test-time pose
+refinement; sparf_tpu_torch imports without JAX; asking for a CUDA device that
+is not there raises instead of falling back."""
+import json
 import os
 import subprocess
 import sys
@@ -36,6 +39,41 @@ def test_run_trainval_debug_on_cpu(tmp_path):
     assert os.path.exists(tmp_path / "joint_pose_nerf_training/synthetic/sparf/spheres/train.log")
 
 
+def test_eval_entry_after_cli_training(tmp_path):
+    from sparf_tpu_torch import eval as teval
+    from sparf_tpu_torch import run_trainval
+
+    args = ["joint_pose_nerf_training/synthetic", "sparf", "--scene", "spheres", "--debug", "True",
+            "--device", "cpu", "--workspace_dir", str(tmp_path), *TINY, "--optim.test_iter=2"]
+    trainer = run_trainval.main(args)
+    ws = trainer.workspace
+    # debug cadence: validation and a snapshot every 5 iterations, the last two kept
+    assert {"iter-5", "iter-10", "model_best", "pose_history.npz"} <= set(os.listdir(ws))
+    assert trainer.epoch_of_best_val in (5, 10)
+
+    res = teval.main(["--ckpt_dir", ws, "--device", "cpu", "--out_dir", str(tmp_path / "ev"),
+                      "--expname", "e"])
+    with open(tmp_path / "ev" / "e.json") as f:
+        written = json.load(f)
+    assert sorted(written) == ["iteration", "w_test_optim", "without_test_optim"]
+    assert written == json.loads(json.dumps(res["latest"]))
+    w, wo = written["w_test_optim"], written["without_test_optim"]
+    for k in ("psnr", "ssim", "lpips", "abse_depth", "rot_error", "init_rot_error"):
+        assert np.isfinite(w[k]) and np.isfinite(wo[k]), k
+    assert "refine_rot_deg" in w and "psnr_no_refine" in w and "refine_rot_deg" not in wo
+    assert w["lpips_tag"] == "lpips(selfsup)" and written["iteration"] == 10
+
+    resumed = run_trainval.main(args)  # picks up iter-10: nothing left to train
+    assert resumed.state.iteration == 10 and resumed.best_val == trainer.best_val
+    run_trainval.main(args + ["--test_metrics_only"])
+    assert os.path.exists(tmp_path / "eval/joint_pose_nerf_training/synthetic/sparf/spheres/"
+                                     "eval.json")
+    with pytest.raises(NotImplementedError):
+        run_trainval.main(args + ["--render_video_only"])
+    with pytest.raises(NotImplementedError):
+        resumed.evaluate_full(plot=True)
+
+
 def test_package_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -45,7 +83,9 @@ def test_package_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(sparf_tpu_torch.__path__, 'sparf_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert 'sparf_tpu_torch.training.joint_trainer' in mods, mods\n"
+        "for m in ('training.joint_trainer', 'training.metrics', 'training.lpips',\n"
+        "          'training.checkpointing', 'eval'):\n"
+        "    assert 'sparf_tpu_torch.' + m in mods, mods\n"
         "print(len(mods))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

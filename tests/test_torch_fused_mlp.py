@@ -104,3 +104,92 @@ def test_meta_dims_and_cuda_only_dispatch():
         fm.fused_mlp_forward(meta, torch.zeros(4, 63, device="meta"),
                              torch.zeros(4, 27, device="meta"), weights)
 
+
+
+# ---------------------------------------------------------------------------
+# K3: forward-only chain on packed weights
+# ---------------------------------------------------------------------------
+
+FULL = dict(barf_c2f=(0.3, 0.7))  # the 8x256 arch with skip at 4
+
+
+@pytest.mark.parametrize("view_dep", [True, False])
+def test_pack_weights_round_trips(view_dep):
+    cfg = tmlp.MLPConfig(view_dep=view_dep)
+    meta = fm.FusedMeta.from_cfg(cfg)
+    params = tmlp.init_nerf_params(torch.Generator().manual_seed(1), cfg)
+    weights = fm.flat_weights(params)
+    packed = fm.pack_weights(params, meta)
+    assert meta.dims(packed, packed=True) == meta.dims(weights)
+    for (W, b), (Wp, bp) in zip(zip(weights[::2], weights[1::2]), zip(packed[::2], packed[1::2])):
+        n_out, n_in = W.shape
+        assert Wp.shape == (n_in, -(-n_out // 32) * 32) and Wp.is_contiguous()
+        assert torch.equal(Wp[:, :n_out].t(), W) and torch.equal(bp, b)
+        assert not Wp[:, n_out:].any()
+    # the skip layer keeps its [feat | pts_enc] rows, the RGB head [feat | view_enc]
+    assert packed[8].shape == (256 + 63, 256)
+    assert packed[16].shape == ((256 + 27 if view_dep else 256), 128)
+
+
+@pytest.mark.parametrize("view_dep", [True, False])
+@pytest.mark.parametrize("arch", ["small", "full"])
+def test_packed_plain_matches_pallas_k3(view_dep, arch):
+    """K3's plain version against the JAX fused forward (sparf_tpu/ops/fused_mlp.py,
+    interpret mode) at the sizes tests/test_ops.py uses, within 1e-5."""
+    from sparf_tpu.ops import fused_mlp as jfused
+
+    kw, (B, R, S) = (dict(SMALL, layers_feat=(64,) * 4), (2, 19, 8)) if arch == "small" \
+        else (FULL, (1, 7, 4))
+    cfg_j = jmlp.MLPConfig(view_dep=view_dep, **kw)
+    cfg_t = tmlp.MLPConfig(view_dep=view_dep, **kw)
+    params_j = jmlp.init_nerf_params(jax.random.PRNGKey(0), cfg_j)
+    rng = np.random.RandomState(B * R * S)
+    pts = rng.normal(size=(B * R * S, 3)).astype(np.float32)
+    rays = rng.normal(size=(B * R * S, 3)).astype(np.float32)
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    pts_enc = jmlp.encode_points(cfg_j, jnp.asarray(pts), jnp.asarray(0.45))
+    view_enc = (jmlp.encode_views(cfg_j, jnp.asarray(rays), jnp.asarray(0.45)) if view_dep
+                else jnp.zeros((B * R * S, 1)))
+    dens_j, rgb_j = jfused.fused_mlp_forward(params_j, cfg_j, pts_enc, view_enc, interpret=True)
+
+    meta = fm.FusedMeta.from_cfg(cfg_t)
+    packed = fm.pack_weights(nerf_params_from_jax(to_np(params_j)), meta)
+    view_t = t(view_enc) if view_dep else torch.zeros((B * R * S, 0))
+    launches = fm.K3_LAUNCHES
+    dens_t, rgb_t = fm.fused_mlp_forward_packed(meta, t(pts_enc), view_t, packed)
+    assert fm.K3_LAUNCHES == launches  # CPU tensors take the plain version
+    assert_close(dens_t, dens_j, atol=1e-5)
+    assert_close(rgb_t, rgb_j, atol=1e-5)
+
+
+def test_nerf_apply_takes_k3_exactly_when_nothing_requires_grad(monkeypatch):
+    cfg = tmlp.MLPConfig(**SMALL)
+    params = tmlp.init_nerf_params(torch.Generator().manual_seed(2), cfg)
+    gen = torch.Generator().manual_seed(3)
+    pts, ray = torch.randn(1, 5, 4, 3, generator=gen), torch.randn(1, 5, 3, generator=gen)
+    taken = []
+    real_fn, real_k3 = fm.FusedMLPFunction.apply, fm.fused_mlp_forward_packed
+    monkeypatch.setattr(fm.FusedMLPFunction, "apply",
+                        lambda *a: taken.append("K1/K2") or real_fn(*a))
+    monkeypatch.setattr(fm, "fused_mlp_forward_packed",
+                        lambda *a: taken.append("K3") or real_k3(*a))
+
+    def path(weights_grad, pts_grad, grad_mode):
+        taken.clear()
+        for W, _ in params["feat"] + params["rgb"]:
+            W.requires_grad_(weights_grad)
+        with torch.set_grad_enabled(grad_mode):
+            out = fm.nerf_apply_fused(params, cfg, pts.clone().requires_grad_(pts_grad), ray, 1.0)
+        (which,) = taken
+        return which, out
+
+    which, ref = path(False, False, True)
+    assert which == "K3"
+    assert path(False, False, False)[0] == "K3"
+    assert path(True, False, False)[0] == "K3"
+    assert path(False, True, False)[0] == "K3"
+    for weights_grad, pts_grad in ((True, False), (False, True), (True, True)):
+        which, out = path(weights_grad, pts_grad, True)
+        assert which == "K1/K2"
+        assert_close(out["rgb_samples"], ref["rgb_samples"], atol=1e-6)
+        assert_close(out["density_samples"], ref["density_samples"], atol=1e-6)
