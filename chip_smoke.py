@@ -9,11 +9,14 @@ Usage (from the repository root, on a machine with a CUDA card and nvcc):
 Phases, one line each; any failure raises and the process exits non-zero:
   1. device: name, power limit, TF32 off for matmuls and cuDNN;
   2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a;
-  3. kernels: K1 (fused MLP forward), K2 (backward) and K3 (forward on
-     packed weights) at the full 8x256 width, ragged T, both view_dep
-     settings and an active coarse-to-fine mask, against their plain torch
-     versions (K3 also against K1's); K2 run twice must give the same bits;
-     median times at T = 262,144;
+  3. kernels: the fragment packing (k_pack) bit for bit against its plain
+     version; K1 (fused MLP forward), K2 (backward) and K3 (forward on
+     packed weights), 3xTF32 on the tensor cores, at the full 8x256 width,
+     ragged T, both view_dep settings and an active coarse-to-fine mask,
+     against their plain torch versions (K3 also against K1's); K2 run twice
+     must give the same bits; median times at T = 262,144 beside each
+     kernel's bound (fp32 cores and 3xTF32 tensor cores) and its plain
+     cuBLAS chain;
   4. slice: one step of the tiny sparf config on the card against the same
      step on the CPU (plain versions, same parameters and draws), in both
      stages; then the SPARF joint pose+NeRF trainer built through
@@ -56,6 +59,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FWD_RTOL = 1e-4
 BWD_RTOL = 1e-3
 UNAMBIGUOUS_Z = 1e-4
+
+# published peaks of one H100 SXM at 700 W (NVIDIA H100 datasheet)
+PEAK_FP32 = 67e12      # FLOP/s, fp32 on the CUDA cores
+PEAK_TF32 = 495e12     # FLOP/s, TF32 on the tensor cores, dense
+PEAK_BYTES = 3.35e12   # bytes/s of HBM
 
 
 def phase(name: str, msg: str) -> None:
@@ -152,6 +160,54 @@ def min_abs_preactivation(meta, pts_enc, view_enc, weights):
     return out
 
 
+def kernel_bounds(meta, weights, T: int) -> dict:
+    """Per kernel, the least time the card could take for its work on these
+    shapes: the larger of its bytes (inputs read once, outputs written once)
+    over HBM's rate and its operations over the peak: fp32 FLOP on the CUDA
+    cores, and 3 TF32 products per fp32 product on the tensor cores (3xTF32,
+    what the kernels run). Returns ms and what bounds each."""
+    macs = [int(weights[2 * li].numel()) for li in range(len(weights) // 2)]
+    n_params = sum(int(w.numel()) for w in weights)
+    d_io = meta.d_in + meta.d_view
+    work = {  # (multiply-adds per point, bytes)
+        "K1": (sum(macs), 4 * (T * (d_io + 4) + n_params)),
+        "K2": (sum(macs[:-1]) + 2 * sum(macs), 4 * (T * (2 * d_io + 4) + 2 * n_params)),
+    }
+    work["K3"] = work["K1"]
+    out = {}
+    for k, (mac, nbytes) in work.items():
+        flop = 2.0 * mac * T
+        t_bytes, t_fp32, t_3x = nbytes / PEAK_BYTES, flop / PEAK_FP32, 3 * flop / PEAK_TF32
+        out[k] = {"bound_ms": 1e3 * max(t_bytes, t_3x),
+                  "bound_by": "bytes" if t_bytes > t_3x else "operations",
+                  "bound_fp32_ms": 1e3 * max(t_bytes, t_fp32), "flop": flop, "bytes": nbytes}
+    return out
+
+
+def check_packing(meta, weights, params) -> None:
+    """k_pack's two fragment sets against pack_fragments_plain, bit for bit."""
+    import torch
+
+    from sparf_tpu_torch.ops import _build
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    lib = _build.load_library()
+    dims = fm._dims(meta, weights)
+    frag = torch.empty((2, fm._sizes(lib, dims, "pack")[1]), device="cuda")
+    rc = lib.sparf_fused_mlp_pack(dims, fm._ptrs(weights), frag[0].data_ptr(),
+                                  frag[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    fm._raise_rc(lib, rc, "k_pack")
+    plain = [fm.pack_fragments_plain(meta.dims(weights), weights, transposed=t)
+             for t in (False, True)]
+    packed = fm.pack_weights(params, meta).frag
+    torch.cuda.synchronize()
+    for name, a, b in (("forward", frag[0], plain[0]), ("transposed", frag[1], plain[1]),
+                       ("pack_weights", packed, plain[0])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"k_pack {name} fragments differ from the plain packing in "
+                                 f"{int((a != b).sum())} of {a.numel()} floats")
+
+
 def check_kernels() -> dict:
     import torch
 
@@ -162,6 +218,7 @@ def check_kernels() -> dict:
         for T in (131071, 262145):
             meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(view_dep, T,
                                                                                  seed=T)
+            check_packing(meta, weights, params)
             packed = fm.pack_weights(params, meta)
             dens_k, rgb_k = fm._launch_k1(meta, pts_enc, view_enc, weights)
             dens_3, rgb_3 = fm._launch_k3(meta, pts_enc, view_enc, packed)
@@ -214,7 +271,8 @@ def check_kernels() -> dict:
             phase("kernels", f"view_dep={view_dep} T={T}: K1, K2 and K3 agree with the plain "
                              f"versions (worst relative error K2 {worst_rel:.3g}), K2 "
                              f"bit-identical on rerun, K3 {'' if k3_same_bits else 'not '}"
-                             f"bit-identical to K1; {1 - float(keep.mean()):.4f} of the "
+                             f"bit-identical to K1, k_pack bit-identical to its plain "
+                             f"version; {1 - float(keep.mean()):.4f} of the "
                              f"points held out of the backward check (|z| < {UNAMBIGUOUS_Z})")
             torch.cuda.empty_cache()
 
@@ -231,9 +289,14 @@ def check_kernels() -> dict:
         "K2_plain": median_ms(lambda: fm.fused_mlp_backward_plain(meta, pts_enc, view_enc,
                                                                    weights, g_d, g_rgb)),
     }
+    bounds = kernel_bounds(meta, weights, 262144)
     phase("kernels", "median ms at T=262144 (8x256, view_dep): "
           + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
-    return {"max_abs_err": worst, "ms": times}
+    phase("kernels", "bounds at T=262144: " + "; ".join(
+        f"{k} 3xTF32 {b['bound_ms']:.3f} ms ({b['bound_by']}, share {b['bound_ms'] / times[k]:.3f}),"
+        f" fp32 cores {b['bound_fp32_ms']:.3f} ms (share {b['bound_fp32_ms'] / times[k]:.3f})"
+        for k, b in bounds.items()))
+    return {"max_abs_err": worst, "ms": times, "bounds": bounds}
 
 
 TINY_SPARF = dict(
@@ -426,12 +489,13 @@ def run_slice(steps: int) -> dict:
     ratio = float(cfg.ratio_end_joint_nerf_pose_refinement)
     stages = (("joint_coarse", 0), ("fine", int(cfg.max_iter * (ratio + 0.05))))
     result = {}
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = 0  # the main path's launches from here
+    # the main path's launches from here
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
     for name, it0 in stages:
         state = dataclasses.replace(trainer.state, iteration=it0, iteration_nerf=it0)
         step = trainer.get_step(it0)
         poses_before = trainer.current_poses_w2c(state).clone()
-        before = (fm.K1_LAUNCHES, fm.K2_LAUNCHES, fm.K3_LAUNCHES)
+        before = (fm.K1_LAUNCHES, fm.K2_LAUNCHES, fm.K3_LAUNCHES, fm.PACK_LAUNCHES)
         state, stats = step(state, trainer.draws)  # warm-up (allocator, first launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -440,7 +504,7 @@ def run_slice(steps: int) -> dict:
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / steps
         launches = {"K1": fm.K1_LAUNCHES - before[0], "K2": fm.K2_LAUNCHES - before[1],
-                    "K3": fm.K3_LAUNCHES - before[2]}
+                    "K3": fm.K3_LAUNCHES - before[2], "pack": fm.PACK_LAUNCHES - before[3]}
         losses = {k: float(v) for k, v in stats.items() if v.numel() == 1}
         bad = [k for k, v in losses.items() if v != v or abs(v) == float("inf")]
         if bad:
@@ -457,8 +521,10 @@ def run_slice(steps: int) -> dict:
                        f"after 1 warm-up step, loss all={losses['all']:.5g} "
                        f"render={losses['render']:.5g} corres={losses['corres']:.5g} "
                        f"depth_cons={losses['depth_cons']:.5g}, pose change {moved:.3g}, "
-                       f"launches {launches} (K3: the visibility pass)")
-    result["launches"] = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES}
+                       f"launches {launches} (K3: the visibility pass, on weights packed by "
+                       f"pack_weights)")
+    result["launches"] = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
+                          "pack": fm.PACK_LAUNCHES}
     trainer.state = state
     result["trainer"] = trainer
     return result
@@ -490,12 +556,14 @@ def run_eval_phase(trainer) -> dict:
 
     trainer.render_full_image = timed(render, renders)
     trainer.run_test_time_photometric_optim = timed(refine, refines)
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = 0  # the eval path's launches from here
+    # the eval path's launches from here
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
     t0 = time.perf_counter()
     results = teval.run_eval(trainer, trainer.cfg, tempfile.mkdtemp(prefix="sparf_torch_eval_"),
                              "smoke_eval")
     total = time.perf_counter() - t0
-    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES}
+    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
+                "pack": fm.PACK_LAUNCHES}
     if 0 in launches.values():
         raise AssertionError(f"eval: kernels not on the eval path: {launches}")
     H, W = trainer.val_scene_np["image"].shape[-2:]
@@ -569,10 +637,16 @@ def main() -> int:
                 "K3": "sparf_tpu/ops/fused_mlp.py:97"}
     names = {"K1": "K1_fused_mlp_forward", "K2": "K2_fused_mlp_backward",
              "K3": "K3_fused_mlp_forward_packed"}
-    kernels = [{"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
-                "launches": sl["launches"][k] + ev["launches"][k],
-                "max_abs_err": checks["max_abs_err"][k], "ms": checks["ms"][k],
-                "plain_ms": checks["ms"][f"{k}_plain"]} for k in ("K1", "K2", "K3")]
+    kernels = []
+    for k in ("K1", "K2", "K3"):
+        b = checks["bounds"][k]
+        kernels.append({
+            "name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
+            "launches": sl["launches"][k] + ev["launches"][k],
+            "max_abs_err": checks["max_abs_err"][k], "ms": checks["ms"][k],
+            "plain_ms": checks["ms"][f"{k}_plain"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None,
+            "bound_share": b["bound_ms"] / checks["ms"][k], "bound_fp32_ms": b["bound_fp32_ms"]})
     print(json.dumps({"kernels": kernels,
                       "it_per_sec": {k: sl[k] for k in ("joint_coarse", "fine")},
                       "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]}}))

@@ -1,4 +1,5 @@
-// Fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper (sm_90a), fp32.
+// Fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper (sm_90a),
+// every product on the tensor cores at fp32 accuracy (3xTF32).
 //
 // Replaces the Pallas TPU kernels of sparf_tpu/ops/fused_mlp_vjp.py:
 //   K1 = _fwd_kernel (launched by _core_forward), K2 = _bwd_kernel (launched
@@ -9,59 +10,82 @@
 //   validation and evaluation, the depth-consistency visibility pass).
 // They compute the 10-matmul NeRF chain: trunk layers with ReLU, pts_enc
 // concatenated at the skip layers, raw density from unit 0 of the last trunk
-// layer, [features | view_enc] through the RGB head. K1 writes only
-// [raw_density | raw_rgb] (T, 4). K2 recomputes the forward per tile, keeps
-// every layer input on chip, and backpropagates [g_density | g_rgb] into
-// d_pts_enc (incl. the skip share), d_view_enc and the gradients of all
-// weights and biases.
+// layer, [features | view_enc] through the RGB head. K1 and K3 write only
+// [raw_density | raw_rgb] (T, 4). K2 recomputes the forward per tile and
+// backpropagates [g_density | g_rgb] into d_pts_enc (incl. the skip share),
+// d_view_enc and the gradients of all weights and biases.
+//
+// Instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (warp-level
+// tensor-core MMA; no wgmma yet). Every operand x is split as hi = TF32 of x
+// (round to nearest), lo = x - hi (of which the tensor core reads the top 19
+// bits), and each product is hi*hi + hi*lo + lo*hi accumulated in fp32: the
+// dropped lo*lo term and the truncation of lo leave an error of about 2^-21
+// of the product, within a small factor of fp32's own
+// (tests/test_torch_fused_mlp.py holds an emulation of it to the float64
+// chain; one TF32 pass misses that bound).
 //
 // What bounds them on an H100, and what the design does about it:
-//   * Arithmetic: ~1.06 MFLOP per point forward at the full 8x256 width. This
-//     first version runs fp32 FMA on the CUDA cores (no TF32, no wgmma), so
-//     both kernels are bound by fp32 issue rate and shared-memory bandwidth.
-//     A block computes a register micro-tile (points x 32-strided output
-//     units) so each staged weight feeds several FMAs.
-//   * Weights (~0.53M fp32 per network, ~2.1 MB) are read in their (out, in)
-//     layout straight from global memory; they stay in the 50 MB L2. The
-//     forward layer loop (K1, and K2's recomputed forward) stages 32-column
-//     chunks through shared memory, double-buffered with cp.async so that
-//     the next chunk's copy overlaps this chunk's FMAs; K2's backward reads
-//     them coalesced along the input dimension.
-//   * Layer inputs stay in shared memory. The skip concat [feat | pts_enc]
-//     and the view concat [feat | view_enc] are two input segments of the
-//     layer loop, never copies.
-//   * K2's shared-memory budget: every stored layer input of one point is
-//     63 + 27 + 7*256 + 256 + 128 = 2,266 fp32 at full width; a 16-point tile
-//     holds them in ~145 KB, plus the g_z double buffer (aliased with the
-//     two weight staging buffers of the recomputed forward, 73,984 bytes)
-//     and the d_pts tile: 223,104 of the 232,448 bytes a block may use. The
-//     tile is 16 points. (K1: 64 points, 228,096 bytes.)
-//   * dW and db cross the grid without atomics: K2 runs a fixed number of
-//     persistent blocks; block g handles tiles g, g+G, ... in order and
-//     accumulates into its own slice of a (G, n_params) scratch buffer.
-//     A second kernel sums the slices in block order. Two runs on one card
-//     give the same bits. The per-tile read-modify-write of the block's
-//     slice (~4 MB per tile at full width) is the kernel's memory cost; the
-//     132 slices do not fit in L2, so K2 loads the weights and dW partials
-//     of 16 output units before using any of them (8 on layers of more than
-//     256 inputs, where a thread owns two input columns): latency, not
-//     bandwidth, bounded the one-at-a-time loop.
-//   * Both kernels run one 256-thread block per SM (their shared memory
-//     allows no second one), so 8 warps must hide every load and barrier.
-//     That occupancy is the likeliest reason they stay slower than cuBLAS
-//     on this card (an estimate; no hardware-counter trace). At full
-//     width K2's backward is three quarters of its time, about 3x above both
-//     its HBM floor (the dW slice traffic) and its FMA issue floor; loading
-//     the next pass one pass ahead gained only 5%, so it is not bound by the
-//     latency of one pass's loads either.
-//   * The ragged last tile is masked in the kernels: points past T load
-//     zeros, get zero output gradients, and store nothing.
-//   * K3 is K1's kernel with another weight layout: its operands come packed
-//     as (in, out_pad) matrices, out_pad = 32 * ceil(out / 32), zero past
-//     `out` (ops/fused_mlp.py::pack_weights). A chunk of kKC input rows is
-//     then one contiguous block, staged with 16-byte cp.async copies and no
-//     transpose, where K1 stages 4-byte transposing copies. Both run the one
-//     layer loop, forward_layer_j, templated on the layout.
+//   * Arithmetic: 527,872 multiply-adds per point through the full 8x256
+//     chain, 3 MMAs each: at T = 262,144 the 3xTF32 bound is 1.68 ms for the
+//     forward and 5.03 ms for K2 (recompute + g_x + dW); bytes are < 0.1 ms.
+//     Measured (PERF.md): K1/K3 at ~1/3 of that bound, bound by
+//     mma.sync issue and what feeds it: every warp loads and splits the A
+//     fragments of all 8 m-tiles with scalar shared-memory loads. K2 at
+//     ~1/5: the dW pass reads its ~17 KB per point of workspace from device
+//     memory, and its g_x loop spills registers.
+//   * Registers: 255 per thread, one 256-thread block per SM. A warp holds 8
+//     m-tiles x 4 n-tiles of accumulators (128 fp32) plus this and the next
+//     k-step's B fragments; K1/K3 and K2's recompute spill nothing,
+//     k2_backward's g_x spills (~1.7 KB of spill loads), k2_dw a little.
+//   * Weights: ops/fused_mlp.py::pack_fragments (k_pack here, once per call)
+//     lays every W out as ready B fragments, one float4 {hi(b0), hi(b1),
+//     lo(b0), lo(b1)} per lane per (k-step, n-tile): a warp loads a fragment
+//     with one coalesced 512-byte read from L2 and splits nothing. K2 also
+//     takes the transposed set (B = W for g_x = g_z W). Each (k-step, n-tile)
+//     is 8 x 8 with the input dimension padded per segment to a multiple of
+//     8 ([feat | pts_enc] at the skip layer, [feat | view_enc] at the RGB
+//     head: the concat is two segments of the k loop, never a copy).
+//   * Forward layer loop (forward_layer, shared by K1, K3 and K2's
+//     recompute): the tile's activations stay in shared memory with a row
+//     stride = 4 (mod 32) floats, so a warp's A-fragment loads hit 32
+//     different banks. Warp w owns n-tiles w, w + 8, ... for all m-tiles of
+//     the tile and keeps their sums in registers; the next k-step's B
+//     fragments are loaded while this one's MMAs run. A layer's output
+//     overwrites its input in place after a barrier. n-tiles past a multiple
+//     of 8 ("extras", at most 4: the density unit of the 257-wide layer, the
+//     3 RGB outputs) are spread over the warps one m-tile each.
+//   * K1/K3: 128-point tiles (8 m-tiles), 256 threads, one block per SM;
+//     shared memory 128 x (260 + 68 + 36) floats = 186,368 bytes.
+//   * K2 in two passes. k2_backward: 128-point tiles (8 m-tiles), one block
+//     per tile; the recomputed forward (the same loop) stores each layer's
+//     input in a workspace in device memory (2,176 fp32 per point); then,
+//     from the last layer down, g_z sits in shared memory (row stride 296 =
+//     8 mod 32), is stored to the workspace for the dW pass (2,208 fp32 per
+//     point), and g_x = g_z W runs the forward loop's MMA core on the
+//     transposed fragments, in two phases: the skip / view segment first
+//     (added into d_pts or written to d_view), then the features, masked by
+//     X > 0 (the ReLU of the previous layer, exactly as before) into the
+//     previous layer's g_z, written over g_z after a barrier. Splitting by
+//     segment keeps every phase at <= 4 n-tiles per warp (the 320-wide skip
+//     layer in one phase spilled). Shared memory 219,136 bytes.
+//     k2_dw: dW = g_z^T X per layer as a GEMM over the points: 128 x 128
+//     output tiles x 64 point ranges (short fp32 sums: 4,096 points at
+//     T = 262,144), points staged 32 at a time through shared memory (both
+//     operands split on the fly), the next stage loaded into registers
+//     during this one's MMAs; each range writes its own partial, and
+//     k2_reduce sums the 64 in order into the (out, in) layout: no atomics,
+//     two runs give the same bits. The workspace (~17 KB per point, 4.6 GB
+//     at T = 262,144) is K2's main memory cost. Per-block dW slices updated
+//     per tile, as before, cost ~8 ms of slice traffic at 128-point tiles
+//     (PERF.md).
+//   * The ragged last tile is masked: points past T load zeros, get zero
+//     output gradients, and store nothing. Padded rows and columns hold
+//     zeros, so they add nothing.
+//
+// Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
+// K2_TIME_NO_DW and K2_TIME_NO_GX each drop one part of K2's work (the
+// recompute's MMAs, the dW pass, the g_x MMAs); their outputs are wrong and
+// only their times are read.
 //
 // Interface: plain C, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() (> 0), a
@@ -73,30 +97,50 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 16;
-constexpr int kMaxJ = 9;                  // output units <= 32 * kMaxJ = 288
-constexpr int kKC = 32;                   // weight columns staged per chunk
-constexpr int kLDS = 32 * kMaxJ + 1;      // staging row stride (odd: no bank conflicts)
-constexpr int kMaxC = 2;                  // K2: input columns per thread, in_dim <= 512
-constexpr int kTile1 = 64;                // K1: points per block
-constexpr int kTile2 = 16;                // K2: points per tile
-constexpr int kOB = 16;                   // K2: output units x input columns per batch of loads
-constexpr int kMaxSmem = 232448;          // bytes a block may use on sm_90
+constexpr int kTile1 = 128;    // K1/K3: points per block (8 m-tiles)
+constexpr int kTile2 = 128;    // K2: points per tile (8 m-tiles)
+constexpr int kMaxPad = 320;   // padded input width and 16-padded output width
+constexpr int kLdG = 296;      // K2: row stride of the g_z buffer (= 8 mod 32)
+constexpr int kDwBM = 128, kDwBN = 128;  // k2_dw: output tile (outputs x padded inputs)
+constexpr int kDwBK = 32;      // k2_dw: points per stage
+constexpr int kLdDw = kDwBM + 8;  // k2_dw: row stride of the staged tiles (= 8 mod 32)
+constexpr int kDwSplits = 64;  // k2_dw: point ranges summed by k2_reduce
+constexpr int kMaxExtra = 4;   // n-tiles past a multiple of 8 per layer
+constexpr int kMaxOut = 8 * (8 * 4 + kMaxExtra);  // 288: the forward's JN <= 4
+constexpr int kMaxSmem = 232448;
 
 struct MLPDesc {
   int n_layers, n_feat;
   int d_in, d_view, view_dep;
-  int n_params;
-  int max_w1;                   // widest stored feature input
-  int x_total;                  // K2: floats of stored feature inputs per tile
+  int n_params;      // flat gradient, (out, in) layout
+  int n_part;        // K2: floats of one split's dW partial (plain (out_pad16, kp) + bias)
+  int x_total;       // K2: workspace floats per point (stored feature inputs)
+  int g_total;       // K2: workspace floats per point (every layer's g_z, out padded to 16)
+  int n_dw_tiles;    // K2: dW output tiles of kDwBM x kDwBN over all layers
+  int n_frag4;       // float4s of one fragment set
+  int ld_act, ld_pts, ld_view;  // forward strides (= 4 mod 32)
   int skip[kMaxLayers];
   int in_dim[kMaxLayers], out_dim[kMaxLayers];
-  int w1[kMaxLayers];           // width of input segment 1 (features; pts_enc for layer 0)
-  int w_off[kMaxLayers], b_off[kMaxLayers];  // offsets in the flat parameter gradient
-  int x_off[kMaxLayers];        // K2: shared-memory offset of layer li's stored input
-  const float* W[kMaxLayers];   // K1, K2: (out, in); K3: (in, 32 * ceil(out / 32)); row-major
+  int w1[kMaxLayers];   // width of input segment 1 (features; pts_enc for layer 0)
+  int k1p[kMaxLayers];  // w1 padded to 8
+  int kp[kMaxLayers];   // k1p + (in - w1) padded to 8
+  int np8[kMaxLayers];  // out padded to 8
+  int w_off[kMaxLayers], b_off[kMaxLayers];  // flat gradient offsets
+  int f_off[kMaxLayers];  // float4 offset of the layer's fragments
+  int g_off[kMaxLayers];  // K2: offset of the layer's dW in a split's partial
+  int x_off[kMaxLayers];  // K2: floats per point of the stored inputs before layer li
+  int z_off[kMaxLayers];  // K2: floats per point of the stored g_z before layer li
+  int t_off[kMaxLayers];  // K2: dW tiles before layer li
+  const float* W[kMaxLayers];  // (out, in) row-major
   const float* b[kMaxLayers];
 };
+
+__host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
+__host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
+// smallest stride >= w with stride = 4 (mod 32)
+__host__ __device__ constexpr int ld4(int w) { return w + ((36 - w % 32) % 32); }
 
 // Host-side description of the chain. dims = [n_feat, n_rgb, d_in, d_view,
 // view_dep, (out, in, skip) per layer]; params = [W0, b0, W1, b1, ...].
@@ -108,462 +152,711 @@ int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
   d->d_in = dims[2];
   d->d_view = dims[3];
   d->view_dep = dims[4];
-  int off = 0, max_w1 = 0, x_total = 0;
+  int off = 0, f4 = 0, part = 0, x_total = 0, g_total = 0, tiles = 0, max_w1 = 0;
   for (int li = 0; li < d->n_layers; ++li) {
     const int out = dims[5 + 3 * li], in = dims[6 + 3 * li], skip = dims[7 + 3 * li];
     const int w2 = skip ? d->d_in : ((li == d->n_feat && d->view_dep) ? d->d_view : 0);
     const int w1 = in - w2;
-    if (out < 1 || out > 32 * kMaxJ || in > kThreads * kMaxC || w1 < 1) return -2;
+    const int k1p = pad8(w1), kp = k1p + pad8(w2), np8 = pad8(out);
+    if (out < 1 || w1 < 1 || kp > kMaxPad || np8 > kMaxOut) return -2;
+    if ((np8 / 8) % 8 > kMaxExtra || (k1p / 8) % 8 > kMaxExtra || ((kp - k1p) / 8) % 8 > kMaxExtra)
+      return -2;
+    if (k1p > 8 * (8 * 4 + kMaxExtra) || kp - k1p > 8 * (8 * 4 + kMaxExtra)) return -2;
     if (li == 0 && (skip || w1 != d->d_in)) return -3;
     if (li > 0) {
       const int prev = d->out_dim[li - 1] - (li - 1 == d->n_feat - 1 ? 1 : 0);
       if (prev != w1) return -3;
       d->x_off[li] = x_total;
-      x_total += kTile2 * w1;
+      x_total += w1;
       if (w1 > max_w1) max_w1 = w1;
     }
     d->skip[li] = skip;
     d->in_dim[li] = in;
     d->out_dim[li] = out;
     d->w1[li] = w1;
+    d->k1p[li] = k1p;
+    d->kp[li] = kp;
+    d->np8[li] = np8;
     d->w_off[li] = off;
     off += out * in;
     d->b_off[li] = off;
     off += out;
+    d->f_off[li] = f4;
+    f4 += (kp / 8) * (np8 / 8) * 32;
+    d->g_off[li] = part;
+    part += pad16(out) * kp + (out + 3) / 4 * 4;
+    d->z_off[li] = g_total;
+    g_total += pad16(out);
+    d->t_off[li] = tiles;
+    tiles += ((pad16(out) + kDwBM - 1) / kDwBM) * ((kp + kDwBN - 1) / kDwBN);
     d->W[li] = static_cast<const float*>(params[2 * li]);
     d->b[li] = static_cast<const float*>(params[2 * li + 1]);
   }
   if (d->out_dim[d->n_layers - 1] != 3) return -3;
   d->n_params = off;
-  d->max_w1 = max_w1;
+  d->n_part = part;
+  d->n_frag4 = f4;
   d->x_total = x_total;
+  d->g_total = g_total;
+  d->n_dw_tiles = tiles;
+  d->ld_act = ld4(pad8(max_w1));
+  d->ld_pts = ld4(pad8(d->d_in));
+  d->ld_view = ld4(pad8(d->d_view > 0 ? d->d_view : 1));
   return 0;
 }
 
-// weight staging: two buffers of kKC columns, one filling while the other is read
-constexpr int kStageFloats = 2 * kKC * kLDS;
+int k1_smem_bytes(const MLPDesc& d) { return 4 * kTile1 * (d.ld_act + d.ld_pts + d.ld_view); }
 
-int k1_smem_bytes(const MLPDesc& d) {
-  return 4 * (kTile1 * (d.d_in + d.d_view + 2 * d.max_w1) + kStageFloats);
+// K2: floats of the forward's buffers or of g_z, whichever is larger (aliased)
+__host__ __device__ inline int k2_main_floats(const MLPDesc& d) {
+  const int fwd = kTile2 * (d.ld_act + d.ld_pts + d.ld_view), bwd = kTile2 * kLdG;
+  return fwd > bwd ? fwd : bwd;
 }
 
-int k2_work_floats() {
-  const int gz = 2 * 32 * kMaxJ * kTile2;
-  return kStageFloats > gz ? kStageFloats : gz;
+int k2_smem_bytes(const MLPDesc& d) { return 4 * (k2_main_floats(d) + kTile2 * d.d_in + kTile2); }
+
+// ---------------------------------------------------------------------------
+// 3xTF32 on mma.sync
+// ---------------------------------------------------------------------------
+
+// x = hi + lo: hi the nearest TF32 value (ties away from zero, as
+// cvt.rna.tf32.f32) by integer add and mask, lo the exact fp32 rest, whose
+// top 19 bits the tensor core reads. Three full-rate instructions: the
+// conversion unit's cvt runs at a quarter of that rate and bounded the first
+// version of these loops.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-int k2_smem_bytes(const MLPDesc& d) {
-  return 4 * (kTile2 * (2 * d.d_in + d.d_view + 1) + d.x_total + k2_work_floats());
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ const float* second_segment(const MLPDesc& d, int li,
-                                                       const float* s_pts,
-                                                       const float* s_view) {
-  if (d.skip[li]) return s_pts;
-  if (li == d.n_feat && d.view_dep) return s_view;
-  return nullptr;
+// c += a * b with a = ah + al (split) and b = {hi b0, hi b1, lo b0, lo b1};
+// the small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const float4& b) {
+  mma_tf32(c, al, __float_as_uint(b.x), __float_as_uint(b.y));
+  mma_tf32(c, ah, __float_as_uint(b.z), __float_as_uint(b.w));
+  mma_tf32(c, ah, __float_as_uint(b.x), __float_as_uint(b.y));
 }
 
-// 4-byte asynchronous copy from global to shared memory (sm_80+), so a
-// weight chunk can be in flight while the previous one is multiplied.
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+// A fragment of the 16 x 8 block at A (row-major, stride lda): a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), split into hi and lo.
+__device__ __forceinline__ void load_a(const float* A, int lda, int g, int t, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  const float* p = A + g * lda + t;
+  split(p[0], ah[0], al[0]);
+  split(p[8 * lda], ah[1], al[1]);
+  split(p[4], ah[2], al[2]);
+  split(p[8 * lda + 4], ah[3], al[3]);
 }
 
-// 16-byte asynchronous copy; both addresses 16-byte aligned (K3's staging).
-__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+// The A operand of a layer product: k-steps [0, ks1) read segment 1, the rest
+// segment 2 (the skip or view concat); a tile of rows starts at row 0.
+struct AOperand {
+  const float* a1;
+  int ld1, ks1;
+  const float* a2;
+  int ld2;
+  __device__ __forceinline__ const float* at(int ks, int& ld) const {
+    if (ks < ks1) {
+      ld = ld1;
+      return a1 + ks * 8;
+    }
+    ld = ld2;
+    return a2 + (ks - ks1) * 8;
+  }
+};
+
+// acc[m][j] += A (MT*16 x 8*KS) x B for the n-tiles w + 8 j, j < JN, of warp
+// w; B comes as packed fragments Bf[(ks * NT + nt) * 32 + lane]. With
+// kPrefetch the next k-step's fragments are loaded while this one's MMAs run
+// (K2's g_x goes without: it has more live state, and the registers spilled).
+template <int MT, int JN, bool kPrefetch = true>
+__device__ __forceinline__ void mma_rows(const AOperand& A, int KS, const float4* __restrict__ Bf,
+                                         int NT, float (&acc)[MT][JN > 0 ? JN : 1][4]) {
+  if constexpr (JN > 0) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+    const float4* bp = Bf + warp * 32 + lane;
+    float4 b[JN], bn[JN];
+#pragma unroll
+    for (int j = 0; j < JN; ++j) b[j] = __ldg(bp + j * 8 * 32);
+    for (int ks = 0; ks < KS; ++ks) {
+      if (kPrefetch && ks + 1 < KS) {
+#pragma unroll
+        for (int j = 0; j < JN; ++j) bn[j] = __ldg(bp + ((size_t)(ks + 1) * NT + j * 8) * 32);
+      }
+      int lda;
+      const float* a = A.at(ks, lda);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint32_t ah[4], al[4];
+        load_a(a + m * 16 * lda, lda, g, t, ah, al);
+#pragma unroll
+        for (int j = 0; j < JN; ++j) mma3(acc[m][j], ah, al, b[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        if (kPrefetch)
+          b[j] = bn[j];
+        else if (ks + 1 < KS)
+          b[j] = __ldg(bp + ((size_t)(ks + 1) * NT + j * 8) * 32);
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// The extra n-tiles 8 JN + e, e < R <= kMaxExtra, over MT m-tiles: pair q =
+// warp + 8 i is (m-tile q % MT, n-tile 8 JN + q / MT).
+template <int MT, bool kExtras>
+__device__ __forceinline__ void mma_extras(const AOperand& A, int KS, const float4* __restrict__ Bf,
+                                           int NT, int nt0, int R, float (&acc)[kMaxExtra][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < (kExtras ? kMaxExtra : 0); ++i) {
+    const int q = warp + kWarps * i;
+    if (q >= MT * R) break;
+    const int m = q % MT, nt = nt0 + q / MT;
+    for (int ks = 0; ks < KS; ++ks) {
+      const float4 b = __ldg(Bf + ((size_t)ks * NT + nt) * 32 + lane);
+      int lda;
+      const float* a = A.at(ks, lda);
+      uint32_t ah[4], al[4];
+      load_a(a + m * 16 * lda, lda, g, t, ah, al);
+      mma3(acc[i], ah, al, b);
+    }
+  }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Calls f(row, col, value) for every accumulator of the warp: the main
+// n-tiles, then the extras. Fragment C: c0 (g, 2t), c1 (g, 2t + 1),
+// c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+template <int MT, int JN, bool kExtras, typename F>
+__device__ __forceinline__ void for_each_acc(float (&acc)[MT][JN > 0 ? JN : 1][4],
+                                             float (&ext)[kMaxExtra][4], int R, int col0, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < JN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        f(m * 16 + g + 8 * (c >> 1), col0 + (warp + 8 * j) * 8 + 2 * t + (c & 1), acc[m][j][c]);
+#pragma unroll
+  for (int i = 0; i < (kExtras ? kMaxExtra : 0); ++i) {
+    const int q = warp + kWarps * i;
+    if (q >= MT * R) break;
+    const int m = q % MT, nt = 8 * JN + q / MT;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      f(m * 16 + g + 8 * (c >> 1), col0 + nt * 8 + 2 * t + (c & 1), ext[i][c]);
+  }
 }
 
-// Starts copying columns [col0, col0 + kc) of W (out, in) into Ws,
-// transposed: Ws[kk * kLDS + o] = W[o, col0 + kk]. A warp reads 32
-// consecutive floats of one row.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ W, int out, int in,
-                                            int col0, int kc, float* Ws) {
-  const int kk = threadIdx.x & 31;
-  if (kk < kc)
-    for (int o = threadIdx.x >> 5; o < out; o += kThreads / 32)
-      cp_async_f32(Ws + kk * kLDS + o, W + (size_t)o * in + col0 + kk);
-  cp_async_commit();
+// Sets every accumulator to the bias of its column (0 past `out`, or with no bias).
+template <int MT, int JN, bool kExtras>
+__device__ __forceinline__ void init_acc(float (&acc)[MT][JN > 0 ? JN : 1][4],
+                                         float (&ext)[kMaxExtra][4], int R,
+                                         const float* __restrict__ bias, int out) {
+  auto bv = [&](int col) { return (bias != nullptr && col < out) ? __ldg(bias + col) : 0.f; };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < JN; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float v = bv((warp + 8 * j) * 8 + 2 * t + (c & 1));
+#pragma unroll
+      for (int m = 0; m < MT; ++m) acc[m][j][c] = v;
+    }
+#pragma unroll
+  for (int i = 0; i < (kExtras ? kMaxExtra : 0); ++i) {
+    const int q = warp + kWarps * i;
+    if (q >= MT * R) break;
+    const int nt = 8 * JN + q / MT;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ext[i][c] = bv(nt * 8 + 2 * t + (c & 1));
+  }
 }
 
-// Starts copying rows [row0, row0 + kc) of a packed W (in, ldw) into Ws, as
-// they are: Ws[kk * ldw + o] = W[row0 + kk, o]. The rows are one contiguous
-// block of kc * ldw floats (ldw a multiple of 32), copied 16 bytes a thread.
-__device__ __forceinline__ void stage_chunk_packed(const float* __restrict__ W, int ldw,
-                                                   int row0, int kc, float* Ws) {
-  const float* src = W + (size_t)row0 * ldw;
-  for (int i = threadIdx.x; i < kc * ldw / 4; i += kThreads) cp_async_16(Ws + 4 * i, src + 4 * i);
-  cp_async_commit();
-}
+// ---------------------------------------------------------------------------
+// forward (K1, K3, K2's recompute)
+// ---------------------------------------------------------------------------
 
-// One layer forward over a tile of 8 * PPT points held in shared memory.
-// Thread (tx, ty) owns points ty*PPT .. ty*PPT+PPT-1 and output units
-// tx + 32 j, j < J. The input columns come in chunks of kKC: chunk ch + 1
-// of W is copied into one half of Ws while chunk ch is read from the other.
-// Epilogue modes: 0 = ReLU into Y; 1 = last trunk layer (unit 0 is raw
-// density, to out_g[:, 0] when out_g is given; ReLU of units 1.. into Y);
-// 2 = last RGB layer (raw rgb to out_g[:, 1:4]).
-// kPacked: W is packed (in, 32 J) and staged as it is (K3); otherwise W is
-// (out, in) and staged transposed (K1, K2). A staged chunk's row stride is
-// ldw either way.
-template <int PPT, int J, bool kPacked>
-__device__ __forceinline__ void forward_layer_j(const MLPDesc& d, int li, const float* X1,
-                                                const float* X2, float* Ws, float* Y,
-                                                float* out_g, int p0, int T) {
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int out = d.out_dim[li], in = d.in_dim[li], w1 = d.w1[li], w2 = in - w1;
-  const float* __restrict__ W = d.W[li];
-  const float* __restrict__ B = d.b[li];
+// Calls CALL(JN, kExtras) for a product over n_tiles n-tiles: JN full rounds
+// of 8 (one n-tile per warp each), the rest as extras.
+#define SPARF_DISPATCH_JN(n_tiles, CALL)                               \
+  do {                                                                 \
+    const int nt_ = (n_tiles);                                         \
+    if (nt_ % 8) {                                                     \
+      switch (nt_ / 8) {                                               \
+        case 0: CALL(0, true); break;                                  \
+        case 1: CALL(1, true); break;                                  \
+        case 2: CALL(2, true); break;                                  \
+        case 3: CALL(3, true); break;                                  \
+        default: CALL(4, true); break;                                 \
+      }                                                                \
+    } else {                                                           \
+      switch (nt_ / 8) {                                               \
+        case 1: CALL(1, false); break;                                 \
+        case 2: CALL(2, false); break;                                 \
+        case 3: CALL(3, false); break;                                 \
+        default: CALL(4, false); break;                                \
+      }                                                                \
+    }                                                                  \
+  } while (0)
+
+// One layer over a tile of MT * 16 points. X1 (stride ld1) holds the layer's
+// first input segment, X2 (ld2) the second; Y (ldy) gets the ReLU of the
+// output, over X1 when they alias. Modes: 0 = ReLU into Y; 1 = last trunk
+// layer (unit 0 is raw density, to out_g[:, 0] when out_g is given; ReLU of
+// units 1.. into Y); 2 = last RGB layer (raw rgb to out_g[:, 1:4]). xs (K2):
+// when given, Y's real columns are also stored there, row-major (points, w1
+// of the next layer).
+template <int MT, int JN, bool kExtras>
+__device__ void forward_layer_j(const MLPDesc& d, const float4* __restrict__ F, int li,
+                                const float* X1, int ld1, const float* X2, int ld2, float* Y,
+                                int ldy, float* __restrict__ out_g, float* __restrict__ xs,
+                                int p0, int T) {
+  const int out = d.out_dim[li], NT = d.np8[li] / 8, R = NT - 8 * JN;
   const int mode = (li == d.n_layers - 1) ? 2 : (li == d.n_feat - 1 ? 1 : 0);
-  const int ldy = (mode == 2) ? 0 : d.w1[li + 1];
-  constexpr int ldw = kPacked ? 32 * J : kLDS;
-
-  float acc[PPT][J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int o = tx + 32 * j;
-    const float bv = (o < out) ? B[o] : 0.f;
-#pragma unroll
-    for (int i = 0; i < PPT; ++i) acc[i][j] = bv;
+  const int shift = mode == 1 ? 1 : 0;
+  const int ncol = mode == 2 ? 0 : d.k1p[li + 1], wnext = mode == 2 ? 0 : d.w1[li + 1];
+  float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
+  init_acc<MT, JN, kExtras>(acc, ext, R, d.b[li], out);
+  const AOperand A{X1, ld1, d.k1p[li] / 8, X2, ld2};
+  const float4* Bf = F + d.f_off[li];
+#ifdef K2_TIME_NO_FWD
+  if (xs == nullptr)
+#endif
+  {
+    mma_rows<MT, JN>(A, d.kp[li] / 8, Bf, NT, acc);
+    mma_extras<MT, kExtras>(A, d.kp[li] / 8, Bf, NT, 8 * JN, R, ext);
   }
-  // chunk ch: columns [k0, k0 + kc) of segment 1 (ch < n1) or segment 2
-  const int n1 = (w1 + kKC - 1) / kKC, n_chunks = n1 + (w2 + kKC - 1) / kKC;
-  auto k0_of = [&](int ch) { return (ch < n1 ? ch : ch - n1) * kKC; };
-  auto kc_of = [&](int ch) { return min(kKC, (ch < n1 ? w1 : w2) - k0_of(ch)); };
-  auto col0_of = [&](int ch) { return (ch < n1 ? 0 : w1) + k0_of(ch); };
-  // column col0 of W (out, in) is row col0 of the packed W (in, out_pad)
-  auto stage = [&](int ch, float* dst) {
-    if constexpr (kPacked)
-      stage_chunk_packed(W, ldw, col0_of(ch), kc_of(ch), dst);
-    else
-      stage_chunk(W, out, in, col0_of(ch), kc_of(ch), dst);
-  };
-
-  __syncthreads();  // both halves of Ws free, previous epilogue visible
-  stage(0, Ws);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    cp_async_wait_all();
-    __syncthreads();  // chunk ch visible; every thread is done reading chunk ch - 1
-    if (ch + 1 < n_chunks) stage(ch + 1, Ws + ((ch + 1) & 1) * kKC * kLDS);
-    const float* X = ch < n1 ? X1 : X2;
-    const int w = ch < n1 ? w1 : w2, k0 = k0_of(ch), kc = kc_of(ch);
-    const float* Wc = Ws + (ch & 1) * kKC * kLDS;
-    for (int kk = 0; kk < kc; ++kk) {
-      float xv[PPT];
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) xv[i] = X[(ty * PPT + i) * w + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const float wv = Wc[kk * ldw + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < PPT; ++i) acc[i][j] = fmaf(xv[i], wv, acc[i][j]);
-      }
+  __syncthreads();  // every warp has read the input; Y may overwrite it
+  for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int col, float z) {
+    const bool valid = p0 + p < T;
+    if (mode == 2) {
+      if (col < 3 && valid) out_g[(size_t)(p0 + p) * 4 + 1 + col] = z;
+      return;
     }
-  }
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int p = ty * PPT + i;
-    const bool valid = (p0 + p) < T;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int o = tx + 32 * j;
-      if (o >= out) continue;
-      const float z = acc[i][j];
-      if (mode == 0) {
-        Y[p * ldy + o] = fmaxf(z, 0.f);
-      } else if (mode == 1) {
-        if (o == 0) {
-          if (out_g != nullptr && valid) out_g[(size_t)(p0 + p) * 4] = z;
-        } else {
-          Y[p * ldy + o - 1] = fmaxf(z, 0.f);
-        }
-      } else if (valid) {
-        out_g[(size_t)(p0 + p) * 4 + 1 + o] = z;
-      }
+    if (shift && col == 0) {
+      if (out_g != nullptr && valid) out_g[(size_t)(p0 + p) * 4] = z;
+      return;
     }
-  }
+    const int c = col - shift;
+    if (c < ncol) {
+      const float y = fmaxf(z, 0.f);
+      Y[p * ldy + c] = y;
+      if (xs != nullptr && c < wnext) xs[p * wnext + c] = y;
+    }
+  });
+  __syncthreads();  // Y complete before the next layer reads it
 }
 
-template <int PPT, bool kPacked>
-__device__ __forceinline__ void forward_layer(const MLPDesc& d, int li, const float* X1,
-                                              const float* X2, float* Ws, float* Y,
-                                              float* out_g, int p0, int T) {
-  switch ((d.out_dim[li] + 31) / 32) {
-    case 1: forward_layer_j<PPT, 1, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 2: forward_layer_j<PPT, 2, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 3: forward_layer_j<PPT, 3, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 4: forward_layer_j<PPT, 4, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 5: forward_layer_j<PPT, 5, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 6: forward_layer_j<PPT, 6, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 7: forward_layer_j<PPT, 7, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    case 8: forward_layer_j<PPT, 8, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
-    default: forward_layer_j<PPT, 9, kPacked>(d, li, X1, X2, Ws, Y, out_g, p0, T); break;
+template <int MT>
+__device__ __forceinline__ void forward_layer(const MLPDesc& d, const float4* F, int li,
+                                              const float* X1, int ld1, const float* X2, int ld2,
+                                              float* Y, int ldy, float* out_g, float* xs, int p0,
+                                              int T) {
+  // one body per JN, with the extras code (an extras-free second body per JN
+  // made the register allocation spill in K1)
+#define SPARF_FWD(JN) \
+  forward_layer_j<MT, JN, true>(d, F, li, X1, ld1, X2, ld2, Y, ldy, out_g, xs, p0, T)
+  switch (d.np8[li] / 64) {
+    case 0: SPARF_FWD(0); break;
+    case 1: SPARF_FWD(1); break;
+    case 2: SPARF_FWD(2); break;
+    case 3: SPARF_FWD(3); break;
+    default: SPARF_FWD(4); break;
   }
+#undef SPARF_FWD
 }
 
-// Loads rows [p0, p0 + n) of a (T, width) array into shared memory, zeros past T.
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
+// Loads rows [p0, p0 + n) of a (T, width) array into shared memory with row
+// stride ld; zeros past T and in the padding columns [width, pad8(width)).
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src,
                                           int width, int n, int p0, int T) {
-  for (int idx = threadIdx.x; idx < n * width; idx += kThreads) {
-    const int p = idx / width;
-    dst[idx] = (p0 + p < T) ? src[(size_t)p0 * width + idx] : 0.f;
+  const int wp = pad8(width);
+  for (int idx = threadIdx.x; idx < n * wp; idx += kThreads) {
+    const int p = idx / wp, k = idx - p * wp;
+    dst[p * ld + k] = (p0 + p < T && k < width) ? src[(size_t)(p0 + p) * width + k] : 0.f;
   }
 }
 
-// The whole chain over one kTile1-point tile: K1 (kPacked false) and K3.
-template <bool kPacked>
-__device__ __forceinline__ void forward_tile(const MLPDesc& d, const float* __restrict__ pts,
-                                             const float* __restrict__ view,
-                                             float* __restrict__ out, int T) {
+// Loads the tile's inputs and runs the forward chain on MT * 16 points:
+// layers [0, n_run) (K1/K3: all; K2: all but the last). xws (K2): the stored
+// inputs, layer li's as a (x_rows, w1) array at xws + x_rows * x_off[li].
+template <int MT>
+__device__ __forceinline__ void forward_tile(const MLPDesc& d, const float4* __restrict__ F,
+                                             const float* __restrict__ pts,
+                                             const float* __restrict__ view, float* smem,
+                                             float* __restrict__ out, float* __restrict__ xws,
+                                             int x_rows, int n_run, int p0, int T) {
+  constexpr int P = MT * 16;
+  float* s_act = smem;
+  float* s_pts = s_act + P * d.ld_act;
+  float* s_view = s_pts + P * d.ld_pts;
+  load_rows(s_pts, d.ld_pts, pts, d.d_in, P, p0, T);
+  if (d.d_view > 0) load_rows(s_view, d.ld_view, view, d.d_view, P, p0, T);
+  __syncthreads();
+  for (int li = 0; li < n_run; ++li) {
+    const float* x1 = li == 0 ? s_pts : s_act;
+    const int ld1 = li == 0 ? d.ld_pts : d.ld_act;
+    const bool seg2_pts = d.skip[li] != 0;
+    float* xs = (xws != nullptr && li + 1 < d.n_layers)
+                    ? xws + (size_t)x_rows * d.x_off[li + 1] + (size_t)p0 * d.w1[li + 1]
+                    : nullptr;
+    forward_layer<MT>(d, F, li, x1, ld1, seg2_pts ? s_pts : s_view,
+                      seg2_pts ? d.ld_pts : d.ld_view, s_act, d.ld_act, out, xs, p0, T);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+k1_forward(MLPDesc d, const float4* __restrict__ F, const float* __restrict__ pts,
+           const float* __restrict__ view, float* __restrict__ out, int T) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* s_pts = smem;
-  float* s_view = s_pts + kTile1 * d.d_in;
-  float* s_buf[2] = {s_view + kTile1 * d.d_view, s_view + kTile1 * (d.d_view + d.max_w1)};
-  float* s_w = s_buf[1] + kTile1 * d.max_w1;
-  const int p0 = blockIdx.x * kTile1;
-
-  load_rows(s_pts, pts, d.d_in, kTile1, p0, T);
-  if (d.d_view > 0) load_rows(s_view, view, d.d_view, kTile1, p0, T);
-  for (int li = 0; li < d.n_layers; ++li) {
-    const float* x1 = (li == 0) ? s_pts : s_buf[(li - 1) & 1];
-    forward_layer<kTile1 / 8, kPacked>(d, li, x1, second_segment(d, li, s_pts, s_view), s_w,
-                                       s_buf[li & 1], out, p0, T);
-  }
+  forward_tile<kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+                            d.n_layers, blockIdx.x * kTile1, T);
 }
 
+// K3: the same loop on fragments that pack_weights prepared once per call
 __global__ void __launch_bounds__(kThreads, 1)
-k1_forward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
-           float* __restrict__ out, int T) {
-  forward_tile<false>(d, pts, view, out, T);
+k3_forward(MLPDesc d, const float4* __restrict__ F, const float* __restrict__ pts,
+           const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ float4 smem4[];
+  forward_tile<kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+                            d.n_layers, blockIdx.x * kTile1, T);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-k3_forward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
-           float* __restrict__ out, int T) {
-  forward_tile<true>(d, pts, view, out, T);
+// ---------------------------------------------------------------------------
+// fragment packing (ops/fused_mlp.py::pack_fragments_plain is the same map)
+// ---------------------------------------------------------------------------
+
+// W[n, k] with k in the padded input [seg 1 | pad | seg 2 | pad]; 0 in padding
+__device__ __forceinline__ float weight_at(const MLPDesc& d, int li, int n, int kpad) {
+  const int w1 = d.w1[li], w2 = d.in_dim[li] - w1, k1p = d.k1p[li];
+  const int k = kpad < k1p ? (kpad < w1 ? kpad : -1) : (kpad - k1p < w2 ? w1 + kpad - k1p : -1);
+  return (n < d.out_dim[li] && k >= 0) ? d.W[li][(size_t)n * d.in_dim[li] + k] : 0.f;
 }
 
-// One layer backward over a 16-point tile. gz holds this layer's output
-// gradient transposed, gz[o * kTile2 + p]. Thread t owns input columns
-// k = t + 256 c, c < C (C = 1 for layers of at most 256 inputs, else 2): it
-// keeps x[:, k] in registers, forms g_x[:, k] and dW[:, k] in one pass over
-// the output units, and routes g_x to the previous layer's g_z (masked by
-// this layer's input > 0, the ReLU of the previous layer), to d_pts (layer 0
-// and skip segments) or to d_view.
-template <int C>
-__device__ __forceinline__ void backward_layer_c(const MLPDesc& d, int li, const float* X1,
-                                                 const float* X2, const float* gz,
-                                                 float* gz_next, float* s_dpts,
-                                                 const float* s_gd,
-                                                 float* __restrict__ d_view_g,
-                                                 float* __restrict__ part, bool first,
-                                                 int p0, int T) {
-  // OB output units per pass: their weights and dW partials are loaded
-  // before any is used, so 2 * OB * C = 32 global loads are in flight per
-  // thread (the block's dW slice does not fit in L2; one load at a time
-  // left the loop bound by memory latency)
-  constexpr int OB = kOB / C;
-  const int tid = threadIdx.x;
-  const int out = d.out_dim[li], in = d.in_dim[li], w1 = d.w1[li], w2 = in - w1;
-  const float* __restrict__ W = d.W[li];
-  float* __restrict__ dW = part + d.w_off[li];
-  float* __restrict__ dB = part + d.b_off[li];
-
-  float xr[C][kTile2], gx[C][kTile2];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int k = tid + kThreads * c;
-#pragma unroll
-    for (int p = 0; p < kTile2; ++p) {
-      xr[c][p] = (k < w1) ? X1[p * w1 + k] : ((k < in) ? X2[p * w2 + (k - w1)] : 0.f);
-      gx[c][p] = 0.f;
-    }
-  }
-  for (int o0 = 0; o0 < out; o0 += OB) {
-    float wv[C][OB], acc[C][OB];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int k = tid + kThreads * c;
-#pragma unroll
-      for (int j = 0; j < OB; ++j) {
-        const bool ok = k < in && o0 + j < out;
-        const size_t idx = (size_t)(o0 + j) * in + k;
-        wv[c][j] = ok ? W[idx] : 0.f;
-        acc[c][j] = (ok && !first) ? dW[idx] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < OB; ++j) {
-      if (o0 + j >= out) break;
-      float g[kTile2];
-      const float4* g4 = reinterpret_cast<const float4*>(gz + (o0 + j) * kTile2);
-#pragma unroll
-      for (int q = 0; q < kTile2 / 4; ++q) {
-        const float4 v = g4[q];
-        g[4 * q] = v.x;
-        g[4 * q + 1] = v.y;
-        g[4 * q + 2] = v.z;
-        g[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float dw = 0.f;
-#pragma unroll
-        for (int p = 0; p < kTile2; ++p) {
-          dw = fmaf(g[p], xr[c][p], dw);
-          gx[c][p] = fmaf(g[p], wv[c][j], gx[c][p]);
-        }
-        acc[c][j] += dw;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int k = tid + kThreads * c;
-#pragma unroll
-      for (int j = 0; j < OB; ++j)
-        if (k < in && o0 + j < out) dW[(size_t)(o0 + j) * in + k] = acc[c][j];
-    }
-  }
-  for (int o = tid; o < out; o += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int p = 0; p < kTile2; ++p) s += gz[o * kTile2 + p];
-    dB[o] = first ? s : dB[o] + s;
-  }
-
-  const int shift = (li == d.n_feat) ? 1 : 0;  // g_z of the last trunk layer starts with g_density
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int k = tid + kThreads * c;
-    if (k >= in) continue;
-    if (k < w1) {
-      if (li == 0) {
-#pragma unroll
-        for (int p = 0; p < kTile2; ++p) s_dpts[p * d.d_in + k] += gx[c][p];
-      } else {
-#pragma unroll
-        for (int p = 0; p < kTile2; ++p)
-          gz_next[(k + shift) * kTile2 + p] = xr[c][p] > 0.f ? gx[c][p] : 0.f;
-      }
-    } else if (d.skip[li]) {
-#pragma unroll
-      for (int p = 0; p < kTile2; ++p) s_dpts[p * d.d_in + (k - w1)] += gx[c][p];
+// F: B = W^T (k over the padded input, n over outputs) for the forward;
+// FT: B = W (k over outputs, n over the padded input) for K2's g_x.
+// Fragment (ks, nt), lane (g, t): {hi(B[ks*8+t, nt*8+g]), hi(B[ks*8+t+4, nt*8+g]), lo, lo}.
+__global__ void k_pack(MLPDesc d, float4* __restrict__ F, float4* __restrict__ FT) {
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < d.n_frag4;
+       idx += gridDim.x * blockDim.x) {
+    int li = 0;
+    while (li + 1 < d.n_layers && idx >= d.f_off[li + 1]) ++li;
+    const int local = idx - d.f_off[li], lane = local & 31, tile = local >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    float w0, w1;
+    if (FT == nullptr || blockIdx.y == 0) {
+      const int NT = d.np8[li] / 8, nt = tile % NT, ks = tile / NT;
+      w0 = weight_at(d, li, nt * 8 + g, ks * 8 + t);
+      w1 = weight_at(d, li, nt * 8 + g, ks * 8 + t + 4);
     } else {
-#pragma unroll
-      for (int p = 0; p < kTile2; ++p)
-        if (p0 + p < T) d_view_g[(size_t)(p0 + p) * d.d_view + (k - w1)] = gx[c][p];
+      const int NT = d.kp[li] / 8, nt = tile % NT, ks = tile / NT;
+      w0 = weight_at(d, li, ks * 8 + t, nt * 8 + g);
+      w1 = weight_at(d, li, ks * 8 + t + 4, nt * 8 + g);
     }
+    uint32_t h0, l0, h1, l1;
+    split(w0, h0, l0);
+    split(w1, h1, l1);
+    (blockIdx.y == 0 ? F : FT)[idx] =
+        make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+                    __uint_as_float(l1));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward (K2)
+// ---------------------------------------------------------------------------
+
+// Layer li's input X (point P, padded column k): the feature segment from the
+// stored inputs (pts_enc for layer 0), the skip or view segment from the
+// inputs; 0 in the padding and past T. Read from device memory.
+struct LayerInput {
+  const float* feat;  // rows of ld_feat floats: stored inputs, or pts_enc at layer 0
+  const float* seg2;  // pts_enc or view_enc rows (w2 floats each)
+  int w1, w2, k1p, ld_feat, feat_rows, T;  // feat holds rows P < feat_rows
+  __device__ __forceinline__ float operator()(int P, int k) const {
+    if (k < w1) return P < feat_rows ? feat[(size_t)P * ld_feat + k] : 0.f;
+    const int k2 = k - k1p;
+    return (k2 >= 0 && k2 < w2 && P < T) ? seg2[(size_t)P * w2 + k2] : 0.f;
+  }
+};
+
+// xws: the stored inputs of K2's recompute, (x_rows, w1) per layer
+__device__ __forceinline__ LayerInput layer_input(const MLPDesc& d, int li,
+                                                  const float* __restrict__ xws, int x_rows,
+                                                  const float* __restrict__ pts,
+                                                  const float* __restrict__ view, int T) {
+  const int w1 = d.w1[li];
+  if (li == 0) return LayerInput{pts, view, w1, 0, d.k1p[0], d.d_in, T, T};
+  return LayerInput{xws + (size_t)x_rows * d.x_off[li], d.skip[li] ? pts : view, w1,
+                    d.in_dim[li] - w1, d.k1p[li], w1, x_rows, T};
+}
+
+// g_x = G W over the n-tiles [nt0, nt0 + 8 JN + R) of the padded input,
+// into acc (warp w: n-tiles nt0 + w + 8 j, then the extras).
+template <int JN, bool kExtras>
+__device__ __forceinline__ void gx_mma(const MLPDesc& d, const float4* __restrict__ FT, int li,
+                                       const float* G, int nt0, int R,
+                                       float (&acc)[kTile2 / 16][JN > 0 ? JN : 1][4],
+                                       float (&ext)[kMaxExtra][4]) {
+  constexpr int MT = kTile2 / 16;
+  const int NT = d.kp[li] / 8;
+  init_acc<MT, JN, kExtras>(acc, ext, R, nullptr, 0);
+#ifndef K2_TIME_NO_GX
+  const AOperand A{G, kLdG, d.np8[li] / 8, G, kLdG};
+  const float4* Bf = FT + d.f_off[li] + nt0 * 32;
+  mma_rows<MT, JN, false>(A, d.np8[li] / 8, Bf, NT, acc);
+  mma_extras<MT, kExtras>(A, d.np8[li] / 8, Bf, NT, 8 * JN, R, ext);
+#endif
+}
+
+// g_x of the skip (pts_enc) or view segment: added into d_pts or written to
+// d_view. Reads G and writes nothing that another warp reads.
+template <int JN, bool kExtras>
+__device__ void gx_seg2_j(const MLPDesc& d, const float4* FT, int li, const float* G,
+                          float* s_dpts, float* __restrict__ d_view_g, int p0, int T) {
+  constexpr int MT = kTile2 / 16;
+  const int k1p = d.k1p[li], w2 = d.in_dim[li] - d.w1[li];
+  const int R = (d.kp[li] - k1p) / 8 - 8 * JN;
+  float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
+  gx_mma<JN, kExtras>(d, FT, li, G, k1p / 8, R, acc, ext);
+  for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
+    if (k >= w2) return;
+    if (d.skip[li])
+      s_dpts[p * d.d_in + k] += v;
+    else if (p0 + p < T)
+      d_view_g[(size_t)(p0 + p) * d.d_view + k] = v;
+  });
+}
+
+// g_x of the feature segment: into d_pts at layer 0; otherwise masked by
+// X > 0 (the ReLU of the previous layer) into the previous layer's g_z,
+// written over G once every warp is done reading it.
+template <int JN, bool kExtras>
+__device__ void gx_seg1_j(const MLPDesc& d, const float4* FT, int li, float* G,
+                          const LayerInput& X, float* s_dpts, const float* s_gd, int p0) {
+  constexpr int MT = kTile2 / 16;
+  const int w1 = d.w1[li], R = d.k1p[li] / 8 - 8 * JN;
+  const int shift = (li == d.n_feat) ? 1 : 0;  // g_z of the last trunk layer starts with g_density
+  float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
+  gx_mma<JN, kExtras>(d, FT, li, G, 0, R, acc, ext);
+  if (li == 0) {
+    for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
+      if (k < w1) s_dpts[p * d.d_in + k] += v;
+    });
+    return;
+  }
+  const float* xf = X.feat;  // the stored inputs: every row of the tile is there
+  const int ldx = X.ld_feat;
+  for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float& v) {
+    if (k < w1) v = xf[(size_t)(p0 + p) * ldx + k] > 0.f ? v : 0.f;
+  });
+  __syncthreads();  // every warp is done reading G
+  for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
+    if (k < w1) G[p * kLdG + k + shift] = v;
+  });
+  const int n_prev = w1 + shift, n_pad = pad16(n_prev) - n_prev;
+  for (int idx = threadIdx.x; idx < kTile2 * n_pad; idx += kThreads) {
+    const int p = idx / n_pad;
+    G[p * kLdG + n_prev + idx - p * n_pad] = 0.f;
   }
   if (shift)
-    for (int p = tid; p < kTile2; p += kThreads) gz_next[p] = s_gd[p];
+    for (int p = threadIdx.x; p < kTile2; p += kThreads) G[p * kLdG] = s_gd[p];
 }
 
-__device__ __forceinline__ void backward_layer(const MLPDesc& d, int li, const float* X1,
-                                               const float* X2, const float* gz,
-                                               float* gz_next, float* s_dpts,
-                                               const float* s_gd,
-                                               float* __restrict__ d_view_g,
-                                               float* __restrict__ part, bool first,
-                                               int p0, int T) {
-  if (d.in_dim[li] <= kThreads)
-    backward_layer_c<1>(d, li, X1, X2, gz, gz_next, s_dpts, s_gd, d_view_g, part, first, p0, T);
-  else
-    backward_layer_c<2>(d, li, X1, X2, gz, gz_next, s_dpts, s_gd, d_view_g, part, first, p0, T);
+// One layer's g_x: the second segment first, then the features (whose
+// routing overwrites G).
+__device__ __forceinline__ void gx_layer(const MLPDesc& d, const float4* FT, int li, float* G,
+                                         const LayerInput& X, float* s_dpts, const float* s_gd,
+                                         float* d_view_g, int p0, int T) {
+  const int nt2 = (d.kp[li] - d.k1p[li]) / 8, nt1 = d.k1p[li] / 8;
+#define SPARF_SEG2(JN, EXTRAS) gx_seg2_j<JN, EXTRAS>(d, FT, li, G, s_dpts, d_view_g, p0, T)
+#define SPARF_SEG1(JN, EXTRAS) gx_seg1_j<JN, EXTRAS>(d, FT, li, G, X, s_dpts, s_gd, p0)
+  if (nt2 > 0) SPARF_DISPATCH_JN(nt2, SPARF_SEG2);
+  SPARF_DISPATCH_JN(nt1, SPARF_SEG1);
+#undef SPARF_SEG2
+#undef SPARF_SEG1
 }
 
+// K2, pass 1: per 128-point tile, the recomputed forward (storing every
+// layer's input in xws) and the g_z chain (storing every layer's g_z in gws,
+// (x_rows, pad16(out)) per layer); d_pts and d_view.
 __global__ void __launch_bounds__(kThreads, 1)
-k2_backward(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
+k2_backward(MLPDesc d, const float4* __restrict__ F, const float4* __restrict__ FT,
+            const float* __restrict__ pts, const float* __restrict__ view,
             const float* __restrict__ gout, float* __restrict__ d_pts,
-            float* __restrict__ d_view_g, float* __restrict__ partial, int T, int n_tiles) {
+            float* __restrict__ d_view_g, float* __restrict__ xws, float* __restrict__ gws,
+            int T, int x_rows) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* s_pts = smem;
-  float* s_view = s_pts + kTile2 * d.d_in;
-  float* s_dpts = s_view + kTile2 * d.d_view;
+  float* s_dpts = smem + k2_main_floats(d);
   float* s_gd = s_dpts + kTile2 * d.d_in;
-  float* s_x = s_gd + kTile2;
-  float* s_work = s_x + d.x_total;
-  float* part = partial + (size_t)blockIdx.x * d.n_params;
-  const int tid = threadIdx.x;
+  float* G = smem;  // g_z of the current layer, over the recompute's buffers
+  const int tid = threadIdx.x, p0 = blockIdx.x * kTile2;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const bool first = (tile == (int)blockIdx.x);
-    const int p0 = tile * kTile2;
-    __syncthreads();  // the previous tile is done with shared memory
-    load_rows(s_pts, pts, d.d_in, kTile2, p0, T);
-    if (d.d_view > 0) load_rows(s_view, view, d.d_view, kTile2, p0, T);
-    for (int idx = tid; idx < kTile2 * d.d_in; idx += kThreads) s_dpts[idx] = 0.f;
+  // recompute the forward, storing every layer's feature input in xws
+  forward_tile<kTile2 / 16>(d, F, pts, view, smem, nullptr, xws, x_rows, d.n_layers - 1, p0, T);
+  for (int idx = tid; idx < kTile2 * 16; idx += kThreads) {  // g_z of the last layer
+    const int p = idx >> 4, o = idx & 15;
+    G[p * kLdG + o] = (o < 3 && p0 + p < T) ? gout[(size_t)(p0 + p) * 4 + 1 + o] : 0.f;
+  }
+  for (int p = tid; p < kTile2; p += kThreads)
+    s_gd[p] = (p0 + p < T) ? gout[(size_t)(p0 + p) * 4] : 0.f;
+  for (int idx = tid; idx < kTile2 * d.d_in; idx += kThreads) s_dpts[idx] = 0.f;
+  __syncthreads();
 
-    // recompute the forward, keeping every layer's input (the last layer's
-    // output is not needed)
-    for (int li = 0; li < d.n_layers - 1; ++li) {
-      const float* x1 = (li == 0) ? s_pts : s_x + d.x_off[li];
-      forward_layer<kTile2 / 8, false>(d, li, x1, second_segment(d, li, s_pts, s_view), s_work,
-                                       s_x + d.x_off[li + 1], nullptr, p0, T);
+  for (int li = d.n_layers - 1; li >= 0; --li) {
+    // this layer's g_z for the dW pass (k2_dw), 16-byte stores
+    const int ldg = pad16(d.out_dim[li]) / 4;
+    float4* gdst = reinterpret_cast<float4*>(gws + (size_t)x_rows * d.z_off[li]) + (size_t)p0 * ldg;
+    for (int idx = tid; idx < kTile2 * ldg; idx += kThreads) {
+      const int p = idx / ldg, c = idx - p * ldg;
+      gdst[idx] = reinterpret_cast<const float4*>(G + p * kLdG)[c];
     }
-    __syncthreads();
-
-    float* gz = s_work;
-    float* gz_next = s_work + 32 * kMaxJ * kTile2;
-    for (int idx = tid; idx < 3 * kTile2; idx += kThreads) {
-      const int o = idx / kTile2, p = idx - o * kTile2;
-      gz[idx] = (p0 + p < T) ? gout[(size_t)(p0 + p) * 4 + 1 + o] : 0.f;
-    }
-    for (int p = tid; p < kTile2; p += kThreads)
-      s_gd[p] = (p0 + p < T) ? gout[(size_t)(p0 + p) * 4] : 0.f;
-    __syncthreads();
-
-    for (int li = d.n_layers - 1; li >= 0; --li) {
-      const float* x1 = (li == 0) ? s_pts : s_x + d.x_off[li];
-      backward_layer(d, li, x1, second_segment(d, li, s_pts, s_view), gz, gz_next, s_dpts,
-                     s_gd, d_view_g, part, first, p0, T);
-      __syncthreads();
-      float* t = gz;
-      gz = gz_next;
-      gz_next = t;
-    }
-    for (int idx = tid; idx < kTile2 * d.d_in; idx += kThreads) {
-      const int p = idx / d.d_in;
-      if (p0 + p < T) d_pts[(size_t)p0 * d.d_in + idx] = s_dpts[idx];
-    }
+    const LayerInput X = layer_input(d, li, xws, x_rows, pts, view, T);
+    gx_layer(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
+    __syncthreads();  // G holds the previous layer's g_z
+  }
+  for (int idx = tid; idx < kTile2 * d.d_in; idx += kThreads) {
+    const int p = idx / d.d_in;
+    if (p0 + p < T) d_pts[(size_t)p0 * d.d_in + idx] = s_dpts[idx];
   }
 }
 
-// Sums the per-block partials in block order (deterministic).
-__global__ void k2_reduce(const float* __restrict__ partial, float* __restrict__ out,
-                          int n_blocks, int n_params) {
+// K2, pass 2: dW (pad16(out) x kp) = sum over points of g_z^T X, one
+// kDwBM x kDwBN output tile per block (blockIdx.x over the tiles of every
+// layer) and one of kDwSplits point ranges (blockIdx.y), written plain into
+// that range's partial; db from the tiles of column 0. The points come in
+// stages of kDwBK through shared memory, the next stage loaded into
+// registers while this one's MMAs run. Warp (wm, wn) = (w % 4, w / 4) owns
+// rows wm*32 .. +32 (2 m-tiles) and columns wn*64 .. +64 (8 n-tiles).
+__global__ void __launch_bounds__(kThreads, 1)
+k2_dw(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
+      const float* __restrict__ xws, const float* __restrict__ gws, float* __restrict__ partial,
+      int T, int x_rows) {
+  __shared__ float Gs[kDwBK * kLdDw], Xs[kDwBK * kLdDw];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  int li = 0;
+  while (li + 1 < d.n_layers && (int)blockIdx.x >= d.t_off[li + 1]) ++li;
+  const int ldg = pad16(d.out_dim[li]), kp = d.kp[li];
+  const int n_col_tiles = (kp + kDwBN - 1) / kDwBN, tile = blockIdx.x - d.t_off[li];
+  const int row0 = (tile / n_col_tiles) * kDwBM, col0 = (tile % n_col_tiles) * kDwBN;
+  const int rows = min(kDwBM, ldg - row0), cols = min(kDwBN, kp - col0);
+  const float* Gl = gws + (size_t)x_rows * d.z_off[li];
+  const LayerInput X = layer_input(d, li, xws, x_rows, pts, view, T);
+  const int per = (x_rows / kDwBK + kDwSplits - 1) / kDwSplits * kDwBK;
+  const int P_begin = blockIdx.y * per, P_end = min(x_rows, P_begin + per);
+
+  constexpr int kLoads = kDwBK * kDwBM / kThreads;  // per thread and operand: 16
+  float gr[kLoads], xr[kLoads];
+  auto load_stage = [&](int P0) {
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int idx = tid + i * kThreads, p = idx / kDwBM, c = idx % kDwBM;
+      gr[i] = c < rows ? Gl[(size_t)(P0 + p) * ldg + row0 + c] : 0.f;
+      xr[i] = c < cols ? X(P0 + p, col0 + c) : 0.f;
+    }
+  };
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  float bias = 0.f;  // db of row tid (column-0 tiles)
+
+  if (P_begin < P_end) load_stage(P_begin);
+  for (int P0 = P_begin; P0 < P_end; P0 += kDwBK) {
+    __syncthreads();  // the previous stage's MMAs are done with Gs / Xs
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int idx = tid + i * kThreads, p = idx / kDwBM, c = idx % kDwBM;
+      Gs[p * kLdDw + c] = gr[i];
+      Xs[p * kLdDw + c] = xr[i];
+    }
+    __syncthreads();
+    if (P0 + kDwBK < P_end) load_stage(P0 + kDwBK);
+    if (col0 == 0 && tid < kDwBM)
+      for (int p = 0; p < kDwBK; ++p) bias += Gs[p * kLdDw + tid];
+#pragma unroll
+    for (int ks = 0; ks < kDwBK / 8; ++ks) {
+      // A[m = output][k = point] = Gs[point][output]; B[k = point][n = input] = Xs[point][input]
+      const float* ga = Gs + (ks * 8 + t) * kLdDw + wm * 32 + g;
+      const float* xb = Xs + (ks * 8 + t) * kLdDw + wn * 64 + g;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        split(ga[i * 16], ah[i][0], al[i][0]);
+        split(ga[i * 16 + 8], ah[i][1], al[i][1]);
+        split(ga[4 * kLdDw + i * 16], ah[i][2], al[i][2]);
+        split(ga[4 * kLdDw + i * 16 + 8], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(xb[j * 8], bh0, bl0);
+        split(xb[4 * kLdDw + j * 8], bh1, bl1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_tf32(acc[i][j], al[i], bh0, bh1);
+          mma_tf32(acc[i][j], ah[i], bl0, bl1);
+          mma_tf32(acc[i][j], ah[i], bh0, bh1);
+        }
+      }
+    }
+  }
+  float* out = partial + (size_t)blockIdx.y * d.n_part + d.g_off[li];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = wm * 32 + i * 16 + g + 8 * (c >> 1), k = wn * 64 + j * 8 + 2 * t + (c & 1);
+        if (r < rows && k < cols) out[(size_t)(row0 + r) * kp + col0 + k] = acc[i][j][c];
+      }
+  if (col0 == 0 && tid < rows && row0 + tid < d.out_dim[li])
+    out[(size_t)ldg * kp + row0 + tid] = bias;
+}
+
+// Sums the kDwSplits partials in order (deterministic) into the (out, in)
+// layout of the flat gradient.
+__global__ void k2_reduce(MLPDesc d, const float* __restrict__ partial, float* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_params) return;
+  if (j >= d.n_params) return;
+  int li = 0;
+  while (li + 1 < d.n_layers && j >= d.w_off[li + 1]) ++li;
+  const int kp = d.kp[li];
+  int pos;
+  if (j < d.b_off[li]) {
+    const int r = j - d.w_off[li], n = r / d.in_dim[li], k = r - n * d.in_dim[li];
+    pos = d.g_off[li] + n * kp + (k < d.w1[li] ? k : d.k1p[li] + k - d.w1[li]);
+  } else {
+    pos = d.g_off[li] + pad16(d.out_dim[li]) * kp + (j - d.b_off[li]);
+  }
   float s = 0.f;
-  for (int g = 0; g < n_blocks; ++g) s += partial[(size_t)g * n_params + j];
+  for (int g = 0; g < kDwSplits; ++g) s += partial[(size_t)g * d.n_part + pos];
   out[j] = s;
 }
 
-using ForwardKernel = void (*)(MLPDesc, const float*, const float*, float*, int);
-
-int launch_forward(ForwardKernel kernel, const float* pts, const float* view, float* out, int T,
-                   const int* dims, const void* const* params, void* stream) {
-  MLPDesc d;
-  int rc = build_desc(dims, params, &d);
-  if (rc < 0) return rc;
-  const int smem = k1_smem_bytes(d);
-  if (smem > kMaxSmem) return -4;
-  if (T <= 0) return 0;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int blocks = (T + kTile1 - 1) / kTile1;
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(d, pts, view, out, T);
+int launch_pack(const MLPDesc& d, float* frag, float* frag_t, cudaStream_t s) {
+  const int blocks = (d.n_frag4 + kThreads - 1) / kThreads;
+  k_pack<<<dim3(blocks, frag_t != nullptr ? 2 : 1), kThreads, 0, s>>>(
+      d, reinterpret_cast<float4*>(frag), reinterpret_cast<float4*>(frag_t));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -571,49 +864,89 @@ int launch_forward(ForwardKernel kernel, const float* pts, const float* view, fl
 
 extern "C" {
 
-// Number of fp32 entries of the flat parameter gradient, or a negative code.
-int sparf_fused_mlp_n_params(const int* dims) {
+// [n_params, n_frag_floats, n_part, x_total, g_total, n_splits] of the
+// chain, or a negative code.
+int sparf_fused_mlp_sizes(const int* dims, int* sizes) {
   static const void* const null_params[2 * kMaxLayers] = {};
   MLPDesc d;
   const int rc = build_desc(dims, null_params, &d);
-  return rc < 0 ? rc : d.n_params;
+  if (rc < 0) return rc;
+  sizes[0] = d.n_params;
+  sizes[1] = 4 * d.n_frag4;
+  sizes[2] = d.n_part;
+  sizes[3] = d.x_total;
+  sizes[4] = d.g_total;
+  sizes[5] = kDwSplits;
+  return 0;
 }
 
-// K1: out (T, 4) = [raw_density | raw_rgb]; params = [W (out, in), b (out), ...].
+// Packs params = [W (out, in), b (out), ...] into B fragments: frag for the
+// forward, frag_t (may be null) for K2's g_x; each n_frag_floats, 16-byte aligned.
+int sparf_fused_mlp_pack(const int* dims, const void* const* params, float* frag, float* frag_t,
+                         void* stream) {
+  MLPDesc d;
+  const int rc = build_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  return launch_pack(d, frag, frag_t, static_cast<cudaStream_t>(stream));
+}
+
+// K1 (packed = 0: packs params into frag first) and K3 (packed = 1: frag
+// comes from sparf_fused_mlp_pack): out (T, 4) = [raw_density | raw_rgb].
 int sparf_fused_mlp_forward(const float* pts, const float* view, float* out, int T,
-                            const int* dims, const void* const* params, void* stream) {
-  return launch_forward(k1_forward, pts, view, out, T, dims, params, stream);
+                            const int* dims, const void* const* params, float* frag, int packed,
+                            void* stream) {
+  MLPDesc d;
+  int rc = build_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  const int smem = k1_smem_bytes(d);
+  if (smem > kMaxSmem) return -4;
+  if (T <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!packed) {
+    rc = launch_pack(d, frag, nullptr, s);
+    if (rc != 0) return rc;
+  }
+  auto kernel = packed ? k3_forward : k1_forward;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (T + kTile1 - 1) / kTile1;
+  kernel<<<blocks, kThreads, smem, s>>>(d, reinterpret_cast<const float4*>(frag), pts, view, out,
+                                        T);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K3: as K1, with params = [W (in, 32 * ceil(out / 32)), b (out), ...] packed,
-// each W 16-byte aligned; dims name the real (out, in) of each layer.
-int sparf_fused_mlp_forward_packed(const float* pts, const float* view, float* out, int T,
-                                   const int* dims, const void* const* params, void* stream) {
-  return launch_forward(k3_forward, pts, view, out, T, dims, params, stream);
-}
-
-// gout (T, 4) = [g_density | g_rgb]; d_params (n_params,) in the order
-// W0, b0, W1, b1, ...; partial is scratch of n_blocks * n_params floats.
+// K2. gout (T, 4) = [g_density | g_rgb]; d_params (n_params,) in the order
+// W0, b0, W1, b1, ...; frag and frag_t are scratch of n_frag_floats each,
+// partial of n_splits * n_part floats and workspace of T_pad * (x_total +
+// g_total) floats, T_pad = T rounded up to a multiple of 128.
 int sparf_fused_mlp_backward(const float* pts, const float* view, const float* gout,
-                             float* d_pts, float* d_view, float* d_params, float* partial,
-                             int T, int n_blocks, const int* dims, const void* const* params,
-                             void* stream) {
+                             float* d_pts, float* d_view, float* d_params, float* frag,
+                             float* frag_t, float* partial, float* workspace, int T,
+                             const int* dims, const void* const* params, void* stream) {
   MLPDesc d;
   int rc = build_desc(dims, params, &d);
   if (rc < 0) return rc;
   const int smem = k2_smem_bytes(d);
   if (smem > kMaxSmem) return -4;
-  if (T <= 0 || n_blocks <= 0) return -5;
-  const int n_tiles = (T + kTile2 - 1) / kTile2;
-  if (n_blocks > n_tiles) return -5;
+  if (T <= 0) return -5;
+  const int n_tiles = (T + kTile2 - 1) / kTile2, x_rows = n_tiles * kTile2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rc = launch_pack(d, frag, frag_t, s);
+  if (rc != 0) return rc;
+  float* xws = workspace;
+  float* gws = workspace + (size_t)x_rows * d.x_total;
   cudaFuncSetAttribute(k2_backward, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  k2_backward<<<n_blocks, kThreads, smem, s>>>(d, pts, view, gout, d_pts, d_view, partial, T,
-                                               n_tiles);
+  k2_backward<<<n_tiles, kThreads, smem, s>>>(
+      d, reinterpret_cast<const float4*>(frag), reinterpret_cast<const float4*>(frag_t), pts,
+      view, gout, d_pts, d_view, xws, gws, T, x_rows);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  k2_reduce<<<(d.n_params + kThreads - 1) / kThreads, kThreads, 0, s>>>(partial, d_params,
-                                                                      n_blocks, d.n_params);
+#ifndef K2_TIME_NO_DW
+  k2_dw<<<dim3(d.n_dw_tiles, kDwSplits), kThreads, 0, s>>>(d, pts, view, xws, gws, partial, T,
+                                                           x_rows);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+#endif
+  k2_reduce<<<(d.n_params + kThreads - 1) / kThreads, kThreads, 0, s>>>(d, partial, d_params);
   return static_cast<int>(cudaGetLastError());
 }
 

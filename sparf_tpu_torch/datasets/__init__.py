@@ -1,25 +1,82 @@
-"""Datasets of the port: `synthetic` uses the port's camera; every other
-dataset comes from the shared registry of sparf_tpu.datasets."""
+"""Dataset registry of the port (reference source/datasets/create_dataset.py:103-143).
+
+`synthetic` renders its views with the port's camera; `llff` and `dtu` are the
+port's own copies of the numpy loaders. `replica` is not ported yet (ROADMAP
+Queue 1, item 15): its loader needs a tensor library for its rays.
+"""
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from sparf_tpu.datasets import base
-from sparf_tpu.datasets.registry import create_dataset as _create_shared
+from sparf_tpu_torch.datasets import base
 
 
-def create_dataset(cfg, mode: str = "train") -> base.Scene:
-    """Load the whole scene of one split as stacked numpy arrays."""
-    if cfg.dataset != "synthetic":
-        return _create_shared(cfg, mode)
+def _load_llff(cfg, split: str) -> base.Scene:
+    from sparf_tpu_torch.datasets.llff import load_llff_scene
+
+    return load_llff_scene(
+        root=cfg.env.llff,
+        scene=cfg.scene,
+        split=split,
+        train_sub=cfg.get("train_sub"),
+        val_sub=cfg.get("val_sub"),
+        llffhold=cfg.get("llffhold", 8),
+        img_factor=cfg.get("llff_img_factor", 8),
+        resize=cfg.get("resize"),
+        crop_ratio=cfg.get("crop_ratio"),
+        increase_depth_range_by_x_percent=cfg.get("increase_depth_range_by_x_percent", 0.0),
+    )
+
+
+def _load_dtu(cfg, split: str) -> base.Scene:
+    from sparf_tpu_torch.datasets.dtu import load_dtu_scene
+
+    return load_dtu_scene(
+        root=cfg.env.dtu,
+        scene=cfg.scene,
+        split=split,
+        train_sub=cfg.get("train_sub"),
+        val_sub=cfg.get("val_sub"),
+        split_type=cfg.get("dtu_split_type", "pixelnerf"),
+        mask_root=cfg.env.get("dtu_mask"),
+        depth_root=cfg.env.get("dtu_depth"),
+        resize=cfg.get("resize"),
+        crop_ratio=cfg.get("crop_ratio"),
+        mask_img=cfg.get("mask_img", False),
+        increase_depth_range_by_x_percent=cfg.get("increase_depth_range_by_x_percent", 0.0),
+    )
+
+
+def _load_replica(cfg, split: str) -> base.Scene:
+    raise NotImplementedError("the replica dataset is not ported to sparf_tpu_torch yet "
+                              "(ROADMAP Queue 1, item 15)")
+
+
+def _load_synthetic(cfg, split: str) -> base.Scene:
     from sparf_tpu_torch.datasets.synthetic import load_synthetic_scene
 
     kw: Dict[str, Any] = dict(cfg.get("synthetic", {}))
     return load_synthetic_scene(
         scene=cfg.get("scene") or "spheres",
-        split=mode,
+        split=split,
         train_sub=cfg.get("train_sub"),
         val_sub=cfg.get("val_sub"),
         increase_depth_range_by_x_percent=cfg.get("increase_depth_range_by_x_percent", 0.0),
         **kw,
     )
+
+
+dataset_dict = {
+    "llff": _load_llff,
+    "dtu": _load_dtu,
+    "replica": _load_replica,
+    "synthetic": _load_synthetic,
+}
+
+
+def create_dataset(cfg, mode: str = "train") -> base.Scene:
+    """Load the whole scene of one split as stacked numpy arrays."""
+    name = cfg.dataset
+    if name not in dataset_dict:
+        raise ValueError(f"unknown dataset {name!r}; available: {sorted(dataset_dict)}")
+    return dataset_dict[name](cfg, mode)

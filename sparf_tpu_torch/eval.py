@@ -19,7 +19,7 @@ import os
 
 
 def load_model(ckpt_dir: str, data_root: str = "", which: str = "latest", device="cuda"):
-    from sparf_tpu.configs.config import load_options
+    from sparf_tpu_torch.configs.config import load_options
     from sparf_tpu_torch.training.define_trainer import define_trainer
 
     options_path = os.path.join(ckpt_dir, "options.yaml")

@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -35,7 +35,7 @@ class BuildInfo:
     path: Optional[Path] = None
 
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -46,28 +46,32 @@ def _nvcc() -> str:
                        "the CUDA toolkit (set NVCC or put nvcc on PATH)")
 
 
-def _source_hash() -> str:
+def _source_hash(flags: Sequence[str]) -> str:
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((CSRC_DIR / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels if this version of the sources has no library yet."""
+def build(defines: Sequence[str] = ()) -> Path:
+    """Compile the kernels if this version of the sources has no library yet.
+    `defines` (macro names) select a timing-only variant (csrc header note)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libsparf_kernels_{_source_hash()}.so"
+    flags = (*NVCC_FLAGS, *(f"-D{m}" for m in defines))
+    out = BUILD_DIR / f"libsparf_kernels_{_source_hash(flags)}.so"
+    log = out.with_suffix(".log")
     if out.exists():
         BuildInfo.path = out
+        BuildInfo.log = log.read_text() if log.exists() else ""
         return out
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BuildInfo.seconds = time.perf_counter() - t0
     BuildInfo.log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + BuildInfo.log)
+    log.write_text(" ".join(cmd) + "\n" + BuildInfo.log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{BuildInfo.log}")
     os.replace(tmp, out)
@@ -75,21 +79,22 @@ def build() -> Path:
     return out
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first call and then cached for the process."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The kernel library, built on first call and then cached for the process
+    (one per set of timing-only `defines`; the port uses the default)."""
+    key = tuple(defines)
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(build(key)))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sparf_fused_mlp_n_params.argtypes = [p]
-        lib.sparf_fused_mlp_n_params.restype = i
-        lib.sparf_fused_mlp_forward.argtypes = [p, p, p, i, p, p, p]
+        lib.sparf_fused_mlp_sizes.argtypes = [p, p]
+        lib.sparf_fused_mlp_sizes.restype = i
+        lib.sparf_fused_mlp_pack.argtypes = [p, p, p, p, p]
+        lib.sparf_fused_mlp_pack.restype = i
+        lib.sparf_fused_mlp_forward.argtypes = [p, p, p, i, p, p, p, i, p]
         lib.sparf_fused_mlp_forward.restype = i
-        lib.sparf_fused_mlp_forward_packed.argtypes = [p, p, p, i, p, p, p]
-        lib.sparf_fused_mlp_forward_packed.restype = i
-        lib.sparf_fused_mlp_backward.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
+        lib.sparf_fused_mlp_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, p, p]
         lib.sparf_fused_mlp_backward.restype = i
         lib.sparf_cuda_error_string.argtypes = [i]
         lib.sparf_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[key] = lib
+    return _LIBS[key]

@@ -6,28 +6,35 @@ K1 replaces `_fwd_kernel` and K2 replaces `_bwd_kernel` of
 sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl); K3 replaces `_kernel`
 of sparf_tpu/ops/fused_mlp.py (the `pallas` impl). The kernels live in
 sparf_tpu_torch/csrc/fused_mlp.cu, whose header note says what bounds them on
-an H100 and what their design does about it.
+an H100 and what their design does about it: every product runs on the
+tensor cores in 3xTF32 (fp32 accuracy), with the weights laid out once per
+call as ready MMA B fragments.
 
   - `fused_mlp_forward_plain` is the eager chain.
   - `fused_mlp_backward_plain` is K2's algorithm in torch, not autograd:
     recompute the forward keeping each layer's input, take the ReLU masks
     from the next layer's input > 0, split the skip and view segments.
-  - `pack_weights` lays the weights out for K3: (in, out_pad) operands,
-    out_pad = 32 * ceil(out / 32); `fused_mlp_forward_packed_plain` is the
-    eager chain on them.
+  - `pack_fragments_plain` is the fragment layout (and `k_pack` its kernel):
+    per layer, per (k-step, n-tile) of 8 x 8, per lane, the float4
+    {hi(b0), hi(b1), lo(b0), lo(b1)} of the mma.sync B operand, hi = TF32
+    round-to-nearest of the weight, lo = the exact rest; the input
+    dimension padded per segment to a multiple of 8, zeros in the padding.
+  - `pack_weights` packs the weights for K3 once per call (`PackedWeights`);
+    `fused_mlp_forward_packed_plain` is the eager chain on them (hi + lo).
   - `FusedMLPFunction` launches K1 in forward (saving only the inputs and the
     weights) and K2 in backward. For a CUDA tensor it launches the kernel or
     raises; the plain versions are taken only for CPU tensors.
   - `nerf_apply_fused` takes K1/K2 when autograd will ask for a gradient,
     K3 otherwise.
   - `K1_LAUNCHES` / `K2_LAUNCHES` / `K3_LAUNCHES` count kernel launches (not
-    plain calls).
+    plain calls); `PACK_LAUNCHES` counts pack_weights' packing kernel.
 
 PE, the density activation and the sigmoid stay outside, in torch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -40,15 +47,17 @@ from sparf_tpu_torch.models.nerf_mlp import MLPConfig
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K3_LAUNCHES = 0
+PACK_LAUNCHES = 0
 
-K2_TILE = 16  # points per K2 tile (csrc/fused_mlp.cu kTile2)
+K2_TILE = 128  # points per K2 tile (csrc/fused_mlp.cu kTile2)
 
 _DESC_ERRORS = {
     -1: "between 1 and 16 layers with at least one trunk and one RGB layer",
-    -2: "every layer at most 288 outputs and 512 inputs",
+    -2: ("every layer at most 288 outputs and 320 inputs (each input segment padded to 8), "
+         "with ceil(out / 8) and the padded inputs / 8 at most 4 past a multiple of 8"),
     -3: "a chain whose widths match (layer 0 takes pts_enc, no skip at layer 0, 3 RGB outputs)",
     -4: "activations that fit the 227 KB of shared memory of one block",
-    -5: "at least one point and 1 <= n_blocks <= n_tiles",
+    -5: "at least one point",
 }
 
 
@@ -68,12 +77,11 @@ class FusedMeta:
         return cls(len(cfg.layers_feat), len(cfg.layers_rgb), tuple(cfg.skip), cfg.view_dep,
                    cfg.input_3d_dim, cfg.input_view_dim)
 
-    def dims(self, weights: Sequence[torch.Tensor], packed: bool = False) -> List[int]:
+    def dims(self, weights: Sequence[torch.Tensor]) -> List[int]:
         """[n_feat, n_rgb, d_in, d_view, view_dep, (out, in, skip) per layer]."""
         out = [self.n_feat, self.n_rgb, self.d_in, self.d_view, int(self.view_dep)]
         for li in range(self.n_feat + self.n_rgb):
-            W, b = weights[2 * li], weights[2 * li + 1]
-            n_out, n_in = (b.shape[0], W.shape[0]) if packed else W.shape
+            n_out, n_in = weights[2 * li].shape
             out += [int(n_out), int(n_in), int(li < self.n_feat and li in self.skip)]
         return out
 
@@ -83,21 +91,112 @@ def flat_weights(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [t for W, b in list(params["feat"]) + list(params["rgb"]) for t in (W, b)]
 
 
-def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> List[torch.Tensor]:
-    """K3's operands [W0p, b0, W1p, b1, ...]: each W (out, in) as W.T padded
-    with zero columns to (in, out_pad), out_pad = 32 * ceil(out / 32); b as
-    it is. The input rows keep the chain's concat order, [feat | pts_enc] at a
-    skip layer and [feat | view_enc] at the first RGB layer."""
-    weights = flat_weights(params)
+def _layers(dims: Sequence[int]):
+    """Per layer (out, in, w1, w2, k1p, kp, np8), as csrc/fused_mlp.cu build_desc."""
+    n_feat, n_rgb, d_in, d_view, view_dep = dims[:5]
+    pad8 = lambda x: -(-x // 8) * 8  # noqa: E731
+    for li in range(n_feat + n_rgb):
+        out, n_in, skip = dims[5 + 3 * li: 8 + 3 * li]
+        w2 = d_in if skip else (d_view if li == n_feat and view_dep else 0)
+        w1 = n_in - w2
+        yield out, n_in, w1, w2, pad8(w1), pad8(w1) + pad8(w2), pad8(out)
+
+
+@functools.lru_cache(maxsize=16)
+def _fragment_sources(dims: Tuple[int, ...], transposed: bool) -> List[torch.Tensor]:
+    """Per layer, for every float of its fragments, the flat index into W
+    (out, in) of the weight behind it, or -1 in the padding. Fragment (ks, nt)
+    of the B operand, lane (g, t) = (lane // 4, lane % 4), float c holds
+    B[ks*8 + t + 4 (c % 2), nt*8 + g] (hi for c < 2, lo for c >= 2); B = W^T
+    (rows over the padded input) for the forward, B = W for K2's g_x."""
+    out = []
+    for n_out, n_in, w1, w2, k1p, kp, np8 in _layers(dims):
+        KS, NT = (np8 // 8, kp // 8) if transposed else (kp // 8, np8 // 8)
+        ks = torch.arange(KS).view(-1, 1, 1, 1)
+        nt = torch.arange(NT).view(1, -1, 1, 1)
+        lane = torch.arange(32).view(1, 1, -1, 1)
+        c = torch.arange(4).view(1, 1, 1, -1)
+        row, col = ks * 8 + lane % 4 + 4 * (c % 2), nt * 8 + lane // 4
+        n, kpad = (row, col) if transposed else (col, row)
+        k = torch.where(kpad < k1p, torch.where(kpad < w1, kpad, -1),
+                        torch.where(kpad - k1p < w2, w1 + kpad - k1p, -1))
+        out.append(torch.where((n < n_out) & (k >= 0), n * n_in + k, -1).reshape(-1))
+    return out
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> nearest TF32 (10 mantissa bits, ties away from zero), as
+    cvt.rna.tf32.f32: add half a unit of the 13 dropped bits, then mask them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_fragments_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
+                         transposed: bool = False) -> torch.Tensor:
+    """The B fragments of every layer, one flat float32 tensor (k_pack's plain
+    version): hi = tf32_round(w) at c < 2, lo = w - hi at c >= 2 (exact; the
+    tensor core reads its top 19 bits)."""
+    parts = []
+    for src, W in zip(_fragment_sources(tuple(dims), transposed), weights[::2]):
+        src = src.to(W.device)
+        w = torch.where(src >= 0, W.detach().reshape(-1)[src.clamp(min=0)], 0.0).view(-1, 4)
+        hi = tf32_round(w)
+        lo = w - hi
+        parts.append(torch.cat([hi[:, :2], lo[:, 2:]], dim=1).reshape(-1))
+    return torch.cat(parts)
+
+
+def unpack_fragments(dims: Sequence[int], frag: torch.Tensor) -> List[torch.Tensor]:
+    """Each layer's W (out, in) back from its forward fragments, as hi + lo
+    (exactly W)."""
+    Ws, ofs = [], 0
+    for src, (n_out, n_in, *_) in zip(_fragment_sources(tuple(dims), False), _layers(dims)):
+        f4 = frag[ofs: ofs + src.numel()].view(-1, 4)
+        ofs += src.numel()
+        src2 = src.to(frag.device).view(-1, 4)[:, :2].reshape(-1)
+        vals = (f4[:, :2] + f4[:, 2:]).reshape(-1)
+        W = frag.new_zeros(n_out * n_in)
+        W[src2[src2 >= 0]] = vals[src2 >= 0]
+        Ws.append(W.view(n_out, n_in))
+    return Ws
+
+
+@dataclass
+class PackedWeights:
+    """K3's operands: the chain's dims, the forward B fragments of every layer
+    (flat, float32) and the biases."""
+
+    dims: Tuple[int, ...]
+    frag: torch.Tensor
+    biases: List[torch.Tensor]
+
+
+def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> PackedWeights:
+    """The weights laid out once for K3: on a CUDA device by the packing kernel
+    (k_pack), on the CPU by pack_fragments_plain; the same bits either way."""
+    global PACK_LAUNCHES
+    weights = [w.detach().contiguous() for w in flat_weights(params)]
     if len(weights) != 2 * (meta.n_feat + meta.n_rgb):
         raise ValueError(f"pack_weights: {len(weights) // 2} layers, meta says "
                          f"{meta.n_feat} + {meta.n_rgb}")
-    packed = []
-    for W, b in zip(weights[::2], weights[1::2]):
-        n_out = W.shape[0]
-        packed += [F.pad(W.detach().t(), (0, -(-n_out // 32) * 32 - n_out)).contiguous(),
-                   b.detach().contiguous()]
-    return packed
+    dims = tuple(meta.dims(weights))
+    dev = weights[0].device
+    if dev.type == "cpu":
+        frag = pack_fragments_plain(dims, weights)
+    elif dev.type == "cuda":
+        from sparf_tpu_torch.ops._build import load_library
+
+        _check_operands(weights[0], weights[1], weights)
+        lib = load_library()
+        c_dims = (ctypes.c_int * len(dims))(*dims)
+        frag = torch.empty(_sizes(lib, c_dims, "pack_weights")[1], dtype=torch.float32, device=dev)
+        rc = lib.sparf_fused_mlp_pack(c_dims, _ptrs(weights), frag.data_ptr(), None,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+        _raise_rc(lib, rc, "pack_weights (fragment packing)")
+        PACK_LAUNCHES += 1
+    else:
+        raise ValueError(f"pack_weights: no kernel for device {dev}")
+    return PackedWeights(dims, frag, weights[1::2])
 
 
 # ---------------------------------------------------------------------------
@@ -105,13 +204,8 @@ def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> List[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights, packed: bool = False):
-    """Forward keeping every layer's input; returns (raw_density, raw_rgb, xs).
-    packed: the weights come from pack_weights."""
-
-    def linear(x, W, b):
-        return torch.addmm(b, x, W[:, : b.shape[0]] if packed else W.t())
-
+def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
+    """Forward keeping every layer's input; returns (raw_density, raw_rgb, xs)."""
     xs = []
     feat = pts_enc
     raw_density = raw_rgb = None
@@ -119,7 +213,7 @@ def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights, packed: bool = F
         W, b = weights[2 * li], weights[2 * li + 1]
         x = torch.cat([feat, pts_enc], dim=-1) if li in meta.skip else feat
         xs.append(x)
-        z = linear(x, W, b)
+        z = torch.addmm(b, x, W.t())
         if li == meta.n_feat - 1:
             raw_density = z[:, 0]
             feat = F.relu(z[:, 1:])
@@ -131,7 +225,7 @@ def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights, packed: bool = F
         li = meta.n_feat + lr
         W, b = weights[2 * li], weights[2 * li + 1]
         xs.append(feat)
-        z = linear(feat, W, b)
+        z = torch.addmm(b, feat, W.t())
         if lr == meta.n_rgb - 1:
             raw_rgb = z[:, :3]
         else:
@@ -147,10 +241,13 @@ def fused_mlp_forward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: to
 
 
 def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
-                                   view_enc: torch.Tensor, packed: Sequence[torch.Tensor]
+                                   view_enc: torch.Tensor, packed: PackedWeights
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3's plain version: the eager chain on pack_weights' operands."""
-    raw_density, raw_rgb, _ = _forward_chain(meta, pts_enc, view_enc, packed, packed=True)
+    """K3's plain version: the eager chain on pack_weights' operands (each W
+    as the hi + lo of its fragments)."""
+    Ws = unpack_fragments(packed.dims, packed.frag)
+    weights = [t for W, b in zip(Ws, packed.biases) for t in (W, b)]
+    raw_density, raw_rgb, _ = _forward_chain(meta, pts_enc, view_enc, weights)
     return raw_density, raw_rgb
 
 
@@ -223,43 +320,58 @@ def _ptrs(weights):
     return (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
 
 
-def _dims(meta, weights, packed: bool = False):
-    dims = meta.dims(weights, packed)
+def _dims(meta, weights):
+    dims = meta.dims(weights)
     return (ctypes.c_int * len(dims))(*dims)
 
 
+def _sizes(lib, dims, which: str) -> List[int]:
+    """[n_params, n_frag_floats, n_part, x_total, g_total, n_splits]
+    (csrc sparf_fused_mlp_sizes)."""
+    sizes = (ctypes.c_int * 6)()
+    _raise_rc(lib, lib.sparf_fused_mlp_sizes(dims, sizes), which)
+    return list(sizes)
+
+
 def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
+    """Packs the weights into fragments (k_pack) and launches K1 on them."""
     global K1_LAUNCHES
     from sparf_tpu_torch.ops._build import load_library
 
     _check_operands(pts_enc, view_enc, weights)
     lib = load_library()
-    T = pts_enc.shape[0]
-    out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
-    stream = torch.cuda.current_stream(pts_enc.device).cuda_stream
+    T, dev = pts_enc.shape[0], pts_enc.device
+    dims = _dims(meta, weights)
+    frag = torch.empty(_sizes(lib, dims, "K1 (fused MLP forward)")[1], dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((T, 4), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.sparf_fused_mlp_forward(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T,
-                                     _dims(meta, weights), _ptrs(weights), stream)
+                                     dims, _ptrs(weights), frag.data_ptr(), 0, stream)
     _raise_rc(lib, rc, "K1 (fused MLP forward)")
     K1_LAUNCHES += 1
     return out[:, 0], out[:, 1:4]
 
 
-def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed):
+def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed: PackedWeights):
     global K3_LAUNCHES
     from sparf_tpu_torch.ops._build import load_library
 
-    _check_operands(pts_enc, view_enc, packed)
-    for W, b in zip(packed[::2], packed[1::2]):
-        if W.shape[1] != -(-b.shape[0] // 32) * 32 or W.data_ptr() % 16:
-            raise ValueError("K3 takes 16-byte aligned (in, 32 * ceil(out / 32)) weights "
-                             "from pack_weights")
+    _check_operands(pts_enc, view_enc, [packed.frag, *packed.biases])
     lib = load_library()
+    dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
+    if list(packed.dims[:5]) != [meta.n_feat, meta.n_rgb, meta.d_in, meta.d_view,
+                                 int(meta.view_dep)]:
+        raise ValueError("K3: packed weights of another chain")
+    if packed.frag.numel() != _sizes(lib, dims, "K3 (fused MLP forward, packed weights)")[1]:
+        raise ValueError("K3 takes the fragments of pack_weights")
     T = pts_enc.shape[0]
     out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
     stream = torch.cuda.current_stream(pts_enc.device).cuda_stream
-    rc = lib.sparf_fused_mlp_forward_packed(pts_enc.data_ptr(), view_enc.data_ptr(),
-                                            out.data_ptr(), T, _dims(meta, packed, packed=True),
-                                            _ptrs(packed), stream)
+    params = (ctypes.c_void_p * (2 * len(packed.biases)))(
+        *[p for b in packed.biases for p in (None, b.data_ptr())])
+    rc = lib.sparf_fused_mlp_forward(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T,
+                                     dims, params, packed.frag.data_ptr(), 1, stream)
     _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights)")
     K3_LAUNCHES += 1
     return out[:, 0], out[:, 1:4]
@@ -275,19 +387,21 @@ def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
     T = pts_enc.shape[0]
     dev = pts_enc.device
     dims = _dims(meta, weights)
-    n_params = lib.sparf_fused_mlp_n_params(dims)
-    _raise_rc(lib, min(n_params, 0), "K2 (fused MLP backward)")
-    n_tiles = -(-T // K2_TILE)
-    n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_params, n_frag, n_part, x_total, g_total, n_splits = _sizes(lib, dims,
+                                                                  "K2 (fused MLP backward)")
+    x_rows = -(-T // K2_TILE) * K2_TILE
     d_pts = torch.empty_like(pts_enc)
     d_view = torch.empty_like(view_enc)
     d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
-    partial = torch.empty(n_blocks * n_params, dtype=torch.float32, device=dev)
+    frag = torch.empty((2, n_frag), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
+    # every layer's input and g_z for the dW pass: ~17 KB per point at full width
+    workspace = torch.empty(x_rows * (x_total + g_total), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.sparf_fused_mlp_backward(
         pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
-        d_view.data_ptr(), d_params.data_ptr(), partial.data_ptr(), T, n_blocks, dims,
-        _ptrs(weights), stream)
+        d_view.data_ptr(), d_params.data_ptr(), frag[0].data_ptr(), frag[1].data_ptr(),
+        partial.data_ptr(), workspace.data_ptr(), T, dims, _ptrs(weights), stream)
     _raise_rc(lib, rc, "K2 (fused MLP backward)")
     K2_LAUNCHES += 1
     grads, ofs = [], 0

@@ -20,7 +20,7 @@ import os
 
 def build_env(args, cfg):
     """Machine-local paths: local settings / env vars, overridden by CLI args."""
-    from sparf_tpu.admin import env_settings
+    from sparf_tpu_torch.admin import env_settings
 
     env = env_settings()
     if args.workspace_dir:
@@ -37,7 +37,7 @@ def build_env(args, cfg):
 
 
 def run_training(args, extra_overrides):
-    from sparf_tpu.configs.config import parse_dotted_args
+    from sparf_tpu_torch.configs.config import parse_dotted_args
     from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
 
     cfg = build_config(args.train_module, args.train_name)

@@ -3,8 +3,8 @@ from __future__ import annotations
 
 from typing import Optional
 
-from sparf_tpu.configs.config import ConfigDict, override_options, save_options_file
-from sparf_tpu.configs.presets import apply_max_iter_schedule, get_config
+from sparf_tpu_torch.configs.config import ConfigDict, override_options, save_options_file
+from sparf_tpu_torch.configs.presets import apply_max_iter_schedule, get_config
 
 
 def build_config(train_module: str, train_name: str,

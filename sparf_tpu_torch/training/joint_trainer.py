@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from sparf_tpu.utils import alignment
+from sparf_tpu_torch.utils import alignment
 from sparf_tpu_torch.models import pose_params as pose_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.models.pose_params import PoseConfig

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-import sparf_tpu
 from sparf_tpu_torch.training.metrics import ieee_convs
 
 # (out_ch, in_ch, k, stride, pad) for AlexNet features; ReLU after each
@@ -35,7 +34,10 @@ _POOL_AFTER = {0, 1}
 _SHIFT = np.array([-0.030, -0.088, -0.188], np.float32).reshape(1, 3, 1, 1)
 _SCALE = np.array([0.458, 0.448, 0.450], np.float32).reshape(1, 3, 1, 1)
 
-DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(sparf_tpu.__file__)), "data")
+# the JAX package's data directory, found by path from the repository root:
+# its files are read, never imported
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "sparf_tpu", "data")
 
 
 def _init_random_params(seed: int = 0) -> Dict[str, np.ndarray]:

@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sparf_tpu.training.logging_utils import SummaryBoard, TensorboardWriter, Timer, create_logger
+from sparf_tpu_torch.training.logging_utils import SummaryBoard, TensorboardWriter, Timer, create_logger
 from sparf_tpu_torch.datasets import create_dataset
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.models.renderer import RenderConfig

@@ -1,8 +1,9 @@
 """The port's entry points and its import boundary: the CLI trains 10 debug
 iterations on the CPU, with validation and snapshots, resumes, and evaluates;
 the eval entry point writes the means with and without test-time pose
-refinement; sparf_tpu_torch imports without JAX; asking for a CUDA device that
-is not there raises instead of falling back."""
+refinement; sparf_tpu_torch imports and runs without JAX and without the JAX
+package; asking for a CUDA device that is not there raises instead of falling
+back."""
 import json
 import os
 import subprocess
@@ -74,24 +75,50 @@ def test_eval_entry_after_cli_training(tmp_path):
         resumed.evaluate_full(plot=True)
 
 
+# blocks JAX and the JAX package in a fresh interpreter: an import of either,
+# eager or lazy, then fails
+_BLOCK = ("import sys\n"
+          "for name in ('jax', 'jaxlib', 'flax', 'optax', 'sparf_tpu'):\n"
+          "    sys.modules[name] = None\n")
+
+
 def test_package_imports_without_jax():
-    code = (
-        "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
-        "    sys.modules[name] = None\n"
+    code = _BLOCK + (
+        "import pkgutil, importlib\n"
         "import sparf_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(sparf_tpu_torch.__path__, 'sparf_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "for m in ('training.joint_trainer', 'training.metrics', 'training.lpips',\n"
-        "          'training.checkpointing', 'eval'):\n"
+        "          'training.checkpointing', 'eval', 'configs.presets', 'admin',\n"
+        "          'datasets.dtu', 'datasets.llff', 'utils.alignment'):\n"
         "    assert 'sparf_tpu_torch.' + m in mods, mods\n"
         "print(len(mods))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 30
+
+
+def test_entry_points_run_without_jax_package(tmp_path):
+    """The tiny CPU training run and its evaluation, with JAX and the JAX
+    package blocked, so that the lazy imports inside functions are covered."""
+    args = ["joint_pose_nerf_training/synthetic", "sparf", "--scene", "spheres", "--debug", "True",
+            "--device", "cpu", "--workspace_dir", str(tmp_path), *TINY, "--optim.test_iter=2"]
+    code = _BLOCK + (
+        "from sparf_tpu_torch import eval as teval, run_trainval\n"
+        f"trainer = run_trainval.main({args!r})\n"
+        "assert trainer.state.iteration == 10\n"
+        f"res = teval.main(['--ckpt_dir', trainer.workspace, '--device', 'cpu', "
+        f"'--out_dir', {str(tmp_path / 'ev')!r}, '--expname', 'e'])\n"
+        "print(res['latest']['w_test_optim']['lpips_tag'])\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "lpips(selfsup)"
+    assert os.path.exists(tmp_path / "ev" / "e.json")
 
 
 def test_cuda_device_without_gpu_raises():

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, interpret_pallas, t, to_np
+from torch_parity import (assert_close, interpret_pallas, mlp_chain, mm_3xtf32, mm_tf32, t,
+                          tf32, to_np)
 
 from sparf_tpu.models import nerf_mlp as jmlp
 from sparf_tpu_torch.convert import nerf_params_from_jax
@@ -115,20 +116,44 @@ FULL = dict(barf_c2f=(0.3, 0.7))  # the 8x256 arch with skip at 4
 
 @pytest.mark.parametrize("view_dep", [True, False])
 def test_pack_weights_round_trips(view_dep):
+    """pack_weights lays each W out as mma.sync B fragments of hi = TF32(w),
+    lo = w - hi; hi + lo gives W back exactly, and the fragment (ks, nt),
+    lane (g, t), float c holds B[ks*8 + t + 4 (c % 2), nt*8 + g]."""
     cfg = tmlp.MLPConfig(view_dep=view_dep)
     meta = fm.FusedMeta.from_cfg(cfg)
     params = tmlp.init_nerf_params(torch.Generator().manual_seed(1), cfg)
     weights = fm.flat_weights(params)
     packed = fm.pack_weights(params, meta)
-    assert meta.dims(packed, packed=True) == meta.dims(weights)
-    for (W, b), (Wp, bp) in zip(zip(weights[::2], weights[1::2]), zip(packed[::2], packed[1::2])):
-        n_out, n_in = W.shape
-        assert Wp.shape == (n_in, -(-n_out // 32) * 32) and Wp.is_contiguous()
-        assert torch.equal(Wp[:, :n_out].t(), W) and torch.equal(bp, b)
-        assert not Wp[:, n_out:].any()
-    # the skip layer keeps its [feat | pts_enc] rows, the RGB head [feat | view_enc]
-    assert packed[8].shape == (256 + 63, 256)
-    assert packed[16].shape == ((256 + 27 if view_dep else 256), 128)
+    assert list(packed.dims) == meta.dims(weights)
+    assert all(torch.equal(b, w) for b, w in zip(packed.biases, weights[1::2]))
+    f4 = packed.frag.view(-1, 4)
+    assert torch.equal(fm.tf32_round(f4[:, :2]), f4[:, :2])  # the high parts are TF32 values
+    assert float(f4[:, 2:].abs().max()) <= 2.0 ** -11 * float(f4[:, :2].abs().max())
+    for W, Wu in zip(weights[::2], fm.unpack_fragments(packed.dims, packed.frag)):
+        assert torch.equal(Wu, W)
+    # layer 0 (63 inputs padded to 64, 256 outputs): k-step 7, n-tile 3, lane 9 (g=2, t=1)
+    frag0 = f4[: (64 // 8) * (256 // 8) * 32].view(8, 32, 32, 4)
+    w = weights[0][3 * 8 + 2, 7 * 8 + 1]
+    assert frag0[7, 3, 9, 0] == fm.tf32_round(w) and frag0[7, 3, 9, 2] == w - fm.tf32_round(w)
+    assert frag0[7, 3, 11, 1] == 0  # lane 11: t=3, row 7*8 + 3 + 4 = 63 is padding
+    # the transposed set (K2's g_x) holds the same values in B = W order
+    ft = fm.pack_fragments_plain(packed.dims, weights, transposed=True)
+    assert ft.numel() == packed.frag.numel()
+    assert torch.equal(torch.sort(ft).values, torch.sort(packed.frag).values)
+    # the skip layer (4) keeps its [feat | pts_enc] order: k-step 32 starts pts_enc
+    ofs = sum(kp // 8 * np8 // 8 * 128 for *_, kp, np8 in list(fm._layers(packed.dims))[:4])
+    frag4 = packed.frag[ofs: ofs + 320 // 8 * 256 // 8 * 128].view(40, 32, 32, 4)
+    w = weights[8][0 * 8 + 0, 256]
+    assert frag4[32, 0, 0, 0] == fm.tf32_round(w)
+
+
+def test_tf32_round_is_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -11 + 2 ** -20, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -12, 3.14159265])
+    r = fm.tf32_round(x)
+    assert r.tolist()[:5] == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0]
+    assert abs(float(r[5]) - 3.14159265) <= 2 ** -11 * 4
+    assert torch.equal(fm.tf32_round(r), r)
 
 
 @pytest.mark.parametrize("view_dep", [True, False])
@@ -193,3 +218,63 @@ def test_nerf_apply_takes_k3_exactly_when_nothing_requires_grad(monkeypatch):
         assert which == "K1/K2"
         assert_close(out["rgb_samples"], ref["rgb_samples"], atol=1e-6)
         assert_close(out["density_samples"], ref["density_samples"], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the numerics of the tensor-core kernels: 3xTF32
+# ---------------------------------------------------------------------------
+
+
+def _full_width_case(view_dep, T=512, seed=0):
+    """The 8x256 chain with numpy-made weights, inputs and output gradients."""
+    cfg = tmlp.MLPConfig(view_dep=view_dep, barf_c2f=(0.4, 0.7))
+    meta = fm.FusedMeta.from_cfg(cfg)
+    rng = np.random.RandomState(seed)
+    weights = []
+    for W in fm.flat_weights(tmlp.init_nerf_params(torch.Generator().manual_seed(seed), cfg))[::2]:
+        n_out, n_in = W.shape
+        weights += [t(rng.normal(size=(n_out, n_in)) * np.sqrt(2.0 / n_in)),
+                    t(rng.normal(size=n_out) * 0.1)]
+    pts_enc = tmlp.encode_points(cfg, t(rng.normal(size=(T, 3)) * 1.5), 0.55)
+    rays = tmlp.unit_rays(t(rng.normal(size=(T, 3))))
+    view_enc = tmlp.encode_views(cfg, rays, 0.55) if view_dep else torch.zeros(T, 0)
+    return meta, pts_enc, view_enc, weights, t(rng.normal(size=T)), t(rng.normal(size=(T, 3)))
+
+
+def _rel(a, b):
+    return float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30) if b.numel() else 0.0
+
+
+@pytest.mark.parametrize("view_dep", [True, False])
+def test_3xtf32_products_meet_the_kernels_bounds(view_dep):
+    """The chain with every product in 3xTF32 (hi*hi + hi*lo + lo*hi) against
+    the float64 chain at the full 8x256 width, T=512: forward within 1e-5 of
+    the largest output, every gradient within 1e-4 of its own largest
+    magnitude, the bounds tests/test_ops.py holds the Pallas kernels to (and
+    chip_smoke.py, looser, the CUDA kernels). Points with a pre-activation
+    within 1e-4 of 0 get no output gradient: their ReLU masks may flip
+    between two roundings. One TF32 pass misses the forward bound."""
+    meta, pts_enc, view_enc, weights, g_d, g_rgb = _full_width_case(view_dep)
+    d64 = [x.double() for x in (pts_enc, view_enc, *weights)]
+    dens_r, rgb_r, _, zmin = mlp_chain(meta, d64[0], d64[1], d64[2:], g_d.double(),
+                                       g_rgb.double(), torch.matmul)
+    keep = (zmin >= 1e-4).float()
+    assert 0.3 < float(keep.mean()) < 1.0
+    g_d, g_rgb = g_d * keep, g_rgb * keep[:, None]
+    _, _, ref, _ = mlp_chain(meta, d64[0], d64[1], d64[2:], g_d.double(), g_rgb.double(),
+                             torch.matmul)
+    dens, rgb, grads, _ = mlp_chain(meta, pts_enc, view_enc, weights, g_d, g_rgb, mm_3xtf32)
+    assert max(_rel(dens, dens_r), _rel(rgb, rgb_r)) <= 1e-5
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        assert _rel(g, r) <= 1e-4, i
+    dens1, rgb1, grads1, _ = mlp_chain(meta, pts_enc, view_enc, weights, g_d, g_rgb, mm_tf32)
+    assert max(_rel(dens1, dens_r), _rel(rgb1, rgb_r)) > 1e-5
+    assert max(_rel(g, r) for g, r in zip(grads1, ref)) > 1e-4
+
+
+def test_tf32_emulations_agree():
+    """The test emulation's rounding and the port's (pack_fragments_plain's),
+    two implementations of cvt.rna.tf32.f32, give the same bits."""
+    scale = 10.0 ** np.random.RandomState(1).randint(-20, 20, 4096)
+    x = torch.from_numpy((np.random.RandomState(0).normal(size=4096) * scale).astype(np.float32))
+    assert torch.equal(tf32(x), fm.tf32_round(x))

@@ -98,3 +98,82 @@ def patch_jax_draws(monkeypatch, modules, seed: int = 0) -> NumpyDrawsJax:
     for m in modules:
         monkeypatch.setattr(m, "jax", shim)
     return shim
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32: the products the fused-MLP kernels run on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by mantissa masking, round to nearest (ties away from
+    zero): add half a unit of the 13 dropped bits, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value a tensor core reads from a float32 register: the 13 low
+    mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels form it: x = hi + lo with hi = tf32(x) and lo =
+    x - hi, read by the tensor core as tf32_truncated(lo); hi*hi + hi*lo +
+    lo*hi, each TF32 product exact in float32, summed in float32 (the lo*lo
+    term is dropped)."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32_truncated(a - ah), tf32_truncated(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass (what the tensor cores give without the split)."""
+    return tf32(a) @ tf32(b)
+
+
+def mlp_chain(meta, pts_enc, view_enc, weights, g_density, g_rgb, mm):
+    """The fused chain's outputs and K2's gradients (recompute, masks from the
+    next layer's input > 0), every product through mm. Returns (raw_density,
+    raw_rgb, [d_pts, d_view, dW0, db0, ...], min |pre-activation| per point)."""
+    n_layers = meta.n_feat + meta.n_rgb
+    xs, zmin = [], None
+    feat = pts_enc
+    for li in range(n_layers):
+        W, b = weights[2 * li], weights[2 * li + 1]
+        if li < meta.n_feat and li in meta.skip:
+            feat = torch.cat([feat, pts_enc], -1)
+        if li == meta.n_feat and meta.view_dep:
+            feat = torch.cat([feat, view_enc], -1)
+        xs.append(feat)
+        z = mm(feat, W.t()) + b
+        if li == n_layers - 1:
+            raw_rgb = z[:, :3]
+            break
+        if li == meta.n_feat - 1:
+            raw_density, z = z[:, 0], z[:, 1:]
+        m = z.abs().amin(1)
+        zmin = m if zmin is None else torch.minimum(zmin, m)
+        feat = torch.relu(z)
+    d_pts, d_view = torch.zeros_like(pts_enc), torch.zeros_like(view_enc)
+    grads = [None] * (2 * n_layers)
+    g_z = g_rgb
+    for li in range(n_layers - 1, -1, -1):
+        x = xs[li]
+        grads[2 * li], grads[2 * li + 1] = mm(g_z.t(), x), g_z.sum(0)
+        g_x = mm(g_z, weights[2 * li])
+        if li == 0:
+            d_pts = d_pts + g_x
+            break
+        w2 = (meta.d_in if li < meta.n_feat and li in meta.skip else
+              meta.d_view if li == meta.n_feat and meta.view_dep else 0)
+        w1 = x.shape[1] - w2
+        if li < meta.n_feat and li in meta.skip:
+            d_pts = d_pts + g_x[:, w1:]
+        elif li == meta.n_feat and meta.view_dep:
+            d_view = g_x[:, w1:]
+        g_z = g_x[:, :w1] * (x[:, :w1] > 0)
+        if li == meta.n_feat:
+            g_z = torch.cat([g_density[:, None], g_z], -1)
+    return raw_density, raw_rgb, [d_pts, d_view, *grads], zmin
