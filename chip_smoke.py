@@ -17,18 +17,33 @@ Phases, one line each; any failure raises and the process exits non-zero:
      must give the same bits; median times at T = 262,144 beside each
      kernel's bound (fp32 cores and 3xTF32 tensor cores) and its plain
      cuBLAS chain;
-  4. slice: one step of the tiny sparf config on the card against the same
-     step on the CPU (plain versions, same parameters and draws), in both
-     stages; then the SPARF joint pose+NeRF trainer built through
-     define_trainer on device "cuda" at the bench.py full shape, 3+ steps in
-     the joint coarse stage and 3+ in the fine stage, with the kernels'
-     launch counts of those steps (the depth-consistency visibility pass
-     runs K3);
-  5. eval-check: with cuDNN TF32 at PyTorch's default (on), evaluate_full of
+  4. slice-check: one step of the tiny sparf config on the card against the
+     same step on the CPU (plain versions, same parameters and draws), in
+     both stages;
+  5. matcher-check: with TF32 on for cuBLAS and cuDNN, the port's matchers
+     on the card against the same calls on the CPU, on the 300x400 3-view
+     synthetic scene: the PDC-Net forward with the bundled weights (max
+     |delta mapping| in px at /2, max |delta p_r|) and its full-size flows,
+     find_fundamental_ransac on that pair's confident matches with one
+     generator seed (inlier agreement), SPSG (matched-pixel agreement) and
+     ZNCC stage 1 (agreement on confident pixels and on the pool masks);
+  6. matcher: build_correspondence_pools for the 6 ordered pairs of that
+     scene with raw PDC-Net (bundled weights) and with SPSG: seconds of
+     matching, verification and pool building, pairs kept, pool sizes,
+     flow quality against GT (EPE, PCK-1/3, all and in-confidence); then
+     the steps/s of a short self_supervised_adapt run;
+  7. slice: the SPARF joint pose+NeRF trainer built through define_trainer
+     on device "cuda" at the bench.py full shape, on correspondence pools
+     from raw PDC-Net (not GT depth), 3+ steps in the joint coarse stage and
+     3+ in the fine stage, with the kernels' launch counts of those steps
+     (the depth-consistency visibility pass runs K3), and one timed
+     refresh_correspondence_pools (the mid-training rematch); its pools,
+     built with TF32 off, must equal the matcher phase's (TF32 on);
+  8. eval-check: with cuDNN TF32 at PyTorch's default (on), evaluate_full of
      the tiny config with test-time pose refinement on the card against the
      same call on the CPU (same state, replayed pixel draws); a snapshot
      saved on the card loads on the CPU with the same bits;
-  6. eval: the port's eval.run_eval on the full-shape trainer after its
+  9. eval: the port's eval.run_eval on the full-shape trainer after its
      fine-stage steps: one 300x400 test view, with and without 100 steps of
      test-time refinement; seconds per full-image render and per
      refinement, launch counts, metrics.
@@ -469,7 +484,167 @@ def check_eval_cuda_vs_cpu() -> None:
                         f"bit-identical ({len(pairs)} tensors)")
 
 
-def run_slice(steps: int) -> dict:
+# the matchers' card and its CPU counterpart in the matcher-check
+CARD = "cuda"
+DEVICES = {"card": CARD, "cpu": "cpu"}
+# tolerances of the matcher-check (card with TF32 on against the CPU; the
+# matchers switch TF32 off themselves): PDC-Net's /2 mapping in px and its
+# p_r, and the same after the full-size resize (correspondences in px, p_r)
+# of compute_pdcnet_flow_of_combi_list; the share of RANSAC inliers and SPSG matched pixels on which the two
+# devices agree; for ZNCC stage 1 the share of confident pixels (conf > 0.5
+# on either device) matched within 1e-3 px on both, and the share of pixels
+# on which the pool masks (conf >= 0.95) agree. ZNCC's argmax flips between
+# near-equal scores under another summation order, and on this scene's
+# texture-less regions a flip at a coarse level carries down the pyramid;
+# those pixels score low and leave the pools, so the share of all pixels
+# matched elsewhere is reported, not bounded (0.0426 on an H100 against this
+# CPU code, where 0.0111 of the 1.4% confident pixels moved; the ZNCC bound
+# below was set from that reading, the pool-mask bound before it).
+MATCHER_TOL = {"mapping_px": 1e-2, "p_r": 1e-3, "corres_px": 2e-2, "p_r_full": 1e-3,
+               "ransac_agreement": 0.99,
+               "spsg_agreement": 0.99, "zncc_agreement": 0.98, "zncc_pool_agreement": 0.999}
+FULL_SCENE = dict(env={}, scene="spheres", synthetic=dict(H=300, W=400, n_train=3, n_test=1))
+MATCHER_POOLS = dict(FULL_SCENE, use_gt_correspondences=False, pdcnet_geometry_refine=False,
+                     min_nbr_matches=100)
+
+
+def full_scene():
+    from sparf_tpu_torch.datasets import create_dataset
+    from sparf_tpu_torch.training.define_trainer import build_config
+
+    return create_dataset(build_config("joint_pose_nerf_training/synthetic", "sparf",
+                                       FULL_SCENE), "train")
+
+
+def check_matchers_cuda_vs_cpu(scene) -> dict:
+    """The matchers on the card (TF32 on globally) against the CPU, on the
+    300x400 scene."""
+    import numpy as np
+    import torch
+
+    from sparf_tpu_torch.models import flow_net, pdcnet, sparse_matcher
+    from sparf_tpu_torch.utils import imgproc
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    imgs = np.asarray(scene["image"])
+    pair = np.array([[0], [1]], np.int32)
+    out = {}
+
+    gpu, cpu = (pdcnet.load_weights_npz(pdcnet.BUNDLED_WEIGHTS, d) for d in (CARD, "cpu"))
+    t_img, s_img = torch.as_tensor(imgs[:1]), torch.as_tensor(imgs[1:2])
+    with torch.no_grad():
+        og, oc = gpu(t_img.to(CARD), s_img.to(CARD)), cpu(t_img, s_img)
+        out["pdcnet_forward_ms"] = median_ms(lambda: gpu(t_img.to(CARD), s_img.to(CARD)))
+    out["mapping_px"] = float((og["mapping"].cpu() - oc["mapping"]).abs().max())
+    out["p_r"] = float((og["p_r"].cpu() - oc["p_r"]).abs().max())
+
+    flows = {k: pdcnet.compute_pdcnet_flow_of_combi_list(imgs, pair, model=m, device=d)
+             for (k, d), m in zip(DEVICES.items(), (gpu, cpu))}
+    corres, conf = flows["card"]
+    out["corres_px"] = float(np.abs(corres - flows["cpu"][0]).max())
+    out["p_r_full"] = float(np.abs(conf - flows["cpu"][1]).max())
+    mask = flow_net.get_mask_valid_from_conf_map(conf, corres, 0.95)[0, 0]
+    ys, xs = np.where(mask)
+    pts1 = np.stack([xs, ys], -1).astype(np.float64)
+    pts2 = corres[0, :, ys, xs].astype(np.float64)
+    masks, secs = {}, {}
+    for key, dev in DEVICES.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, masks[key] = imgproc.find_fundamental_ransac(
+            pts1, pts2, 1.0, 0.999, generator=torch.Generator().manual_seed(0), device=dev)
+        secs[key] = time.perf_counter() - t0
+    out["ransac_agreement"] = float((masks["card"] == masks["cpu"]).mean())
+    out["ransac_points"], out["ransac_inliers"] = len(pts1), int(masks["card"].sum())
+    out["ransac_s"] = secs["card"]
+
+    combi = flow_net.get_combi_list(3, "all")[:, :2]
+    sp = {k: sparse_matcher.compute_spsg_flow_of_combi_list(imgs, combi, device=d)
+          for k, d in DEVICES.items()}
+    m_g, m_c = sp["card"][1] > 0, sp["cpu"][1] > 0
+    out["spsg_agreement"] = float((m_g & m_c).sum() / max(int((m_g | m_c).sum()), 1))
+    out["spsg_matches"] = int(m_g.sum())
+    both = np.broadcast_to(m_g & m_c, sp["cpu"][0].shape)
+    out["spsg_corres_px"] = float(np.abs(sp["card"][0] - sp["cpu"][0])[both].max(initial=0.0))
+
+    zn = {k: flow_net.compute_zncc_flow_of_combi_list(imgs, pair, device=d)
+          for k, d in DEVICES.items()}
+    moved = np.linalg.norm(zn["card"][0] - zn["cpu"][0], axis=1) > 1e-3
+    confident = (zn["card"][1][:, 0] > 0.5) | (zn["cpu"][1][:, 0] > 0.5)
+    out["zncc_moved_all"] = float(moved.mean())
+    out["zncc_confident_share"] = float(confident.mean())
+    out["zncc_agreement"] = 1.0 - float(moved[confident].mean())
+    out["zncc_pool_agreement"] = float(((zn["card"][1] >= 0.95) == (zn["cpu"][1] >= 0.95)).mean())
+
+    bad = [k for k in ("mapping_px", "p_r", "corres_px", "p_r_full")
+           if not out[k] <= MATCHER_TOL[k]]
+    bad += [k for k in ("ransac_agreement", "spsg_agreement", "zncc_agreement",
+                        "zncc_pool_agreement") if not out[k] >= MATCHER_TOL[k]]
+    phase("matcher-check", f"TF32 on: PDC-Net forward (bundled weights, pair 0-1 at 300x400) "
+                           f"max |d mapping| {out['mapping_px']:.3g} px, max |d p_r| "
+                           f"{out['p_r']:.3g}, {out['pdcnet_forward_ms']:.3f} ms on the card; "
+                           f"full-size flows max |d corres| {out['corres_px']:.3g} px, max "
+                           f"|d p_r| {out['p_r_full']:.3g}; "
+                           f"RANSAC on {out['ransac_points']} confident matches: inlier "
+                           f"agreement {out['ransac_agreement']:.5f} ({out['ransac_inliers']} "
+                           f"inliers, {secs['card']:.3f} s card, {secs['cpu']:.3f} s cpu); SPSG "
+                           f"matched-pixel agreement {out['spsg_agreement']:.4f} "
+                           f"({out['spsg_matches']} matches in 2 pairs, corres "
+                           f"{out['spsg_corres_px']:.3g} px); ZNCC stage 1 (pair 0-1 both ways): "
+                           f"{out['zncc_moved_all']:.5f} of all pixels matched elsewhere, "
+                           f"agreement {out['zncc_agreement']:.5f} on the "
+                           f"{out['zncc_confident_share']:.4f} with conf > 0.5, pool masks "
+                           f"(conf >= 0.95) agree on {out['zncc_pool_agreement']:.5f}")
+    if bad:
+        raise AssertionError(f"matcher-check: {bad} outside {MATCHER_TOL}: {out}")
+    return out
+
+
+def run_matcher_phase(scene, adapt_steps: int = 20) -> dict:
+    """The full correspondence precompute on the card for raw PDC-Net and SPSG,
+    then the rate of self_supervised_adapt."""
+    import torch
+
+    from sparf_tpu_torch.models import pdcnet
+    from sparf_tpu_torch.training.define_trainer import build_config
+    from sparf_tpu_torch.training.losses import corres
+    from sparf_tpu_torch.utils.draws import Draws
+
+    out = {}
+    for backend in ("PDCNet", "SPSG"):
+        cfg = build_config("joint_pose_nerf_training/synthetic", "sparf",
+                           dict(MATCHER_POOLS, flow_backbone=backend))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pools = corres.build_correspondence_pools(cfg, scene, device=CARD)
+        total = time.perf_counter() - t0
+        quality = corres.compute_flow_metrics(pools, scene)
+        counts = [int(c) for c in pools.get("pool_count", [])]
+        out[backend] = {"seconds": dict(pools["seconds"], total=total),
+                        "pairs_kept": int(pools["n_pairs"]), "pool_sizes": counts,
+                        "flow_quality": quality}
+        phase("matcher", f"{backend} -> {pools['backend']}: {total:.3f} s for 6 ordered pairs ("
+                         + ", ".join(f"{k} {v:.3f} s" for k, v in pools["seconds"].items())
+                         + f"); {pools['n_pairs']} pairs kept (> {cfg.min_nbr_matches} px), pool "
+                         f"sizes {counts}; vs GT: "
+                         + " ".join(f"{k}={v:.4f}" for k, v in sorted(quality.items())))
+    if out["PDCNet"]["pairs_kept"] == 0:
+        raise AssertionError("matcher: raw PDC-Net kept no pair")
+
+    model = pdcnet.load_weights_npz(pdcnet.BUNDLED_WEIGHTS, CARD)
+    draws = Draws(1, CARD)
+    pdcnet.self_supervised_adapt(model, scene["image"], draws, n_steps=1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pdcnet.self_supervised_adapt(model, scene["image"], draws, n_steps=adapt_steps)
+    torch.cuda.synchronize()
+    out["adapt_steps_per_s"] = adapt_steps / (time.perf_counter() - t0)
+    phase("matcher", f"self_supervised_adapt at 300x400, batch 2: "
+                     f"{out['adapt_steps_per_s']:.3f} steps/s over {adapt_steps} steps")
+    return out
+
+
+def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
     import dataclasses
 
     import torch
@@ -478,14 +653,24 @@ def run_slice(steps: int) -> dict:
     from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
 
     cfg = build_config("joint_pose_nerf_training/synthetic", "sparf", dict(
-        env={}, scene="spheres", max_iter=100000, use_gt_correspondences=True,
-        min_nbr_matches=100, synthetic=dict(H=300, W=400, n_train=3, n_test=1)))
+        MATCHER_POOLS, max_iter=100000, flow_backbone="PDCNet"))
     workspace = tempfile.mkdtemp(prefix="sparf_torch_smoke_")
     t0 = time.perf_counter()
     trainer = define_trainer(cfg, workspace=workspace, device="cuda", save_option=False)
+    pools = trainer.corres_pools
+    if pools.get("backend") != "pdcnet_jax" or pools["n_pairs"] == 0:
+        raise AssertionError(f"slice: no PDC-Net pools ({pools.get('backend')}, "
+                             f"{pools['n_pairs']} pairs)")
+    sizes = [int(c) for c in pools["pool_count"]]
+    if matcher_pool_sizes is not None and sizes != matcher_pool_sizes:
+        # same scene, seed and card; the matcher phase ran with TF32 on, this
+        # one with it off: the matchers must not depend on the global setting
+        raise AssertionError(f"slice: pool sizes {sizes} differ from the matcher phase's "
+                             f"{matcher_pool_sizes}")
     phase("slice", f"trainer built in {time.perf_counter() - t0:.1f} s "
                    f"({trainer.n_train_views} views {trainer.H}x{trainer.W}, "
-                   f"{trainer.corres_pools['n_pairs']} correspondence pairs)")
+                   f"{pools['n_pairs']} correspondence pairs from {pools['backend']}, "
+                   f"pool sizes {sizes}, equal to the matcher phase's under TF32 on)")
     ratio = float(cfg.ratio_end_joint_nerf_pose_refinement)
     stages = (("joint_coarse", 0), ("fine", int(cfg.max_iter * (ratio + 0.05))))
     result = {}
@@ -526,6 +711,15 @@ def run_slice(steps: int) -> dict:
     result["launches"] = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
                           "pack": fm.PACK_LAUNCHES}
     trainer.state = state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.refresh_correspondence_pools()
+    torch.cuda.synchronize()
+    result["refresh_s"] = time.perf_counter() - t0
+    if trainer.corres_pools["n_pairs"] == 0:
+        raise AssertionError("slice: the rematch kept no pair")
+    phase("slice", f"refresh_correspondence_pools (rematch with the current poses as prior): "
+                   f"{result['refresh_s']:.3f} s, {trainer.corres_pools['n_pairs']} pairs")
     result["trainer"] = trainer
     return result
 
@@ -624,12 +818,18 @@ def main() -> int:
         print(json.dumps(checks))
         return 0
 
-    # 4. slice: the tiny step on the card against the CPU, then the full shape
+    # 4. slice-check: the tiny step on the card against the CPU
     check_step_cuda_vs_cpu()
-    sl = run_slice(steps=3)
-    # 5. eval-check: the tiny evaluation on the card against the CPU
+    # 5.-6. matcher-check and matcher, TF32 on (the matchers switch it off)
+    scene = full_scene()
+    mc = check_matchers_cuda_vs_cpu(scene)
+    mp = run_matcher_phase(scene)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # 7. slice: the full shape on PDC-Net pools
+    sl = run_slice(steps=3, matcher_pool_sizes=mp["PDCNet"]["pool_sizes"])
+    # 8. eval-check: the tiny evaluation on the card against the CPU
     check_eval_cuda_vs_cpu()
-    # 6. eval: the full-shape trainer's state through the eval entry point
+    # 9. eval: the full-shape trainer's state through the eval entry point
     ev = run_eval_phase(sl["trainer"])
 
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
@@ -649,7 +849,8 @@ def main() -> int:
             "bound_share": b["bound_ms"] / checks["ms"][k], "bound_fp32_ms": b["bound_fp32_ms"]})
     print(json.dumps({"kernels": kernels,
                       "it_per_sec": {k: sl[k] for k in ("joint_coarse", "fine")},
-                      "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]}}))
+                      "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]},
+                      "matcher": {"check": mc, "pools": mp, "refresh_s": sl["refresh_s"]}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,8 @@
 """Conversion between the JAX package's parameter pytrees (as numpy arrays)
 and the port's tensors. Both keep W in (out, in) layout, so values map one to
 one: {"coarse": {"feat": [(W, b)], "rgb": [(W, b)]}, "fine": ...} for the
-NeRF, {name: (N, d)} for the pose embeddings."""
+NeRF, {name: (N, d)} for the pose embeddings, {layer: [W, b]} for PDC-Net
+(whose torch module names them `<layer>__0` and `<layer>__1`)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -43,3 +44,22 @@ def pose_params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, torc
 
 def pose_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return _to_numpy(params)
+
+
+def pdcnet_params_from_jax(params: Dict[str, Any], device="cpu"):
+    """pdcnet_jax params {layer: [W (OIHW), b]} -> a models.pdcnet.PDCNet."""
+    from sparf_tpu_torch.models.pdcnet import PDCNet
+
+    model = PDCNet(generator=torch.Generator().manual_seed(0))
+    model.load_state_dict({f"{name}__{i}": torch.as_tensor(np.array(a, dtype=np.float32))
+                           for name, wb in params.items() for i, a in enumerate(wb)})
+    return model.to(device)
+
+
+def pdcnet_params_to_numpy(model) -> Dict[str, list]:
+    """A PDCNet -> pdcnet_jax's {layer: [W, b]} layout, numpy leaves."""
+    out: Dict[str, list] = {}
+    for key, value in model.state_dict().items():
+        name, idx = key.rsplit("__", 1)
+        out.setdefault(name, [None, None])[int(idx)] = value.detach().cpu().numpy()
+    return out

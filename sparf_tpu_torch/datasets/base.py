@@ -17,6 +17,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from sparf_tpu_torch.utils import imgproc
+
 Scene = Dict[str, Any]
 
 
@@ -29,10 +31,9 @@ def resize_image_w_intrinsics(
     """Resize (H,W,3) float image; scale intrinsics rows 0/1 accordingly.
 
     new_size is (H_new, W_new); sizes are rounded down to even numbers
-    (reference data_utils resize semantics).
+    (reference data_utils resize semantics). Area resampling (cv2.INTER_AREA's,
+    through utils.imgproc).
     """
-    import cv2
-
     H, W = image.shape[:2]
     if new_size is not None:
         H_new, W_new = int(new_size[0]), int(new_size[1])
@@ -42,7 +43,7 @@ def resize_image_w_intrinsics(
         return image, intr
     H_new -= H_new % 2
     W_new -= W_new % 2
-    resized = cv2.resize(image, (W_new, H_new), interpolation=cv2.INTER_AREA)
+    resized = imgproc.resize_area(image, (H_new, W_new))
     if intr is not None:
         intr = intr.copy().astype(np.float32)
         intr[0] *= W_new / W
@@ -88,8 +89,6 @@ def preprocess_image_and_intrinsics(
 
     (reference datasets/base.py:148-210)
     """
-    import cv2
-
     image = np.asarray(image).astype(np.float32)
     if crop_ratio is not None:
         H, W = image.shape[:2]
@@ -107,10 +106,7 @@ def preprocess_image_and_intrinsics(
             if e is None:
                 out_extras.append(None)
             else:
-                e_resized = cv2.resize(
-                    e.astype(np.float32), (W_new, H_new), interpolation=cv2.INTER_NEAREST
-                )
-                out_extras.append(e_resized)
+                out_extras.append(imgproc.resize_nearest(e.astype(np.float32), (H_new, W_new)))
     return image_to_chw01(image), intr.astype(np.float32), out_extras
 
 

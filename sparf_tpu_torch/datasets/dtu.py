@@ -1,8 +1,8 @@
 """DTU (pixelNeRF-processed) per-scene loader.
 
 Parity with reference source/datasets/dtu.py:61-371: cameras.npz projection
-matrices decomposed with cv2.decomposeProjectionMatrix, scale_mat recentering,
-world scaled by 1/300, pixelNeRF split train=[25,22,28,40,44,48,0,8,13] with
+matrices decomposed as cv2.decomposeProjectionMatrix does (utils.imgproc),
+scale_mat recentering, world scaled by 1/300, pixelNeRF split train=[25,22,28,40,44,48,0,8,13] with
 15 excluded test indices, train_sub = first-N, IDR/RegNeRF fg masks, optional
 MVSNet PFM GT depth (x 1/300), near/far = 1.2/5.2.
 """
@@ -15,7 +15,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from sparf_tpu_torch.datasets import base
-from sparf_tpu_torch.utils import alignment
+from sparf_tpu_torch.utils import alignment, imgproc
 
 NEAR_DEPTH = 1.2
 FAR_DEPTH = 5.2
@@ -50,10 +50,8 @@ def read_pfm(filename: str) -> Tuple[np.ndarray, float]:
 
 
 def decompose_projection(P: np.ndarray):
-    """(3,4) projection -> (K, pose_c2w 4x4) matching cv2.decomposeProjectionMatrix."""
-    import cv2
-
-    K, R, t = cv2.decomposeProjectionMatrix(P[:3])[:3]
+    """(3,4) projection -> (K, pose_c2w 4x4) as from cv2.decomposeProjectionMatrix."""
+    K, R, t = imgproc.decompose_projection_matrix(P[:3])
     K = K / K[2, 2]
     pose_c2w = np.eye(4, dtype=np.float32)
     pose_c2w[:3, :3] = R.transpose()

@@ -8,9 +8,13 @@ Extra config overrides: --k.k=v (dotted keys, yaml-parsed values).
 A run resumes from the workspace's latest snapshot unless --no_resume, and
 ends with `evaluate_full` on the test split (unless --debug or do_eval is
 off); --test_metrics_only evaluates the latest snapshot without training.
-The matchers are not ported yet, so correspondences come from GT depth
-(use_gt_correspondences=True) unless an override asks for a matcher, which
-then raises. Video rendering (--render_video_only) is not ported yet.
+The config is the JAX package's: correspondences come from the matcher that
+flow_backbone names (the presets: PDCNet with its bundled weights). The
+matchers' geometry stage (pdcnet_geometry_refine=True, the preset default,
+and zncc on scenes with intrinsics) is not ported yet and raises
+NotImplementedError; --pdcnet_geometry_refine=false trains on raw PDC-Net
+flows and --use_gt_correspondences=true on GT-depth correspondences. Video
+rendering (--render_video_only) is not ported yet.
 """
 from __future__ import annotations
 
@@ -45,7 +49,6 @@ def run_training(args, extra_overrides):
     if args.train_sub is not None:
         cfg.train_sub = args.train_sub if args.train_sub > 0 else None
     cfg.seed = args.seed
-    cfg.use_gt_correspondences = True  # the port has only the gt_depth matcher backend
     cfg = build_env(args, cfg)
     if extra_overrides:
         parse_dotted_args(extra_overrides, base=cfg)

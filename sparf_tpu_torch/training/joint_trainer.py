@@ -9,7 +9,9 @@ sparf_tpu/training/joint_trainer.py).
   - pose evaluation through sim3 alignment; val and test poses backtracked
     through the saved sim3;
   - test-time photometric pose refinement: an Adam loop over a 6-dof twist
-    per test view, `test_iter` steps of `rand_rays` rays.
+    per test view, `test_iter` steps of `rand_rays` rays;
+  - the mid-training rematch (`rematch_at_ratio`): the correspondence pools
+    rebuilt once with the current poses as the matcher's prior.
 SfM initial poses are not ported yet.
 """
 from __future__ import annotations
@@ -58,8 +60,7 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
     def __init__(self, cfg, workspace: Optional[str] = None, debug: bool = False,
                  device="cuda", initial_poses_w2c: Optional[np.ndarray] = None):
         self._given_initial_poses = initial_poses_w2c
-        if cfg.get("rematch_at_ratio") is not None:
-            raise NotImplementedError("mid-training rematching is not ported yet")
+        self._rematched = False
         super().__init__(cfg, workspace=workspace, debug=debug, device=device)
 
     # ------------------------------------------------------------------ build
@@ -141,6 +142,23 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
                                                          self.device)
             self.state.nerf_params = nerf_params
             self.state.opt_state_nerf = self.tx_nerf.init(engine.tree_leaves(nerf_params))
+        rr = self.cfg.get("rematch_at_ratio")
+        if (rr is not None and not self._rematched
+                and iteration >= int(float(rr) * self.cfg.max_iter) > 0):
+            self._rematched = True
+            self.refresh_correspondence_pools()
+
+    def refresh_correspondence_pools(self):
+        """Mid-training matcher refresh (cfg.rematch_at_ratio; no counterpart in
+        the reference, whose pools are static): rebuild the correspondence
+        pools with the current pose estimates as the matcher's pose prior,
+        and drop the compiled steps, which hold the old pools. Triggers once,
+        at or after the boundary (so also on a resume past it)."""
+        self.logger.info("rematch: rebuilding correspondence pools with "
+                         "current pose estimates as the geometry prior")
+        self.matcher_prior_poses_w2c = self.current_poses_w2c().detach().cpu().numpy()
+        self.define_loss_module()
+        self._step_cache = {}
 
     # ------------------------------------------------------------- pose state
 

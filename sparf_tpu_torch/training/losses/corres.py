@@ -13,6 +13,7 @@ integer pixel coordinates (no +0.5), as the reference does.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict
 
 import numpy as np
@@ -21,18 +22,28 @@ import torch
 from sparf_tpu_torch.models import flow_net as flow_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.training.losses import base as L
-from sparf_tpu_torch.utils import camera, geometry
+from sparf_tpu_torch.utils import camera, geometry, imgproc
 
 # ---------------------------------------------------------------------------
 # host-side precompute
 # ---------------------------------------------------------------------------
 
 
-def build_correspondence_pools(cfg, scene_np, logger=None) -> Dict[str, np.ndarray]:
+def build_correspondence_pools(cfg, scene_np, logger=None, init_poses_w2c=None,
+                               device="cuda") -> Dict[str, np.ndarray]:
     """Run the matcher over the pair list and build fixed-size pixel pools.
 
+    Matcher backends keep pixels with confidence >= min_conf_valid_corr
+    (GT depth: 1); then, unless geometric_verification is off, an epipolar
+    RANSAC per pair (`imgproc.find_fundamental_ransac`, 1 px, 0.999, a
+    generator seeded by cfg.seed) keeps its inliers: a pair with fewer than
+    16 pixels stays as it is, one without a model is emptied. Pairs with
+    more than min_nbr_matches pixels are kept.
+
     Returns pool_pix_self/other (n,Pmax,2), pool_conf (n,Pmax), pool_count
-    (n,), pair_ids (n,2), or n_pairs=0 when no pair survives filtering.
+    (n,), pair_ids (n,2), the maps, the backend that ran and the seconds of
+    each part (`seconds`: matching, verification, pools), or n_pairs=0 when
+    no pair survives.
     """
     n_views = scene_np["image"].shape[0]
     method = cfg.get("matching_pair_generation", "all_to_all")
@@ -47,7 +58,15 @@ def build_correspondence_pools(cfg, scene_np, logger=None) -> Dict[str, np.ndarr
         raise ValueError(method)
 
     backend = "gt_depth" if cfg.get("use_gt_correspondences") else cfg.get("flow_backbone", "zncc")
-    wrapper = flow_mod.FlowSelectionWrapper(backend=backend)
+    wrapper = flow_mod.FlowSelectionWrapper(
+        backend=backend, ckpt_path=cfg.get("flow_ckpt_path"),
+        adapt_steps=int(cfg.get("pdcnet_adapt_steps", 0) or 0),
+        init_poses_w2c=None if init_poses_w2c is None else np.asarray(init_poses_w2c),
+        use_homography=bool(cfg.get("use_homography_flow")),
+        geometry_refine=bool(cfg.get("pdcnet_geometry_refine", True)),
+        multiscale_factors=cfg.get("pdcnet_multiscale") or (), device=device)
+    seconds = {}
+    t0 = time.perf_counter()
     cc_maps = None
     if cfg.get("filter_corr_w_cc"):
         corres_maps, conf_maps, cc_maps = (
@@ -55,24 +74,41 @@ def build_correspondence_pools(cfg, scene_np, logger=None) -> Dict[str, np.ndarr
     else:
         corres_maps, conf_maps = wrapper.compute_flow_and_confidence_map_of_combi_list(
             scene_np, combi_list)
+    seconds["matching"] = time.perf_counter() - t0
     if cfg.get("use_gt_correspondences") and cfg.get("use_dummy_all_one_confidence"):
         conf_maps = np.ones_like(conf_maps)
 
-    # only the gt_depth backend is ported, so the min confidence is 1 and the
-    # epipolar verification of matcher outputs never applies
-    mask_valid = flow_mod.get_mask_valid_from_conf_map(conf_maps, corres_maps, 1.0)
+    min_conf = 1.0 if backend == "gt_depth" else float(cfg.get("min_conf_valid_corr", 0.95))
+    mask_valid = flow_mod.get_mask_valid_from_conf_map(conf_maps, corres_maps, min_conf)
     if cc_maps is not None:
         mask_valid &= cc_maps >= float(cfg.get("min_conf_cc_valid_corr", 1 / 2.5))
 
+    t0 = time.perf_counter()
+    if backend != "gt_depth" and cfg.get("geometric_verification", True):
+        generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+        for p in range(mask_valid.shape[0]):
+            ys, xs = np.where(mask_valid[p, 0])
+            if len(ys) < 16:
+                continue
+            pts1 = np.stack([xs, ys], -1).astype(np.float64)
+            pts2 = corres_maps[p, :, ys, xs].astype(np.float64)
+            F, inliers = imgproc.find_fundamental_ransac(pts1, pts2, 1.0, 0.999,
+                                                         generator=generator, device=device)
+            new_mask = np.zeros_like(mask_valid[p, 0])
+            if F is not None:
+                new_mask[ys[inliers], xs[inliers]] = True
+            mask_valid[p, 0] = new_mask
+    seconds["verification"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     min_nbr_matches = int(cfg.get("min_nbr_matches", 500))
     kept = [i for i in range(combi_list.shape[1]) if mask_valid[i].sum() > min_nbr_matches]
+    resolved = wrapper._resolve_backend()
     if logger:
-        logger.info(f"correspondence precompute [{wrapper.backend}, "
-                    f"use_gt_correspondences={bool(cfg.get('use_gt_correspondences'))}]: "
-                    f"{combi_list.shape[1]} pairs, {len(kept)} kept "
-                    f"(>{min_nbr_matches} confident px)")
+        logger.info(f"correspondence precompute [{resolved}]: {combi_list.shape[1]} pairs, "
+                    f"{len(kept)} kept (>{min_nbr_matches} confident px)")
     if not kept:
-        return dict(n_pairs=0)
+        return dict(n_pairs=0, backend=resolved, seconds=seconds)
 
     counts = [int(mask_valid[i].sum()) for i in kept]
     n, Pmax = len(kept), max(counts)
@@ -89,10 +125,11 @@ def build_correspondence_pools(cfg, scene_np, logger=None) -> Dict[str, np.ndarr
         pool_conf[k, :c] = conf_maps[i, 0, ys, xs]
         pool_count[k] = c
         pair_ids[k] = combi_list[:, i]
+    seconds["pools"] = time.perf_counter() - t0
     return dict(n_pairs=n, pool_pix_self=pool_pix_self, pool_pix_other=pool_pix_other,
                 pool_conf=pool_conf, pool_count=pool_count, pair_ids=pair_ids,
                 corres_maps=corres_maps, conf_maps=conf_maps, mask_valid=mask_valid,
-                combi_list=combi_list)
+                combi_list=combi_list, backend=resolved, seconds=seconds)
 
 
 def compute_flow_metrics(pools_np: Dict[str, np.ndarray], scene_np) -> Dict[str, float]:
@@ -143,7 +180,15 @@ def compute_render_and_repro_loss_w_repro_thres(cfg, pixels_in_self, depth_rende
 def make_corres_loss_builder(trainer):
     """Returns make(fine_enabled) -> builder. Precomputes the pools now."""
     cfg = trainer.cfg
-    pools_np = build_correspondence_pools(cfg, trainer.train_scene_np, trainer.logger)
+    # the matcher's pose prior: the current estimates after a mid-training
+    # rematch (rematch_at_ratio), else the initial poses
+    prior = getattr(trainer, "matcher_prior_poses_w2c", None)
+    if prior is None:
+        prior = getattr(trainer, "initial_poses_w2c", None)
+    if torch.is_tensor(prior):
+        prior = prior.detach().cpu().numpy()
+    pools_np = build_correspondence_pools(cfg, trainer.train_scene_np, trainer.logger,
+                                          init_poses_w2c=prior, device=trainer.device)
     trainer.corres_pools = pools_np
     flow_stats = compute_flow_metrics(pools_np, trainer.train_scene_np)
     if flow_stats:

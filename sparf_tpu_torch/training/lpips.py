@@ -7,7 +7,7 @@ sparf_tpu/data/lpips_alex.npz, then the self-supervised weights bundled as
 sparf_tpu/data/lpips_selfsup.npz (read as a data file), then the same
 RandomState(0) random backbone. `weight_tag` says which one was used, with the
 JAX package's names. Images are NCHW in [-1, 1]. The convolutions run with
-TF32 off (metrics.ieee_convs).
+TF32 off (utils.precision.ieee_fp32).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparf_tpu_torch.training.metrics import ieee_convs
+from sparf_tpu_torch.utils.precision import ieee_fp32
 
 # (out_ch, in_ch, k, stride, pad) for AlexNet features; ReLU after each
 _ALEX_CONVS = [
@@ -96,7 +96,7 @@ class LPIPS:
 
     def __call__(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         params = self.params_on(img1.device)
-        with torch.no_grad(), ieee_convs():
+        with torch.no_grad(), ieee_fp32():
             # AlexNet needs >= ~64 px (the second max-pool empties smaller
             # inputs): upsample tiny images first
             H, W = img1.shape[-2:]

@@ -5,12 +5,11 @@ SSIM is pytorch_ssim's: an 11x11 Gaussian window with sigma 1.5, zero "same"
 padding, C1 = 0.01^2, C2 = 0.03^2. Its E[x^2] - E[x]^2 variances cancel
 catastrophically in reduced precision (on a TPU the bf16 default pushed SSIM
 to 1.42-1.58), and cuDNN runs float32 convolutions in TF32 by default, so
-every convolution here runs inside `ieee_convs()`, whatever the global
-setting.
+every convolution here runs inside `utils.precision.ieee_fp32()`, whatever
+the global setting.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -18,17 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-
-@contextlib.contextmanager
-def ieee_convs():
-    """cuDNN convolutions in full float32 (TF32 off) inside the block."""
-    cudnn = torch.backends.cudnn
-    prev = cudnn.allow_tf32
-    cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32 = prev
+from sparf_tpu_torch.utils.precision import ieee_fp32
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +64,7 @@ def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
 def _depthwise_conv(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """img (B,C,H,W), window (k,k); per-channel "same" convolution."""
     C, k = img.shape[1], window.shape[-1]
-    with ieee_convs():
+    with ieee_fp32():
         return F.conv2d(img, window.expand(C, 1, k, k), padding=k // 2, groups=C)
 
 

@@ -12,6 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sparf_tpu_torch.utils import imgproc
+
 
 @dataclass
 class RaySampler:
@@ -71,7 +73,8 @@ def expand_to_patches(pixels: torch.Tensor, dxdy: torch.Tensor) -> torch.Tensor:
 
 
 def make_ray_sampler(cfg, scene, device="cpu") -> RaySampler:
-    """Build the pools from the numpy scene on the host (cv2 dilation for fg masks)."""
+    """Build the pools from the numpy scene on the host (fg masks dilated 10
+    times by a 3x3 box)."""
     B, _, H, W = scene["image"].shape
     patch_size = int(cfg.get("depth_regu_patch_size", 2))
     depth_patch = cfg.loss_weight.get("depth_patch") is not None
@@ -93,12 +96,10 @@ def make_ray_sampler(cfg, scene, device="cpu") -> RaySampler:
     mask_pixels = mask_counts = None
     min_nbr_in_mask = 0
     if cfg.get("sample_fraction_in_fg_mask", 0.0) > 0.0 and "fg_mask" in scene:
-        import cv2
-
         pools = []
         for b in range(B):
             m = scene["fg_mask"][b].reshape(H, W).astype(np.float32)
-            dil = cv2.dilate(m, np.ones((3, 3)), iterations=10) > 0
+            dil = imgproc.dilate(m, iterations=10) > 0
             border = np.zeros_like(dil)
             border[: H - patch_size - 1, : W - patch_size - 1] = True
             yy, xx = np.where(dil & border)

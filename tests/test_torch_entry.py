@@ -1,9 +1,11 @@
 """The port's entry points and its import boundary: the CLI trains 10 debug
 iterations on the CPU, with validation and snapshots, resumes, and evaluates;
 the eval entry point writes the means with and without test-time pose
-refinement; sparf_tpu_torch imports and runs without JAX and without the JAX
-package; asking for a CUDA device that is not there raises instead of falling
-back."""
+refinement; sparf_tpu_torch imports and runs without JAX, without the JAX
+package and without OpenCV, on GT-depth correspondences and on raw PDC-Net
+flows; the preset's matcher default (PDC-Net with the geometry stage) raises
+NotImplementedError naming that stage; asking for a CUDA device that is not
+there raises instead of falling back."""
 import json
 import os
 import subprocess
@@ -75,10 +77,10 @@ def test_eval_entry_after_cli_training(tmp_path):
         resumed.evaluate_full(plot=True)
 
 
-# blocks JAX and the JAX package in a fresh interpreter: an import of either,
-# eager or lazy, then fails
+# blocks JAX, the JAX package and OpenCV in a fresh interpreter: an import of
+# any of them, eager or lazy, then fails
 _BLOCK = ("import sys\n"
-          "for name in ('jax', 'jaxlib', 'flax', 'optax', 'sparf_tpu'):\n"
+          "for name in ('jax', 'jaxlib', 'flax', 'optax', 'sparf_tpu', 'cv2'):\n"
           "    sys.modules[name] = None\n")
 
 
@@ -91,7 +93,8 @@ def test_package_imports_without_jax():
         "    importlib.import_module(m)\n"
         "for m in ('training.joint_trainer', 'training.metrics', 'training.lpips',\n"
         "          'training.checkpointing', 'eval', 'configs.presets', 'admin',\n"
-        "          'datasets.dtu', 'datasets.llff', 'utils.alignment'):\n"
+        "          'datasets.dtu', 'datasets.llff', 'utils.alignment', 'utils.imgproc',\n"
+        "          'models.pdcnet', 'models.sparse_matcher'):\n"
         "    assert 'sparf_tpu_torch.' + m in mods, mods\n"
         "print(len(mods))\n"
     )
@@ -119,6 +122,45 @@ def test_entry_points_run_without_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "lpips(selfsup)"
     assert os.path.exists(tmp_path / "ev" / "e.json")
+
+
+# raw PDC-Net flows (bundled weights) instead of GT-depth correspondences
+RAW_PDCNET = [a for a in TINY if not a.startswith("--use_gt_correspondences")] + [
+    "--use_gt_correspondences=False", "--flow_backbone=PDCNet", "--pdcnet_geometry_refine=false"]
+
+
+def test_cli_trains_on_raw_pdcnet_flows_without_jax_or_cv2(tmp_path):
+    """The tiny CPU training run on pools from the port's PDC-Net, in a fresh
+    interpreter with JAX, the JAX package and OpenCV blocked."""
+    args = ["joint_pose_nerf_training/synthetic", "sparf", "--scene", "spheres", "--debug", "True",
+            "--device", "cpu", "--workspace_dir", str(tmp_path), *RAW_PDCNET]
+    code = _BLOCK + (
+        "from sparf_tpu_torch import run_trainval\n"
+        f"trainer = run_trainval.main({args!r})\n"
+        "assert trainer.state.iteration == 10 and int(trainer.state.nan_count) == 0\n"
+        "pools = trainer.corres_pools\n"
+        "print(pools['backend'], pools['n_pairs'])\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    backend, n_pairs = proc.stdout.strip().splitlines()[-1].split()
+    assert backend == "pdcnet_jax" and int(n_pairs) > 0
+    log = (tmp_path / "joint_pose_nerf_training/synthetic/sparf/spheres/train.log").read_text()
+    assert "correspondence precompute [pdcnet_jax]" in log
+
+
+def test_preset_matcher_default_raises_naming_the_geometry_stage(tmp_path):
+    """Without overrides the config is the JAX package's: PDC-Net with the
+    geometry stage, which the port has not ported; it raises, it does not
+    fall back to GT depth or another matcher."""
+    from sparf_tpu_torch import run_trainval
+
+    args = ["joint_pose_nerf_training/synthetic", "sparf", "--scene", "spheres", "--debug", "True",
+            "--device", "cpu", "--workspace_dir", str(tmp_path),
+            *[a for a in TINY if not a.startswith("--use_gt_correspondences")]]
+    with pytest.raises(NotImplementedError, match="geometry stage.*item 19"):
+        run_trainval.main(args)
 
 
 def test_cuda_device_without_gpu_raises():

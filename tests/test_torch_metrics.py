@@ -41,15 +41,17 @@ def test_psnr_ssim_match_jax(shape):
 
 
 def test_ssim_convs_ignore_the_global_tf32_setting():
-    cudnn = torch.backends.cudnn
-    prev = cudnn.allow_tf32
-    cudnn.allow_tf32 = True
+    from sparf_tpu_torch.utils.precision import ieee_fp32
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
     try:
-        with tmet.ieee_convs():
-            assert cudnn.allow_tf32 is False
-        assert cudnn.allow_tf32 is True
+        with ieee_fp32():
+            assert cudnn.allow_tf32 is False and matmul.allow_tf32 is False
+        assert cudnn.allow_tf32 is True and matmul.allow_tf32 is True
     finally:
-        cudnn.allow_tf32 = prev
+        cudnn.allow_tf32, matmul.allow_tf32 = prev
 
 
 @pytest.mark.parametrize("scale", [1.0, 1.7])

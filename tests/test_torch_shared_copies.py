@@ -1,6 +1,10 @@
 """The port's own copies of the JAX package's host modules (configs, admin,
 alignment, logging utilities, the DTU/LLFF loaders and the synthetic scene's
-numpy helpers) against the originals, on the same inputs."""
+numpy helpers) against the originals, on the same inputs. The loaders resize,
+crop and decompose projection matrices through the port's OpenCV-free
+utils/imgproc.py and must still give the JAX package's scenes bit for bit
+(area and nearest resizing in OpenCV's arithmetic); so must the ray
+sampler's dilated foreground-mask pools."""
 import math
 
 import numpy as np
@@ -233,6 +237,50 @@ def test_dtu_loader_equal(dtu_fixture, split):
                                   split)
     b = create_dataset_j(config_j.ConfigDict(kw, env=config_j.ConfigDict(dtu=dtu_fixture)), split)
     _assert_scene_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def dtu_mask_fixture(dtu_fixture, tmp_path_factory):
+    """IDR-layout-free foreground masks (a disc per view) for the DTU fixture."""
+    import imageio.v2 as imageio
+
+    root = tmp_path_factory.mktemp("dtu_masks")
+    (root / "scan82").mkdir()
+    yy, xx = np.mgrid[0:300, 0:400]
+    for i in range(49):
+        disc = (xx - 200 - i) ** 2 + (yy - 150) ** 2 < (80 + i) ** 2
+        imageio.imwrite(str(root / "scan82" / f"{i:03d}.png"), (disc * 255).astype(np.uint8))
+    return str(root)
+
+
+@pytest.mark.parametrize("over", [dict(resize=[150, 200]),
+                                  dict(resize=[100, 130], crop_ratio=0.8),
+                                  dict(resize=[76, 100], mask_img=True)])
+def test_dtu_loader_equal_resized(dtu_fixture, dtu_mask_fixture, over):
+    """Integer and non-integer area resizing, a centre crop, and fg masks
+    resized by nearest neighbour (and painted into the image)."""
+    kw = dict(dataset="dtu", scene="scan82", train_sub=3, **over)
+    env = dict(dtu=dtu_fixture, dtu_mask=dtu_mask_fixture)
+    a = datasets_t.create_dataset(config_t.ConfigDict(kw, env=config_t.ConfigDict(env)), "train")
+    b = create_dataset_j(config_j.ConfigDict(kw, env=config_j.ConfigDict(env)), "train")
+    _assert_scene_equal(a, b)
+    assert "fg_mask" in a and a["image"].shape[-2:] == tuple(over["resize"])
+
+
+def test_fg_mask_sampler_pools_equal(dtu_fixture, dtu_mask_fixture):
+    """The ray sampler's foreground pools: masks dilated 10 times by a 3x3 box."""
+    from sparf_tpu.training.sampling import make_ray_sampler as sampler_j
+    from sparf_tpu_torch.training.sampling import make_ray_sampler as sampler_t
+
+    kw = dict(dataset="dtu", scene="scan82", train_sub=3, resize=[76, 100])
+    env = dict(dtu=dtu_fixture, dtu_mask=dtu_mask_fixture)
+    scene = create_dataset_j(config_j.ConfigDict(kw, env=config_j.ConfigDict(env)), "train")
+    cfg = dict(sample_fraction_in_fg_mask=0.5, loss_weight={})
+    a = sampler_t(config_t.ConfigDict(cfg), scene, "cpu")
+    b = sampler_j(config_j.ConfigDict(cfg), scene)
+    np.testing.assert_array_equal(a.mask_counts.numpy(), np.asarray(b.mask_counts))
+    np.testing.assert_array_equal(a.mask_pixels.numpy(), np.asarray(b.mask_pixels))
+    assert a.min_nbr_in_mask == b.min_nbr_in_mask > 0
 
 
 def test_replica_names_its_queue_item():

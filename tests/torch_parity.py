@@ -57,7 +57,10 @@ def interpret_pallas(monkeypatch):
 
 
 class _NumpyRandom:
-    """`jax.random` whose randint/uniform return numpy-made arrays, recorded in order."""
+    """`jax.random` whose randint/uniform/normal return numpy-made arrays,
+    recorded in order. A uniform draw records the unit draw u in [0, 1) and
+    returns u * (maxval - minval) + minval in float32, as jax.random does, so
+    that the port can scale the replayed u itself."""
 
     def __init__(self, seed: int):
         self.rng = np.random.RandomState(seed)
@@ -69,7 +72,12 @@ class _NumpyRandom:
         return jax.numpy.asarray(a)
 
     def uniform(self, key, shape=(), dtype=jax.numpy.float32, minval=0.0, maxval=1.0):
-        a = self.rng.uniform(minval, maxval, size=tuple(shape)).astype(np.float32)
+        u = self.rng.uniform(0.0, 1.0, size=tuple(shape)).astype(np.float32)
+        self.recorded.append(u)
+        return jax.numpy.asarray(u * np.float32(maxval - minval) + np.float32(minval))
+
+    def normal(self, key, shape=(), dtype=jax.numpy.float32):
+        a = self.rng.standard_normal(size=tuple(shape)).astype(np.float32)
         self.recorded.append(a)
         return jax.numpy.asarray(a)
 
