@@ -27,18 +27,30 @@ Phases, one line each; any failure raises and the process exits non-zero:
      find_fundamental_ransac on that pair's confident matches with one
      generator seed (inlier agreement), SPSG (matched-pixel agreement) and
      ZNCC stage 1 (agreement on confident pixels and on the pool masks);
+     then the geometry stage's pieces: _geom_rematch_pair 0 -> 1 at the GT
+     pose (best-hypothesis agreement of both sweeps, coordinates where they
+     agree) and the essential, pose-recovery, PnP and triangulation solvers
+     (inlier agreement, one generator seed);
   6. matcher: build_correspondence_pools for the 6 ordered pairs of that
-     scene with raw PDC-Net (bundled weights) and with SPSG: seconds of
-     matching, verification and pool building, pairs kept, pool sizes,
-     flow quality against GT (EPE, PCK-1/3, all and in-confidence); then
-     the steps/s of a short self_supervised_adapt run;
+     scene with raw PDC-Net (bundled weights), SPSG, the presets' default
+     route (PDC-Net seeds, then the geometry stage: mini-SfM and plane-sweep
+     rematch) and zncc with the geometry stage, the last two from the
+     trainer's noisy initial poses as prior: seconds by part, each round's
+     winning route and score, the stage's internal poses against GT next to
+     the prior's, pairs kept, pool sizes, flow quality against GT (EPE,
+     PCK-1/3, all and in-confidence); it fails when the default route keeps
+     no pair or its internal poses are not below 1/5 of the prior's error,
+     or when zncc keeps no pair or ends more than ZNCC_MARGIN_DEG from the
+     JAX package's reading; then the steps/s of a short
+     self_supervised_adapt run;
   7. slice: the SPARF joint pose+NeRF trainer built through define_trainer
-     on device "cuda" at the bench.py full shape, on correspondence pools
-     from raw PDC-Net (not GT depth), 3+ steps in the joint coarse stage and
-     3+ in the fine stage, with the kernels' launch counts of those steps
-     (the depth-consistency visibility pass runs K3), and one timed
-     refresh_correspondence_pools (the mid-training rematch); its pools,
-     built with TF32 off, must equal the matcher phase's (TF32 on);
+     on device "cuda" at the bench.py full shape, on the presets' default
+     correspondence pools (PDC-Net + geometry stage, not GT depth), 3+ steps
+     in the joint coarse stage and 3+ in the fine stage, with the kernels'
+     launch counts of those steps (the depth-consistency visibility pass
+     runs K3), and one timed refresh_correspondence_pools (the mid-training
+     rematch, through the geometry stage again); its pools, built with TF32
+     off, must equal the matcher phase's (TF32 on);
   8. eval-check: with cuDNN TF32 at PyTorch's default (on), evaluate_full of
      the tiny config with test-time pose refinement on the card against the
      same call on the CPU (same state, replayed pixel draws); a snapshot
@@ -47,7 +59,9 @@ Phases, one line each; any failure raises and the process exits non-zero:
      fine-stage steps: one 300x400 test view, with and without 100 steps of
      test-time refinement; seconds per full-image render and per
      refinement, launch counts, metrics.
-Then a JSON line with every kernel, and last {"ok": true, "device": {...}}.
+The geometry stage runs four times in all (two matcher routes, the slice's
+trainer, its refresh); each phase's seconds are printed. Then a JSON line
+with every kernel, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -504,8 +518,25 @@ MATCHER_TOL = {"mapping_px": 1e-2, "p_r": 1e-3, "corres_px": 2e-2, "p_r_full": 1
                "ransac_agreement": 0.99,
                "spsg_agreement": 0.99, "zncc_agreement": 0.98, "zncc_pool_agreement": 0.999}
 FULL_SCENE = dict(env={}, scene="spheres", synthetic=dict(H=300, W=400, n_train=3, n_test=1))
-MATCHER_POOLS = dict(FULL_SCENE, use_gt_correspondences=False, pdcnet_geometry_refine=False,
-                     min_nbr_matches=100)
+MATCHER_POOLS = dict(FULL_SCENE, use_gt_correspondences=False, min_nbr_matches=100)
+# tolerances of the geometry check (card with TF32 on against the CPU): the
+# share of pixels whose best hypothesis agrees in pass 1 of _geom_rematch_pair
+# (over all pixels) and in pass 2 (over the pixels where pass 1 agrees, so
+# that both start from the same depth), near-ties excused only within
+# NEAR_TIE; where both agree, coordinates within 1e-3 px on at least 0.995 of
+# the pixels and within 1e-2 px on all (a subpixel vertex on a flat peak
+# moves with the scores' rounding); the solvers' inlier agreement (float64 on
+# both devices, the same generator seed).
+GEOM_TOL = {"pass1_agreement": 0.999, "pass2_agreement": 0.999, "corres_px": 1e-3,
+            "corres_px_share": 0.995, "corres_px_all": 1e-2, "solver_agreement": 1.0}
+NEAR_TIE = 2e-4
+# zncc with the geometry stage, from the same prior (cfg.seed 0, 24.781 deg):
+# the JAX package's internal poses end at 37.884 deg (tests/geometry_reference.py
+# jax --backend zncc, on the CPU), worse than the prior in both packages: stage
+# 1's ZNCC seeds are too few on the texture-less spheres. The port is held
+# within ZNCC_MARGIN_DEG of that reading.
+ZNCC_JAX_DEG = 37.884
+ZNCC_MARGIN_DEG = 5.0
 
 
 def full_scene():
@@ -600,6 +631,189 @@ def check_matchers_cuda_vs_cpu(scene) -> dict:
     return out
 
 
+def mean_rel_rot_deg(poses, gt) -> float:
+    """Mean over view pairs of the angle between estimated and GT relative
+    rotations (alignment-free)."""
+    import numpy as np
+
+    errs = []
+    for a in range(len(gt)):
+        for b in range(a + 1, len(gt)):
+            Rg = gt[b][:3, :3] @ gt[a][:3, :3].T
+            Re = poses[b][:3, :3] @ poses[a][:3, :3].T
+            errs.append(np.degrees(np.arccos(np.clip((np.trace(Rg.T @ Re) - 1) / 2, -1, 1))))
+    return float(np.mean(errs))
+
+
+def check_geometry_cuda_vs_cpu(scene) -> dict:
+    """The geometry stage's pieces on the card (TF32 on globally) against the
+    CPU on the 300x400 scene: _geom_rematch_pair for pair 0 -> 1 at the GT
+    relative pose and view 0's GT depths (7x7 windows, as the full-resolution
+    rematch), with the score volumes of both passes captured from the call;
+    then the two-view and PnP solvers on GT matches of that pair (0.5 px
+    noise, 30% outliers) with one generator seed on both devices."""
+    import numpy as np
+    import torch
+
+    from sparf_tpu_torch.models import flow_net as ft
+    from sparf_tpu_torch.utils import geometry, imgproc
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    K = np.asarray(scene["intr"], np.float64)
+    T01 = geometry.relative_transform_i_to_j(torch.as_tensor(scene["pose"][0]),
+                                             torch.as_tensor(scene["pose"][1])).numpy()
+    R, t = T01[:3, :3].astype(np.float64), T01[:3, 3].astype(np.float64)
+    valid = np.asarray(scene["valid_depth_gt"][0]) > 0
+    depths = np.asarray(scene["depth_gt"][0])[valid].astype(np.float64)
+    volumes = {}
+    plane, local = ft._plane_sweep_scores, ft._local_sweep_scores
+
+    def keep(name, fn):
+        def call(*a):
+            out = fn(*a)
+            volumes[name] = out
+            return out
+        return call
+
+    res, secs = {}, {}
+    for key, dev in DEVICES.items():
+        imgs = torch.as_tensor(np.asarray(scene["image"][:2]), dtype=torch.float32, device=dev)
+        ft._plane_sweep_scores, ft._local_sweep_scores = keep("pass1", plane), keep("pass2", local)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[key] = [x.cpu() for x in ft._geom_rematch_pair(imgs[0], imgs[1], K[0], K[1], R, t,
+                                                               depths, radius=3)]
+            secs[key] = time.perf_counter() - t0
+        finally:
+            ft._plane_sweep_scores, ft._local_sweep_scores = plane, local
+        volumes[key] = {k: volumes.pop(k).cpu() for k in ("pass1", "pass2")}
+    out = {"rematch_s": secs["card"], "rematch_cpu_s": secs["cpu"],
+           "hypotheses": [int(volumes["cpu"][k].shape[0]) for k in ("pass1", "pass2")]}
+    agree = None
+    for name in ("pass1", "pass2"):
+        vg, vc = volumes["card"][name], volumes["cpu"][name]
+        bg, bc = vg.argmax(0), vc.argmax(0)
+        same = bg == bc
+        gap = (vc.gather(0, bg[None])[0] - vc.gather(0, bc[None])[0]).abs()[~same]
+        out[f"{name}_score_diff"] = float((vg - vc).abs().max())
+        scope = same if agree is None else same[agree]
+        out[f"{name}_agreement"] = float(scope.float().mean())
+        out[f"{name}_largest_gap"] = float(gap.max()) if gap.numel() else 0.0
+        out[f"{name}_far_flips"] = int((gap > NEAR_TIE).sum())
+        agree = same if agree is None else agree & same
+    d = (res["card"][0] - res["cpu"][0]).norm(dim=-1)[agree]
+    out["corres_px_max"] = float(d.max())
+    out["corres_px_share"] = float((d <= GEOM_TOL["corres_px"]).float().mean())
+    out["score_diff"] = float((res["card"][1] - res["cpu"][1]).abs()[agree].max())
+
+    # the solvers: GT matches of pair 0 -> 1, 0.5 px noise, 30% outliers
+    rng = np.random.RandomState(0)
+    gt, gt_valid = ft.gt_correspondences_for_pair(scene, 0, 1)
+    ys, xs = np.where(gt_valid & valid)
+    pick = rng.choice(len(ys), size=min(2000, len(ys)), replace=False)
+    ys, xs = ys[pick], xs[pick]
+    x1 = np.stack([xs, ys], -1).astype(np.float64) + rng.randn(len(ys), 2) * 0.5
+    x2 = gt[:, ys, xs].T.astype(np.float64) + rng.randn(len(ys), 2) * 0.5
+    bad = rng.rand(len(ys)) < 0.3
+    x2[bad] = rng.uniform([0, 0], [scene["image"].shape[-1], scene["image"].shape[-2]],
+                          (int(bad.sum()), 2))
+    z = np.asarray(scene["depth_gt"][0])[ys, xs].astype(np.float64)
+    X0 = np.c_[(np.stack([xs, ys], -1) - K[0][:2, 2]) / K[0][0, 0], np.ones(len(ys))] * z[:, None]
+    def run_solvers(dev):
+        """Each solver once on `dev`, with its seconds."""
+        secs = {}
+
+        def clocked(name, fn, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            return out
+
+        E, mask = clocked("essential", imgproc.find_essential_ransac, x1, x2, K[0], 1.5, 0.999,
+                          generator=torch.Generator().manual_seed(0), device=dev)
+        _, Re, _, front = clocked("recover_pose", imgproc.recover_pose, E, x1, x2, K[0], mask,
+                                  device=dev)
+        _, rvec, _, inl = clocked("pnp", imgproc.solve_pnp_ransac, X0, x2, K[1], reproj_err=4.0,
+                                  iters=200, generator=torch.Generator().manual_seed(0),
+                                  device=dev)
+        Xh = clocked("triangulate", imgproc.triangulate_points, K[0] @ np.eye(3, 4),
+                     K[1] @ np.c_[R, t], x1.T, x2.T, device=dev)
+        pnp_mask = np.zeros(len(ys), bool)
+        pnp_mask[inl[:, 0]] = True
+        return dict(mask=mask, front=front, pnp=pnp_mask, Re=Re, rvec=rvec, X=Xh), secs
+
+    # the card twice: its first call pays the solver libraries' set-up
+    solved, ssecs = {}, {}
+    _, ssecs["card_first"] = run_solvers(CARD)
+    for key, dev in DEVICES.items():
+        solved[key], ssecs[key] = run_solvers(dev)
+    g, c = solved["card"], solved["cpu"]
+    out["solver_agreement"] = min(float((g[k] == c[k]).mean()) for k in ("mask", "front", "pnp"))
+    out["solver_points"], out["essential_inliers"] = len(ys), int(g["mask"].sum())
+    out["pnp_inliers"] = int(g["pnp"].sum())
+    out["essential_rot_err_deg"] = mean_rel_rot_deg([np.eye(4), np.c_[g["Re"], np.zeros(3)]],
+                                                    [np.eye(4), np.c_[R, t]])
+    out["solver_s"] = ssecs
+    out["triangulation_rel"] = float(np.abs(g["X"][:3] / g["X"][3] - c["X"][:3] / c["X"][3]).max()
+                                     / np.abs(c["X"][:3] / c["X"][3]).max())
+    bad = [k for k in ("pass1_agreement", "pass2_agreement", "solver_agreement")
+           if not out[k] >= GEOM_TOL[k]]
+    bad += [k for k in ("pass1_far_flips", "pass2_far_flips") if out[k]]
+    if not (out["corres_px_share"] >= GEOM_TOL["corres_px_share"]
+            and out["corres_px_max"] <= GEOM_TOL["corres_px_all"]):
+        bad.append("corres_px")
+    phase("matcher-check", f"TF32 on: _geom_rematch_pair 0 -> 1 at the GT pose (radius 3, "
+                           f"{out['hypotheses'][0]} + {out['hypotheses'][1]} hypotheses): "
+                           f"best hypothesis agrees on {out['pass1_agreement']:.5f} (pass 1) "
+                           f"and {out['pass2_agreement']:.5f} (pass 2) of the pixels, largest "
+                           f"score gap of a flip {max(out['pass1_largest_gap'], out['pass2_largest_gap']):.3g}, "
+                           f"score volumes within {max(out['pass1_score_diff'], out['pass2_score_diff']):.3g}; "
+                           f"where both agree corres within {GEOM_TOL['corres_px']} px on "
+                           f"{out['corres_px_share']:.5f} (largest {out['corres_px_max']:.3g} px), "
+                           f"scores within {out['score_diff']:.3g}; {secs['card']:.3f} s card, "
+                           f"{secs['cpu']:.3f} s cpu")
+    phase("matcher-check", f"solvers on {out['solver_points']} GT matches of pair 0 -> 1 (0.5 px "
+                           f"noise, 30% outliers), seed 0: essential RANSAC "
+                           f"{out['essential_inliers']} inliers, {out['essential_rot_err_deg']:.4f} "
+                           f"deg off GT; PnP {out['pnp_inliers']} inliers; inlier agreement card "
+                           f"vs cpu {out['solver_agreement']:.5f}; triangulation within "
+                           f"{out['triangulation_rel']:.3g} relative; seconds "
+                           + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.3f}" for n, v in d.items())
+                                       for k, d in ssecs.items()))
+    if bad:
+        raise AssertionError(f"matcher-check (geometry): {bad} outside {GEOM_TOL}: {out}")
+    return out
+
+
+def geometry_prior(cfg, scene):
+    """The joint trainer's initial poses (noisy_gt at cfg.camera.noise), which
+    it hands the matcher as its prior."""
+    import numpy as np
+
+    from sparf_tpu_torch.training.joint_trainer import noisy_gt_poses
+
+    return noisy_gt_poses(cfg, np.asarray(scene["pose"])).astype(np.float32)
+
+
+def describe_geometry(pools, scene, prior) -> dict:
+    """The geometry stage's report of a pool build, with the internal poses'
+    mean relative rotation error against GT next to the prior's."""
+    import numpy as np
+
+    geom = pools.get("geom") or {}
+    gt = np.asarray(scene["pose"], np.float64)
+    out = {"route": geom.get("route"), "output": geom.get("output"),
+           "bootstrap": geom.get("bootstrap"), "seconds": dict(geom.get("seconds", {})),
+           "rounds": [dict(r) for r in geom.get("rounds", [])],
+           "prior_rot_err_deg": mean_rel_rot_deg(np.asarray(prior, np.float64), gt)}
+    if "poses_w2c" in geom:
+        out["internal_rot_err_deg"] = mean_rel_rot_deg(np.asarray(geom["poses_w2c"]), gt)
+    return out
+
+
 def run_matcher_phase(scene, adapt_steps: int = 20) -> dict:
     """The full correspondence precompute on the card for raw PDC-Net and SPSG,
     then the rate of self_supervised_adapt."""
@@ -611,25 +825,59 @@ def run_matcher_phase(scene, adapt_steps: int = 20) -> dict:
     from sparf_tpu_torch.utils.draws import Draws
 
     out = {}
-    for backend in ("PDCNet", "SPSG"):
+    # raw PDC-Net, SPSG, then the geometry stage: the presets' default (PDC-Net
+    # seeds) and zncc, both from the trainer's noisy initial poses as prior
+    routes = (("PDCNet_raw", dict(flow_backbone="PDCNet", pdcnet_geometry_refine=False)),
+              ("SPSG", dict(flow_backbone="SPSG")),
+              ("PDCNet_geometry", dict(flow_backbone="PDCNet")),
+              ("zncc_geometry", dict(flow_backbone="zncc")))
+    for name, over in routes:
         cfg = build_config("joint_pose_nerf_training/synthetic", "sparf",
-                           dict(MATCHER_POOLS, flow_backbone=backend))
+                           dict(MATCHER_POOLS, **over))
+        prior = geometry_prior(cfg, scene) if name.endswith("_geometry") else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pools = corres.build_correspondence_pools(cfg, scene, device=CARD)
+        pools = corres.build_correspondence_pools(cfg, scene, init_poses_w2c=prior, device=CARD)
         total = time.perf_counter() - t0
         quality = corres.compute_flow_metrics(pools, scene)
         counts = [int(c) for c in pools.get("pool_count", [])]
-        out[backend] = {"seconds": dict(pools["seconds"], total=total),
-                        "pairs_kept": int(pools["n_pairs"]), "pool_sizes": counts,
-                        "flow_quality": quality}
-        phase("matcher", f"{backend} -> {pools['backend']}: {total:.3f} s for 6 ordered pairs ("
+        out[name] = {"seconds": dict(pools["seconds"], total=total),
+                     "pairs_kept": int(pools["n_pairs"]), "pool_sizes": counts,
+                     "flow_quality": quality}
+        phase("matcher", f"{name} -> {pools['backend']}: {total:.3f} s for 6 ordered pairs ("
                          + ", ".join(f"{k} {v:.3f} s" for k, v in pools["seconds"].items())
                          + f"); {pools['n_pairs']} pairs kept (> {cfg.min_nbr_matches} px), pool "
                          f"sizes {counts}; vs GT: "
                          + " ".join(f"{k}={v:.4f}" for k, v in sorted(quality.items())))
-    if out["PDCNet"]["pairs_kept"] == 0:
+        if prior is not None:
+            g = out[name]["geometry"] = describe_geometry(pools, scene, prior)
+            phase("matcher", f"{name} geometry stage: {g['route']}, bootstrap {g['bootstrap']}, "
+                             f"output {g['output']}; rounds "
+                             + "; ".join(f"{r['round']}: {r['winner']} score "
+                                         f"{'-' if r['score'] is None else format(r['score'], '.4f')}"
+                                         f" {r['views']} views {r['seconds']:.2f} s"
+                                         for r in g["rounds"])
+                             + "; seconds " + ", ".join(f"{k} {v:.3f}" for k, v in g["seconds"].items())
+                             + f"; internal poses {g.get('internal_rot_err_deg', float('nan')):.4f} "
+                             f"deg mean relative rotation error vs GT, prior "
+                             f"{g['prior_rot_err_deg']:.4f} deg")
+    if out["PDCNet_raw"]["pairs_kept"] == 0:
         raise AssertionError("matcher: raw PDC-Net kept no pair")
+    g = out["PDCNet_geometry"]
+    if g["pairs_kept"] == 0:
+        raise AssertionError("matcher: the presets' default route (PDC-Net + geometry stage) "
+                             "kept no pair")
+    err = g["geometry"].get("internal_rot_err_deg", float("inf"))
+    if not err < g["geometry"]["prior_rot_err_deg"] / 5:
+        raise AssertionError(f"matcher: the geometry stage's internal poses ({err:.4f} deg) are "
+                             f"not below 1/5 of the prior's "
+                             f"({g['geometry']['prior_rot_err_deg']:.4f} deg)")
+    z = out["zncc_geometry"]
+    err = z["geometry"].get("internal_rot_err_deg", float("inf"))
+    if z["pairs_kept"] == 0 or not abs(err - ZNCC_JAX_DEG) <= ZNCC_MARGIN_DEG:
+        raise AssertionError(f"matcher: zncc with the geometry stage kept {z['pairs_kept']} pairs "
+                             f"and its internal poses are at {err:.4f} deg, not within "
+                             f"{ZNCC_MARGIN_DEG} deg of the JAX package's {ZNCC_JAX_DEG} deg")
 
     model = pdcnet.load_weights_npz(pdcnet.BUNDLED_WEIGHTS, CARD)
     draws = Draws(1, CARD)
@@ -653,14 +901,15 @@ def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
     from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
 
     cfg = build_config("joint_pose_nerf_training/synthetic", "sparf", dict(
-        MATCHER_POOLS, max_iter=100000, flow_backbone="PDCNet"))
+        MATCHER_POOLS, max_iter=100000, flow_backbone="PDCNet"))  # the presets' default route
     workspace = tempfile.mkdtemp(prefix="sparf_torch_smoke_")
     t0 = time.perf_counter()
     trainer = define_trainer(cfg, workspace=workspace, device="cuda", save_option=False)
     pools = trainer.corres_pools
-    if pools.get("backend") != "pdcnet_jax" or pools["n_pairs"] == 0:
-        raise AssertionError(f"slice: no PDC-Net pools ({pools.get('backend')}, "
-                             f"{pools['n_pairs']} pairs)")
+    if (pools.get("backend") != "pdcnet_jax" or pools["n_pairs"] == 0
+            or not (pools.get("geom") or {}).get("rounds")):
+        raise AssertionError(f"slice: no PDC-Net geometry-stage pools ({pools.get('backend')}, "
+                             f"{pools['n_pairs']} pairs, geometry {pools.get('geom')})")
     sizes = [int(c) for c in pools["pool_count"]]
     if matcher_pool_sizes is not None and sizes != matcher_pool_sizes:
         # same scene, seed and card; the matcher phase ran with TF32 on, this
@@ -669,8 +918,9 @@ def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
                              f"{matcher_pool_sizes}")
     phase("slice", f"trainer built in {time.perf_counter() - t0:.1f} s "
                    f"({trainer.n_train_views} views {trainer.H}x{trainer.W}, "
-                   f"{pools['n_pairs']} correspondence pairs from {pools['backend']}, "
-                   f"pool sizes {sizes}, equal to the matcher phase's under TF32 on)")
+                   f"{pools['n_pairs']} correspondence pairs from {pools['backend']} through the "
+                   f"geometry stage ({pools['geom']['output']}), pool sizes {sizes}, equal to "
+                   f"the matcher phase's under TF32 on)")
     ratio = float(cfg.ratio_end_joint_nerf_pose_refinement)
     stages = (("joint_coarse", 0), ("fine", int(cfg.max_iter * (ratio + 0.05))))
     result = {}
@@ -718,8 +968,17 @@ def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
     result["refresh_s"] = time.perf_counter() - t0
     if trainer.corres_pools["n_pairs"] == 0:
         raise AssertionError("slice: the rematch kept no pair")
-    phase("slice", f"refresh_correspondence_pools (rematch with the current poses as prior): "
-                   f"{result['refresh_s']:.3f} s, {trainer.corres_pools['n_pairs']} pairs")
+    refreshed = trainer.corres_pools
+    result["refresh_geometry"] = describe_geometry(refreshed, trainer.train_scene_np,
+                                                   trainer.matcher_prior_poses_w2c)
+    rg = result["refresh_geometry"]
+    phase("slice", f"refresh_correspondence_pools (rematch through the geometry stage with the "
+                   f"current poses as prior): {result['refresh_s']:.3f} s, "
+                   f"{refreshed['n_pairs']} pairs, pool sizes "
+                   f"{[int(c) for c in refreshed['pool_count']]}; rounds "
+                   f"{[(r['winner'], r['score']) for r in rg['rounds']]}; internal poses "
+                   f"{rg.get('internal_rot_err_deg', float('nan')):.4f} deg vs the prior's "
+                   f"{rg['prior_rot_err_deg']:.4f} deg")
     result["trainer"] = trainer
     return result
 
@@ -821,16 +1080,27 @@ def main() -> int:
     # 4. slice-check: the tiny step on the card against the CPU
     check_step_cuda_vs_cpu()
     # 5.-6. matcher-check and matcher, TF32 on (the matchers switch it off)
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
     scene = full_scene()
-    mc = check_matchers_cuda_vs_cpu(scene)
-    mp = run_matcher_phase(scene)
+    mc = timed("matcher-check", check_matchers_cuda_vs_cpu, scene)
+    mc["geometry"] = timed("geometry-check", check_geometry_cuda_vs_cpu, scene)
+    mp = timed("matcher", run_matcher_phase, scene)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    # 7. slice: the full shape on PDC-Net pools
-    sl = run_slice(steps=3, matcher_pool_sizes=mp["PDCNet"]["pool_sizes"])
+    # 7. slice: the full shape on the presets' default pools (PDC-Net + geometry stage)
+    sl = timed("slice", run_slice, steps=3,
+               matcher_pool_sizes=mp["PDCNet_geometry"]["pool_sizes"])
     # 8. eval-check: the tiny evaluation on the card against the CPU
-    check_eval_cuda_vs_cpu()
+    timed("eval-check", check_eval_cuda_vs_cpu)
     # 9. eval: the full-shape trainer's state through the eval entry point
-    ev = run_eval_phase(sl["trainer"])
+    ev = timed("eval", run_eval_phase, sl["trainer"])
+    phase("phases", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
     replaces = {"K1": "sparf_tpu/ops/fused_mlp_vjp.py:175", "K2": "sparf_tpu/ops/fused_mlp_vjp.py:86",
@@ -850,7 +1120,9 @@ def main() -> int:
     print(json.dumps({"kernels": kernels,
                       "it_per_sec": {k: sl[k] for k in ("joint_coarse", "fine")},
                       "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]},
-                      "matcher": {"check": mc, "pools": mp, "refresh_s": sl["refresh_s"]}}))
+                      "matcher": {"check": mc, "pools": mp, "refresh_s": sl["refresh_s"],
+                                  "refresh_geometry": sl["refresh_geometry"]},
+                      "phase_s": seconds}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

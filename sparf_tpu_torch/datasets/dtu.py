@@ -117,8 +117,6 @@ def load_dtu_scene(
     mask_img: bool = False,
     increase_depth_range_by_x_percent: float = 0.0,
 ) -> base.Scene:
-    import imageio.v2 as imageio
-
     scene_path = os.path.join(root, scene)
     image_dir = os.path.join(scene_path, "image")
     rgb_files = sorted(
@@ -135,14 +133,14 @@ def load_dtu_scene(
 
     samples = []
     for local_i, idx in enumerate(indices):
-        image = imageio.imread(rgb_files[idx])
+        image = imgproc.read_png(rgb_files[idx])
         H_img, W_img = image.shape[:2]
 
         fg_mask = None
         if mask_root is not None:
             mpath = mask_path_for(mask_root, scene, idx)
             if os.path.exists(mpath):
-                m = imageio.imread(mpath)
+                m = imgproc.read_png(mpath)
                 if m.ndim == 3:
                     m = m[..., 0]
                 fg_mask = (m > 127).astype(np.float32)

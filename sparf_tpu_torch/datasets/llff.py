@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from sparf_tpu_torch.datasets import base
+from sparf_tpu_torch.utils import imgproc
 from sparf_tpu_torch.utils import alignment
 
 _FLIP = np.diag([1.0, -1.0, -1.0]).astype(np.float32)
@@ -83,8 +84,6 @@ def load_llff_scene(
     crop_ratio: Optional[float] = None,
     increase_depth_range_by_x_percent: float = 0.0,
 ) -> base.Scene:
-    import imageio.v2 as imageio
-
     path = os.path.join(root, scene)
     imgdir_suffix = f"_{img_factor}" if img_factor and img_factor > 1 else ""
     factor = img_factor if img_factor and img_factor > 1 else 1
@@ -115,7 +114,7 @@ def load_llff_scene(
 
     samples = []
     for local_i, idx in enumerate(indices):
-        image = imageio.imread(os.path.join(path_image, image_fnames[idx]))
+        image = imgproc.read_png(os.path.join(path_image, image_fnames[idx]))
         img, intr, _ = base.preprocess_image_and_intrinsics(
             image, intr0, resize=resize, crop_ratio=crop_ratio
         )

@@ -27,4 +27,7 @@ def define_trainer(cfg: ConfigDict, workspace: Optional[str] = None, debug: bool
         from sparf_tpu_torch.training.joint_trainer import PoseAndNerfTrainerPerScene
 
         return PoseAndNerfTrainerPerScene(cfg, workspace=workspace, debug=debug, device=device)
+    if cfg.model == "nerf_fixed_noisy_poses":
+        raise NotImplementedError("the fixed-pose trainer (nerf_fixed_noisy_poses) is not ported "
+                                  "to sparf_tpu_torch yet (ROADMAP Queue 1 item 12)")
     raise NotImplementedError(f"model {cfg.model!r} is not ported to sparf_tpu_torch yet")

@@ -11,8 +11,11 @@ sparf_tpu/training/joint_trainer.py).
   - test-time photometric pose refinement: an Adam loop over a 6-dof twist
     per test view, `test_iter` steps of `rand_rays` rays;
   - the mid-training rematch (`rematch_at_ratio`): the correspondence pools
-    rebuilt once with the current poses as the matcher's prior.
-SfM initial poses are not ported yet.
+    rebuilt once with the current poses as the matcher's prior;
+  - SfM initial poses (`initial_pose` containing "sfm"): colmap_init/sfm.py
+    on the matcher's flows, pre-aligned to GT as the JAX package does; its
+    sparse depth maps go to train_scene as colmap_depth/colmap_conf (their
+    loss, ROADMAP item 12, is not ported).
 """
 from __future__ import annotations
 
@@ -43,6 +46,22 @@ def _refine_stats(pose_pre: torch.Tensor, pose_post: torch.Tensor) -> Dict[str, 
     c_post = -post[:, :3].T @ post[:, 3]
     return {"rot_deg": rot * 180.0 / np.pi, "trans": float(np.linalg.norm(c_post - c_pre)),
             "pose_pre": pose_pre}
+
+
+def noisy_gt_poses(cfg, pose_GT_w2c: np.ndarray) -> np.ndarray:
+    """initial_pose="noisy_gt": the GT w2c poses composed with se(3) noise of
+    scale cfg.camera.noise drawn from a torch.Generator seeded by cfg.seed
+    (the first n_first_fixed_poses kept exact when relative poses are
+    optimized). (N,3,4) float32."""
+    n_poses = pose_GT_w2c.shape[0]
+    n_fixed = (cfg.camera.get("n_first_fixed_poses", 0)
+               if cfg.camera.get("optimize_relative_poses") else 0)
+    gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    se3_noise = torch.randn((n_poses - n_fixed, 6), generator=gen) * cfg.camera.noise
+    pose_noise = camera.se3_to_SE3(se3_noise)
+    if n_fixed > 0:
+        pose_noise = torch.cat([torch.eye(3, 4).expand(n_fixed, 3, 4), pose_noise], dim=0)
+    return camera.pose_compose([pose_noise, torch.as_tensor(pose_GT_w2c)]).numpy()
 
 
 class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
@@ -89,20 +108,24 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
             init = np.broadcast_to(np.eye(3, 4, dtype=np.float32), (n_poses, 3, 4)).copy()
             init, _ = alignment.align_translations(pose_GT_w2c, init)
         elif initial_pose == "noisy_gt":
-            n_fixed = (cfg.camera.get("n_first_fixed_poses", 0)
-                       if cfg.camera.get("optimize_relative_poses") else 0)
-            gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-            se3_noise = torch.randn((n_poses - n_fixed, 6), generator=gen) * cfg.camera.noise
-            pose_noise = camera.se3_to_SE3(se3_noise)
-            if n_fixed > 0:
-                eye = torch.eye(3, 4).expand(n_fixed, 3, 4)
-                pose_noise = torch.cat([eye, pose_noise], dim=0)
-            init = camera.pose_compose([pose_noise, torch.as_tensor(pose_GT_w2c)]).numpy()
-            init = alignment.pad_poses(init)
+            init = alignment.pad_poses(noisy_gt_poses(cfg, pose_GT_w2c))
         elif initial_pose == "given":
             init = alignment.pad_poses(np.asarray(self.train_scene_np["pose_initial"]))
         elif "sfm" in initial_pose:
-            raise NotImplementedError("SfM initial poses are not ported yet")
+            from sparf_tpu_torch.colmap_init import sfm
+
+            result = sfm.compute_sfm_from_matches(
+                cfg, self.train_scene_np,
+                save_dir=cfg.get("sfm_cache_dir") or f"{self.workspace}/init_sfm",
+                load_colmap_depth=bool(cfg.get("load_colmap_depth")), device=self.device)
+            init_aligned, sim3 = alignment.prealign_w2c_small_camera_systems(
+                result.poses_w2c[:, :3], pose_GT_w2c)
+            init = alignment.pad_poses(init_aligned)
+            if result.colmap_depth is not None:
+                self.train_scene["colmap_depth"] = torch.as_tensor(
+                    result.colmap_depth * sim3.s, dtype=torch.float32, device=self.device)
+                self.train_scene["colmap_conf"] = torch.as_tensor(
+                    result.colmap_conf, dtype=torch.float32, device=self.device)
         else:
             raise ValueError(initial_pose)
         if init.shape[-2] == 3:

@@ -41,9 +41,11 @@ def build_correspondence_pools(cfg, scene_np, logger=None, init_poses_w2c=None,
     more than min_nbr_matches pixels are kept.
 
     Returns pool_pix_self/other (n,Pmax,2), pool_conf (n,Pmax), pool_count
-    (n,), pair_ids (n,2), the maps, the backend that ran and the seconds of
-    each part (`seconds`: matching, verification, pools), or n_pairs=0 when
-    no pair survives.
+    (n,), pair_ids (n,2), the maps, the backend that ran, the seconds of
+    each part (`seconds`: matching, verification, pools) and the geometry
+    stage's report (`geom`, empty when the stage did not run: its route,
+    each round's winner, score, views and seconds), or n_pairs=0 when no
+    pair survives. The stage's RANSAC generators are seeded by cfg.seed.
     """
     n_views = scene_np["image"].shape[0]
     method = cfg.get("matching_pair_generation", "all_to_all")
@@ -64,7 +66,8 @@ def build_correspondence_pools(cfg, scene_np, logger=None, init_poses_w2c=None,
         init_poses_w2c=None if init_poses_w2c is None else np.asarray(init_poses_w2c),
         use_homography=bool(cfg.get("use_homography_flow")),
         geometry_refine=bool(cfg.get("pdcnet_geometry_refine", True)),
-        multiscale_factors=cfg.get("pdcnet_multiscale") or (), device=device)
+        multiscale_factors=cfg.get("pdcnet_multiscale") or (), seed=int(cfg.get("seed", 0)),
+        device=device)
     seconds = {}
     t0 = time.perf_counter()
     cc_maps = None
@@ -104,11 +107,14 @@ def build_correspondence_pools(cfg, scene_np, logger=None, init_poses_w2c=None,
     min_nbr_matches = int(cfg.get("min_nbr_matches", 500))
     kept = [i for i in range(combi_list.shape[1]) if mask_valid[i].sum() > min_nbr_matches]
     resolved = wrapper._resolve_backend()
+    geom = wrapper.last_geom
     if logger:
         logger.info(f"correspondence precompute [{resolved}]: {combi_list.shape[1]} pairs, "
                     f"{len(kept)} kept (>{min_nbr_matches} confident px)")
+        if geom:
+            logger.info("geometry stage: " + describe_geometry_route(geom))
     if not kept:
-        return dict(n_pairs=0, backend=resolved, seconds=seconds)
+        return dict(n_pairs=0, backend=resolved, seconds=seconds, geom=geom)
 
     counts = [int(mask_valid[i].sum()) for i in kept]
     n, Pmax = len(kept), max(counts)
@@ -129,7 +135,23 @@ def build_correspondence_pools(cfg, scene_np, logger=None, init_poses_w2c=None,
     return dict(n_pairs=n, pool_pix_self=pool_pix_self, pool_pix_other=pool_pix_other,
                 pool_conf=pool_conf, pool_count=pool_count, pair_ids=pair_ids,
                 corres_maps=corres_maps, conf_maps=conf_maps, mask_valid=mask_valid,
-                combi_list=combi_list, backend=resolved, seconds=seconds)
+                combi_list=combi_list, backend=resolved, seconds=seconds, geom=geom)
+
+
+def describe_geometry_route(geom: dict) -> str:
+    """One line of the geometry stage's report (FlowSelectionWrapper.last_geom):
+    the bootstrap size, each round's winner, score and registered views, the
+    flows emitted and the seconds of each part."""
+    boot = geom.get("bootstrap")
+    parts = [f"route {geom.get('route', '?')}",
+             "bootstrap " + ("off" if boot is None else f"{boot[0]}x{boot[1]}")]
+    for r in geom.get("rounds", []):
+        score = "-" if r["score"] is None else f"{r['score']:.4f}"
+        parts.append(f"round {r['round']}: {r['winner']} (score {score}, {r['views']} views, "
+                     f"{r['seconds']:.2f} s)")
+    parts.append(f"output {geom.get('output')}")
+    parts.append("seconds " + ", ".join(f"{k} {v:.2f}" for k, v in geom.get("seconds", {}).items()))
+    return "; ".join(parts)
 
 
 def compute_flow_metrics(pools_np: Dict[str, np.ndarray], scene_np) -> Dict[str, float]:

@@ -18,5 +18,6 @@ def build_extra_loss_builders(trainer) -> List[Callable]:
 
         builders.append(make_depth_cons_loss_builder(trainer))
     if "SparseCOLMAPDepthLoss" in loss_type:
-        raise NotImplementedError("the COLMAP depth loss is not ported yet")
+        raise NotImplementedError("the COLMAP depth loss (SparseCOLMAPDepthLoss) is not ported "
+                                  "yet (ROADMAP Queue 1 item 12)")
     return builders

@@ -17,11 +17,19 @@ card has no `cv2`, so the port keeps its own versions, held to OpenCV's by
   - `decompose_projection_matrix` (cv2.decomposeProjectionMatrix's K, R, t);
   - `find_fundamental_ransac`: epipolar RANSAC in place of
     cv2.findFundamentalMat(FM_RANSAC). RANSAC draws random samples, so its
-    masks agree with OpenCV's by rate, not bit for bit.
+    masks agree with OpenCV's by rate, not bit for bit;
+  - the two-view and PnP solvers of the matchers' geometry stage and of
+    colmap_init/sfm.py: `triangulate_points` (cv2.triangulatePoints),
+    `find_essential_ransac` (cv2.findEssentialMat with RANSAC, a 5-point
+    minimal solver), `recover_pose` (cv2.recoverPose) and
+    `solve_pnp_ransac` (cv2.solvePnPRansac with SOLVEPNP_ITERATIVE);
+  - `read_png`: PNG decoding with zlib and numpy (imageio.imread's arrays).
 """
 from __future__ import annotations
 
 import math
+import struct
+import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -385,3 +393,592 @@ def find_fundamental_ransac(pts1, pts2, thresh_px: float = 1.0, confidence: floa
         if int(mask_fit.sum()) >= int(mask.sum()):
             best_F, mask = F_fit, mask_fit
     return best_F.cpu().numpy(), mask.cpu().numpy()
+
+
+def _ransac_update_iters(confidence: float, outlier_share: float, model_points: int,
+                         max_iters: int) -> int:
+    """OpenCV's RANSACUpdateNumIters: iterations for `confidence` that one
+    all-inlier sample was drawn at this outlier share, at most max_iters."""
+    p = min(max(confidence, 0.0), 1.0)
+    ep = min(max(outlier_share, 0.0), 1.0)
+    num = max(1.0 - p, np.finfo(np.float64).tiny)
+    denom = 1.0 - (1.0 - ep) ** model_points
+    if denom < np.finfo(np.float64).tiny:
+        return 0
+    num, denom = math.log(num), math.log(denom)
+    if denom >= 0 or -num >= max_iters * (-denom):
+        return max_iters
+    return int(round(num / denom))
+
+
+def _as_points(pts, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(pts), dtype=torch.float64, device=device).reshape(-1, 2)
+
+
+def _normalize_by_K(p: torch.Tensor, K) -> torch.Tensor:
+    """Pixel points (N, 2) -> normalised camera coordinates, as OpenCV's
+    findEssentialMat and recoverPose do with their camera matrix."""
+    if K is None:
+        return p
+    K = np.asarray(K, np.float64)
+    c = torch.tensor([K[0, 2], K[1, 2]], dtype=p.dtype, device=p.device)
+    f = torch.tensor([K[0, 0], K[1, 1]], dtype=p.dtype, device=p.device)
+    return (p - c) / f
+
+
+# ---------------------------------------------------------------------------
+# triangulation
+# ---------------------------------------------------------------------------
+
+
+def _triangulate(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor
+                 ) -> torch.Tensor:
+    """Linear DLT per point: P1, P2 (..., 3, 4), x1, x2 (..., N, 2) ->
+    homogeneous points (..., N, 4), the right singular vector of the
+    smallest singular value of each 4x4 system (cvTriangulatePoints)."""
+    rows = [x1[..., 0:1] * P1[..., None, 2, :] - P1[..., None, 0, :],
+            x1[..., 1:2] * P1[..., None, 2, :] - P1[..., None, 1, :],
+            x2[..., 0:1] * P2[..., None, 2, :] - P2[..., None, 0, :],
+            x2[..., 1:2] * P2[..., None, 2, :] - P2[..., None, 1, :]]
+    _, _, Vh = torch.linalg.svd(torch.stack(rows, -2))
+    return Vh[..., -1, :]
+
+
+def triangulate_points(P1, P2, x1, x2, device="cpu") -> np.ndarray:
+    """cv2.triangulatePoints(P1, P2, x1, x2): (3, 4) projection matrices and
+    (2, N) image points -> (4, N) homogeneous points (float64; the sign of
+    each column is arbitrary, as OpenCV's)."""
+    P = [torch.as_tensor(np.asarray(m), dtype=torch.float64, device=device) for m in (P1, P2)]
+    x = [torch.as_tensor(np.asarray(v), dtype=torch.float64, device=device).reshape(2, -1).t()
+         for v in (x1, x2)]
+    return _triangulate(P[0], P[1], x[0], x[1]).t().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# essential matrix: 5-point RANSAC, and pose recovery
+# ---------------------------------------------------------------------------
+
+# Monomials in the unknowns (x, y, z) of E = x X + y Y + z Z + W: the ten
+# cubics first (eliminated), then the ten of degree <= 2, the basis of the
+# quotient ring (Stewenius, Engels and Nister's action-matrix solver).
+_LIN = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 0))
+_MONO = ((3, 0, 0), (2, 1, 0), (2, 0, 1), (1, 2, 0), (1, 1, 1), (1, 0, 2), (0, 3, 0),
+         (0, 2, 1), (0, 1, 2), (0, 0, 3),
+         (2, 0, 0), (1, 1, 0), (1, 0, 1), (0, 2, 0), (0, 1, 1), (0, 0, 2),
+         (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 0))
+_QUAD = _MONO[10:]
+
+
+def _product_table(a, b) -> np.ndarray:
+    """(len a, len b, 20): coefficient a_i b_j lands on monomial a_i b_j."""
+    index = {e: i for i, e in enumerate(_MONO)}
+    T = np.zeros((len(a), len(b), len(_MONO)))
+    for i, ea in enumerate(a):
+        for j, eb in enumerate(b):
+            T[i, j, index[tuple(u + v for u, v in zip(ea, eb))]] = 1.0
+    return T
+
+
+_T_LIN_LIN = _product_table(_LIN, _LIN)[:, :, 10:]   # linear x linear -> degree <= 2
+_T_QUAD_LIN = _product_table(_QUAD, _LIN)            # degree <= 2 x linear -> degree <= 3
+# row k of the action matrix of x: the monomial x * basis_k in _MONO
+_X_TIMES_BASIS = [_MONO.index((e[0] + 1, e[1], e[2])) for e in _QUAD]
+
+
+def _five_point(n1: torch.Tensor, n2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Essential matrices from (B, 5, 2) normalised point pairs (n2^T E n1 =
+    0): (B, 10, 3, 3) candidates of unit norm and (B, 10) validity.
+
+    E lies in the 4-dimensional null space of the 5 epipolar rows; det E = 0
+    and 2 E E^T E - tr(E E^T) E = 0 give ten cubics in (x, y, z), reduced by
+    Gauss-Jordan to the action matrix of x on the ten basis monomials
+    (10x20 -> 10x10), whose real eigenvectors are the solutions. They are
+    ordered by x, so the order does not depend on the eigensolver."""
+    B = n1.shape[0]
+    dt, dev = n1.dtype, n1.device
+    _, _, Vh = torch.linalg.svd(_design(n1, n2))
+    E = Vh[:, 5:9].permute(0, 2, 1).reshape(B, 3, 3, 4)   # entries as [x, y, z, 1] coefficients
+    T11 = torch.as_tensor(_T_LIN_LIN, dtype=dt, device=dev)
+    T21 = torch.as_tensor(_T_QUAD_LIN, dtype=dt, device=dev)
+    EEt = torch.einsum("bikp,bjkq,pqr->bijr", E, E, T11)
+    EEtE = torch.einsum("bikp,bkjq,pqr->bijr", EEt, E, T21)
+    trace = EEt[:, 0, 0] + EEt[:, 1, 1] + EEt[:, 2, 2]
+    trE = torch.einsum("bp,bijq,pqr->bijr", trace, E, T21)
+
+    def minor(i0, j0, i1, j1):
+        return (torch.einsum("bp,bq,pqr->br", E[:, i0, j0], E[:, i1, j1], T11)
+                - torch.einsum("bp,bq,pqr->br", E[:, i0, j1], E[:, i1, j0], T11))
+
+    det = (torch.einsum("bp,bq,pqr->br", minor(1, 1, 2, 2), E[:, 0, 0], T21)
+           - torch.einsum("bp,bq,pqr->br", minor(1, 0, 2, 2), E[:, 0, 1], T21)
+           + torch.einsum("bp,bq,pqr->br", minor(1, 0, 2, 1), E[:, 0, 2], T21))
+    C = torch.cat([det[:, None], (2 * EEtE - trE).reshape(B, 9, 20)], 1)
+    G, info = torch.linalg.solve_ex(C[:, :, :10], C[:, :, 10:])
+    eye = torch.eye(10, dtype=dt, device=dev).expand(B, 10, 10)
+    M = torch.cat([-G, eye], 1)[:, _X_TIMES_BASIS]
+    ok = (info == 0) & torch.isfinite(M).all(-1).all(-1)
+    M = torch.where(ok[:, None, None], M, torch.zeros_like(M))
+    # the batch of 10x10 eigenproblems goes to the host (LAPACK's geev) from
+    # any device: torch's CUDA eig is MAGMA's hybrid routine, also on the host
+    lam, V = (x.to(dev) for x in torch.linalg.eig(M.cpu()))
+    w = V[:, 9, :]
+    valid = ok[:, None] & (lam.imag.abs() <= 1e-9 * (1.0 + lam.real.abs())) & (w.abs() > 1e-12)
+    w = torch.where(valid, w, torch.ones_like(w))
+    xyz = torch.stack([(V[:, 6, :] / w).real, (V[:, 7, :] / w).real, (V[:, 8, :] / w).real,
+                       torch.ones_like(lam.real)], -1)                   # (B, 10, 4)
+    Es = torch.einsum("bsc,bijc->bsij", xyz, E)
+    Es = Es / torch.linalg.norm(Es, dim=(-2, -1), keepdim=True).clamp(min=1e-300)
+    valid &= torch.isfinite(Es).all(-1).all(-1)
+    key = torch.where(valid, lam.real, torch.full_like(lam.real, float("inf")))
+    order = torch.argsort(key, dim=1, stable=True)
+    Es = torch.gather(Es, 1, order[:, :, None, None].expand(B, 10, 3, 3))
+    return Es, torch.gather(valid, 1, order)
+
+
+def find_essential_ransac(pts1, pts2, K=None, thresh: float = 1.0, prob: float = 0.999,
+                          generator: Optional[torch.Generator] = None, max_iters: int = 1000,
+                          device="cpu") -> Tuple[np.ndarray, np.ndarray]:
+    """cv2.findEssentialMat(pts1, pts2, K, method=RANSAC, prob, threshold):
+    E with pts2^T E pts1 = 0 in normalised coordinates, and the inlier mask.
+
+    Points are normalised by K (identity when None) and the threshold by
+    (fx + fy) / 2, as OpenCV does. Each hypothesis set comes from the 5-point
+    solver on 5 distinct pairs drawn on the CPU from `generator` (seed 0 when
+    None) and solved in batches in float64 on `device`; a pair is an inlier
+    when its squared Sampson distance is at most thresh^2 (OpenCV's
+    EMEstimatorCallback). The best model is the first with the most inliers;
+    the iteration count adapts to its inlier share as OpenCV's does, at most
+    max_iters. Then up to five local-optimisation rounds refit the model to
+    its inliers (Levenberg-Marquardt on Sampson distances), each kept while
+    it holds at least as many: OpenCV returns the best minimal model, 0.2-0.6
+    deg off at 0.5 px noise where the refit is 0.02-0.03 deg off
+    (tests/test_torch_sfm.py). Raises ValueError below 5 pairs or when no
+    sample gives a model."""
+    p1 = _as_points(pts1, device)
+    p2 = _as_points(pts2, device)
+    n = p1.shape[0]
+    if n < 5 or p2.shape[0] != n:
+        raise ValueError(f"find_essential_ransac needs >= 5 point pairs, got {n}")
+    n1, n2 = _normalize_by_K(p1, K), _normalize_by_K(p2, K)
+    if K is not None:
+        thresh = float(thresh) / ((float(K[0][0]) + float(K[1][1])) / 2.0)
+    thr = float(thresh) ** 2
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    one = torch.ones((n, 1), dtype=torch.float64, device=device)
+    x1h, x2h = torch.cat([n1, one], 1), torch.cat([n2, one], 1)
+    batch = int(max(1, min(64, 2 ** 22 // (10 * n))))
+
+    best_E, best_count, done, needed = None, 4, 0, max_iters
+    while done < needed:
+        b = min(batch, needed - done)
+        idx = _sample_without_replacement(n, 5, b, gen).to(device)
+        Es, valid = _five_point(n1[idx], n2[idx])
+        counts = (_sampson(Es.reshape(-1, 3, 3), x1h, x2h) <= thr).sum(1)
+        counts = torch.where(valid.reshape(-1), counts, torch.full_like(counts, -1))
+        k = int(torch.argmax(counts))
+        if int(counts[k]) > best_count:
+            best_E, best_count = Es.reshape(-1, 3, 3)[k], int(counts[k])
+            needed = min(needed, _ransac_update_iters(prob, (n - best_count) / n, 5, needed))
+        done += b
+    if best_E is None:
+        raise ValueError("find_essential_ransac: no sample gave an essential matrix with "
+                         ">= 5 inliers")
+    mask = _sampson(best_E[None], x1h, x2h)[0] <= thr
+    for _ in range(5):
+        E_fit = _refine_essential(best_E, n1[mask], n2[mask])
+        mask_fit = _sampson(E_fit[None], x1h, x2h)[0] <= thr
+        if int(mask_fit.sum()) < int(mask.sum()):
+            break
+        grew = int(mask_fit.sum()) > int(mask.sum())
+        best_E, mask = E_fit, mask_fit
+        if not grew:
+            break
+    return best_E.cpu().numpy(), mask.cpu().numpy()
+
+
+def _recover_pose(E: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                  mask: Optional[torch.Tensor], distance_thresh: float = 50.0):
+    """recover_pose on normalised (N, 2) tensors: (counts of the 4
+    candidates, index picked, R, t (3, 1), mask of the pick)."""
+    dev, n = p1.device, p1.shape[0]
+    U, _, Vt = torch.linalg.svd(E)
+    if torch.linalg.det(U) < 0:
+        U = -U
+    if torch.linalg.det(Vt) < 0:
+        Vt = -Vt
+    W = torch.tensor([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=torch.float64,
+                     device=dev)
+    R1, R2, t = U @ W @ Vt, U @ W.t() @ Vt, U[:, 2:3]
+    cands = [(R1, t), (R2, t), (R1, -t), (R2, -t)]
+    P0 = torch.eye(3, 4, dtype=torch.float64, device=dev)
+    Ps = torch.stack([torch.cat([R, tt], 1) for R, tt in cands])           # (4, 3, 4)
+    Q = _triangulate(P0.expand(4, 3, 4), Ps, p1.expand(4, n, 2), p2.expand(4, n, 2))
+    good = Q[..., 2] * Q[..., 3] > 0
+    Xn = Q[..., :3] / Q[..., 3:4]
+    good &= Xn[..., 2] < distance_thresh
+    z2 = torch.einsum("cj,cnj->cn", Ps[:, 2, :3], Xn) + Ps[:, 2, 3:4]
+    good &= (z2 > 0) & (z2 < distance_thresh)
+    if mask is not None:
+        good &= mask[None]
+    counts = [int(c) for c in good.sum(1)]
+    pick = 3
+    for c in range(3):
+        if all(counts[c] > counts[o] for o in range(4) if o != c):
+            pick = c
+            break
+    R, tt = cands[pick]
+    return counts, pick, R, tt, good[pick]
+
+
+def _refine_essential(E: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor,
+                      n_iters: int = 10) -> torch.Tensor:
+    """Levenberg-Marquardt on the signed Sampson distances of normalised
+    inlier pairs over (R, t) of E's cheirality-checked decomposition:
+    E = [t]x exp([w]x) R0, t unit. Returns E of unit norm."""
+    _, _, R0, t0, _ = _recover_pose(E, n1, n2, None)
+    t0 = t0[:, 0]
+    one = torch.ones((n1.shape[0], 1), dtype=n1.dtype, device=n1.device)
+    x1h, x2h = torch.cat([n1, one], 1), torch.cat([n2, one], 1)
+
+    def essential(p):
+        tv = t0 + p[3:]
+        return _skew(tv / torch.linalg.norm(tv)) @ torch.linalg.matrix_exp(_skew(p[:3])) @ R0
+
+    def resid(p):
+        Em = essential(p)
+        Ex1, Etx2 = x1h @ Em.t(), x2h @ Em
+        den = Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2
+        return (x2h * Ex1).sum(1) / torch.sqrt(den.clamp(min=1e-300))
+
+    p = torch.zeros(6, dtype=n1.dtype, device=n1.device)
+    r = resid(p)
+    cost, lam = float(r @ r), 1e-3
+    for _ in range(n_iters):
+        J = torch.autograd.functional.jacobian(resid, p, vectorize=True,
+                                               strategy="forward-mode")
+        H, g = J.t() @ J, J.t() @ r
+        improved = False
+        for _ in range(8):
+            step, info = torch.linalg.solve_ex(H + lam * torch.diag(torch.diagonal(H) + 1e-18),
+                                               -g)
+            if int(info) != 0:  # singular on degenerate inliers: damp harder
+                lam *= 10.0
+                continue
+            r_new = resid(p + step)
+            cost_new = float(r_new @ r_new)
+            if cost_new < cost:
+                improved = cost - cost_new > 1e-12 * cost
+                p, r, cost, lam = p + step, r_new, cost_new, max(lam * 0.1, 1e-12)
+                break
+            lam *= 10.0
+        if not improved:
+            break
+    Em = essential(p)
+    return Em / torch.linalg.norm(Em)
+
+
+def recover_pose(E, pts1, pts2, K=None, mask=None, distance_thresh: float = 50.0,
+                 device="cpu") -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """cv2.recoverPose(E, pts1, pts2, K, mask=mask): the (R, t) of the four
+    decompositions of E (cv2.decomposeEssentialMat: R1 = U W V^T,
+    R2 = U W^T V^T, t = +-U[:, 2]) that puts the most masked pairs in front
+    of both cameras, closer than distance_thresh (normalised units), by
+    triangulating every pair. Ties go to the later candidate, as OpenCV's
+    chain of strict comparisons does. Returns (count, R (3, 3), t (3, 1),
+    mask (N,) bool) in float64."""
+    p1 = _normalize_by_K(_as_points(pts1, device), K)
+    p2 = _normalize_by_K(_as_points(pts2, device), K)
+    m = (None if mask is None
+         else torch.as_tensor(np.asarray(mask).reshape(-1) != 0, device=device))
+    E_t = torch.as_tensor(np.asarray(E, np.float64)[:3, :3], device=device)
+    counts, _, R, t, good = _recover_pose(E_t, p1, p2, m, distance_thresh)
+    return max(counts), R.cpu().numpy(), t.cpu().numpy(), good.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# PnP: RANSAC over 6-point DLT + Gauss-Newton samples, a Levenberg-Marquardt polish
+# ---------------------------------------------------------------------------
+
+
+def _so3_exp(w: np.ndarray) -> np.ndarray:
+    th = float(np.linalg.norm(w))
+    if th < 1e-12:
+        return np.eye(3)
+    k = w / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * (Kx @ Kx)
+
+
+def _pnp_dlt(X: torch.Tensor, xn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Calibrated DLT of (B, 6, 3) object points and (B, 6, 2) normalised
+    image points: the 3x4 P of the 12x12 system's null vector (points
+    centred and scaled first), its left 3x3 block projected onto SO(3).
+    Returns R (B, 3, 3), t (B, 3)."""
+    B, m, _ = X.shape
+    c = X.mean(1, keepdim=True)
+    s = torch.linalg.norm(X - c, dim=-1).mean(1).clamp(min=1e-12)           # (B,)
+    Xh = torch.cat([(X - c) / s[:, None, None], torch.ones_like(X[..., :1])], -1)
+    zero = torch.zeros_like(Xh)
+    A = torch.cat([torch.cat([Xh, zero, -xn[..., 0:1] * Xh], -1),
+                   torch.cat([zero, Xh, -xn[..., 1:2] * Xh], -1)], 1)         # (B, 12, 12)
+    _, _, Vh = torch.linalg.svd(A)
+    Pn = Vh[:, -1].reshape(B, 3, 4)
+    # undo the normalisation: P = Pn [I/s, -c/s; 0, 1]
+    M = Pn[:, :, :3] / s[:, None, None]
+    p4 = Pn[:, :, 3] - torch.einsum("bij,bj->bi", M, c[:, 0])
+    sign = torch.sign(torch.linalg.det(M))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    M, p4 = M * sign[:, None, None], p4 * sign[:, None]
+    U, S, Vt = torch.linalg.svd(M)
+    return U @ Vt, p4 / S.mean(-1, keepdim=True).clamp(min=1e-300)
+
+
+def _skew(v: torch.Tensor) -> torch.Tensor:
+    """[v]x of (..., 3) vectors -> (..., 3, 3)."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([torch.stack([z, -v[..., 2], v[..., 1]], -1),
+                        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+                        torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
+
+
+def _pnp_gauss_newton(R: torch.Tensor, t: torch.Tensor, X: torch.Tensor, xn: torch.Tensor,
+                      n_iters: int = 5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Damped Gauss-Newton of each (B, 3, 3), (B, 3) pose on its own (B, m)
+    sample in normalised coordinates (R <- exp([w]x) R, t <- t + v): the
+    DLT's projection onto SO(3) discards what its 11 degrees of freedom
+    fitted to the noise; the calibrated 6-dof fit averages it."""
+    eye = torch.eye(6, dtype=X.dtype, device=X.device)
+    for _ in range(n_iters):
+        Xr = torch.einsum("bij,bnj->bni", R, X)
+        Xc = Xr + t[:, None]
+        z = torch.where(Xc[..., 2].abs() < 1e-12, torch.full_like(Xc[..., 2], 1e-12), Xc[..., 2])
+        r = (Xc[..., :2] / z[..., None] - xn).reshape(R.shape[0], -1)            # (B, 2m)
+        zero = torch.zeros_like(z)
+        dpi = torch.stack([torch.stack([1 / z, zero, -Xc[..., 0] / z ** 2], -1),
+                           torch.stack([zero, 1 / z, -Xc[..., 1] / z ** 2], -1)], -2)  # (B,m,2,3)
+        Jw = -dpi @ _skew(Xr)
+        J = torch.cat([Jw, dpi], -1).reshape(R.shape[0], -1, 6)                  # (B, 2m, 6)
+        H = J.transpose(1, 2) @ J
+        H = H + (1e-9 * torch.diagonal(H, dim1=1, dim2=2).sum(-1))[:, None, None] * eye
+        step, info = torch.linalg.solve_ex(H, -(J.transpose(1, 2) @ r[..., None])[..., 0])
+        step = torch.where((info == 0)[:, None] & torch.isfinite(step), step,
+                           torch.zeros_like(step))
+        R = torch.linalg.matrix_exp(_skew(step[:, :3])) @ R
+        t = t + step[:, 3:]
+    return R, t
+
+
+def _reproj_sq(R: torch.Tensor, t: torch.Tensor, X: torch.Tensor, uv: torch.Tensor,
+               K: torch.Tensor) -> torch.Tensor:
+    """Squared pixel reprojection errors (B, N) of (B, 3, 3), (B, 3) poses;
+    inf for points not in front of the camera (a mirrored pose can project
+    points behind it onto their pixels)."""
+    Xc = torch.einsum("bij,nj->bni", R, X) + t[:, None]
+    p = torch.einsum("ij,bnj->bni", K, Xc)
+    z = p[..., 2]
+    front = Xc[..., 2] > 0
+    z = torch.where(front, z, torch.ones_like(z))
+    err = ((p[..., :2] / z[..., None] - uv) ** 2).sum(-1)
+    return torch.where(front, err, torch.full_like(err, float("inf")))
+
+
+def _pnp_lm(X: torch.Tensor, uv: torch.Tensor, K: torch.Tensor, R: np.ndarray, t: np.ndarray,
+            n_iters: int = 20) -> Tuple[np.ndarray, np.ndarray]:
+    """Levenberg-Marquardt on the pixel reprojection error over (R, t): the
+    perturbation R <- exp(w) R, t <- t + v; the 6x6 step is solved on the
+    host, the per-point Jacobians on X's device."""
+    dev = X.device
+
+    def cost_of(R_, t_):
+        Rt = torch.as_tensor(R_, device=dev)[None]
+        return float(_reproj_sq(Rt, torch.as_tensor(t_, device=dev)[None], X, uv, K).sum())
+
+    lam, cost = 1e-3, cost_of(R, t)
+    for _ in range(n_iters):
+        Rt, tt = torch.as_tensor(R, device=dev), torch.as_tensor(t, device=dev)
+        Xr = X @ Rt.t()
+        Xc = Xr + tt
+        p = Xc @ K.t()
+        z = p[:, 2]
+        uvp = p[:, :2] / z[:, None]
+        A = (K[:2][None] - uvp[:, :, None] * K[2][None, None]) / z[:, None, None]  # (N, 2, 3)
+        skew = torch.zeros((X.shape[0], 3, 3), dtype=X.dtype, device=dev)
+        skew[:, 0, 1], skew[:, 0, 2] = -Xr[:, 2], Xr[:, 1]
+        skew[:, 1, 0], skew[:, 1, 2] = Xr[:, 2], -Xr[:, 0]
+        skew[:, 2, 0], skew[:, 2, 1] = -Xr[:, 1], Xr[:, 0]
+        J = torch.cat([-(A @ skew), A], -1)                                      # (N, 2, 6)
+        r = uvp - uv
+        H = torch.einsum("nki,nkj->ij", J, J).cpu().numpy()
+        g = torch.einsum("nki,nk->i", J, r).cpu().numpy()
+        improved = False
+        for _ in range(10):
+            try:
+                step = np.linalg.solve(H + lam * np.diag(np.diag(H) + 1e-12), -g)
+            except np.linalg.LinAlgError:
+                lam *= 10.0
+                continue
+            R_new, t_new = _so3_exp(step[:3]) @ R, t + step[3:]
+            cost_new = cost_of(R_new, t_new)
+            if cost_new < cost:
+                improved = cost - cost_new > 1e-12 * max(cost, 1e-12)
+                R, t, cost, lam = R_new, t_new, cost_new, max(lam * 0.1, 1e-12)
+                break
+            lam *= 10.0
+        if not improved:
+            break
+    return R, t
+
+
+def solve_pnp_ransac(obj, img, K, reproj_err: float = 8.0, iters: int = 100,
+                     confidence: float = 0.99, generator: Optional[torch.Generator] = None,
+                     device="cpu"):
+    """cv2.solvePnPRansac(obj, img, K, None, reprojectionError, iterationsCount,
+    flags=SOLVEPNP_ITERATIVE), without distortion.
+
+    Minimal samples are solved by a 6-point calibrated DLT, refined by five
+    Gauss-Newton steps on the sample (not EPnP, which OpenCV uses for this
+    flag: a bare 6-point DLT lost half the inliers to OpenCV on a 60x80
+    view at 0.5 px noise, the refined one matches it). Samples are drawn on the CPU from `generator` (seed 0 when
+    None), solved and scored in float64 batches on `device`; a point is an
+    inlier within reproj_err px (OpenCV's squared-error test). The best
+    model is the first with the most inliers, and the iteration count adapts
+    to `confidence` as OpenCV's RANSAC does, at most `iters`. The pose is
+    then polished by Levenberg-Marquardt over its inliers, and the inliers
+    of the polished pose are returned. Returns (ok, rvec (3, 1), tvec (3, 1),
+    inlier indices (M, 1) int32); ok is False with Nones when no model has
+    6 inliers. Raises ValueError below 6 points."""
+    from scipy.spatial.transform import Rotation
+
+    X = torch.as_tensor(np.asarray(obj), dtype=torch.float64, device=device).reshape(-1, 3)
+    uv = _as_points(img, device)
+    n = X.shape[0]
+    if n < 6 or uv.shape[0] != n:
+        raise ValueError(f"solve_pnp_ransac needs >= 6 point pairs, got {n}")
+    Kt = torch.as_tensor(np.asarray(K, np.float64), device=device)
+    xn = _normalize_by_K(uv, np.asarray(K, np.float64))
+    thr = float(reproj_err) ** 2
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    batch = int(max(1, min(64, 2 ** 22 // n)))
+
+    best, best_count, done, needed = None, 5, 0, int(iters)
+    while done < needed:
+        b = min(batch, needed - done)
+        idx = _sample_without_replacement(n, 6, b, gen).to(device)
+        R, t = _pnp_gauss_newton(*_pnp_dlt(X[idx], xn[idx]), X[idx], xn[idx])
+        err = _reproj_sq(R, t, X, uv, Kt)
+        counts = torch.where(torch.isfinite(err), err <= thr, torch.zeros_like(err, dtype=torch.bool)
+                             ).sum(1)
+        k = int(torch.argmax(counts))
+        if int(counts[k]) > best_count:
+            best, best_count = (R[k], t[k]), int(counts[k])
+            needed = min(needed, _ransac_update_iters(confidence, (n - best_count) / n, 6,
+                                                      needed))
+        done += b
+    if best is None:
+        return False, None, None, None
+    mask = _reproj_sq(best[0][None], best[1][None], X, uv, Kt)[0] <= thr
+    R, t = _pnp_lm(X[mask], uv[mask], Kt, best[0].cpu().numpy(), best[1].cpu().numpy())
+    # the inliers of the polished pose: a minimal model's mask moves with its
+    # sample, the polished one's does not (OpenCV's agrees with it)
+    mask = _reproj_sq(torch.as_tensor(R, device=device)[None],
+                      torch.as_tensor(t, device=device)[None], X, uv, Kt)[0] <= thr
+    rvec = Rotation.from_matrix(R).as_rotvec()
+    inliers = np.flatnonzero(mask.cpu().numpy()).astype(np.int32)[:, None]
+    return True, rvec[:, None], np.asarray(t, np.float64)[:, None], inliers
+
+
+# ---------------------------------------------------------------------------
+# PNG decoding
+# ---------------------------------------------------------------------------
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # colour type -> samples per pixel
+
+
+def _unfilter_average(f: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """Average: out[i] = f[i] + (out[i - bpp] + prev[i]) // 2, a recurrence
+    along the row (Python integers over the row's bytes)."""
+    fl, b = f.tolist(), prev.tolist()
+    out = [0] * len(fl)
+    for i in range(min(bpp, len(fl))):
+        out[i] = (fl[i] + (b[i] >> 1)) & 255
+    for i in range(bpp, len(fl)):
+        out[i] = (fl[i] + ((out[i - bpp] + b[i]) >> 1)) & 255
+    return np.asarray(out, np.uint8)
+
+
+def _unfilter_paeth(f: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """Paeth: out[i] = f[i] + the one of (left, up, up-left) nearest to
+    left + up - up-left, a recurrence along the row. The first pixel's
+    predictor is `up`."""
+    fl, b = f.tolist(), prev.tolist()
+    out = [0] * len(fl)
+    for i in range(min(bpp, len(fl))):
+        out[i] = (fl[i] + b[i]) & 255
+    for i in range(bpp, len(fl)):
+        a, bb, c = out[i - bpp], b[i], b[i - bpp]
+        p = a + bb - c
+        pa, pb, pc = abs(p - a), abs(p - bb), abs(p - c)
+        pred = a if (pa <= pb and pa <= pc) else (bb if pb <= pc else c)
+        out[i] = (fl[i] + pred) & 255
+    return np.asarray(out, np.uint8)
+
+
+def read_png(path) -> np.ndarray:
+    """Decode a PNG file as imageio.imread does: (H, W) for gray, (H, W, 2)
+    gray + alpha, (H, W, 3) RGB, (H, W, 4) RGBA, uint8 or uint16 (8 or 16 bits
+    per sample), non-interlaced, with any of the five row filters. Anything
+    else (a JPEG, an interlaced or palette PNG, 1/2/4-bit samples) raises
+    ValueError naming it."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != _PNG_SIGNATURE:
+        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "not a PNG"
+        raise ValueError(f"{path}: {kind}; read_png decodes PNG only")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos: pos + 4])
+        kind, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    W, H, depth, color, _, _, interlace = header
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNG is not decoded")
+    if color not in _PNG_CHANNELS or depth not in (8, 16):
+        raise ValueError(f"{path}: PNG colour type {color} at {depth} bits is not decoded "
+                         "(gray, gray+alpha, RGB, RGBA at 8 or 16 bits are)")
+    channels = _PNG_CHANNELS[color]
+    bpp = channels * depth // 8
+    stride = W * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < H * (stride + 1):
+        raise ValueError(f"{path}: truncated PNG image data")
+    raw = raw[: H * (stride + 1)].reshape(H, stride + 1)
+    out = np.empty((H, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for r in range(H):
+        ftype, line = int(raw[r, 0]), raw[r, 1:]
+        if ftype == 0:
+            cur = line.copy()
+        elif ftype == 1:  # Sub: a running sum along the row, per byte of the pixel
+            cur = np.cumsum(line.reshape(W, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:  # Up
+            cur = line + prev
+        elif ftype == 3:
+            cur = _unfilter_average(line, prev, bpp)
+        elif ftype == 4:
+            cur = _unfilter_paeth(line, prev, bpp)
+        else:
+            raise ValueError(f"{path}: PNG row filter {ftype} is not defined")
+        out[r] = cur
+        prev = cur
+    img = out.view(">u2").astype(np.uint16) if depth == 16 else out
+    img = img.reshape(H, W, channels)
+    return img[..., 0] if channels == 1 else img

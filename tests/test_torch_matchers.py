@@ -3,7 +3,8 @@ flow_net.py, sparse_matcher.py) against the JAX package's, on numpy-made
 inputs: the sampling, homography and cycle-consistency helpers, the
 `jax.image.resize` replacement, each piece of the ZNCC appearance stage, the
 whole stage 1 (intr=None) with and without the homography race, the SPSG
-matcher, and the facade's NotImplementedError for the geometry routes.
+matcher, and the facade's geometry routes (zncc and PDC-Net with the
+geometry stage), which run whenever the scene has intrinsics.
 
 Tolerances (float32): interpolation and homography helpers 1e-5 (1e-4 px
 where coordinates pass through a division); ZNCC scores 1e-5. ZNCC argmax
@@ -23,11 +24,13 @@ from sparf_tpu.models import flow_net as fj
 from sparf_tpu.models import sparse_matcher as sj
 from sparf_tpu_torch.datasets import synthetic
 from sparf_tpu_torch.models import flow_net as ft
+from sparf_tpu_torch.models import pdcnet
 from sparf_tpu_torch.models import sparse_matcher as st
 from sparf_tpu_torch.utils import imgproc
 
 T = torch.as_tensor
 J = jnp.asarray
+BUNDLED_PDCNET = pdcnet.BUNDLED_WEIGHTS
 
 
 def _scene(H, W):
@@ -244,14 +247,38 @@ def test_spsg_matches_jax():
 
 
 @pytest.mark.parametrize("backend,kw", [("zncc", {}), ("PDCNet", {}),
-                                        ("pdcnet_jax", dict(ckpt_path="unused.npz"))])
-def test_geometry_routes_raise_naming_their_roadmap_item(backend, kw):
-    """The JAX package's geometry stage runs for zncc and for PDC-Net with
-    geometry_refine=True whenever the scene has intrinsics; the port raises."""
+                                        ("pdcnet_jax", dict(ckpt_path=BUNDLED_PDCNET))])
+def test_geometry_routes_run_with_intrinsics(backend, kw):
+    """zncc, and PDC-Net with geometry_refine=True, run the geometry stage
+    whenever the scene has intrinsics: the contract's shapes, and the
+    stage's report in last_geom (its route, one entry per round)."""
     scene = _scene(24, 32)
     wrapper = ft.FlowSelectionWrapper(backend, geometry_refine=True, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        wrapper.compute_flow_and_confidence_map_of_combi_list(scene, fj.get_combi_list(3, "all"))
+    corres, conf, cc = wrapper.compute_flow_and_confidence_map_and_cc_of_combi_list(
+        scene, fj.get_combi_list(3, "all"))
+    assert corres.shape == (6, 2, 24, 32) and conf.shape == cc.shape == (6, 1, 24, 32)
+    assert corres.dtype == conf.dtype == cc.dtype == np.float32
+    assert np.isfinite(corres).all() and (conf > 0.95).any()
+    geom = wrapper.last_geom
+    seeds = "ZNCC" if backend == "zncc" else "PDC-Net"
+    assert geom["route"] == f"{seeds} seeds -> mini-SfM -> plane-sweep rematch"
+    assert len(geom["rounds"]) == 3 and geom["bootstrap"] is None
+    assert {r["winner"] for r in geom["rounds"]} <= {"prior", "fresh", "pairwise"}
+
+
+def test_device_errors_inside_the_stage_propagate(monkeypatch):
+    """The stage catches what degenerate input raises (ValueError,
+    LinAlgError, IndexError), never RuntimeError: a CUDA error inside a
+    solver reaches the caller instead of turning into a fallback route."""
+    def failing(*a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(imgproc, "find_essential_ransac", failing)
+    scene = _scene(24, 32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ft.compute_zncc_flow_of_combi_list(np.asarray(scene["image"]),
+                                           fj.get_combi_list(3, "all")[:, :2],
+                                           intr=np.asarray(scene["intr"]), device="cpu")
 
 
 def test_facade_routes_without_intrinsics():
