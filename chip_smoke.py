@@ -19,7 +19,12 @@ Phases, one line each; any failure raises and the process exits non-zero:
      cuBLAS chain;
   4. slice-check: one step of the tiny sparf config on the card against the
      same step on the CPU (plain versions, same parameters and draws), in
-     both stages;
+     both stages; accum-check: grad_acc_steps = 2, six steps, one with a NaN
+     draw, card against CPU after every step (counters, accumulator, Adam's
+     mu, parameters); trajectory-check: the 200 steps of
+     tests/test_torch_trajectory.py (across the stage switch at 120) on the
+     card against the CPU in lockstep, the loss and the pose error held to
+     that test's bounds, the largest gaps printed;
   5. matcher-check: with TF32 on for cuBLAS and cuDNN, the port's matchers
      on the card against the same calls on the CPU, on the 300x400 3-view
      synthetic scene: the PDC-Net forward with the bundled weights (max
@@ -58,8 +63,19 @@ Phases, one line each; any failure raises and the process exits non-zero:
   9. eval: the port's eval.run_eval on the full-shape trainer after its
      fine-stage steps: one 300x400 test view, with and without 100 steps of
      test-time refinement; seconds per full-image render and per
-     refinement, launch counts, metrics.
-The geometry stage runs four times in all (two matcher routes, the slice's
+     refinement, launch counts, metrics;
+ 10. fixed-pose: nerf_fixed_noisy_poses/synthetic/sparf at the full shape on
+     GT-depth correspondences, steps in the coarse and the fine sampling
+     stage with the poses bit-frozen, it/s, then one test view through
+     evaluate_full with refinement composed onto its GT pose;
+ 11. dsnerf: nerf_gt_poses with SparseCOLMAPDepthLoss at the full shape, its
+     depth triangulated from GT-depth matches at the GT poses and trained on
+     (weight 10^0, a backward for every forward): the triangulation's
+     seconds, perc_col_depth, it/s;
+ 12. accum: grad_acc_steps = 2 on the joint recipe at the full shape, it/s,
+     the NeRF updated on every second step and the poses on every step.
+Each path from 7 on counts its kernel launches from 0; the kernels line sums
+them. The geometry stage runs four times in all (two matcher routes, the slice's
 trainer, its refresh); each phase's seconds are printed. Then a JSON line
 with every kernel, and last {"ok": true, "device": {...}}.
 """
@@ -1038,6 +1054,328 @@ def run_eval_phase(trainer) -> dict:
             "refine_s": [r[0] for r in refines]}
 
 
+# ---------------------------------------------------------------------------
+# gradient accumulation, the N-step trajectory, the fixed-pose trainer,
+# DS-NeRF's COLMAP depth loss
+# ---------------------------------------------------------------------------
+
+# the trajectory test's shape (tests/test_torch_trajectory.py): the tiny sparf
+# config, 4 point / 2 view PE frequencies, max_iter 400 so that the 200 steps
+# cross the stage switch at 120; and its bounds on the gap at step n
+TINY_TRAJ = dict(TINY_SPARF, max_iter=400,
+                 arch=dict(TINY_SPARF["arch"], posenc=dict(L_3D=4, L_view=2)))
+TRAJ_STEPS = 200
+TRAJ_TOL = {"loss_rel": (2e-4, 1e-5), "rot_deg": (1e-3, 5e-5), "trans": (5e-5, 5e-6)}
+# the accum-check, card against CPU: the accumulator and Adam's mu within 1e-3
+# of each tensor's largest magnitude (tests/test_torch_accumulation.py's bound
+# against JAX), the parameters within the slice-check's 1e-5
+ACCUM_STEPS, ACCUM_NAN_STEP = 6, 3
+
+
+class NanDraws:
+    """Draws whose first 4-d uniform (a render's stratified offsets) gets a
+    NaN, so that the step's gradients are not finite."""
+
+    def __init__(self, draws):
+        self.draws, self.done = draws, False
+
+    def uniform(self, shape):
+        u = self.draws.uniform(shape)
+        if len(shape) == 4 and not self.done:
+            u = u.clone()
+            u.view(-1)[0] = float("nan")
+            self.done = True
+        return u
+
+    def randint(self, shape, low, high):
+        return self.draws.randint(shape, low, high)
+
+    def normal(self, shape):
+        return self.draws.normal(shape)
+
+
+def _tiny_pair(over):
+    """The joint trainer of the tiny config `over` on the CPU and on the card,
+    the card's from the CPU's parameters."""
+    from sparf_tpu_torch.training import engine
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+
+    def trainer_on(device):
+        cfg = build_config("joint_pose_nerf_training/synthetic", "sparf", over)
+        return define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_tiny_"),
+                              device=device, save_option=False)
+
+    cpu, gpu = trainer_on("cpu"), trainer_on("cuda")
+    gpu.state.nerf_params = engine.tree_unflatten(
+        cpu.state.nerf_params, [x.cuda() for x in engine.tree_leaves(cpu.state.nerf_params)])
+    gpu.state.pose_params = {k: v.cuda() for k, v in cpu.state.pose_params.items()}
+    return cpu, gpu
+
+
+def check_accum_cuda_vs_cpu() -> None:
+    """grad_acc_steps = 2 on the tiny config: ACCUM_STEPS steps on the card
+    against the CPU from the same parameters and draws, one of them with a
+    NaN in a draw; after every step the mini-step counter, Adam's count, the
+    accumulator, mu and the parameters agree, and the non-finite step leaves
+    the whole state as it was."""
+    import torch
+
+    from sparf_tpu_torch.training import engine
+    from sparf_tpu_torch.utils.draws import Draws, ReplayDraws
+
+    cpu, gpu = _tiny_pair(dict(TINY_TRAJ, grad_acc_steps=2))
+    st_c, st_g = cpu.state, gpu.state
+    worst = {"acc": 0.0, "mu": 0.0, "param": 0.0}
+    for it in range(ACCUM_STEPS):
+        draws = Draws(100 + it, "cpu")
+        rec = RecordingDraws(NanDraws(draws) if it == ACCUM_NAN_STEP else draws)
+        prev_g = st_g
+        st_c, _ = cpu.get_step(it)(st_c, rec)
+        st_g, _ = gpu.get_step(it)(st_g, ReplayDraws(rec.recorded, "cuda"))
+        a_c, a_g = st_c.opt_state_nerf, st_g.opt_state_nerf
+        counts = [(int(a_g.mini_step), int(a_c.mini_step)), (int(a_g.inner.count),
+                                                             int(a_c.inner.count)),
+                  (int(st_g.nan_count), int(st_c.nan_count))]
+        if any(g != c for g, c in counts):
+            raise AssertionError(f"accum-check step {it}: counters card/cpu {counts}")
+        if it == ACCUM_NAN_STEP:
+            same = all(torch.equal(a, b) for a, b in zip(
+                engine.tree_leaves(st_g.nerf_params) + a_g.acc,
+                engine.tree_leaves(prev_g.nerf_params) + prev_g.opt_state_nerf.acc))
+            if int(st_g.nan_count) != 1 or not same:
+                raise AssertionError("accum-check: the non-finite step changed the state")
+        for key, pairs in (("acc", zip(a_g.acc, a_c.acc)), ("mu", zip(a_g.inner.mu,
+                                                                      a_c.inner.mu))):
+            for a, b in pairs:
+                err, rel = rel_err(a.cpu(), b)
+                worst[key] = max(worst[key], rel)
+                if not rel <= 1e-3:
+                    raise AssertionError(f"accum-check step {it}: {key} off by {rel:.3g}")
+        for a, b in zip(engine.tree_leaves(st_g.nerf_params) + list(st_g.pose_params.values()),
+                        engine.tree_leaves(st_c.nerf_params) + list(st_c.pose_params.values())):
+            err = float((a.cpu() - b).abs().max())
+            worst["param"] = max(worst["param"], err)
+            if not err <= 1e-5:
+                raise AssertionError(f"accum-check step {it}: parameters off by {err:.3g}")
+    phase("accum-check", f"grad_acc_steps=2, {ACCUM_STEPS} steps (step {ACCUM_NAN_STEP} "
+                         f"non-finite, skipped on both): card matches cpu, "
+                         f"{int(st_g.opt_state_nerf.inner.count)} applied updates; worst "
+                         f"accumulator {worst['acc']:.3g} and mu {worst['mu']:.3g} of scale, "
+                         f"parameters {worst['param']:.3g}")
+
+
+def check_trajectory_cuda_vs_cpu() -> dict:
+    """The trajectory test's TRAJ_STEPS steps on the card against the CPU, in
+    lockstep on the same draws: the loss and the pose error after alignment
+    at every step, held to the test's bounds."""
+    import numpy as np
+
+    from sparf_tpu_torch.utils import alignment
+    from sparf_tpu_torch.utils.draws import Draws, ReplayDraws
+
+    cpu, gpu = _tiny_pair(TINY_TRAJ)
+    gt = np.asarray(cpu.train_scene_np["pose"])
+    draws = Draws(7, "cpu")
+    st_c, st_g = cpu.state, gpu.state
+    rows = []
+    for it in range(TRAJ_STEPS):
+        rec = RecordingDraws(draws)
+        st_c, s_c = cpu.get_step(it)(st_c, rec)
+        st_g, s_g = gpu.get_step(it)(st_g, ReplayDraws(rec.recorded, "cuda"))
+        e_c = alignment.evaluate_any_poses(cpu.current_poses_w2c(st_c).detach().numpy(), gt)
+        e_g = alignment.evaluate_any_poses(gpu.current_poses_w2c(st_g).detach().cpu().numpy(),
+                                           gt)
+        rows.append((float(s_c["all"]), float(s_g["all"]), e_c["error_R"], e_g["error_R"],
+                     e_c["error_t"], e_g["error_t"]))
+    r = np.asarray(rows)
+    n = np.arange(TRAJ_STEPS)
+    gaps = {"loss_rel": np.abs(r[:, 1] - r[:, 0]) / np.abs(r[:, 0]),
+            "rot_deg": np.abs(r[:, 3] - r[:, 2]), "trans": np.abs(r[:, 5] - r[:, 4])}
+    share = {k: float(np.max(g / (TRAJ_TOL[k][0] + TRAJ_TOL[k][1] * n))) for k, g in gaps.items()}
+    switch = cpu.iter_end_joint
+    phase("trajectory-check", f"{TRAJ_STEPS} steps (poses frozen from {switch}), card vs cpu: "
+          f"largest gaps loss {gaps['loss_rel'].max():.3g} (relative), rotation error "
+          f"{gaps['rot_deg'].max():.3g} deg, translation error {gaps['trans'].max():.3g}; "
+          f"largest share of the bound {max(share.values()):.3g}; pose error from "
+          f"{r[0, 3]:.4f} to {r[-1, 3]:.4f} deg (cpu {r[-1, 2]:.4f})")
+    if max(share.values()) > 1 or int(st_g.nan_count) or int(st_c.nan_count):
+        raise AssertionError(f"trajectory-check: gaps beyond the bounds {share}")
+    return {k: float(g.max()) for k, g in gaps.items()}
+
+
+def _full_trainer(module, name, over):
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+
+    cfg = build_config(module, name, dict(FULL_SCENE, max_iter=100000, **over))
+    return define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_smoke_"),
+                          device="cuda", save_option=False)
+
+
+def _timed_steps(trainer, it0: int, steps: int, what: str):
+    """1 warm-up step and `steps` timed steps from iteration it0, with the
+    kernels' launches counted from 0 (returns state, it/s, launches, stats)."""
+    import dataclasses
+
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    state = dataclasses.replace(trainer.state, iteration=it0, iteration_nerf=it0)
+    step = trainer.get_step(it0)
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    state, stats = step(state, trainer.draws)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, stats = step(state, trainer.draws)
+    torch.cuda.synchronize()
+    its = steps / (time.perf_counter() - t0)
+    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
+                "pack": fm.PACK_LAUNCHES}
+    losses = {k: float(v) for k, v in stats.items() if v.numel() == 1}
+    bad = [k for k, v in losses.items() if v != v or abs(v) == float("inf")]
+    if bad or int(state.nan_count):
+        raise AssertionError(f"{what}: non-finite stats {bad}, nan_count {int(state.nan_count)}")
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        raise AssertionError(f"{what}: K1/K2 not on the path: {launches}")
+    return state, its, launches, losses
+
+
+def run_fixed_pose_phase(steps: int) -> dict:
+    """nerf_fixed_noisy_poses/synthetic/sparf at the full shape on GT-depth
+    correspondences, fine sampling from 30% of max_iter (the preset renders
+    fine from the start) so that both sampling stages run: `steps` timed
+    steps in each, the poses bit-frozen, then one test view through
+    evaluate_full with test-time refinement composed onto the GT pose."""
+    import math
+
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    trainer = _full_trainer("nerf_fixed_noisy_poses/synthetic", "sparf", dict(
+        use_gt_correspondences=True, min_nbr_matches=100,
+        nerf=dict(ratio_start_fine_sampling_at_x=0.3)))
+    if type(trainer).__name__ != "NerfTrainerPerSceneWColmapFixedPoses":
+        raise AssertionError(f"fixed-pose: built {type(trainer).__name__}")
+    poses = trainer.current_poses_w2c().detach().clone()
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3"), 0)}
+    for stage, it0 in (("coarse", 0), ("fine", int(0.35 * trainer.cfg.max_iter))):
+        state, its, launches, losses = _timed_steps(trainer, it0, steps, f"fixed-pose {stage}")
+        if launches["K3"] == 0:
+            raise AssertionError(f"fixed-pose {stage}: no K3 (depth-consistency visibility)")
+        if not torch.equal(trainer.current_poses_w2c(state), poses):
+            raise AssertionError(f"fixed-pose {stage}: the poses moved")
+        trainer.state = state
+        out[stage] = its
+        for k in out["launches"]:
+            out["launches"][k] += launches[k]
+        phase("fixed-pose", f"{stage} (iteration {it0}, fine sampling "
+                            f"{trainer.fine_enabled_at(it0)}): {its:.3f} it/s over {steps} "
+                            f"steps after 1 warm-up, loss all={losses['all']:.5g} "
+                            f"depth_cons={losses['depth_cons']:.5g}, poses bit-frozen, launches "
+                            f"{launches}")
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.evaluate_full(out_dir=trainer.workspace, with_test_optim=True)
+    torch.cuda.synchronize()
+    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES}
+    m = res["per_image"][0]
+    if 0 in launches.values() or not all(math.isfinite(v) for v in m.values()
+                                         if isinstance(v, float)):
+        raise AssertionError(f"fixed-pose evaluate_full: launches {launches}, metrics {m}")
+    for k in out["launches"]:
+        out["launches"][k] += launches[k]
+    out["eval_s"] = time.perf_counter() - t0
+    phase("fixed-pose", f"evaluate_full, one test view at its GT pose with "
+                        f"{int(trainer.cfg.optim.test_iter)} refinement steps: "
+                        f"{out['eval_s']:.3f} s, launches {launches}, psnr={m['psnr']:.4f} "
+                        f"(without refinement {m['psnr_no_refine']:.4f}), refinement moved the "
+                        f"pose {m['refine_rot_deg']:.4f} deg")
+    return out
+
+
+def run_dsnerf_phase(steps: int) -> dict:
+    """DS-NeRF: nerf_gt_poses with SparseCOLMAPDepthLoss at the full shape,
+    its sparse depth triangulated from GT-depth matches at the GT poses (the
+    trainer does it when it builds), trained on it at weight 10^0 (no preset
+    weighs the loss, and a loss without a weight is only reported); the
+    triangulation's seconds, perc_col_depth and the step rate. Every
+    forward of the step has its backward: the photometric and the depth
+    bundle, coarse and fine."""
+    from sparf_tpu_torch.colmap_init import triangulation
+
+    spent = []
+    triangulate = triangulation.compute_triangulation_from_matches
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = triangulate(*a, **kw)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    triangulation.compute_triangulation_from_matches = timed
+    try:
+        trainer = _full_trainer("nerf_training_w_gt_poses/synthetic", "nerf", dict(
+            use_gt_correspondences=True, loss_type="photometric_and_SparseCOLMAPDepthLoss",
+            loss_weight=dict(colmap_depth=0.0), nerf=dict(rand_rays=1024, sample_intvs=128, sample_intvs_fine=128,
+                      fine_sampling=True)))
+    finally:
+        triangulation.compute_triangulation_from_matches = triangulate
+    if len(spent) != 1:
+        raise AssertionError("dsnerf: the trainer did not triangulate")
+    depth = trainer.train_scene["colmap_depth"]
+    state, its, launches, losses = _timed_steps(trainer, 0, steps, "dsnerf")
+    if not losses["colmap_depth"] > 0 or "colmap_depth_after_w" not in losses:
+        raise AssertionError(f"dsnerf: the depth loss is not trained on: {losses}")
+    if launches["K2"] != launches["K1"]:
+        raise AssertionError(f"dsnerf: a forward without its backward: {launches}")
+    phase("dsnerf", f"triangulation of GT-depth matches at the GT poses: {spent[0]:.3f} s, "
+                    f"{int((depth > 0).sum())} px with depth, perc_col_depth="
+                    f"{losses['perc_col_depth']:.5g}; {its:.3f} it/s over {steps} steps, loss "
+                    f"colmap_depth={losses['colmap_depth']:.5g} (weighted "
+                    f"{losses['colmap_depth_after_w']:.5g}) render={losses['render']:.5g}, "
+                    f"launches {launches}")
+    return {"triangulation_s": spent[0], "it_per_sec": its,
+            "perc_col_depth": losses["perc_col_depth"], "launches": launches}
+
+
+def run_accum_phase(steps: int) -> dict:
+    """grad_acc_steps = 2 on the joint recipe at the full shape (GT-depth
+    correspondences): `steps` timed steps in the joint stage; the NeRF
+    parameters change on every second step only, the poses on every step."""
+    import dataclasses
+
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+    from sparf_tpu_torch.training import engine
+
+    trainer = _full_trainer("joint_pose_nerf_training/synthetic", "sparf", dict(
+        use_gt_correspondences=True, min_nbr_matches=100, grad_acc_steps=2))
+    state, its, launches, _ = _timed_steps(trainer, 0, steps, "accum")
+    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    changed = []
+    for _ in range(2):
+        before = [t.clone() for t in engine.tree_leaves(state.nerf_params)]
+        poses = trainer.current_poses_w2c(state).detach().clone()
+        state, _ = trainer.get_step(0)(dataclasses.replace(state, iteration=0), trainer.draws)
+        changed.append((int(state.opt_state_nerf.mini_step),
+                        not all(torch.equal(a, b) for a, b in
+                                zip(engine.tree_leaves(state.nerf_params), before)),
+                        not torch.equal(trainer.current_poses_w2c(state), poses)))
+    for k in launches:
+        launches[k] += {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
+                        "pack": fm.PACK_LAUNCHES}[k]
+    if sorted(c[1] for c in changed) != [False, True] or not all(c[2] for c in changed):
+        raise AssertionError(f"accum: (mini_step, NeRF changed, poses changed) {changed}")
+    phase("accum", f"grad_acc_steps=2, joint stage: {its:.3f} it/s over {steps} steps after 1 "
+                   f"warm-up; (mini-step, NeRF updated, poses updated) over two more steps "
+                   f"{changed}; launches {launches}")
+    return {"it_per_sec": its, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true")
@@ -1077,9 +1415,6 @@ def main() -> int:
         print(json.dumps(checks))
         return 0
 
-    # 4. slice-check: the tiny step on the card against the CPU
-    check_step_cuda_vs_cpu()
-    # 5.-6. matcher-check and matcher, TF32 on (the matchers switch it off)
     seconds = {}
 
     def timed(name, fn, *a, **kw):
@@ -1088,6 +1423,12 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
+    # 4. slice-check: the tiny step on the card against the CPU; then gradient
+    # accumulation and the N-step trajectory, card against CPU
+    timed("slice-check", check_step_cuda_vs_cpu)
+    timed("accum-check", check_accum_cuda_vs_cpu)
+    traj = timed("trajectory-check", check_trajectory_cuda_vs_cpu)
+    # 5.-6. matcher-check and matcher, TF32 on (the matchers switch it off)
     scene = full_scene()
     mc = timed("matcher-check", check_matchers_cuda_vs_cpu, scene)
     mc["geometry"] = timed("geometry-check", check_geometry_cuda_vs_cpu, scene)
@@ -1100,6 +1441,11 @@ def main() -> int:
     timed("eval-check", check_eval_cuda_vs_cpu)
     # 9. eval: the full-shape trainer's state through the eval entry point
     ev = timed("eval", run_eval_phase, sl["trainer"])
+    del sl["trainer"]
+    # 10.-12. the fixed-pose trainer, DS-NeRF and gradient accumulation at the full shape
+    fx = timed("fixed-pose", run_fixed_pose_phase, steps=3)
+    ds = timed("dsnerf", run_dsnerf_phase, steps=3)
+    ac = timed("accum", run_accum_phase, steps=4)
     phase("phases", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
@@ -1112,7 +1458,7 @@ def main() -> int:
         b = checks["bounds"][k]
         kernels.append({
             "name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
-            "launches": sl["launches"][k] + ev["launches"][k],
+            "launches": sum(p["launches"][k] for p in (sl, ev, fx, ds, ac)),
             "max_abs_err": checks["max_abs_err"][k], "ms": checks["ms"][k],
             "plain_ms": checks["ms"][f"{k}_plain"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None,
@@ -1120,6 +1466,11 @@ def main() -> int:
     print(json.dumps({"kernels": kernels,
                       "it_per_sec": {k: sl[k] for k in ("joint_coarse", "fine")},
                       "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]},
+                      "trajectory_gaps": traj,
+                      "fixed_pose": {k: fx[k] for k in ("coarse", "fine", "eval_s")},
+                      "dsnerf": {k: ds[k] for k in ("triangulation_s", "it_per_sec",
+                                                    "perc_col_depth")},
+                      "accum_it_per_sec": ac["it_per_sec"],
                       "matcher": {"check": mc, "pools": mp, "refresh_s": sl["refresh_s"],
                                   "refresh_geometry": sl["refresh_geometry"]},
                       "phase_s": seconds}))

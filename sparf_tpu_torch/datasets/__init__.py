@@ -1,8 +1,9 @@
 """Dataset registry of the port (reference source/datasets/create_dataset.py:103-143).
 
-`synthetic` renders its views with the port's camera; `llff` and `dtu` are the
-port's own copies of the numpy loaders. `replica` is not ported yet (ROADMAP
-Queue 1, item 15): its loader needs a tensor library for its rays.
+`synthetic` renders its views with the port's camera; `llff`, `dtu` and
+`replica` are the port's own copies of the numpy loaders, decoding their
+images with utils/imgproc.py (PNG and baseline JPEG) instead of
+imageio/OpenCV, and replica's far-plane rays with the port's camera.
 """
 from __future__ import annotations
 
@@ -48,8 +49,17 @@ def _load_dtu(cfg, split: str) -> base.Scene:
 
 
 def _load_replica(cfg, split: str) -> base.Scene:
-    raise NotImplementedError("the replica dataset is not ported to sparf_tpu_torch yet "
-                              "(ROADMAP Queue 1, item 15)")
+    from sparf_tpu_torch.datasets.replica import load_replica_scene
+
+    return load_replica_scene(
+        root=cfg.env.replica,
+        scene=cfg.scene,
+        split=split,
+        train_sub=cfg.get("train_sub"),
+        val_sub=cfg.get("val_sub"),
+        resize=cfg.get("resize"),
+        increase_depth_range_by_x_percent=cfg.get("increase_depth_range_by_x_percent", 0.0),
+    )
 
 
 def _load_synthetic(cfg, split: str) -> base.Scene:

@@ -114,7 +114,7 @@ def load_llff_scene(
 
     samples = []
     for local_i, idx in enumerate(indices):
-        image = imgproc.read_png(os.path.join(path_image, image_fnames[idx]))
+        image = imgproc.read_image(os.path.join(path_image, image_fnames[idx]))
         img, intr, _ = base.preprocess_image_and_intrinsics(
             image, intr0, resize=resize, crop_ratio=crop_ratio
         )

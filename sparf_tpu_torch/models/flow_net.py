@@ -1007,8 +1007,11 @@ def _sparse_guided_rematch(img_t: torch.Tensor, img_s: torch.Tensor, corres: tor
 
 
 # the sparse guided rematch skips a keypoint when more than this share of its
-# patch's pixels have flat 3x3 windows (see _sparse_matches_for_sfm)
+# patch's pixels have flat 3x3 windows; when that leaves fewer than
+# _SPARSE_MIN_KEYPOINTS in a view, the round takes the flows' grid matches
+# instead (see _sparse_matches_for_sfm)
 _SPARSE_FLAT_SHARE = 0.1
+_SPARSE_MIN_KEYPOINTS = 64
 
 
 def _near_flat(img: torch.Tensor, patch_radius: int) -> np.ndarray:
@@ -1024,7 +1027,8 @@ def _near_flat(img: torch.Tensor, patch_radius: int) -> np.ndarray:
 def _sparse_matches_for_sfm(imgs, flows, unordered, H: int, W: int, stride: int = 2,
                             min_zncc: float = 0.8, max_cycle_px: float = 1.5,
                             search_radius: int = 6, extra_flows=None):
-    """Pose-estimation matches by sparse guided rematch on the current flows,
+    """Pose-estimation matches (kps, pair_matches) by sparse guided rematch
+    on the current flows,
     cycle-checked through the rematcher itself in both directions; with
     `extra_flows` (the stage-1 flows) each keypoint also takes a rematch
     seeded from them when it scores higher.
@@ -1042,15 +1046,29 @@ def _sparse_matches_for_sfm(imgs, flows, unordered, H: int, W: int, stride: int 
     package to 2.9 and 6.9; skipping patches more than 0 / 0.1 / 0.2 flat
     gave 1.2 / 1.2 / 1.1 deg and 7.5 / 1.5 / 2.3 deg. Keeping those keypoints
     and leaving their flat pixels out of the patch ZNCC instead does not
-    remove the bias at 300x400. Below ~64 px the rule leaves too few
-    keypoints for the SfM: 25-27 of 140 per view at 32x40."""
+    remove the bias at 300x400.
+
+    The synthetic scene's background is flat, so the rule keeps about a
+    fifth of the keypoints at every size (more texture on the spheres,
+    `texture_octaves` 3, keeps the same counts): 111 of 520 per view at
+    51x64, ~160 of 884 at 64x80, ~1,400 of 6,486 at 150x200, but 32-35 of
+    140 at 32x40, where the SfM on the few survivors landed at 15.7 deg from
+    every prior (the JAX stage 1.4-3.1). Below _SPARSE_MIN_KEYPOINTS kept in
+    a source view the function returns None, and the round solves its SfM on the flows'
+    grid matches, as round 0 does; at 32x40 that ends at 3.6-4.3 deg from
+    six priors, against 4.1 without the rule and 7.0 / 11.3 / 14.1 with
+    shares of 0.5 / 0.3 / 0.2 (PERF.md). Sizes from 51x64 up keep the rule
+    and its readings."""
     from sparf_tpu_torch.colmap_init.sfm import grid_keypoints
 
     kps = grid_keypoints(H, W, stride, margin=6)
     kx, ky = kps[:, 0].astype(int), kps[:, 1].astype(int)
+    textured_of = {int(i): ~_near_flat(imgs[int(i)], 5)[ky, kx] for i, _ in unordered}
+    if min(int(t.sum()) for t in textured_of.values()) < _SPARSE_MIN_KEYPOINTS:
+        return None
     pair_matches = {}
     for i, j in unordered:
-        textured = ~_near_flat(imgs[i], 5)[ky, kx]
+        textured = textured_of[int(i)]
         seeds = [flows] if extra_flows is None else [flows, extra_flows]
         K = kps.shape[0]
         best_xy = np.zeros((K, 2), np.float32)

@@ -9,12 +9,14 @@ A run resumes from the workspace's latest snapshot unless --no_resume, and
 ends with `evaluate_full` on the test split (unless --debug or do_eval is
 off); --test_metrics_only evaluates the latest snapshot without training.
 The config is the JAX package's: correspondences come from the matcher that
-flow_backbone names (the presets: PDCNet with its bundled weights). The
-matchers' geometry stage (pdcnet_geometry_refine=True, the preset default,
-and zncc on scenes with intrinsics) is not ported yet and raises
-NotImplementedError; --pdcnet_geometry_refine=false trains on raw PDC-Net
-flows and --use_gt_correspondences=true on GT-depth correspondences. Video
-rendering (--render_video_only) is not ported yet.
+flow_backbone names (the presets: PDCNet with its bundled weights, refined
+by the matchers' geometry stage, pdcnet_geometry_refine=True);
+--pdcnet_geometry_refine=false trains on raw PDC-Net flows and
+--use_gt_correspondences=true on GT-depth correspondences. Every preset's
+trainer is ported (joint pose+NeRF, GT poses, fixed noisy poses), with
+gradient accumulation (grad_acc_steps) and the COLMAP depth loss. Still
+raising NotImplementedError: video rendering (--render_video_only), the
+eval panels, multi-device (tpu.mesh_shape), merged rendering and bf16.
 """
 from __future__ import annotations
 

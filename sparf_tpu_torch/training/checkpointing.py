@@ -2,7 +2,8 @@
 sparf_tpu/training/checkpointing.py).
 
 A snapshot is a directory `iter-N/` holding `snapshot.pt`: the full
-TrainState (NeRF and pose parameters, both Adam states, iteration,
+TrainState (NeRF and pose parameters, both Adam states, with gradient
+accumulation also the running mean and the mini-step counter, iteration,
 iteration_nerf, nan_count) and the meta (iteration, iteration_nerf,
 best_val, epoch_of_best_val). The last 2 `iter-N/` are kept, plus
 `model_best/` on a validation improvement. Only tensors, numbers, strings,
@@ -30,14 +31,16 @@ def _ckpt_dir(workspace: str, name: str) -> str:
     return os.path.join(os.path.abspath(workspace), name)
 
 
-def _adam_to_dict(s: Optional[engine.AdamState]) -> Optional[Dict[str, Any]]:
+def _opt_to_dict(s) -> Optional[Dict[str, Any]]:
+    if isinstance(s, engine.AccumState):
+        return {"mini_step": s.mini_step, "acc": list(s.acc), "inner": _opt_to_dict(s.inner)}
     return None if s is None else {"count": s.count, "mu": list(s.mu), "nu": list(s.nu)}
 
 
 def state_to_dict(state: engine.TrainState) -> Dict[str, Any]:
     return {"nerf_params": state.nerf_params, "pose_params": state.pose_params,
-            "opt_state_nerf": _adam_to_dict(state.opt_state_nerf),
-            "opt_state_pose": _adam_to_dict(state.opt_state_pose),
+            "opt_state_nerf": _opt_to_dict(state.opt_state_nerf),
+            "opt_state_pose": _opt_to_dict(state.opt_state_pose),
             "iteration": int(state.iteration), "iteration_nerf": int(state.iteration_nerf),
             "nan_count": state.nan_count}
 
@@ -48,9 +51,17 @@ def _check_like(what: str, loaded: List[torch.Tensor], like: List[torch.Tensor])
                          f"{[tuple(a.shape) for a in loaded]} vs {[tuple(b.shape) for b in like]}")
 
 
-def _adam_from_dict(d, like: Optional[engine.AdamState], device) -> Optional[engine.AdamState]:
+def _opt_from_dict(d, like, device):
     if d is None or like is None:
         return None
+    if isinstance(like, engine.AccumState) != ("acc" in d):
+        raise ValueError("snapshot optimizer state does not match the trainer's "
+                         "grad_acc_steps (gradient accumulation on one side only)")
+    if isinstance(like, engine.AccumState):
+        acc = [t.to(device) for t in d["acc"]]
+        _check_like("accumulated gradients", acc, like.acc)
+        return engine.AccumState(d["mini_step"].to(device),
+                                 _opt_from_dict(d["inner"], like.inner, device), acc)
     mu = [t.to(device) for t in d["mu"]]
     nu = [t.to(device) for t in d["nu"]]
     _check_like("optimizer state", mu, like.mu)
@@ -68,8 +79,8 @@ def state_from_dict(d: Dict[str, Any], like: engine.TrainState) -> engine.TrainS
     return engine.TrainState(
         nerf_params=engine.tree_unflatten(like.nerf_params, nerf),
         pose_params=engine.tree_unflatten(like.pose_params, pose),
-        opt_state_nerf=_adam_from_dict(d["opt_state_nerf"], like.opt_state_nerf, device),
-        opt_state_pose=_adam_from_dict(d["opt_state_pose"], like.opt_state_pose, device),
+        opt_state_nerf=_opt_from_dict(d["opt_state_nerf"], like.opt_state_nerf, device),
+        opt_state_pose=_opt_from_dict(d["opt_state_pose"], like.opt_state_pose, device),
         iteration=int(d["iteration"]), iteration_nerf=int(d["iteration_nerf"]),
         nan_count=d["nan_count"].to(device))
 

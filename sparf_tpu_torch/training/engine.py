@@ -8,7 +8,10 @@ optax.chain(clip_by_global_norm, scale_by_adam(0.9, 0.999),
 scale_by_schedule(-lr)) exactly: its step count starts at 0, so lr(0) is used
 first, and an iteration whose gradients are not all finite leaves the
 parameters and both optimizer states untouched (torch.optim.Adam would still
-advance its step).
+advance its step). With grad_acc_steps = k > 1 the NeRF optimizer is wrapped
+as optax.MultiSteps wraps the chain (`MultiSteps`): the running mean of k
+mini-step gradients goes through the chain on every k-th finite step, and
+the other steps update nothing.
 """
 from __future__ import annotations
 
@@ -130,14 +133,69 @@ class Adam:
         return updates, AdamState(count_inc, mu, nu)
 
 
+@dataclass
+class AccumState:
+    """optax.MultiStepsState around an Adam. Its skip_state is empty, and its
+    gradient_step always equals the inner Adam's count (both advance on the
+    k-th mini-step only), so neither is kept."""
+
+    mini_step: torch.Tensor      # int32 scalar: mini-steps accumulated, in [0, k)
+    inner: AdamState
+    acc: List[torch.Tensor]      # running mean of this round's mini-step gradients
+
+
+@dataclass(frozen=True)
+class MultiSteps:
+    """Gradient accumulation, as optax.MultiSteps(inner, every_k_schedule=k)
+    with its defaults (mean of the gradients, no skip function).
+
+    Each call folds the gradients into a running mean, acc + (g - acc) / (n + 1),
+    and runs the inner chain (clipping, Adam, the schedule) on that mean; on
+    the k-th mini-step its updates and state are kept and the mean restarts,
+    on the others the updates are zeros and the inner state, and so Adam's
+    count and the learning rate, stay as they were."""
+
+    inner: Adam
+    k: int
+
+    def init(self, leaves: List[torch.Tensor]) -> AccumState:
+        inner = self.inner.init(leaves)
+        return AccumState(torch.zeros_like(inner.count), inner,
+                          [torch.zeros_like(l) for l in leaves])
+
+    def update(self, grads: List[torch.Tensor], state: AccumState
+               ) -> Tuple[List[torch.Tensor], AccumState]:
+        n = state.mini_step + 1
+        acc = [a + (g - a) / n for g, a in zip(grads, state.acc)]
+        updates, inner = self.inner.update(acc, state.inner)
+        emit = state.mini_step == self.k - 1
+        keep = emit.to(torch.float32)
+        return ([keep * u for u in updates],
+                AccumState(n % self.k, select_state(emit, inner, state.inner),
+                           [(1 - keep) * a for a in acc]))
+
+
+def make_optimizer(lr_fn: Callable, clip_norm: Optional[float], grad_acc_steps: int = 1):
+    """The chain clip -> Adam -> -lr(count), wrapped in MultiSteps when
+    grad_acc_steps > 1 (the JAX engine's make_optimizer)."""
+    tx = Adam(lr_fn, clip_norm)
+    if grad_acc_steps and grad_acc_steps > 1:
+        return MultiSteps(tx, int(grad_acc_steps))
+    return tx
+
+
 def apply_updates_if_finite(params: List[torch.Tensor], updates: List[torch.Tensor],
                             is_finite: torch.Tensor) -> List[torch.Tensor]:
     """p + u, or p unchanged when any gradient was non-finite."""
     return [p + torch.where(is_finite, u, torch.zeros_like(u)) for p, u in zip(params, updates)]
 
 
-def select_state(pred: torch.Tensor, new: AdamState, old: AdamState) -> AdamState:
-    """Elementwise where() over a whole optimizer state."""
+def select_state(pred: torch.Tensor, new, old):
+    """Elementwise where() over a whole optimizer state (AdamState or AccumState)."""
+    if isinstance(new, AccumState):
+        return AccumState(torch.where(pred, new.mini_step, old.mini_step),
+                          select_state(pred, new.inner, old.inner),
+                          [torch.where(pred, n, o) for n, o in zip(new.acc, old.acc)])
     return AdamState(torch.where(pred, new.count, old.count),
                      [torch.where(pred, n, o) for n, o in zip(new.mu, old.mu)],
                      [torch.where(pred, n, o) for n, o in zip(new.nu, old.nu)])
@@ -155,7 +213,7 @@ class TrainState:
 
     nerf_params: Any
     pose_params: Dict[str, torch.Tensor]   # {} when poses are not optimized
-    opt_state_nerf: AdamState
+    opt_state_nerf: Any                    # AdamState, or AccumState with accumulation
     opt_state_pose: Optional[AdamState]
     iteration: int
     iteration_nerf: int
@@ -197,7 +255,7 @@ def default_photometric_loss_builder(cfg, scene, sampler, *, sample_in_center: b
     return builder
 
 
-def make_train_step(cfg, loss_builder, tx_nerf: Adam, tx_pose: Optional[Adam] = None,
+def make_train_step(cfg, loss_builder, tx_nerf, tx_pose: Optional[Adam] = None,
                     pose_cfg: Optional[pose_mod.PoseConfig] = None,
                     pose_constants: Optional[Dict] = None, scene=None,
                     optimize_poses: bool = False, update_nerf: bool = True
@@ -274,7 +332,7 @@ def make_train_step(cfg, loss_builder, tx_nerf: Adam, tx_pose: Optional[Adam] = 
     return step
 
 
-def init_train_state(gen: torch.Generator, render_cfg: RenderConfig, tx_nerf: Adam, device,
+def init_train_state(gen: torch.Generator, render_cfg: RenderConfig, tx_nerf, device,
                      pose_cfg: Optional[pose_mod.PoseConfig] = None, initial_poses_w2c=None,
                      tx_pose: Optional[Adam] = None) -> Tuple[TrainState, Optional[Dict]]:
     """(state, pose_constants)."""

@@ -14,8 +14,11 @@ sparf_tpu/training/joint_trainer.py).
     rebuilt once with the current poses as the matcher's prior;
   - SfM initial poses (`initial_pose` containing "sfm"): colmap_init/sfm.py
     on the matcher's flows, pre-aligned to GT as the JAX package does; its
-    sparse depth maps go to train_scene as colmap_depth/colmap_conf (their
-    loss, ROADMAP item 12, is not ported).
+    sparse depth maps go to train_scene as colmap_depth/colmap_conf, for
+    the COLMAP depth loss (training/losses/colmap_depth.py).
+
+`NerfTrainerPerSceneWColmapFixedPoses` (model `nerf_fixed_noisy_poses`)
+trains the NeRF alone on the frozen initial poses.
 """
 from __future__ import annotations
 
@@ -221,16 +224,20 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
     def test_pose_and_scale(self, test_scene, idx: int) -> Tuple[torch.Tensor, float]:
         self.update_sim3()
         pose = self._backtracked(test_scene["pose"][idx: idx + 1].cpu().numpy())
-        scale = float(self.sim3_est_to_gt_c2w.s)
-        self._last_refine = None
-        if self.cfg.optim.get("test_photo", False) and self._test_optim_enabled:
-            twist = self.run_test_time_photometric_optim(test_scene, idx, pose)
-            pose_pre = pose
-            pose = camera.pose_compose([camera.se3_to_SE3(twist), pose])
-            self._last_refine = _refine_stats(pose_pre, pose)
-        return pose, scale
+        return self._refine_test_pose(test_scene, idx, pose), float(self.sim3_est_to_gt_c2w.s)
 
     # ------------------------------------------------ test-time pose refinement
+
+    def _refine_test_pose(self, test_scene, idx: int, pose: torch.Tensor) -> torch.Tensor:
+        """`pose` with test-time refinement's twist composed onto it, when
+        cfg.optim.test_photo asks for it (its stats in self._last_refine)."""
+        self._last_refine = None
+        if not (self.cfg.optim.get("test_photo", False) and self._test_optim_enabled):
+            return pose
+        twist = self.run_test_time_photometric_optim(test_scene, idx, pose)
+        refined = camera.pose_compose([camera.se3_to_SE3(twist), pose])
+        self._last_refine = _refine_stats(pose, refined)
+        return refined
 
     def test_optim_draws(self, idx: int):
         """The pixel draws of test view idx's refinement: a generator seeded
@@ -290,3 +297,21 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
                                "init_trans_error": self.initial_pose_error["error_t_before_align"]})
         self.write_eval_json(result, out_dir)
         return result
+
+
+class NerfTrainerPerSceneWColmapFixedPoses(PoseAndNerfTrainerPerScene):
+    """NeRF training on FROZEN noisy/COLMAP initial poses (the ablation of
+    the JAX package's trainer of the same name): the poses never step,
+    validation and test views render at their GT poses with depth scale 1,
+    and test-time refinement composes its twist onto the GT test pose."""
+
+    model_name = "nerf_fixed_noisy_poses"
+
+    def optimize_poses_at(self, iteration: int) -> bool:
+        return False
+
+    def val_pose_and_scale(self, idx: int) -> Tuple[torch.Tensor, float]:
+        return self.val_scene["pose"][idx: idx + 1], 1.0
+
+    def test_pose_and_scale(self, test_scene, idx: int) -> Tuple[torch.Tensor, float]:
+        return self._refine_test_pose(test_scene, idx, test_scene["pose"][idx: idx + 1]), 1.0

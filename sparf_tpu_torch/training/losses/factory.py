@@ -18,6 +18,7 @@ def build_extra_loss_builders(trainer) -> List[Callable]:
 
         builders.append(make_depth_cons_loss_builder(trainer))
     if "SparseCOLMAPDepthLoss" in loss_type:
-        raise NotImplementedError("the COLMAP depth loss (SparseCOLMAPDepthLoss) is not ported "
-                                  "yet (ROADMAP Queue 1 item 12)")
+        from sparf_tpu_torch.training.losses.colmap_depth import make_colmap_depth_loss_builder
+
+        builders.append(make_colmap_depth_loss_builder(trainer))
     return builders

@@ -71,8 +71,6 @@ class NerfTrainerPerScene:
             cfg.val_steps, cfg.snapshot_steps = 5, 5
         if cfg.tpu.get("mesh_shape"):
             raise NotImplementedError("multi-device training is not ported yet")
-        if int(cfg.get("grad_acc_steps", 1) or 1) > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet")
 
         seed = int(cfg.get("seed", 0))
         np.random.seed(seed)
@@ -122,7 +120,8 @@ class NerfTrainerPerScene:
         cfg = self.cfg
         self.lr_fn = engine.exponential_lr(cfg.optim.lr, cfg.optim.get("lr_end"), cfg.max_iter)
         clip = cfg.get("nerf_gradient_clipping") if cfg.get("clip_by_norm", True) else None
-        self.tx_nerf = engine.Adam(self.lr_fn, clip)
+        self.tx_nerf = engine.make_optimizer(self.lr_fn, clip,
+                                             int(cfg.get("grad_acc_steps", 1) or 1))
 
     def define_loss_module(self):
         """Photometric is always present; cfg.loss_type substrings add the others."""

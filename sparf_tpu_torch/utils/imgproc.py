@@ -23,7 +23,9 @@ card has no `cv2`, so the port keeps its own versions, held to OpenCV's by
     `find_essential_ransac` (cv2.findEssentialMat with RANSAC, a 5-point
     minimal solver), `recover_pose` (cv2.recoverPose) and
     `solve_pnp_ransac` (cv2.solvePnPRansac with SOLVEPNP_ITERATIVE);
-  - `read_png`: PNG decoding with zlib and numpy (imageio.imread's arrays).
+  - `read_png`: PNG decoding with zlib and numpy (imageio.imread's arrays);
+    `decode_jpeg`: baseline JPEG in libjpeg's integer arithmetic (PIL's and
+    OpenCV's arrays, bit for bit); `read_image`: either, by content.
 """
 from __future__ import annotations
 
@@ -924,43 +926,10 @@ def _unfilter_paeth(f: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
     return np.asarray(out, np.uint8)
 
 
-def read_png(path) -> np.ndarray:
-    """Decode a PNG file as imageio.imread does: (H, W) for gray, (H, W, 2)
-    gray + alpha, (H, W, 3) RGB, (H, W, 4) RGBA, uint8 or uint16 (8 or 16 bits
-    per sample), non-interlaced, with any of the five row filters. Anything
-    else (a JPEG, an interlaced or palette PNG, 1/2/4-bit samples) raises
-    ValueError naming it."""
-    with open(path, "rb") as fh:
-        data = fh.read()
-    if data[:8] != _PNG_SIGNATURE:
-        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "not a PNG"
-        raise ValueError(f"{path}: {kind}; read_png decodes PNG only")
-    pos, header, idat = 8, None, []
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack(">I", data[pos: pos + 4])
-        kind, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + length]
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    W, H, depth, color, _, _, interlace = header
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG is not decoded")
-    if color not in _PNG_CHANNELS or depth not in (8, 16):
-        raise ValueError(f"{path}: PNG colour type {color} at {depth} bits is not decoded "
-                         "(gray, gray+alpha, RGB, RGBA at 8 or 16 bits are)")
-    channels = _PNG_CHANNELS[color]
-    bpp = channels * depth // 8
-    stride = W * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < H * (stride + 1):
-        raise ValueError(f"{path}: truncated PNG image data")
-    raw = raw[: H * (stride + 1)].reshape(H, stride + 1)
+def _unfilter(raw: np.ndarray, H: int, stride: int, bpp: int, name: str) -> np.ndarray:
+    """Undo the row filters of H rows of `stride` bytes (each row led by its
+    filter byte): (H, stride) uint8."""
+    raw = raw.reshape(H, stride + 1)
     out = np.empty((H, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for r in range(H):
@@ -968,7 +937,7 @@ def read_png(path) -> np.ndarray:
         if ftype == 0:
             cur = line.copy()
         elif ftype == 1:  # Sub: a running sum along the row, per byte of the pixel
-            cur = np.cumsum(line.reshape(W, bpp), axis=0, dtype=np.uint8).reshape(-1)
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
         elif ftype == 2:  # Up
             cur = line + prev
         elif ftype == 3:
@@ -976,9 +945,387 @@ def read_png(path) -> np.ndarray:
         elif ftype == 4:
             cur = _unfilter_paeth(line, prev, bpp)
         else:
-            raise ValueError(f"{path}: PNG row filter {ftype} is not defined")
+            raise ValueError(f"{name}: PNG row filter {ftype} is not defined")
         out[r] = cur
         prev = cur
-    img = out.view(">u2").astype(np.uint16) if depth == 16 else out
-    img = img.reshape(H, W, channels)
+    return out
+
+
+# Adam7: (x0, y0, dx, dy) of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_samples(rows: np.ndarray, width: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered rows -> (rows, width, channels) samples (uint8, or uint16 at
+    16 bits; 1/2/4-bit samples unpacked, most significant first)."""
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(len(rows), width, channels)
+    if depth == 8:
+        return rows.reshape(len(rows), width, channels)
+    bits = np.unpackbits(rows, axis=1).reshape(len(rows), -1, depth)
+    vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+    return vals[:, :width, None]
+
+
+def read_png(path) -> np.ndarray:
+    """Decode a PNG file as imageio.imread does: (H, W) for gray, (H, W, 2)
+    gray + alpha, (H, W, 3) RGB, (H, W, 4) RGBA, uint8 or uint16 (8 or 16 bits
+    per sample); a palette image (1, 2, 4 or 8 bits) as RGB, or RGBA when it
+    has a tRNS chunk. Any of the five row filters, non-interlaced or Adam7.
+    Anything else (a JPEG, gray below 8 bits) raises ValueError naming it."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != _PNG_SIGNATURE:
+        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "not a PNG"
+        raise ValueError(f"{path}: {kind}; read_png decodes PNG only")
+    pos, header, idat, palette, trns = 8, None, [], None, None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos: pos + 4])
+        kind, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    W, H, depth, color, _, _, interlace = header
+    if color == 3:
+        if depth not in (1, 2, 4, 8) or palette is None:
+            raise ValueError(f"{path}: palette PNG at {depth} bits or without PLTE")
+        channels = 1
+    elif color not in _PNG_CHANNELS or depth not in (8, 16):
+        raise ValueError(f"{path}: PNG colour type {color} at {depth} bits is not decoded "
+                         "(gray, gray+alpha, RGB, RGBA at 8 or 16 bits and palette are)")
+    else:
+        channels = _PNG_CHANNELS[color]
+    bpp = max(1, channels * depth // 8)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    img = np.empty((H, W, channels), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue
+        stride = -(-w * channels * depth // 8)
+        if raw.size < at + h * (stride + 1):
+            raise ValueError(f"{path}: truncated PNG image data")
+        rows = _unfilter(raw[at: at + h * (stride + 1)], h, stride, bpp, path)
+        img[y0::dy, x0::dx] = _png_samples(rows, w, depth, channels)
+        at += h * (stride + 1)
+    if color == 3:
+        rgba = np.concatenate([palette, np.full((len(palette), 1), 255, np.uint8)], 1)
+        if trns is not None:
+            rgba[: len(trns), 3] = trns
+        return rgba[img[..., 0]][..., : 4 if trns is not None else 3]
     return img[..., 0] if channels == 1 else img
+
+# ---------------------------------------------------------------------------
+# JPEG decoding (baseline, Huffman), as libjpeg(-turbo) decodes by default
+# ---------------------------------------------------------------------------
+
+# jpeg_natural_order: zigzag position k holds the coefficient at _ZIGZAG[k]
+_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+                    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+                    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60,
+                    61, 54, 47, 55, 62, 63])
+_JPEG_NOT_BASELINE = {
+    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+    0xC6: "differential progressive", 0xC7: "differential lossless",
+    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
+    0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded differential sequential",
+    0xCE: "arithmetic-coded differential progressive",
+    0xCF: "arithmetic-coded differential lossless"}
+
+
+def _huffman_lut(counts: Sequence[int], symbols: Sequence[int]) -> list:
+    """Canonical Huffman code -> a 65,536-entry table indexed by the next 16
+    bits of the stream: (symbol << 5) | code length (0: no such code)."""
+    lut = np.zeros(1 << 16, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            lo = code << (16 - length)
+            lut[lo: lo + (1 << (16 - length))] = (symbols[k] << 5) | length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return lut.tolist()
+
+
+def _decode_interval(data: bytes, units: list, n_comps: int) -> None:
+    """Huffman-decode the MCUs of one restart interval from its unstuffed
+    bytes. Each MCU is a list of blocks (coefficient list, offset, DC table,
+    AC table, index of the component in the scan); each block's 64
+    coefficients are written in zigzag order. The DC predictors start at 0.
+    Python walks the symbols; everything after this is numpy."""
+    pred = [0] * n_comps
+    pos = 0
+    for mcu in units:
+        for coefs, base, dc, ac, ci in mcu:
+            q = pos >> 3
+            e = dc[(int.from_bytes(data[q: q + 3], "big") >> (8 - (pos & 7))) & 0xFFFF]
+            if not e & 31:
+                raise ValueError("corrupt JPEG: no such Huffman code")
+            pos += e & 31
+            s = e >> 5
+            if s:
+                q = pos >> 3
+                v = (int.from_bytes(data[q: q + 4], "big") >> (32 - s - (pos & 7))) & ((1 << s) - 1)
+                pos += s
+                pred[ci] += v if v >> (s - 1) else v - (1 << s) + 1
+            coefs[base] = pred[ci]
+            k = 1
+            while k < 64:
+                q = pos >> 3
+                e = ac[(int.from_bytes(data[q: q + 3], "big") >> (8 - (pos & 7))) & 0xFFFF]
+                if not e & 31:
+                    raise ValueError("corrupt JPEG: no such Huffman code")
+                pos += e & 31
+                rs = e >> 5
+                s = rs & 15
+                if s == 0:
+                    if rs != 0xF0:
+                        break  # end of block
+                    k += 16
+                    continue
+                k += rs >> 4
+                q = pos >> 3
+                v = (int.from_bytes(data[q: q + 4], "big") >> (32 - s - (pos & 7))) & ((1 << s) - 1)
+                pos += s
+                coefs[base + k] = v if v >> (s - 1) else v - (1 << s) + 1
+                k += 1
+
+
+def _scan_end(data: bytes, pos: int) -> int:
+    """Where the entropy-coded data from `pos` ends: at the first marker
+    that is neither a stuffed 0xFF00 nor a restart marker."""
+    while True:
+        pos = data.find(b"\xff", pos)
+        if pos < 0 or pos + 1 >= len(data):
+            return len(data)
+        if data[pos + 1] == 0 or 0xD0 <= data[pos + 1] <= 0xD7:
+            pos += 2
+            continue
+        return pos
+
+
+def _decode_scan(data: bytes, pos: int, header: bytes, frame: dict, dc_tabs: dict,
+                 ac_tabs: dict, restart: int) -> int:
+    """Huffman-decode one scan into its components' coefficients; returns the
+    position of the marker after the scan."""
+    comps, H, W = frame["comps"], frame["H"], frame["W"]
+    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    for c in comps:
+        if "coefs" not in c:
+            c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
+            c["coefs"] = [0] * (c["bw"] * c["bh"] * 64)
+    ns = header[0]
+    by_id = {c["id"]: c for c in comps}
+    scan = [(by_id[header[1 + 2 * i]], dc_tabs[header[2 + 2 * i] >> 4],
+             ac_tabs[header[2 + 2 * i] & 15]) for i in range(ns)]
+    if (header[1 + 2 * ns], header[2 + 2 * ns]) != (0, 63):
+        raise ValueError("progressive JPEG scan is not decoded (baseline only)")
+    units = []
+    if ns == 1:  # non-interleaved: the component's own blocks, in raster order
+        c, dc, ac = scan[0]
+        for by in range(-(-(-(-H * c["v"] // vmax)) // 8)):
+            for bx in range(-(-(-(-W * c["h"] // hmax)) // 8)):
+                units.append([(c["coefs"], (by * c["bw"] + bx) * 64, dc, ac, 0)])
+    else:
+        for my in range(mcuy):
+            for mx in range(mcux):
+                units.append([(c["coefs"], ((my * c["v"] + yy) * c["bw"] + mx * c["h"] + xx) * 64,
+                               dc, ac, ci)
+                              for ci, (c, dc, ac) in enumerate(scan)
+                              for yy in range(c["v"]) for xx in range(c["h"])])
+    end = _scan_end(data, pos)
+    segments, start = [], pos
+    if restart:
+        for m in range(pos, end - 1):
+            if data[m] == 0xFF and 0xD0 <= data[m + 1] <= 0xD7:
+                segments.append(data[start:m])
+                start = m + 2
+    segments.append(data[start:end])
+    per = restart or len(units)
+    for k, seg in enumerate(segments):
+        # libjpeg reads zero bits past the end of a segment
+        _decode_interval(seg.replace(b"\xff\x00", b"\xff") + b"\x00" * 8,
+                         units[k * per:(k + 1) * per], ns)
+    return end
+
+
+# jidctint.c's constants: FIX(x) = round(x * 2^13)
+_F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
+_F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
+_F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
+# the post-IDCT range-limit table, indexed by the low 10 bits of a sample
+_IDCT_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
+                              np.arange(0, 128)]).astype(np.uint8)
+
+
+def _idct_pass(c: Sequence[np.ndarray]) -> list:
+    """One pass of libjpeg's jpeg_idct_islow on the 8 inputs c[0..7] of every
+    column (pass 1) or row (pass 2), int64, before the pass's descale."""
+    z1 = (c[2] + c[6]) * _F0541
+    tmp2, tmp3 = z1 - c[6] * _F1847, z1 + c[2] * _F0765
+    tmp0, tmp1 = (c[0] + c[4]) << 13, (c[0] - c[4]) << 13
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = c[7], c[5], c[3], c[1]
+    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
+    z5 = (z3 + z4) * _F1175
+    o0, o1, o2, o3 = o0 * _F0298, o1 * _F2053, o2 * _F3072, o3 * _F1501
+    z1, z2 = z1 * -_F0899, z2 * -_F2562
+    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
+    o0, o1, o2, o3 = o0 + z1 + z3, o1 + z2 + z4, o2 + z2 + z3, o3 + z1 + z4
+    return [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2, t10 - o3]
+
+
+def _idct_islow(blocks: np.ndarray) -> np.ndarray:
+    """libjpeg's accurate integer IDCT (jidctint.c) of dequantized (N, 8, 8)
+    [row, column] coefficients, range-limited: (N, 8, 8) uint8."""
+    x = blocks.astype(np.int64)
+    ws = np.stack([(v + (1 << 10)) >> 11 for v in _idct_pass([x[:, k] for k in range(8)])], 1)
+    out = np.stack([(v + (1 << 17)) >> 18 for v in _idct_pass([ws[:, :, k] for k in range(8)])],
+                   2)
+    return _IDCT_LIMIT[out & 1023]
+
+
+def _fancy_upsample(plane: np.ndarray, h: int, v: int) -> np.ndarray:
+    """libjpeg's fancy (triangle) upsampling of an int64 plane by h in x and
+    v in y, the edges replicated: jdsample.c's h2v1_fancy_upsample (3/4 and
+    1/4 of the nearer and further column, rounding +1 / +2) and
+    h2v2_fancy_upsample (9/16, 3/16, 3/16, 1/16, rounding +8 / +7)."""
+    if (h, v) == (1, 1):
+        return plane
+    if (h, v) not in ((2, 1), (2, 2)):
+        raise ValueError(f"JPEG chroma subsampled {h}x{v} is not decoded "
+                         "(4:4:4, 4:2:2 and 4:2:0 are)")
+    p = np.pad(plane, ((v - 1, v - 1), (1, 1)), mode="edge")
+    if v == 2:  # column sums 3 * nearer row + further row, output rows in pairs
+        near = 3 * p[1:-1]
+        p = np.stack([near + p[:-2], near + p[2:]], 1).reshape(-1, p.shape[1])
+        even = (3 * p[:, 1:-1] + p[:, :-2] + 8) >> 4
+        odd = (3 * p[:, 1:-1] + p[:, 2:] + 7) >> 4
+    else:
+        even = (3 * p[:, 1:-1] + p[:, :-2] + 1) >> 2
+        odd = (3 * p[:, 1:-1] + p[:, 2:] + 2) >> 2
+    return np.stack([even, odd], 2).reshape(even.shape[0], -1)
+
+
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c's ycc_rgb_convert: 16-bit fixed-point tables, clamped."""
+    def fix(x):
+        return int(x * (1 << 16) + 0.5)
+
+    cb, cr = cb - 128, cr - 128
+    r = y + ((fix(1.40200) * cr + (1 << 15)) >> 16)
+    g = y + ((-fix(0.34414) * cb + (1 << 15) - fix(0.71414) * cr) >> 16)
+    b = y + ((fix(1.77200) * cb + (1 << 15)) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg(data: bytes, name: str = "JPEG") -> np.ndarray:
+    """Decode a baseline JPEG: (H, W) uint8 for one component, (H, W, 3) RGB
+    for three. Huffman coding with restart markers, 4:4:4, 4:2:2 and 4:2:0
+    sampling, in the integer arithmetic of libjpeg's defaults (the ISLOW
+    IDCT, fancy upsampling, the YCbCr tables), so that the output equals
+    PIL's and OpenCV's (libjpeg-turbo). Other JPEG processes (progressive,
+    arithmetic-coded, lossless, 12-bit) raise ValueError naming them."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: not a JPEG")
+    qt, dc_tabs, ac_tabs = {}, {}, {}
+    frame, restart, adobe, jfif = None, 0, None, False
+    pos = 2
+    while pos + 1 < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"{name}: corrupt JPEG (no marker at byte {pos})")
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        pos += 2
+        if marker == 0xD9:
+            break
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            continue
+        (length,) = struct.unpack(">H", data[pos: pos + 2])
+        body = data[pos + 2: pos + length]
+        pos += length
+        if marker in _JPEG_NOT_BASELINE:
+            raise ValueError(f"{name}: {_JPEG_NOT_BASELINE[marker]} JPEG is not decoded "
+                             "(baseline only)")
+        if marker in (0xC0, 0xC1):
+            prec, H, W, nf = struct.unpack(">BHHB", body[:6])
+            if prec != 8:
+                raise ValueError(f"{name}: {prec}-bit JPEG is not decoded (8-bit only)")
+            if H == 0:
+                raise ValueError(f"{name}: JPEG whose height is given by DNL is not decoded")
+            comps = [dict(id=body[6 + 3 * i], h=body[7 + 3 * i] >> 4, v=body[7 + 3 * i] & 15,
+                          tq=body[8 + 3 * i]) for i in range(nf)]
+            frame = dict(H=H, W=W, comps=comps)
+        elif marker == 0xDB:
+            i = 0
+            while i < len(body):
+                wide, n = body[i] >> 4, 128 if body[i] >> 4 else 64
+                table = np.zeros(64, np.int64)
+                table[_ZIGZAG] = np.frombuffer(body[i + 1: i + 1 + n], ">u2" if wide else np.uint8)
+                qt[body[i] & 15] = table
+                i += 1 + n
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                counts = list(body[i + 1: i + 17])
+                symbols = list(body[i + 17: i + 17 + sum(counts)])
+                (ac_tabs if body[i] >> 4 else dc_tabs)[body[i] & 15] = _huffman_lut(counts,
+                                                                                    symbols)
+                i += 17 + sum(counts)
+        elif marker == 0xDD:
+            (restart,) = struct.unpack(">H", body[:2])
+        elif marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError(f"{name}: JPEG scan before its frame header")
+            pos = _decode_scan(data, pos, body, frame, dc_tabs, ac_tabs, restart)
+    if frame is None or any("coefs" not in c for c in frame["comps"]):
+        raise ValueError(f"{name}: JPEG without image data for every component")
+    comps, H, W = frame["comps"], frame["H"], frame["W"]
+    if len(comps) not in (1, 3):
+        raise ValueError(f"{name}: {len(comps)}-component JPEG is not decoded (gray and "
+                         "three-component are)")
+    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+    planes = []
+    for c in comps:
+        zz = np.asarray(c["coefs"], np.int64).reshape(-1, 64)
+        blocks = np.empty_like(zz)
+        blocks[:, _ZIGZAG] = zz
+        pix = _idct_islow((blocks * qt[c["tq"]]).reshape(-1, 8, 8))
+        plane = pix.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3).reshape(
+            c["bh"] * 8, c["bw"] * 8).astype(np.int64)
+        plane = plane[: -(-H * c["v"] // vmax), : -(-W * c["h"] // hmax)]
+        planes.append(_fancy_upsample(plane, hmax // c["h"], vmax // c["v"])[:H, :W])
+    if len(planes) == 1:
+        return planes[0].astype(np.uint8)
+    ids = tuple(c["id"] for c in comps)
+    rgb = (not jfif) and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
+    if rgb:
+        return np.stack(planes, -1).astype(np.uint8)
+    return _ycc_to_rgb(*planes)
+
+
+def read_image(path) -> np.ndarray:
+    """Decode a PNG (read_png) or a baseline JPEG (decode_jpeg), by content."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    return decode_jpeg(data, str(path)) if data[:3] == b"\xff\xd8\xff" else read_png(path)

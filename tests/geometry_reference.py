@@ -7,8 +7,9 @@ as prior, with the stage's candidates traced round by round.
     JAX_PLATFORMS=cpu python tests/geometry_reference.py port [--backend zncc] [--seed 1]
     python tests/geometry_reference.py port --device cuda --seed 2    (the port on the card)
     JAX_PLATFORMS=cpu python tests/geometry_reference.py jax --rig 64x80 [--bootstrap 40] --priors 0,1,2
+        [--texture_octaves 3]
 
-The second form runs the ZNCC stage of tests/test_torch_geometry_vs_jax.py
+The last form runs the ZNCC stage of tests/test_torch_geometry_vs_jax*.py
 on its DTU-like rig instead (H x W, `_BOOTSTRAP_MAX_DIM` set to --bootstrap),
 from the rig's noisy prior drawn with each of --priors as the numpy seed
 (that test uses 3), and prints one JSON line per prior (~1-2 min each).
@@ -108,10 +109,12 @@ def run(package: str, backend: str = "PDCNet", seed: int = 0, device: str = "cpu
                 candidates=candidates)
 
 
-def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,)):
-    """The ZNCC geometry stage on the H x W DTU-like rig from the noisy prior
-    of each numpy seed: yields one dict per seed (the prior's and the
-    stage's mean relative rotation error, each round's candidates)."""
+def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
+            texture_octaves: int = 1):
+    """The ZNCC geometry stage on the H x W DTU-like rig (its spheres'
+    albedo with `texture_octaves` octaves) from the noisy prior of each numpy
+    seed: yields one dict per seed (the prior's and the stage's mean relative
+    rotation error, each round's candidates)."""
     from scipy.spatial.transform import Rotation
 
     from sparf_tpu_torch.datasets import synthetic
@@ -125,7 +128,7 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,)):
 
         kw = dict(device="cpu")
     sc = synthetic.load_synthetic_scene(split="train", H=H, W=W, n_train=3, n_test=1,
-                                        angular_span=0.35)
+                                        angular_span=0.35, texture_octaves=texture_octaves)
     gt = np.asarray(sc["pose"], np.float64)
     combi = np.array([[0, 0, 1], [1, 2, 2]], np.int32)
     saved = (mod._BOOTSTRAP_MAX_DIM, mod._rematched_flow_quality, mod._global_poses_from_flows)
@@ -161,7 +164,7 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,)):
             mod.compute_zncc_flow_of_combi_list(sc["image"], combi, intr=sc["intr"],
                                                 init_poses_w2c=prior, geom_out=geom, **kw)
             yield dict(package=package, rig=f"{H}x{W}", bootstrap_max_dim=bootstrap_max_dim,
-                       prior_seed=seed, seconds=time.time() - t0,
+                       texture_octaves=texture_octaves, prior_seed=seed, seconds=time.time() - t0,
                        prior_rot_err_deg=cs.mean_rel_rot_deg(prior, gt),
                        internal_rot_err_deg=(cs.mean_rel_rot_deg(geom["poses_w2c"], gt)
                                              if "poses_w2c" in geom else None),
@@ -182,12 +185,14 @@ def main() -> None:
     parser.add_argument("--bootstrap", type=int, default=None,
                         help="with --rig: _BOOTSTRAP_MAX_DIM")
     parser.add_argument("--priors", default="3", help="with --rig: the prior's numpy seeds")
+    parser.add_argument("--texture_octaves", type=int, default=1,
+                        help="with --rig: octaves of the spheres' albedo texture")
     args = parser.parse_args()
     torch.set_num_threads(args.threads)
     if args.rig:
         H, W = (int(v) for v in args.rig.split("x"))
         for row in run_rig(args.package, H, W, args.bootstrap,
-                           [int(v) for v in args.priors.split(",")]):
+                           [int(v) for v in args.priors.split(",")], args.texture_octaves):
             print(json.dumps(row), flush=True)
     else:
         print(json.dumps(run(args.package, args.backend, args.seed, args.device)))

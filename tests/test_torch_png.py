@@ -2,8 +2,9 @@
 card's machine has no imageio, PIL or OpenCV), against imageio.imread, bit
 for bit: PNGs that imageio writes in each mode, and PNGs written here with a
 chosen row filter per row, so that all five filters (None, Sub, Up, Average,
-Paeth) are decoded in every mode, 8 and 16 bits. JPEG and interlaced PNG
-raise ValueError naming the format. The DTU loader, which decodes its images
+Paeth) are decoded in every mode, 8 and 16 bits, non-interlaced and Adam7;
+palette PNGs (1 to 8 bits, with and without tRNS) against PIL. JPEG and
+gray below 8 bits raise ValueError naming the format. The DTU loader, which decodes its images
 and masks with read_png, still gives the JAX package's scene with imageio
 blocked."""
 import struct
@@ -13,6 +14,7 @@ import zlib
 import imageio.v2 as imageio
 import numpy as np
 import pytest
+from PIL import Image
 
 import torch_parity  # noqa: F401  (thread cap)
 from sparf_tpu_torch.utils import imgproc
@@ -38,19 +40,30 @@ def _filter_row(kind, row, prev, bpp):
     return out
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
 def _write_png(path, img, interlace=0):
-    """Encode (H, W[, C]) uint8/uint16 with filter type r % 5 on row r."""
+    """Encode (H, W[, C]) uint8/uint16 with filter type r % 5 on row r (of
+    each Adam7 pass's sub-image when interlaced)."""
     img = np.asarray(img)
     H, W = img.shape[:2]
     C = 1 if img.ndim == 2 else img.shape[2]
     depth = 16 if img.dtype == np.uint16 else 8
-    raw = img.astype(">u2" if depth == 16 else np.uint8).reshape(H, -1).view(np.uint8)
     bpp = C * depth // 8
-    body, prev = bytearray(), [0] * raw.shape[1]
-    for r in range(H):
-        row = raw[r].tolist()
-        body += bytes([r % 5] + _filter_row(r % 5, row, prev, bpp))
-        prev = row
+    body = bytearray()
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = img[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        raw = sub.astype(">u2" if depth == 16 else np.uint8).reshape(sub.shape[0], -1)
+        raw = raw.view(np.uint8)
+        prev = [0] * raw.shape[1]
+        for r in range(raw.shape[0]):
+            row = raw[r].tolist()
+            body += bytes([r % 5] + _filter_row(r % 5, row, prev, bpp))
+            prev = row
 
     def chunk(kind, data):
         return (struct.pack(">I", len(data)) + kind + data
@@ -108,10 +121,48 @@ def test_read_png_names_what_it_does_not_decode(tmp_path):
     imageio.imwrite(jpg, _image((16, 16, 3), np.uint8, 0))
     with pytest.raises(ValueError, match="JPEG"):
         imgproc.read_png(jpg)
-    inter = str(tmp_path / "adam7.png")
-    _write_png(inter, _image((8, 8), np.uint8, 0), interlace=1)
-    with pytest.raises(ValueError, match="interlaced"):
-        imgproc.read_png(inter)
+    gray4 = str(tmp_path / "gray4.png")
+    _write_png(gray4, _image((8, 8), np.uint8, 0))
+    with open(gray4, "rb") as f:  # the same bytes, declared as 4-bit gray
+        data = bytearray(f.read())
+    data[24] = 4
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
+    with open(gray4, "wb") as f:
+        f.write(bytes(data))
+    with pytest.raises(ValueError, match="at 4 bits"):
+        imgproc.read_png(gray4)
+
+
+@pytest.mark.parametrize("shape,dtype", [((13, 17), np.uint8), ((13, 17, 3), np.uint8),
+                                         ((13, 17, 4), np.uint16), ((5, 3, 2), np.uint8),
+                                         ((1, 1, 3), np.uint8), ((30, 41, 3), np.uint8)])
+def test_read_png_decodes_adam7(tmp_path, shape, dtype):
+    """Interlaced PNGs (every pass, with each row filter), odd and tiny sizes
+    where some passes are empty: the image, and PIL's decoding of the file."""
+    img = _image(shape, dtype, seed=3)
+    path = str(tmp_path / "a7.png")
+    _write_png(path, img, interlace=1)
+    out = imgproc.read_png(path)
+    assert out.dtype == img.dtype and out.shape == img.shape
+    np.testing.assert_array_equal(out, img)
+    if dtype == np.uint8:
+        np.testing.assert_array_equal(out, np.asarray(Image.open(path)))
+
+
+@pytest.mark.parametrize("colors,transparent", [(2, False), (4, False), (16, True), (200, False),
+                                                (256, True)])
+def test_read_png_decodes_palette(tmp_path, colors, transparent):
+    """Palette PNGs that PIL writes (at 1, 2, 4 or 8 bits for 2, 4, 16 and
+    more colours), with and without transparency, against PIL's RGB(A)."""
+    rgb = _image((23, 31, 3), np.uint8, seed=colors)
+    pal = Image.fromarray(rgb).quantize(colors=colors)
+    path = str(tmp_path / "p.png")
+    kw = dict(transparency=1) if transparent else {}
+    pal.save(path, bits=max(1, int(np.ceil(np.log2(colors)))), **kw)
+    ref = np.asarray(Image.open(path).convert("RGBA" if transparent else "RGB"))
+    out = imgproc.read_png(path)
+    assert out.dtype == np.uint8 and out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
 
 
 def test_dtu_loader_equals_jax_without_imageio(tmp_path, monkeypatch):

@@ -284,9 +284,16 @@ def test_fg_mask_sampler_pools_equal(dtu_fixture, dtu_mask_fixture):
 
 
 def test_replica_names_its_queue_item():
+    """replica's queue item is done: the registry loads it with the port's own
+    loader (tests/test_torch_replica.py), which fails on a root without
+    frames as the JAX loader does."""
     cfg = config_t.ConfigDict(dataset="replica", scene="room0", env=config_t.ConfigDict(replica=""))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(AssertionError, match="no frames under room0/results"):
         datasets_t.create_dataset(cfg, "train")
+    cfg_j = config_j.ConfigDict(dataset="replica", scene="room0",
+                                env=config_j.ConfigDict(replica=""))
+    with pytest.raises(AssertionError, match="no frames under room0/results"):
+        create_dataset_j(cfg_j, "train")
 
 
 @pytest.mark.parametrize("octaves,specular", [(1, 0.0), (3, 0.4)])

@@ -5,6 +5,9 @@ be fed the same numbers)."""
 from __future__ import annotations
 
 import functools
+import os
+import subprocess
+import sys
 from typing import Any, List
 
 import jax
@@ -12,7 +15,25 @@ import numpy as np
 import torch
 
 # each xdist worker runs its own process; keep them from oversubscribing the CPU
-torch.set_num_threads(2)
+THREADS = 2
+torch.set_num_threads(THREADS)
+
+# the first lines of a fresh interpreter's code: block JAX, the JAX package,
+# OpenCV, imageio and PIL (none is on the card's machine), so that an import
+# of any of them, eager or lazy, fails; and cap torch's threads as in a worker
+BLOCK = ("import sys\n"
+         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'sparf_tpu', 'cv2', 'imageio', 'PIL'):\n"
+         "    sys.modules[name] = None\n"
+         f"import torch\ntorch.set_num_threads({THREADS})\n")
+
+
+def run_python(code: str, cwd: str, timeout: int = 300) -> subprocess.CompletedProcess:
+    """Run `code` in a fresh interpreter with the workers' thread cap (its
+    OpenMP and MKL pools too), capturing its output. The timeout guards
+    against a hang; a test's subprocess takes well under it alone."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(THREADS), MKL_NUM_THREADS=str(THREADS))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
 
 
 def to_np(x) -> Any:
