@@ -8,15 +8,17 @@ Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
 Phases, one line each; any failure raises and the process exits non-zero:
   1. device: name, power limit, TF32 off for matmuls and cuDNN;
-  2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a;
-  3. kernels: the fragment packing (k_pack) bit for bit against its plain
-     version; K1 (fused MLP forward), K2 (backward) and K3 (forward on
-     packed weights), 3xTF32 on the tensor cores, at the full 8x256 width,
-     ragged T, both view_dep settings and an active coarse-to-fine mask,
-     against their plain torch versions (K3 also against K1's); K2 run twice
-     must give the same bits; median times at T = 262,144 beside each
-     kernel's bound (fp32 cores and 3xTF32 tensor cores) and its plain
-     cuBLAS chain;
+  2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a, one
+     compile per MMA kind (3xTF32, bf16), in parallel;
+  3. kernels: for each variant, 3xTF32 (compute_dtype float32) and bf16
+     (compute_dtype bfloat16): the fragment packing (k_pack) bit for bit
+     against its plain version; K1 (fused MLP forward), K2 (backward) and
+     K3 (forward on packed weights) at the full 8x256 width, ragged T, both
+     view_dep settings and an active coarse-to-fine mask, against their
+     plain torch versions (K3 also against K1's; bf16 per point, see
+     BF16_FLIPPED); K2 run twice must give the same bits; median times at
+     T = 262,144 beside each kernel's bound (fp32 cores, and the variant's
+     tensor-core rate) and its plain cuBLAS chain;
   4. slice-check: one step of the tiny sparf config on the card against the
      same step on the CPU (plain versions, same parameters and draws), in
      both stages; accum-check: grad_acc_steps = 2, six steps, one with a NaN
@@ -24,7 +26,10 @@ Phases, one line each; any failure raises and the process exits non-zero:
      mu, parameters); trajectory-check: the 200 steps of
      tests/test_torch_trajectory.py (across the stage switch at 120) on the
      card against the CPU in lockstep, the loss and the pose error held to
-     that test's bounds, the largest gaps printed;
+     that test's bounds, the largest gaps printed; bf16-check: the tiny step
+     (only the bf16 variants launch) and the 200-step trajectory at
+     compute_dtype bfloat16, card against CPU (TRAJ_TOL_BF16), then the
+     training CLI and the eval entry point at bf16 on the card;
   5. matcher-check: with TF32 on for cuBLAS and cuDNN, the port's matchers
      on the card against the same calls on the CPU, on the 300x400 3-view
      synthetic scene: the PDC-Net forward with the bundled weights (max
@@ -55,7 +60,9 @@ Phases, one line each; any failure raises and the process exits non-zero:
      launch counts of those steps (the depth-consistency visibility pass
      runs K3), and one timed refresh_correspondence_pools (the mid-training
      rematch, through the geometry stage again); its pools, built with TF32
-     off, must equal the matcher phase's (TF32 on);
+     off, must equal the matcher phase's (TF32 on); bf16-slice: the same
+     step shape at compute_dtype bfloat16 (GT-depth pools), 3+ steps per
+     stage, its it/s beside the fp32 ones, the bf16 variants' launches;
   8. eval-check: with cuDNN TF32 at PyTorch's default (on), evaluate_full of
      the tiny config with test-time pose refinement on the card against the
      same call on the CPU (same state, replayed pixel draws); a snapshot
@@ -63,7 +70,9 @@ Phases, one line each; any failure raises and the process exits non-zero:
   9. eval: the port's eval.run_eval on the full-shape trainer after its
      fine-stage steps: one 300x400 test view, with and without 100 steps of
      test-time refinement; seconds per full-image render and per
-     refinement, launch counts, metrics;
+     refinement, launch counts, metrics; video: generate_videos_synthesis on
+     that trainer, 8 frames of 300x400 (rgb, depth; K3), seconds per frame,
+     the animated PNGs decoded with the port's reader;
  10. fixed-pose: nerf_fixed_noisy_poses/synthetic/sparf at the full shape on
      GT-depth correspondences, steps in the coarse and the fine sampling
      stage with the poses bit-frozen, it/s, then one test view through
@@ -75,9 +84,10 @@ Phases, one line each; any failure raises and the process exits non-zero:
  12. accum: grad_acc_steps = 2 on the joint recipe at the full shape, it/s,
      the NeRF updated on every second step and the poses on every step.
 Each path from 7 on counts its kernel launches from 0; the kernels line sums
-them. The geometry stage runs four times in all (two matcher routes, the slice's
-trainer, its refresh); each phase's seconds are printed. Then a JSON line
-with every kernel, and last {"ok": true, "device": {...}}.
+them (the bf16 variants': the bf16-slice's). The geometry stage runs four
+times in all (two matcher routes, the slice's trainer, its refresh); each
+phase's seconds are printed. Then a JSON line with every kernel, and last
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -104,10 +114,37 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FWD_RTOL = 1e-4
 BWD_RTOL = 1e-3
 UNAMBIGUOUS_Z = 1e-4
+# the bf16 variants against their bf16 plain versions (the same roundings,
+# sums in another order): a point whose activation or g_z lands within that
+# order's float32 difference of a bf16 tie rounds one bf16 step apart in the
+# two (tests/test_torch_bf16_kernels.py). At the full width a point rounds
+# ~2,300 values in the forward and as many g_z in the backward: 3.2% of the
+# points flipped in the forward, worst 6.2e-3 of scale (PERF.md). A
+# flip moves the next pre-activations by ~1e-3 (one bf16 step, 2^-8 of the
+# value, times a weight), so it also switches ReLU masks that the fp32
+# holdout (UNAMBIGUOUS_Z) keeps; a holdout at that size would hold out every
+# point. Those points' gradients move by O(1) of their own: 0.9% of the
+# points past BWD_RTOL in d_pts, worst 0.146 of scale, and the weight and
+# bias gradients, sums over all points, by 0.6-2.0% of scale (PERF.md). So
+# every point (row of the outputs, d_pts, d_view) is held to FWD_RTOL /
+# BWD_RTOL, all but BF16_FLIPPED of them, and every point to BF16_LOOSE
+# (forward, backward); each weight and bias gradient to BF16_WEIGHT_RTOL of
+# its largest magnitude. A wrong fragment index or rounding mode moves every
+# point and every weight by O(1) of scale; the kernels' rounding is the bf16
+# k_pack's, bit for bit.
+BF16_FLIPPED = 0.15
+BF16_LOOSE = (5e-2, 0.3)
+BF16_WEIGHT_RTOL = 5e-2
+# Then K2 runs again with zero output gradient at the points past the tight
+# bound in the forward outputs, d_pts or d_view: the weight and bias
+# gradients of the other points are held to BF16_WEIGHT_RTOL_ISOLATED
+# (measured on the H100: 3.5e-4 to 4.1e-4, PERF.md).
+BF16_WEIGHT_RTOL_ISOLATED = 2e-3
 
 # published peaks of one H100 SXM at 700 W (NVIDIA H100 datasheet)
 PEAK_FP32 = 67e12      # FLOP/s, fp32 on the CUDA cores
 PEAK_TF32 = 495e12     # FLOP/s, TF32 on the tensor cores, dense
+PEAK_BF16 = 989e12     # FLOP/s, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # bytes/s of HBM
 
 
@@ -120,6 +157,21 @@ def rel_err(a, b) -> tuple:
     err = float((a - b).abs().max()) if a.numel() else 0.0
     scale = float(b.abs().max()) if b.numel() else 0.0
     return err, err / max(scale, 1e-6)
+
+
+def row_errors(a, b):
+    """Per row (point) of b, max |a - b| over b's largest magnitude."""
+    if not b.numel():
+        return a.new_zeros(b.shape[0])
+    scale = max(float(b.abs().max()), 1e-6)
+    return (a - b).abs().reshape(b.shape[0], -1).amax(dim=1) / scale
+
+
+def points_err(a, b, rel: float) -> tuple:
+    """(share of rows (points) whose error (row_errors) exceeds rel, the worst
+    row's error)."""
+    err = row_errors(a, b)
+    return (float((err > rel).float().mean()), float(err.max())) if err.numel() else (0.0, 0.0)
 
 
 def median_ms(fn, n: int = 10, warmup: int = 2) -> float:
@@ -140,12 +192,17 @@ def median_ms(fn, n: int = 10, warmup: int = 2) -> float:
 
 
 def ptxas_summary(log: str) -> str:
-    """Registers, stack and spills of each kernel, from nvcc's -Xptxas -v output."""
-    kernels, name = {}, None
+    """Registers, stack and spills of each kernel, from nvcc's -Xptxas -v output
+    (ops/_build.py's log: each kind's compile after `== <source> <kind> ==`)."""
+    kernels, name, kind = {}, None, ""
     for line in log.splitlines():
+        h = re.match(r"== \S+ (\w+) ==", line)
+        if h:
+            kind = h.group(1) + " "
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = _last_component(m.group(1))
+            name = kind + _last_component(m.group(1))
             kernels[name] = []
         elif name and ("registers" in line or "spill" in line):
             kernels[name].append(line.split(" : ")[-1].strip())
@@ -162,15 +219,17 @@ def _last_component(mangled: str) -> str:
     return last
 
 
-def kernel_inputs(view_dep: bool, T: int, seed: int):
+def kernel_inputs(view_dep: bool, T: int, seed: int, bf16: bool = False):
     """Full-width MLP (as flat weights and as the parameter tree), encoded
-    inputs of T random points, output gradients."""
+    inputs of T random points, output gradients; `bf16`: compute_dtype
+    bfloat16 (the bf16 variants)."""
     import torch
 
     from sparf_tpu_torch.models import nerf_mlp
     from sparf_tpu_torch.ops import fused_mlp as fm
 
-    cfg = nerf_mlp.MLPConfig(view_dep=view_dep, barf_c2f=(0.4, 0.7))
+    cfg = nerf_mlp.MLPConfig(view_dep=view_dep, barf_c2f=(0.4, 0.7),
+                             compute_dtype=torch.bfloat16 if bf16 else torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = nerf_mlp.init_nerf_params(gen, cfg, device="cuda")
     weights = fm.flat_weights(params)
@@ -193,12 +252,13 @@ def min_abs_preactivation(meta, pts_enc, view_enc, weights):
     """Per point, the smallest |pre-activation| over every ReLU of the chain."""
     import torch
 
+    from sparf_tpu_torch.models import nerf_mlp
     from sparf_tpu_torch.ops import fused_mlp as fm
 
     _, _, xs = fm._forward_chain(meta, pts_enc, view_enc, weights)
     out = torch.full((pts_enc.shape[0],), float("inf"), device=pts_enc.device)
     for li, x in enumerate(xs[:-1]):
-        z = torch.addmm(weights[2 * li + 1], x, weights[2 * li].t())
+        z = nerf_mlp.linear(x, weights[2 * li], weights[2 * li + 1], meta.dtype)
         if li == meta.n_feat - 1:
             z = z[:, 1:]
         out = torch.minimum(out, z.abs().amin(dim=1))
@@ -209,8 +269,9 @@ def kernel_bounds(meta, weights, T: int) -> dict:
     """Per kernel, the least time the card could take for its work on these
     shapes: the larger of its bytes (inputs read once, outputs written once)
     over HBM's rate and its operations over the peak: fp32 FLOP on the CUDA
-    cores, and 3 TF32 products per fp32 product on the tensor cores (3xTF32,
-    what the kernels run). Returns ms and what bounds each."""
+    cores, and the tensor cores' rate for what the variant runs: 3 TF32
+    products per fp32 product (3xTF32), or 1 bf16 product (bf16 variants,
+    meta.bf16). Returns ms and what bounds each."""
     macs = [int(weights[2 * li].numel()) for li in range(len(weights) // 2)]
     n_params = sum(int(w.numel()) for w in weights)
     d_io = meta.d_in + meta.d_view
@@ -222,7 +283,8 @@ def kernel_bounds(meta, weights, T: int) -> dict:
     out = {}
     for k, (mac, nbytes) in work.items():
         flop = 2.0 * mac * T
-        t_bytes, t_fp32, t_3x = nbytes / PEAK_BYTES, flop / PEAK_FP32, 3 * flop / PEAK_TF32
+        t_bytes, t_fp32 = nbytes / PEAK_BYTES, flop / PEAK_FP32
+        t_3x = flop / PEAK_BF16 if meta.bf16 else 3 * flop / PEAK_TF32
         out[k] = {"bound_ms": 1e3 * max(t_bytes, t_3x),
                   "bound_by": "bytes" if t_bytes > t_3x else "operations",
                   "bound_fp32_ms": 1e3 * max(t_bytes, t_fp32), "flop": flop, "bytes": nbytes}
@@ -238,31 +300,58 @@ def check_packing(meta, weights, params) -> None:
 
     lib = _build.load_library()
     dims = fm._dims(meta, weights)
-    frag = torch.empty((2, fm._sizes(lib, dims, "pack")[1]), device="cuda")
-    rc = lib.sparf_fused_mlp_pack(dims, fm._ptrs(weights), frag[0].data_ptr(),
-                                  frag[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    frag = torch.empty((2, fm._sizes(lib, dims, meta.bf16, "pack")[1]), dtype=meta.dtype,
+                       device="cuda")
+    rc = _build.entry(lib, "pack", meta.bf16)(dims, fm._ptrs(weights), frag[0].data_ptr(),
+                                              frag[1].data_ptr(),
+                                              torch.cuda.current_stream().cuda_stream)
     fm._raise_rc(lib, rc, "k_pack")
-    plain = [fm.pack_fragments_plain(meta.dims(weights), weights, transposed=t)
+    plain = [fm.pack_fragments_plain(meta.dims(weights), weights, transposed=t, bf16=meta.bf16)
              for t in (False, True)]
     packed = fm.pack_weights(params, meta).frag
     torch.cuda.synchronize()
     for name, a, b in (("forward", frag[0], plain[0]), ("transposed", frag[1], plain[1]),
                        ("pack_weights", packed, plain[0])):
-        if not torch.equal(a, b):
+        if not torch.equal(a.view(torch.int16 if meta.bf16 else torch.int32),
+                           b.view(torch.int16 if meta.bf16 else torch.int32)):
             raise AssertionError(f"k_pack {name} fragments differ from the plain packing in "
                                  f"{int((a != b).sum())} of {a.numel()} floats")
 
 
-def check_kernels() -> dict:
+def _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped, failed) -> None:
+    """One forward output pair against its reference: fp32 within FWD_RTOL of
+    scale; bf16 per point (module note). A miss is appended to `failed`."""
+    for name, x, y in (("density", a[0][:, None], b[0][:, None]), ("rgb", a[1], b[1])):
+        err, rel = rel_err(x, y)
+        worst[kname] = max(worst[kname], err)
+        if bf16:
+            share, rel_max = points_err(x, y, FWD_RTOL)
+            flipped[kname] = max(flipped[kname], share)
+            ok = share <= BF16_FLIPPED and rel_max <= BF16_LOOSE[0]
+        else:
+            ok, share, rel_max = rel <= FWD_RTOL, 0.0, rel
+        if not ok:
+            failed.append(f"{kname} {name} vs {ref_name} view_dep={view_dep} T={T}: err "
+                          f"{err:.3g} (rel {rel_max:.3g}, {share:.4f} of the points past "
+                          f"{FWD_RTOL})")
+
+
+def check_kernels(bf16: bool = False) -> dict:
+    """K1, K2, K3 and k_pack of one variant (3xTF32 or bf16) against their
+    plain versions at the full width; median times at T = 262,144. Every
+    comparison runs and prints before a miss raises."""
     import torch
 
     from sparf_tpu_torch.ops import fused_mlp as fm
 
+    tag = "bf16" if bf16 else "fp32"
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    flipped = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    failed = []
     for view_dep in (True, False):
         for T in (131071, 262145):
-            meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(view_dep, T,
-                                                                                 seed=T)
+            meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(
+                view_dep, T, seed=T, bf16=bf16)
             check_packing(meta, weights, params)
             packed = fm.pack_weights(params, meta)
             dens_k, rgb_k = fm._launch_k1(meta, pts_enc, view_enc, weights)
@@ -270,17 +359,15 @@ def check_kernels() -> dict:
             dens_p, rgb_p = fm.fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
             dens_pp, rgb_pp = fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
             torch.cuda.synchronize()
-            for kname, ref_name, (a_d, a_r), (b_d, b_r) in (
+            for kname, ref_name, a, b in (
                     ("K1", "K1 plain", (dens_k, rgb_k), (dens_p, rgb_p)),
                     ("K3", "K3 plain", (dens_3, rgb_3), (dens_pp, rgb_pp)),
                     ("K3", "K1 plain", (dens_3, rgb_3), (dens_p, rgb_p))):
-                for name, a, b in (("density", a_d, b_d), ("rgb", a_r, b_r)):
-                    err, rel = rel_err(a, b)
-                    worst[kname] = max(worst[kname], err)
-                    if not rel <= FWD_RTOL:
-                        raise AssertionError(f"{kname} {name} vs {ref_name} view_dep={view_dep} "
-                                             f"T={T}: err {err:.3g} (rel {rel:.3g}) > {FWD_RTOL}")
+                _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped,
+                                 failed)
             k3_same_bits = torch.equal(dens_3, dens_k) and torch.equal(rgb_3, rgb_k)
+            fwd_past = ((row_errors(dens_k[:, None], dens_p[:, None]) > FWD_RTOL)
+                        | (row_errors(rgb_k, rgb_p) > FWD_RTOL))
 
             keep = (min_abs_preactivation(meta, pts_enc, view_enc, weights)
                     >= UNAMBIGUOUS_Z).float()
@@ -291,37 +378,71 @@ def check_kernels() -> dict:
             flat_k = [out_k[0], out_k[1], *out_k[2]]
             flat_k2 = [out_k2[0], out_k2[1], *out_k2[2]]
             if not all(torch.equal(a, b) for a, b in zip(flat_k, flat_k2)):
-                raise AssertionError(f"K2 not deterministic (view_dep={view_dep}, T={T})")
+                failed.append(f"K2 {tag} not deterministic (view_dep={view_dep}, T={T})")
             out_p = fm.fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_d, g_rgb)
-            flat_p = [out_p[0], out_p[1], *out_p[2]]
-            # autograd through the plain chain
-            leaves = [t.detach().requires_grad_(True) for t in (pts_enc, view_enc, *weights)]
-            d, rgb = fm.fused_mlp_forward_plain(meta, leaves[0], leaves[1], leaves[2:])
-            flat_a = torch.autograd.grad((d * g_d).sum() + (rgb * g_rgb).sum(), leaves,
-                                         allow_unused=True)
-            flat_a = [torch.zeros_like(l) if g is None else g for g, l in zip(flat_a, leaves)]
+            refs = [("plain", [out_p[0], out_p[1], *out_p[2]])]
+            if not bf16:
+                # autograd through the plain chain (under bf16 autograd rounds the
+                # gradients at the casts: another rounding than the kernels')
+                leaves = [t.detach().requires_grad_(True) for t in (pts_enc, view_enc, *weights)]
+                d, rgb = fm.fused_mlp_forward_plain(meta, leaves[0], leaves[1], leaves[2:])
+                flat_a = torch.autograd.grad((d * g_d).sum() + (rgb * g_rgb).sum(), leaves,
+                                             allow_unused=True)
+                refs.append(("autograd", [torch.zeros_like(l) if g is None else g
+                                          for g, l in zip(flat_a, leaves)]))
             names = ["d_pts", "d_view"] + [f"{'W' if i % 2 == 0 else 'b'}{i // 2}"
                                            for i in range(len(weights))]
-            worst_rel = 0.0
-            for ref_name, flat_ref in (("plain", flat_p), ("autograd", flat_a)):
-                for name, a, b in zip(names, flat_k, flat_ref):
+            worst_rel, worst_weight = 0.0, 0.0
+            for ref_name, flat_ref in refs:
+                for i, (name, a, b) in enumerate(zip(names, flat_k, flat_ref)):
                     err, rel = rel_err(a, b)
                     worst["K2"] = max(worst["K2"], err)
+                    share = 0.0
+                    if bf16 and i < 2:  # per point
+                        share, rel = points_err(a, b, BWD_RTOL)
+                        flipped["K2"] = max(flipped["K2"], share)
+                        ok = share <= BF16_FLIPPED and rel <= BF16_LOOSE[1]
+                    else:
+                        ok = rel <= (BF16_WEIGHT_RTOL if bf16 else BWD_RTOL)
+                        worst_weight = max(worst_weight, rel)
                     worst_rel = max(worst_rel, rel)
-                    if not rel <= BWD_RTOL:
-                        raise AssertionError(
-                            f"K2 {name} vs {ref_name} view_dep={view_dep} T={T}: "
-                            f"err {err:.3g} (rel {rel:.3g}) > {BWD_RTOL}")
-            del out_k, out_k2, out_p, flat_a, leaves
-            phase("kernels", f"view_dep={view_dep} T={T}: K1, K2 and K3 agree with the plain "
-                             f"versions (worst relative error K2 {worst_rel:.3g}), K2 "
-                             f"bit-identical on rerun, K3 {'' if k3_same_bits else 'not '}"
-                             f"bit-identical to K1, k_pack bit-identical to its plain "
-                             f"version; {1 - float(keep.mean()):.4f} of the "
-                             f"points held out of the backward check (|z| < {UNAMBIGUOUS_Z})")
+                    if not ok:
+                        failed.append(f"K2 {tag} {name} vs {ref_name} view_dep={view_dep} "
+                                      f"T={T}: err {err:.3g} (rel {rel:.3g}, {share:.4f} of the "
+                                      f"points past {BWD_RTOL})")
+            isolated = 0.0
+            if bf16:  # the weight gradients of the points that no flip reached
+                past = (fwd_past | (row_errors(out_k[0], out_p[0]) > BWD_RTOL)
+                        | (row_errors(out_k[1], out_p[1]) > BWD_RTOL))
+                clean = (~past).float()
+                out_k = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d * clean,
+                                      g_rgb * clean[:, None])
+                out_p = fm.fused_mlp_backward_plain(meta, pts_enc, view_enc, weights,
+                                                    g_d * clean, g_rgb * clean[:, None])
+                for name, a, b in zip(names[2:], out_k[2], out_p[2]):
+                    rel = rel_err(a, b)[1]
+                    isolated = max(isolated, rel)
+                    if not rel <= BF16_WEIGHT_RTOL_ISOLATED:
+                        failed.append(f"K2 {tag} {name} vs plain, {float(past.float().mean()):.4f} "
+                                      f"of the points left out, view_dep={view_dep} T={T}: rel "
+                                      f"{rel:.3g}")
+            del out_k, out_k2, out_p, refs
+            phase("kernels", f"{tag} view_dep={view_dep} T={T}: K1, K2 and K3 "
+                             f"{'miss' if failed else 'agree with'} the plain versions (worst "
+                             f"relative error K2 {worst_rel:.3g}, of a weight gradient "
+                             f"{worst_weight:.3g}"
+                             + (f"; points past the tight bound: K1 {flipped['K1']:.4f}, K3 "
+                                f"{flipped['K3']:.4f}, K2 {flipped['K2']:.4f}; weight gradients "
+                                f"without them {isolated:.3g}" if bf16 else "")
+                             + f"), K2 bit-identical on rerun, K3 "
+                             f"{'' if k3_same_bits else 'not '}bit-identical to K1, k_pack "
+                             f"bit-identical to its plain version; {1 - float(keep.mean()):.4f} "
+                             f"of the points held out of the backward check (|z| < "
+                             f"{UNAMBIGUOUS_Z})")
             torch.cuda.empty_cache()
 
-    meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(True, 262144, seed=1)
+    meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(True, 262144, seed=1,
+                                                                          bf16=bf16)
     packed = fm.pack_weights(params, meta)
     times = {
         "K1": median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights)),
@@ -335,13 +456,18 @@ def check_kernels() -> dict:
                                                                    weights, g_d, g_rgb)),
     }
     bounds = kernel_bounds(meta, weights, 262144)
-    phase("kernels", "median ms at T=262144 (8x256, view_dep): "
+    peak = "bf16" if bf16 else "3xTF32"
+    phase("kernels", f"{tag} median ms at T=262144 (8x256, view_dep): "
           + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
-    phase("kernels", "bounds at T=262144: " + "; ".join(
-        f"{k} 3xTF32 {b['bound_ms']:.3f} ms ({b['bound_by']}, share {b['bound_ms'] / times[k]:.3f}),"
+    phase("kernels", f"{tag} bounds at T=262144: " + "; ".join(
+        f"{k} {peak} {b['bound_ms']:.3f} ms ({b['bound_by']}, share "
+        f"{b['bound_ms'] / times[k]:.3f}),"
         f" fp32 cores {b['bound_fp32_ms']:.3f} ms (share {b['bound_fp32_ms'] / times[k]:.3f})"
         for k, b in bounds.items()))
-    return {"max_abs_err": worst, "ms": times, "bounds": bounds}
+    if failed:
+        raise AssertionError(f"{tag} kernels disagree with their plain versions:\n"
+                             + "\n".join(failed))
+    return {"max_abs_err": worst, "flipped": flipped, "ms": times, "bounds": bounds}
 
 
 TINY_SPARF = dict(
@@ -349,6 +475,14 @@ TINY_SPARF = dict(
     synthetic=dict(H=24, W=32, n_train=3, n_test=1),
     arch=dict(layers_feat=[None, 64, 64, 64, 64], layers_rgb=[None, 32, 3], skip=[2]),
     nerf=dict(sample_intvs=32, sample_intvs_fine=16, rand_rays=16), depth_cons_nbr_rays=16)
+
+
+def _merged(base: dict, over: dict) -> dict:
+    """base with over's keys, nested dicts merged."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = _merged(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
 
 
 class RecordingDraws:
@@ -371,23 +505,38 @@ class RecordingDraws:
         return self._keep(self.draws.normal(shape))
 
 
-def check_step_cuda_vs_cpu() -> None:
-    """One step of the tiny sparf config on the card (kernels) and on the CPU
-    (plain versions) from the same parameters and draws, in both stages.
-    Losses within rtol 1e-4, gradients (Adam's first moment / 0.1) within
-    1e-3 of each tensor's largest magnitude, updated parameters within 1e-5."""
+# bf16 steps (the bf16-check): updated parameters are held where the CPU's
+# gradient is at least BF16_KEEP_GRAD; a bf16 flip moves a gradient by up to
+# ~1e-3 of its tensor's scale, and Adam's first step lr g / (|g| + eps) turns
+# that into more than 1e-5 on an element whose |g| is ~1e-6 or less
+# (tests/test_torch_bf16_trainer.py); the gradients themselves stay held.
+BF16_KEEP_GRAD = 1e-5
+BF16 = dict(tpu=dict(compute_dtype="bfloat16"))
+
+
+def check_step_cuda_vs_cpu(over=None, what: str = "slice-check") -> None:
+    """One step of the tiny sparf config (with `over`) on the card (kernels)
+    and on the CPU (plain versions) from the same parameters and draws, in
+    both stages. Losses within rtol 1e-4, gradients (Adam's first moment /
+    0.1) within 1e-3 of each tensor's largest magnitude, updated parameters
+    within 1e-5 (bf16: where |gradient| >= BF16_KEEP_GRAD)."""
     import dataclasses
 
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
     from sparf_tpu_torch.training import engine
     from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
     from sparf_tpu_torch.utils.draws import Draws, ReplayDraws
 
     def trainer_on(device):
-        cfg = build_config("joint_pose_nerf_training/synthetic", "sparf", TINY_SPARF)
+        cfg = build_config("joint_pose_nerf_training/synthetic", "sparf",
+                           _merged(TINY_SPARF, over or {}))
         return define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_tiny_"),
                               device=device, save_option=False)
 
     cpu, gpu = trainer_on("cpu"), trainer_on("cuda")
+    bf16 = gpu.render_cfg.mlp.compute_dtype == torch.bfloat16
     for it in (0, 350):
         st_c = dataclasses.replace(cpu.state, iteration=it, iteration_nerf=it)
         st_g = dataclasses.replace(
@@ -398,7 +547,12 @@ def check_step_cuda_vs_cpu() -> None:
             pose_params={k: v.cuda() for k, v in cpu.state.pose_params.items()})
         rec = RecordingDraws(Draws(it, "cpu"))
         new_c, stats_c = cpu.get_step(it)(st_c, rec)
+        fm.reset_launch_counts()
         new_g, stats_g = gpu.get_step(it)(st_g, ReplayDraws(rec.recorded, "cuda"))
+        launches = (fm.launch_counts(bf16), fm.launch_counts(not bf16))
+        if 0 in (launches[0]["K1"], launches[0]["K2"]) or any(launches[1].values()):
+            raise AssertionError(f"step at {it}: launches of the {'bf16' if bf16 else 'fp32'} "
+                                 f"variants {launches[0]}, of the other {launches[1]}")
         for k, v in stats_c.items():
             a, b = float(stats_g[k]), float(v)
             if not abs(a - b) <= 1e-6 + 1e-4 * abs(b):
@@ -410,12 +564,24 @@ def check_step_cuda_vs_cpu() -> None:
             err, rel = rel_err(a.cpu(), b)
             if not rel <= 1e-3:
                 raise AssertionError(f"step at {it}: gradient off by {err:.3g} (rel {rel:.3g})")
-        for a, b in zip(engine.tree_leaves(new_g.nerf_params) + list(new_g.pose_params.values()),
-                        engine.tree_leaves(new_c.nerf_params) + list(new_c.pose_params.values())):
-            if not float((a.cpu() - b).abs().max()) <= 1e-5:
+        grads = list(new_c.opt_state_nerf.mu) + (
+            list(new_c.opt_state_pose.mu) if new_c.opt_state_pose is not None
+            else [None] * len(new_c.pose_params))
+        held = 1.0
+        for a, b, g in zip(engine.tree_leaves(new_g.nerf_params) + list(new_g.pose_params.values()),
+                           engine.tree_leaves(new_c.nerf_params) + list(new_c.pose_params.values()),
+                           grads):
+            keep = (g / 0.1).abs() >= BF16_KEEP_GRAD if bf16 and g is not None else None
+            diff = (a.cpu() - b).abs()
+            if keep is not None:
+                held = min(held, float(keep.float().mean()))
+                diff = diff[keep]
+            if diff.numel() and not float(diff.max()) <= 1e-5:
                 raise AssertionError(f"step at {it}: updated parameters differ")
-        phase("slice-check", f"tiny sparf step at iteration {it}: cuda (kernels) matches cpu "
-                             f"(plain versions), loss all={float(stats_g['all']):.6g}")
+        phase(what, f"tiny sparf step at iteration {it}: cuda (kernels) matches cpu "
+                    f"(plain versions), loss all={float(stats_g['all']):.6g}, launches "
+                    f"{launches[0]}" + (f"; parameters held where |g| >= {BF16_KEEP_GRAD} "
+                                        f"(at least {held:.3f} of each tensor)" if bf16 else ""))
 
 
 # Tiny config of the eval-check: 4 point and 2 view PE frequencies instead of
@@ -941,7 +1107,7 @@ def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
     stages = (("joint_coarse", 0), ("fine", int(cfg.max_iter * (ratio + 0.05))))
     result = {}
     # the main path's launches from here
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    fm.reset_launch_counts()
     for name, it0 in stages:
         state = dataclasses.replace(trainer.state, iteration=it0, iteration_nerf=it0)
         step = trainer.get_step(it0)
@@ -974,8 +1140,7 @@ def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
                        f"depth_cons={losses['depth_cons']:.5g}, pose change {moved:.3g}, "
                        f"launches {launches} (K3: the visibility pass, on weights packed by "
                        f"pack_weights)")
-    result["launches"] = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
-                          "pack": fm.PACK_LAUNCHES}
+    result["launches"] = fm.launch_counts()
     trainer.state = state
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1026,13 +1191,12 @@ def run_eval_phase(trainer) -> dict:
     trainer.render_full_image = timed(render, renders)
     trainer.run_test_time_photometric_optim = timed(refine, refines)
     # the eval path's launches from here
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    fm.reset_launch_counts()
     t0 = time.perf_counter()
     results = teval.run_eval(trainer, trainer.cfg, tempfile.mkdtemp(prefix="sparf_torch_eval_"),
                              "smoke_eval")
     total = time.perf_counter() - t0
-    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
-                "pack": fm.PACK_LAUNCHES}
+    launches = fm.launch_counts()
     if 0 in launches.values():
         raise AssertionError(f"eval: kernels not on the eval path: {launches}")
     H, W = trainer.val_scene_np["image"].shape[-2:]
@@ -1066,6 +1230,9 @@ TINY_TRAJ = dict(TINY_SPARF, max_iter=400,
                  arch=dict(TINY_SPARF["arch"], posenc=dict(L_3D=4, L_view=2)))
 TRAJ_STEPS = 200
 TRAJ_TOL = {"loss_rel": (2e-4, 1e-5), "rot_deg": (1e-3, 5e-5), "trans": (5e-5, 5e-6)}
+# the same steps at compute_dtype bfloat16 (bf16-check): the bounds of
+# tests/test_torch_bf16_trajectory.py (port against JAX on the CPU)
+TRAJ_TOL_BF16 = {"loss_rel": (5e-4, 5e-5), "rot_deg": (2e-3, 2e-4), "trans": (1e-4, 1e-5)}
 # the accum-check, card against CPU: the accumulator and Adam's mu within 1e-3
 # of each tensor's largest magnitude (tests/test_torch_accumulation.py's bound
 # against JAX), the parameters within the slice-check's 1e-5
@@ -1164,16 +1331,18 @@ def check_accum_cuda_vs_cpu() -> None:
                          f"parameters {worst['param']:.3g}")
 
 
-def check_trajectory_cuda_vs_cpu() -> dict:
-    """The trajectory test's TRAJ_STEPS steps on the card against the CPU, in
-    lockstep on the same draws: the loss and the pose error after alignment
-    at every step, held to the test's bounds."""
+def check_trajectory_cuda_vs_cpu(over=None, tol=None, what: str = "trajectory-check") -> dict:
+    """The trajectory test's TRAJ_STEPS steps (with `over`) on the card
+    against the CPU, in lockstep on the same draws: the loss and the pose
+    error after alignment at every step, held to `tol` (the test's bounds,
+    TRAJ_TOL)."""
     import numpy as np
 
     from sparf_tpu_torch.utils import alignment
     from sparf_tpu_torch.utils.draws import Draws, ReplayDraws
 
-    cpu, gpu = _tiny_pair(TINY_TRAJ)
+    tol = tol or TRAJ_TOL
+    cpu, gpu = _tiny_pair(_merged(TINY_TRAJ, over or {}))
     gt = np.asarray(cpu.train_scene_np["pose"])
     draws = Draws(7, "cpu")
     st_c, st_g = cpu.state, gpu.state
@@ -1191,15 +1360,15 @@ def check_trajectory_cuda_vs_cpu() -> dict:
     n = np.arange(TRAJ_STEPS)
     gaps = {"loss_rel": np.abs(r[:, 1] - r[:, 0]) / np.abs(r[:, 0]),
             "rot_deg": np.abs(r[:, 3] - r[:, 2]), "trans": np.abs(r[:, 5] - r[:, 4])}
-    share = {k: float(np.max(g / (TRAJ_TOL[k][0] + TRAJ_TOL[k][1] * n))) for k, g in gaps.items()}
+    share = {k: float(np.max(g / (tol[k][0] + tol[k][1] * n))) for k, g in gaps.items()}
     switch = cpu.iter_end_joint
-    phase("trajectory-check", f"{TRAJ_STEPS} steps (poses frozen from {switch}), card vs cpu: "
+    phase(what, f"{TRAJ_STEPS} steps (poses frozen from {switch}), card vs cpu: "
           f"largest gaps loss {gaps['loss_rel'].max():.3g} (relative), rotation error "
           f"{gaps['rot_deg'].max():.3g} deg, translation error {gaps['trans'].max():.3g}; "
           f"largest share of the bound {max(share.values()):.3g}; pose error from "
           f"{r[0, 3]:.4f} to {r[-1, 3]:.4f} deg (cpu {r[-1, 2]:.4f})")
     if max(share.values()) > 1 or int(st_g.nan_count) or int(st_c.nan_count):
-        raise AssertionError(f"trajectory-check: gaps beyond the bounds {share}")
+        raise AssertionError(f"{what}: gaps beyond the bounds {share}")
     return {k: float(g.max()) for k, g in gaps.items()}
 
 
@@ -1211,9 +1380,11 @@ def _full_trainer(module, name, over):
                           device="cuda", save_option=False)
 
 
-def _timed_steps(trainer, it0: int, steps: int, what: str):
+def _timed_steps(trainer, it0: int, steps: int, what: str, bf16: bool = False):
     """1 warm-up step and `steps` timed steps from iteration it0, with the
-    kernels' launches counted from 0 (returns state, it/s, launches, stats)."""
+    kernels' launches counted from 0 (returns state, it/s, the launches of
+    the fp32 or, with `bf16`, the bf16 variants, stats); the other variants
+    must not launch."""
     import dataclasses
 
     import torch
@@ -1222,7 +1393,7 @@ def _timed_steps(trainer, it0: int, steps: int, what: str):
 
     state = dataclasses.replace(trainer.state, iteration=it0, iteration_nerf=it0)
     step = trainer.get_step(it0)
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    fm.reset_launch_counts()
     state, stats = step(state, trainer.draws)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1230,15 +1401,113 @@ def _timed_steps(trainer, it0: int, steps: int, what: str):
         state, stats = step(state, trainer.draws)
     torch.cuda.synchronize()
     its = steps / (time.perf_counter() - t0)
-    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
-                "pack": fm.PACK_LAUNCHES}
+    launches, other = fm.launch_counts(bf16), fm.launch_counts(not bf16)
     losses = {k: float(v) for k, v in stats.items() if v.numel() == 1}
     bad = [k for k, v in losses.items() if v != v or abs(v) == float("inf")]
     if bad or int(state.nan_count):
         raise AssertionError(f"{what}: non-finite stats {bad}, nan_count {int(state.nan_count)}")
-    if launches["K1"] == 0 or launches["K2"] == 0:
-        raise AssertionError(f"{what}: K1/K2 not on the path: {launches}")
+    if launches["K1"] == 0 or launches["K2"] == 0 or any(other.values()):
+        raise AssertionError(f"{what}: K1/K2 not on the path: {launches} (the other variants "
+                             f"{other})")
     return state, its, launches, losses
+
+
+def check_bf16_cli() -> None:
+    """--tpu.compute_dtype=bfloat16 through the training CLI on the card (the
+    tiny config, 10 debug iterations with validation and snapshots) and the
+    eval entry point on its snapshot: only the bf16 variants launch, and the
+    metrics are finite."""
+    import math
+
+    from sparf_tpu_torch import eval as teval
+    from sparf_tpu_torch import run_trainval
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    ws = tempfile.mkdtemp(prefix="sparf_torch_cli_")
+    tiny = ["--synthetic.H=24", "--synthetic.W=32", "--synthetic.n_train=3",
+            "--synthetic.n_test=1", "--arch.layers_feat=[null,64,64,64,64]",
+            "--arch.layers_rgb=[null,32,3]", "--arch.skip=[2]", "--nerf.sample_intvs=32",
+            "--nerf.sample_intvs_fine=16", "--nerf.rand_rays=16", "--depth_cons_nbr_rays=16",
+            "--min_nbr_matches=10", "--use_gt_correspondences=True", "--max_iter=1000",
+            "--optim.test_iter=2", "--tpu.compute_dtype=bfloat16"]
+    fm.reset_launch_counts()
+    trainer = run_trainval.main(["joint_pose_nerf_training/synthetic", "sparf", "--scene",
+                                 "spheres", "--debug", "True", "--device", "cuda",
+                                 "--workspace_dir", ws, *tiny])
+    res = teval.main(["--ckpt_dir", trainer.workspace, "--device", "cuda", "--out_dir",
+                      os.path.join(ws, "ev"), "--expname", "bf16"])
+    launches, other = fm.launch_counts(True), fm.launch_counts()
+    w = res["latest"]["w_test_optim"]
+    if (trainer.state.iteration != 10 or 0 in launches.values() or any(other.values())
+            or not all(math.isfinite(w[k]) for k in ("psnr", "rot_error"))):
+        raise AssertionError(f"bf16 CLI: iteration {trainer.state.iteration}, launches of the "
+                             f"bf16 variants {launches}, of the fp32 ones {other}, metrics {w}")
+    phase("bf16-check", f"the training CLI (10 debug iterations) and the eval entry point at "
+                        f"compute_dtype bfloat16 on the card: launches of the bf16 variants "
+                        f"{launches}, of the fp32 ones 0; psnr={w['psnr']:.4f} "
+                        f"rot_error={w['rot_error']:.4f}")
+
+
+def run_bf16_slice(steps: int, fp32_rates: dict) -> dict:
+    """The joint recipe at the full shape with tpu.compute_dtype bfloat16:
+    `steps` timed steps in the joint coarse and in the fine stage, on GT-depth
+    correspondences (the step's shape does not depend on the matcher: the
+    pools are padded); only the bf16 variants of K1/K2/K3 may launch."""
+    trainer = _full_trainer("joint_pose_nerf_training/synthetic", "sparf", dict(
+        use_gt_correspondences=True, min_nbr_matches=100, **BF16))
+    ratio = float(trainer.cfg.ratio_end_joint_nerf_pose_refinement)
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3", "pack"), 0)}
+    for name, it0 in (("joint_coarse", 0), ("fine", int(trainer.cfg.max_iter * (ratio + 0.05)))):
+        state, its, launches, losses = _timed_steps(trainer, it0, steps, f"bf16 {name}",
+                                                    bf16=True)
+        if launches["K3"] == 0:
+            raise AssertionError(f"bf16 {name}: no K3 (depth-consistency visibility)")
+        trainer.state = state
+        out[name] = its
+        for k in out["launches"]:
+            out["launches"][k] += launches[k]
+        phase("bf16-slice", f"{name} (iteration {it0}): {its:.3f} it/s over {steps} steps after "
+                            f"1 warm-up (fp32 in this call {fp32_rates[name]:.3f}), loss "
+                            f"all={losses['all']:.5g}, launches of the bf16 variants {launches}, "
+                            f"of the fp32 variants 0")
+    return out
+
+
+def run_video_phase(trainer, n_frames: int = 8) -> dict:
+    """generate_videos_synthesis on the full-shape trainer: n_frames of 300x400
+    along the oscillation path, rgb and depth, through K3; each written file
+    decoded with the port's reader, every frame finite and not constant."""
+    import numpy as np
+    import torch
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+    from sparf_tpu_torch.utils import imgproc
+    from sparf_tpu_torch.utils.video import generate_videos_synthesis
+
+    out_dir = tempfile.mkdtemp(prefix="sparf_torch_video_")
+    fm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = generate_videos_synthesis(trainer, out_dir=out_dir, n_frames=n_frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fm.launch_counts()
+    frames = {os.path.basename(p): imgproc.read_apng(p) for p in paths}
+    H, W = trainer.train_scene_np["image"].shape[-2:]
+    for name, fr in frames.items():
+        if len(fr) != n_frames or any(f.shape != (H, W, 3) or not np.isfinite(f).all()
+                                      or np.ptp(f) == 0 for f in fr):
+            raise AssertionError(f"video {name}: {len(fr)} frames, shapes "
+                                 f"{[f.shape for f in fr]}, constant or not finite")
+    if launches["K3"] == 0:
+        raise AssertionError(f"video: no K3 launch ({launches})")
+    out = {"s_per_frame": seconds / n_frames, "launches": launches,
+           "bytes": {k: os.path.getsize(p) for k, p in zip(frames, paths)}}
+    phase("video", f"generate_videos_synthesis, {n_frames} frames of {H}x{W} (rgb and depth): "
+                   f"{out['s_per_frame']:.3f} s per frame, launches {launches} "
+                   f"({launches['K3'] / n_frames:.0f} K3 per frame); files {out['bytes']} bytes, "
+                   f"decoded with utils/imgproc.read_apng: every frame finite, none constant")
+    return out
 
 
 def run_fixed_pose_phase(steps: int) -> dict:
@@ -1275,7 +1544,7 @@ def run_fixed_pose_phase(steps: int) -> dict:
                             f"steps after 1 warm-up, loss all={losses['all']:.5g} "
                             f"depth_cons={losses['depth_cons']:.5g}, poses bit-frozen, launches "
                             f"{launches}")
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    fm.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = trainer.evaluate_full(out_dir=trainer.workspace, with_test_optim=True)
@@ -1355,7 +1624,7 @@ def run_accum_phase(steps: int) -> dict:
     trainer = _full_trainer("joint_pose_nerf_training/synthetic", "sparf", dict(
         use_gt_correspondences=True, min_nbr_matches=100, grad_acc_steps=2))
     state, its, launches, _ = _timed_steps(trainer, 0, steps, "accum")
-    fm.K1_LAUNCHES = fm.K2_LAUNCHES = fm.K3_LAUNCHES = fm.PACK_LAUNCHES = 0
+    fm.reset_launch_counts()
     changed = []
     for _ in range(2):
         before = [t.clone() for t in engine.tree_leaves(state.nerf_params)]
@@ -1366,8 +1635,7 @@ def run_accum_phase(steps: int) -> dict:
                                 zip(engine.tree_leaves(state.nerf_params), before)),
                         not torch.equal(trainer.current_poses_w2c(state), poses)))
     for k in launches:
-        launches[k] += {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES,
-                        "pack": fm.PACK_LAUNCHES}[k]
+        launches[k] += fm.launch_counts()[k]
     if sorted(c[1] for c in changed) != [False, True] or not all(c[2] for c in changed):
         raise AssertionError(f"accum: (mini_step, NeRF changed, poses changed) {changed}")
     phase("accum", f"grad_acc_steps=2, joint stage: {its:.3f} it/s over {steps} steps after 1 "
@@ -1409,10 +1677,11 @@ def main() -> int:
     phase("build", f"{time.perf_counter() - t0:.1f} s, {_build.BuildInfo.path.name}; "
           + ptxas_summary(_build.BuildInfo.log))
 
-    # 3. kernels
+    # 3. kernels, the 3xTF32 and the bf16 variants
     checks = check_kernels()
+    checks_bf16 = check_kernels(bf16=True)
     if args.kernels_only:
-        print(json.dumps(checks))
+        print(json.dumps({"fp32": checks, "bf16": checks_bf16}))
         return 0
 
     seconds = {}
@@ -1428,6 +1697,11 @@ def main() -> int:
     timed("slice-check", check_step_cuda_vs_cpu)
     timed("accum-check", check_accum_cuda_vs_cpu)
     traj = timed("trajectory-check", check_trajectory_cuda_vs_cpu)
+    # bf16-check: the tiny step and trajectory at compute_dtype bfloat16, card vs CPU
+    timed("bf16-check", check_step_cuda_vs_cpu, BF16, "bf16-check")
+    traj_bf16 = timed("bf16-trajectory-check", check_trajectory_cuda_vs_cpu, BF16, TRAJ_TOL_BF16,
+                      "bf16-check")
+    timed("bf16-cli", check_bf16_cli)
     # 5.-6. matcher-check and matcher, TF32 on (the matchers switch it off)
     scene = full_scene()
     mc = timed("matcher-check", check_matchers_cuda_vs_cpu, scene)
@@ -1437,10 +1711,14 @@ def main() -> int:
     # 7. slice: the full shape on the presets' default pools (PDC-Net + geometry stage)
     sl = timed("slice", run_slice, steps=3,
                matcher_pool_sizes=mp["PDCNet_geometry"]["pool_sizes"])
+    # bf16 slice: the same step shape at compute_dtype bfloat16
+    sb = timed("bf16-slice", run_bf16_slice, 3, sl)
     # 8. eval-check: the tiny evaluation on the card against the CPU
     timed("eval-check", check_eval_cuda_vs_cpu)
     # 9. eval: the full-shape trainer's state through the eval entry point
     ev = timed("eval", run_eval_phase, sl["trainer"])
+    # video: novel-view rgb and depth videos of the full-shape trainer (K3)
+    vd = timed("video", run_video_phase, sl["trainer"])
     del sl["trainer"]
     # 10.-12. the fixed-pose trainer, DS-NeRF and gradient accumulation at the full shape
     fx = timed("fixed-pose", run_fixed_pose_phase, steps=3)
@@ -1454,19 +1732,24 @@ def main() -> int:
     names = {"K1": "K1_fused_mlp_forward", "K2": "K2_fused_mlp_backward",
              "K3": "K3_fused_mlp_forward_packed"}
     kernels = []
-    for k in ("K1", "K2", "K3"):
-        b = checks["bounds"][k]
-        kernels.append({
-            "name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
-            "launches": sum(p["launches"][k] for p in (sl, ev, fx, ds, ac)),
-            "max_abs_err": checks["max_abs_err"][k], "ms": checks["ms"][k],
-            "plain_ms": checks["ms"][f"{k}_plain"], "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "library_ms": None,
-            "bound_share": b["bound_ms"] / checks["ms"][k], "bound_fp32_ms": b["bound_fp32_ms"]})
+    for dtype, chk, paths in (("float32", checks, (sl, ev, fx, ds, ac, vd)),
+                              ("bfloat16", checks_bf16, (sb,))):
+        for k in ("K1", "K2", "K3"):
+            b = chk["bounds"][k]
+            kernels.append({
+                "name": names[k] + ("_bf16" if dtype == "bfloat16" else ""), "route": "cuda",
+                "source": src, "replaces": replaces[k], "dtype": dtype,
+                "launches": sum(p["launches"][k] for p in paths),
+                "max_abs_err": chk["max_abs_err"][k], "ms": chk["ms"][k],
+                "plain_ms": chk["ms"][f"{k}_plain"], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": None,
+                "bound_share": b["bound_ms"] / chk["ms"][k], "bound_fp32_ms": b["bound_fp32_ms"]})
     print(json.dumps({"kernels": kernels,
                       "it_per_sec": {k: sl[k] for k in ("joint_coarse", "fine")},
+                      "bf16_it_per_sec": {k: sb[k] for k in ("joint_coarse", "fine")},
                       "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]},
-                      "trajectory_gaps": traj,
+                      "video_s_per_frame": vd["s_per_frame"],
+                      "trajectory_gaps": traj, "bf16_trajectory_gaps": traj_bf16,
                       "fixed_pose": {k: fx[k] for k in ("coarse", "fine", "eval_s")},
                       "dsnerf": {k: ds[k] for k in ("triangulation_s", "it_per_sec",
                                                     "perc_col_depth")},

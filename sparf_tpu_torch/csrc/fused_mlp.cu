@@ -1,5 +1,7 @@
 // Fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper (sm_90a),
-// every product on the tensor cores at fp32 accuracy (3xTF32).
+// every product on the tensor cores, in two variants: fp32 accuracy (3xTF32,
+// compute_dtype float32) and bf16 operands with fp32 sums (compute_dtype
+// bfloat16).
 //
 // Replaces the Pallas TPU kernels of sparf_tpu/ops/fused_mlp_vjp.py:
 //   K1 = _fwd_kernel (launched by _core_forward), K2 = _bwd_kernel (launched
@@ -7,7 +9,7 @@
 // and of sparf_tpu/ops/fused_mlp.py:
 //   K3 = _kernel (launched by fused_mlp_forward), the forward-only chain on
 //   weights packed once per call (the no-gradient renders: full images at
-//   validation and evaluation, the depth-consistency visibility pass).
+//   validation and evaluation, videos, the depth-consistency visibility pass).
 // They compute the 10-matmul NeRF chain: trunk layers with ReLU, pts_enc
 // concatenated at the skip layers, raw density from unit 0 of the last trunk
 // layer, [features | view_enc] through the RGB head. K1 and K3 write only
@@ -15,47 +17,60 @@
 // backpropagates [g_density | g_rgb] into d_pts_enc (incl. the skip share),
 // d_view_enc and the gradients of all weights and biases.
 //
-// Instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (warp-level
-// tensor-core MMA; no wgmma yet). Every operand x is split as hi = TF32 of x
-// (round to nearest), lo = x - hi (of which the tensor core reads the top 19
-// bits), and each product is hi*hi + hi*lo + lo*hi accumulated in fp32: the
-// dropped lo*lo term and the truncation of lo leave an error of about 2^-21
-// of the product, within a small factor of fp32's own
-// (tests/test_torch_fused_mlp.py holds an emulation of it to the float64
-// chain; one TF32 pass misses that bound).
+// The two MMA kinds (a template parameter of every layer loop):
+//   * Tf32x3: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (warp-level
+//     tensor-core MMA; no wgmma yet). Every operand x is split as hi = TF32
+//     of x (round to nearest), lo = x - hi (of which the tensor core reads
+//     the top 19 bits), and each product is hi*hi + hi*lo + lo*hi
+//     accumulated in fp32: the dropped lo*lo term and the truncation of lo
+//     leave an error of about 2^-21 of the product, within a small factor
+//     of fp32's own (tests/test_torch_fused_mlp.py holds an emulation of it
+//     to the float64 chain; one TF32 pass misses that bound).
+//   * Bf16: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one MMA per
+//     product. The TPU kernels' compute_dtype contract: each dot takes its
+//     two operands rounded to bf16 (round to nearest even, cvt.rn.bf16x2.f32
+//     as astype does) and sums in fp32; bias add, ReLU and its masks, g_x,
+//     d_pts_enc and d_view_enc stay fp32; db sums the unrounded g_z; dW =
+//     bf16(x)^T bf16(g_z), g_x = bf16(g_z) bf16(W)^T. k-steps of 16, so
+//     every input segment and every output is padded to 16.
 //
 // What bounds them on an H100, and what the design does about it:
 //   * Arithmetic: 527,872 multiply-adds per point through the full 8x256
-//     chain, 3 MMAs each: at T = 262,144 the 3xTF32 bound is 1.68 ms for the
-//     forward and 5.03 ms for K2 (recompute + g_x + dW); bytes are < 0.1 ms.
-//     Measured (PERF.md): K1/K3 at ~1/3 of that bound, bound by
-//     mma.sync issue and what feeds it: every warp loads and splits the A
-//     fragments of all 8 m-tiles with scalar shared-memory loads. K2 at
-//     ~1/5: the dW pass reads its ~17 KB per point of workspace from device
-//     memory, and its g_x loop spills registers.
+//     chain: at T = 262,144 the 3xTF32 bound is 1.68 ms for the forward and
+//     5.03 ms for K2 (recompute + g_x + dW), the bf16 bound a sixth of that
+//     (one MMA at twice the rate); bytes are < 0.1 ms.
+//     Measured (PERF.md): K1/K3 at ~1/3 of the 3xTF32 bound, bound by
+//     mma.sync issue and what feeds it: every warp loads and converts the A
+//     fragments of all 8 m-tiles from shared memory. K2 at ~1/5: the dW
+//     pass reads its ~17 KB per point of workspace from device memory, and
+//     its g_x loop spills registers.
 //   * Registers: 255 per thread, one 256-thread block per SM. A warp holds 8
 //     m-tiles x 4 n-tiles of accumulators (128 fp32) plus this and the next
 //     k-step's B fragments; K1/K3 and K2's recompute spill nothing,
 //     k2_backward's g_x spills (~1.7 KB of spill loads), k2_dw a little.
-//   * Weights: ops/fused_mlp.py::pack_fragments (k_pack here, once per call)
-//     lays every W out as ready B fragments, one float4 {hi(b0), hi(b1),
-//     lo(b0), lo(b1)} per lane per (k-step, n-tile): a warp loads a fragment
-//     with one coalesced 512-byte read from L2 and splits nothing. K2 also
-//     takes the transposed set (B = W for g_x = g_z W). Each (k-step, n-tile)
-//     is 8 x 8 with the input dimension padded per segment to a multiple of
-//     8 ([feat | pts_enc] at the skip layer, [feat | view_enc] at the RGB
-//     head: the concat is two segments of the k loop, never a copy).
+//   * Weights: ops/fused_mlp.py::pack_fragments_plain is the layout (k_pack
+//     here, once per call): every W as ready B fragments, per (k-step,
+//     n-tile) one Frag per lane: Tf32x3 a float4 {hi(b0), hi(b1), lo(b0),
+//     lo(b1)}, Bf16 a uint2 of two bf16x2 {b(2t), b(2t+1)}, {b(2t+8),
+//     b(2t+9)}: a warp loads a fragment with one coalesced read from L2 and
+//     converts nothing. K2 also takes the transposed set (B = W for g_x =
+//     g_z W). Each n-tile is 8 wide, each k-step 8 (16) deep, with the input
+//     dimension padded per segment ([feat | pts_enc] at the skip layer,
+//     [feat | view_enc] at the RGB head: the concat is two segments of the k
+//     loop, never a copy).
 //   * Forward layer loop (forward_layer, shared by K1, K3 and K2's
-//     recompute): the tile's activations stay in shared memory with a row
-//     stride = 4 (mod 32) floats, so a warp's A-fragment loads hit 32
-//     different banks. Warp w owns n-tiles w, w + 8, ... for all m-tiles of
-//     the tile and keeps their sums in registers; the next k-step's B
-//     fragments are loaded while this one's MMAs run. A layer's output
-//     overwrites its input in place after a barrier. n-tiles past a multiple
-//     of 8 ("extras", at most 4: the density unit of the 257-wide layer, the
-//     3 RGB outputs) are spread over the warps one m-tile each.
+//     recompute): the tile's activations stay in shared memory in fp32 with
+//     a row stride = 4 (Tf32x3, scalar A loads) or 8 (Bf16, float2 A loads)
+//     mod 32 floats, so a warp's A-fragment loads hit 32 different banks.
+//     Warp w owns n-tiles w, w + 8, ... for all m-tiles of the tile and
+//     keeps their sums in registers; the next k-step's B fragments are
+//     loaded while this one's MMAs run. A layer's output overwrites its
+//     input in place after a barrier. n-tiles past a multiple of 8
+//     ("extras", at most 4: the density unit of the 257-wide layer, the 3
+//     RGB outputs) are spread over the warps one m-tile each.
 //   * K1/K3: 128-point tiles (8 m-tiles), 256 threads, one block per SM;
-//     shared memory 128 x (260 + 68 + 36) floats = 186,368 bytes.
+//     shared memory 128 x (260 + 68 + 36) floats = 186,368 bytes (Bf16:
+//     128 x (264 + 72 + 40) = 192,512).
 //   * K2 in two passes. k2_backward: 128-point tiles (8 m-tiles), one block
 //     per tile; the recomputed forward (the same loop) stores each layer's
 //     input in a workspace in device memory (2,176 fp32 per point); then,
@@ -67,17 +82,19 @@
 //     X > 0 (the ReLU of the previous layer, exactly as before) into the
 //     previous layer's g_z, written over g_z after a barrier. Splitting by
 //     segment keeps every phase at <= 4 n-tiles per warp (the 320-wide skip
-//     layer in one phase spilled). Shared memory 219,136 bytes.
+//     layer in one phase spilled). Shared memory 219,136 bytes (Bf16
+//     225,280). Both variants keep the workspace in fp32: the Bf16 dW pass
+//     rounds as it loads, and db needs the unrounded g_z.
 //     k2_dw: dW = g_z^T X per layer as a GEMM over the points: 128 x 128
 //     output tiles x 64 point ranges (short fp32 sums: 4,096 points at
 //     T = 262,144), points staged 32 at a time through shared memory (both
-//     operands split on the fly), the next stage loaded into registers
-//     during this one's MMAs; each range writes its own partial, and
-//     k2_reduce sums the 64 in order into the (out, in) layout: no atomics,
-//     two runs give the same bits. The workspace (~17 KB per point, 4.6 GB
-//     at T = 262,144) is K2's main memory cost. Per-block dW slices updated
-//     per tile, as before, cost ~8 ms of slice traffic at 128-point tiles
-//     (PERF.md).
+//     operands split or rounded on the fly), the next stage loaded into
+//     registers during this one's MMAs; each range writes its own partial,
+//     and k2_reduce sums the 64 in order into the (out, in) layout: no
+//     atomics, two runs give the same bits. The workspace (~17 KB per point,
+//     4.6 GB at T = 262,144) is K2's main memory cost. Per-block dW slices
+//     updated per tile, as before, cost ~8 ms of slice traffic at 128-point
+//     tiles (PERF.md).
 //   * The ragged last tile is masked: points past T load zeros, get zero
 //     output gradients, and store nothing. Padded rows and columns hold
 //     zeros, so they add nothing.
@@ -87,12 +104,22 @@
 // recompute's MMAs, the dW pass, the g_x MMAs); their outputs are wrong and
 // only their times are read.
 //
-// Interface: plain C, loaded with ctypes. Every entry point launches on the
-// given stream, allocates nothing, and returns cudaGetLastError() (> 0), a
-// negative code for a layer configuration the kernels do not take, or 0.
+// Build: the file is compiled once per MMA kind, -DSPARF_KIND=0 (Tf32x3,
+// entry points *_tf32) and -DSPARF_KIND=1 (Bf16, *_bf16), in parallel
+// (ops/_build.py), and the two objects are linked into one library; each
+// compile instantiates the layer loops of its kind only.
+//
+// Interface: plain C, loaded with ctypes; every entry point takes the chain's
+// dims, launches on the given stream, allocates nothing, and returns
+// cudaGetLastError() (> 0), a negative code for a layer configuration the
+// kernels do not take, or 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef SPARF_KIND
+#error "compile with -DSPARF_KIND=0 (3xTF32) or -DSPARF_KIND=1 (bf16)"
+#endif
 
 namespace {
 
@@ -105,13 +132,13 @@ constexpr int kMaxPad = 320;   // padded input width and 16-padded output width
 constexpr int kLdG = 296;      // K2: row stride of the g_z buffer (= 8 mod 32)
 constexpr int kDwBM = 128, kDwBN = 128;  // k2_dw: output tile (outputs x padded inputs)
 constexpr int kDwBK = 32;      // k2_dw: points per stage
-constexpr int kLdDw = kDwBM + 8;  // k2_dw: row stride of the staged tiles (= 8 mod 32)
 constexpr int kDwSplits = 64;  // k2_dw: point ranges summed by k2_reduce
 constexpr int kMaxExtra = 4;   // n-tiles past a multiple of 8 per layer
 constexpr int kMaxOut = 8 * (8 * 4 + kMaxExtra);  // 288: the forward's JN <= 4
 constexpr int kMaxSmem = 232448;
 
 struct MLPDesc {
+  int bf16;          // the MMA kind: 0 = Tf32x3, 1 = Bf16
   int n_layers, n_feat;
   int d_in, d_view, view_dep;
   int n_params;      // flat gradient, (out, in) layout
@@ -119,16 +146,16 @@ struct MLPDesc {
   int x_total;       // K2: workspace floats per point (stored feature inputs)
   int g_total;       // K2: workspace floats per point (every layer's g_z, out padded to 16)
   int n_dw_tiles;    // K2: dW output tiles of kDwBM x kDwBN over all layers
-  int n_frag4;       // float4s of one fragment set
-  int ld_act, ld_pts, ld_view;  // forward strides (= 4 mod 32)
+  int n_frag;        // B fragments (one per lane per (k-step, n-tile)) of one set
+  int ld_act, ld_pts, ld_view;  // forward strides (= 4 (Tf32x3) or 8 (Bf16) mod 32)
   int skip[kMaxLayers];
   int in_dim[kMaxLayers], out_dim[kMaxLayers];
   int w1[kMaxLayers];   // width of input segment 1 (features; pts_enc for layer 0)
-  int k1p[kMaxLayers];  // w1 padded to 8
-  int kp[kMaxLayers];   // k1p + (in - w1) padded to 8
-  int np8[kMaxLayers];  // out padded to 8
+  int k1p[kMaxLayers];  // w1 padded to the k-step (8 or 16)
+  int kp[kMaxLayers];   // k1p + (in - w1) padded to the k-step
+  int np[kMaxLayers];   // out padded to the k-step (n-tiles of 8; K2's g_x k-steps)
   int w_off[kMaxLayers], b_off[kMaxLayers];  // flat gradient offsets
-  int f_off[kMaxLayers];  // float4 offset of the layer's fragments
+  int f_off[kMaxLayers];  // offset of the layer's fragments, in fragments
   int g_off[kMaxLayers];  // K2: offset of the layer's dW in a split's partial
   int x_off[kMaxLayers];  // K2: floats per point of the stored inputs before layer li
   int z_off[kMaxLayers];  // K2: floats per point of the stored g_z before layer li
@@ -137,14 +164,15 @@ struct MLPDesc {
   const float* b[kMaxLayers];
 };
 
-__host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
-__host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
-// smallest stride >= w with stride = 4 (mod 32)
-__host__ __device__ constexpr int ld4(int w) { return w + ((36 - w % 32) % 32); }
+__host__ __device__ constexpr int pad_to(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ constexpr int pad16(int x) { return pad_to(x, 16); }
+// smallest stride >= w with stride = r (mod 32)
+__host__ __device__ constexpr int ld_mod(int w, int r) { return w + ((32 + r - w % 32) % 32); }
 
 // Host-side description of the chain. dims = [n_feat, n_rgb, d_in, d_view,
-// view_dep, (out, in, skip) per layer]; params = [W0, b0, W1, b1, ...].
-int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
+// view_dep, (out, in, skip) per layer]; bf16 the MMA kind; params = [W0, b0,
+// W1, b1, ...].
+int build_desc(const int* dims, int bf16, const void* const* params, MLPDesc* d) {
   d->n_feat = dims[0];
   const int n_rgb = dims[1];
   d->n_layers = d->n_feat + n_rgb;
@@ -152,14 +180,16 @@ int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
   d->d_in = dims[2];
   d->d_view = dims[3];
   d->view_dep = dims[4];
-  int off = 0, f4 = 0, part = 0, x_total = 0, g_total = 0, tiles = 0, max_w1 = 0;
+  d->bf16 = bf16 != 0;
+  const int ks = d->bf16 ? 16 : 8;  // the kind's k-step
+  int off = 0, frag = 0, part = 0, x_total = 0, g_total = 0, tiles = 0, max_w1 = 0;
   for (int li = 0; li < d->n_layers; ++li) {
     const int out = dims[5 + 3 * li], in = dims[6 + 3 * li], skip = dims[7 + 3 * li];
     const int w2 = skip ? d->d_in : ((li == d->n_feat && d->view_dep) ? d->d_view : 0);
     const int w1 = in - w2;
-    const int k1p = pad8(w1), kp = k1p + pad8(w2), np8 = pad8(out);
-    if (out < 1 || w1 < 1 || kp > kMaxPad || np8 > kMaxOut) return -2;
-    if ((np8 / 8) % 8 > kMaxExtra || (k1p / 8) % 8 > kMaxExtra || ((kp - k1p) / 8) % 8 > kMaxExtra)
+    const int k1p = pad_to(w1, ks), kp = k1p + pad_to(w2, ks), np = pad_to(out, ks);
+    if (out < 1 || w1 < 1 || kp > kMaxPad || np > kMaxOut) return -2;
+    if ((np / 8) % 8 > kMaxExtra || (k1p / 8) % 8 > kMaxExtra || ((kp - k1p) / 8) % 8 > kMaxExtra)
       return -2;
     if (k1p > 8 * (8 * 4 + kMaxExtra) || kp - k1p > 8 * (8 * 4 + kMaxExtra)) return -2;
     if (li == 0 && (skip || w1 != d->d_in)) return -3;
@@ -176,13 +206,13 @@ int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
     d->w1[li] = w1;
     d->k1p[li] = k1p;
     d->kp[li] = kp;
-    d->np8[li] = np8;
+    d->np[li] = np;
     d->w_off[li] = off;
     off += out * in;
     d->b_off[li] = off;
     off += out;
-    d->f_off[li] = f4;
-    f4 += (kp / 8) * (np8 / 8) * 32;
+    d->f_off[li] = frag;
+    frag += (kp / ks) * (np / 8) * 32;
     d->g_off[li] = part;
     part += pad16(out) * kp + (out + 3) / 4 * 4;
     d->z_off[li] = g_total;
@@ -195,13 +225,14 @@ int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
   if (d->out_dim[d->n_layers - 1] != 3) return -3;
   d->n_params = off;
   d->n_part = part;
-  d->n_frag4 = f4;
+  d->n_frag = frag;
   d->x_total = x_total;
   d->g_total = g_total;
   d->n_dw_tiles = tiles;
-  d->ld_act = ld4(pad8(max_w1));
-  d->ld_pts = ld4(pad8(d->d_in));
-  d->ld_view = ld4(pad8(d->d_view > 0 ? d->d_view : 1));
+  const int r = d->bf16 ? 8 : 4;
+  d->ld_act = ld_mod(pad_to(max_w1, ks), r);
+  d->ld_pts = ld_mod(pad_to(d->d_in, ks), r);
+  d->ld_view = ld_mod(pad_to(d->d_view > 0 ? d->d_view : 1, ks), r);
   return 0;
 }
 
@@ -216,7 +247,7 @@ __host__ __device__ inline int k2_main_floats(const MLPDesc& d) {
 int k2_smem_bytes(const MLPDesc& d) { return 4 * (k2_main_floats(d) + kTile2 * d.d_in + kTile2); }
 
 // ---------------------------------------------------------------------------
-// 3xTF32 on mma.sync
+// the two MMA kinds
 // ---------------------------------------------------------------------------
 
 // x = hi + lo: hi the nearest TF32 value (ties away from zero, as
@@ -238,25 +269,89 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c += a * b with a = ah + al (split) and b = {hi b0, hi b1, lo b0, lo b1};
-// the small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const float4& b) {
-  mma_tf32(c, al, __float_as_uint(b.x), __float_as_uint(b.y));
-  mma_tf32(c, ah, __float_as_uint(b.z), __float_as_uint(b.w));
-  mma_tf32(c, ah, __float_as_uint(b.x), __float_as_uint(b.y));
+// {bf16(lo), bf16(hi)}, round to nearest even; lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
 }
 
-// A fragment of the 16 x 8 block at A (row-major, stride lda): a0 (g, t),
-// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), split into hi and lo.
-__device__ __forceinline__ void load_a(const float* A, int lda, int g, int t, uint32_t (&ah)[4],
-                                       uint32_t (&al)[4]) {
-  const float* p = A + g * lda + t;
-  split(p[0], ah[0], al[0]);
-  split(p[8 * lda], ah[1], al[1]);
-  split(p[4], ah[2], al[2]);
-  split(p[8 * lda + 4], ah[3], al[3]);
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// 3xTF32, k-steps of 8. A fragment of the 16 x 8 block at A (row-major,
+// stride lda): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4),
+// split into hi and lo. B fragment: {hi b0, hi b1, lo b0, lo b1} with b0 =
+// B[t, g], b1 = B[t + 4, g]. c += a * b, the small terms first.
+struct Tf32x3 {
+  static constexpr int kK = 8;
+  static constexpr int kLdDw = kDwBM + 8;  // k2_dw staging stride (= 8 mod 32)
+  using Frag = float4;
+  struct AFrag {
+    uint32_t hi[4], lo[4];
+  };
+  static __device__ __forceinline__ void load_a(const float* A, int lda, int g, int t,
+                                                AFrag& a) {
+    const float* p = A + g * lda + t;
+    split(p[0], a.hi[0], a.lo[0]);
+    split(p[8 * lda], a.hi[1], a.lo[1]);
+    split(p[4], a.hi[2], a.lo[2]);
+    split(p[8 * lda + 4], a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const AFrag& a, const Frag& b) {
+    mma_tf32(c, a.lo, __float_as_uint(b.x), __float_as_uint(b.y));
+    mma_tf32(c, a.hi, __float_as_uint(b.z), __float_as_uint(b.w));
+    mma_tf32(c, a.hi, __float_as_uint(b.x), __float_as_uint(b.y));
+  }
+  // the fragment of lane (g, t), b(k) = B[ks * 8 + k, nt * 8 + g]
+  template <typename B>
+  static __device__ __forceinline__ Frag make_b(B b, int t) {
+    uint32_t h0, l0, h1, l1;
+    split(b(t), h0, l0);
+    split(b(t + 4), h1, l1);
+    return make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+                       __uint_as_float(l1));
+  }
+};
+
+// bf16, k-steps of 16. A fragment of the 16 x 16 block at A: a0 (g, 2t..2t+1),
+// a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..), each a bf16x2
+// rounded from two fp32 values (one float2 load; stride = 8 mod 32). B
+// fragment: {B[2t, g], B[2t + 1, g]}, {B[2t + 8, g], B[2t + 9, g]}.
+struct Bf16 {
+  static constexpr int kK = 16;
+  static constexpr int kLdDw = kDwBM + 4;  // k2_dw staging stride (= 4 mod 32: rows 2t, 2t + 1)
+  using Frag = uint2;
+  struct AFrag {
+    uint32_t r[4];
+  };
+  static __device__ __forceinline__ void load_a(const float* A, int lda, int g, int t,
+                                                AFrag& a) {
+    const float* p = A + g * lda + 2 * t;
+    const float2 v0 = *reinterpret_cast<const float2*>(p);
+    const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * lda);
+    const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+    const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * lda + 8);
+    a.r[0] = bf16x2(v0.x, v0.y);
+    a.r[1] = bf16x2(v1.x, v1.y);
+    a.r[2] = bf16x2(v2.x, v2.y);
+    a.r[3] = bf16x2(v3.x, v3.y);
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const AFrag& a, const Frag& b) {
+    mma_bf16(c, a.r, b.x, b.y);
+  }
+  // the fragment of lane (g, t), b(k) = B[ks * 16 + k, nt * 8 + g]
+  template <typename B>
+  static __device__ __forceinline__ Frag make_b(B b, int t) {
+    return make_uint2(bf16x2(b(2 * t), b(2 * t + 1)), bf16x2(b(2 * t + 8), b(2 * t + 9)));
+  }
+};
 
 // The A operand of a layer product: k-steps [0, ks1) read segment 1, the rest
 // segment 2 (the skip or view concat); a tile of rows starts at row 0.
@@ -265,27 +360,29 @@ struct AOperand {
   int ld1, ks1;
   const float* a2;
   int ld2;
+  template <int K>
   __device__ __forceinline__ const float* at(int ks, int& ld) const {
     if (ks < ks1) {
       ld = ld1;
-      return a1 + ks * 8;
+      return a1 + ks * K;
     }
     ld = ld2;
-    return a2 + (ks - ks1) * 8;
+    return a2 + (ks - ks1) * K;
   }
 };
 
-// acc[m][j] += A (MT*16 x 8*KS) x B for the n-tiles w + 8 j, j < JN, of warp
+// acc[m][j] += A (MT*16 x KK*KS) x B for the n-tiles w + 8 j, j < JN, of warp
 // w; B comes as packed fragments Bf[(ks * NT + nt) * 32 + lane]. With
 // kPrefetch the next k-step's fragments are loaded while this one's MMAs run
 // (K2's g_x goes without: it has more live state, and the registers spilled).
-template <int MT, int JN, bool kPrefetch = true>
-__device__ __forceinline__ void mma_rows(const AOperand& A, int KS, const float4* __restrict__ Bf,
-                                         int NT, float (&acc)[MT][JN > 0 ? JN : 1][4]) {
+template <class K, int MT, int JN, bool kPrefetch = true>
+__device__ __forceinline__ void mma_rows(const AOperand& A, int KS,
+                                         const typename K::Frag* __restrict__ Bf, int NT,
+                                         float (&acc)[MT][JN > 0 ? JN : 1][4]) {
   if constexpr (JN > 0) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-    const float4* bp = Bf + warp * 32 + lane;
-    float4 b[JN], bn[JN];
+    const typename K::Frag* bp = Bf + warp * 32 + lane;
+    typename K::Frag b[JN], bn[JN];
 #pragma unroll
     for (int j = 0; j < JN; ++j) b[j] = __ldg(bp + j * 8 * 32);
     for (int ks = 0; ks < KS; ++ks) {
@@ -294,13 +391,13 @@ __device__ __forceinline__ void mma_rows(const AOperand& A, int KS, const float4
         for (int j = 0; j < JN; ++j) bn[j] = __ldg(bp + ((size_t)(ks + 1) * NT + j * 8) * 32);
       }
       int lda;
-      const float* a = A.at(ks, lda);
+      const float* a = A.at<K::kK>(ks, lda);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        uint32_t ah[4], al[4];
-        load_a(a + m * 16 * lda, lda, g, t, ah, al);
+        typename K::AFrag af;
+        K::load_a(a + m * 16 * lda, lda, g, t, af);
 #pragma unroll
-        for (int j = 0; j < JN; ++j) mma3(acc[m][j], ah, al, b[j]);
+        for (int j = 0; j < JN; ++j) K::mma(acc[m][j], af, b[j]);
       }
 #pragma unroll
       for (int j = 0; j < JN; ++j) {
@@ -315,9 +412,10 @@ __device__ __forceinline__ void mma_rows(const AOperand& A, int KS, const float4
 
 // The extra n-tiles 8 JN + e, e < R <= kMaxExtra, over MT m-tiles: pair q =
 // warp + 8 i is (m-tile q % MT, n-tile 8 JN + q / MT).
-template <int MT, bool kExtras>
-__device__ __forceinline__ void mma_extras(const AOperand& A, int KS, const float4* __restrict__ Bf,
-                                           int NT, int nt0, int R, float (&acc)[kMaxExtra][4]) {
+template <class K, int MT, bool kExtras>
+__device__ __forceinline__ void mma_extras(const AOperand& A, int KS,
+                                           const typename K::Frag* __restrict__ Bf, int NT,
+                                           int nt0, int R, float (&acc)[kMaxExtra][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < (kExtras ? kMaxExtra : 0); ++i) {
@@ -325,12 +423,12 @@ __device__ __forceinline__ void mma_extras(const AOperand& A, int KS, const floa
     if (q >= MT * R) break;
     const int m = q % MT, nt = nt0 + q / MT;
     for (int ks = 0; ks < KS; ++ks) {
-      const float4 b = __ldg(Bf + ((size_t)ks * NT + nt) * 32 + lane);
+      const typename K::Frag b = __ldg(Bf + ((size_t)ks * NT + nt) * 32 + lane);
       int lda;
-      const float* a = A.at(ks, lda);
-      uint32_t ah[4], al[4];
-      load_a(a + m * 16 * lda, lda, g, t, ah, al);
-      mma3(acc[i], ah, al, b);
+      const float* a = A.at<K::kK>(ks, lda);
+      typename K::AFrag af;
+      K::load_a(a + m * 16 * lda, lda, g, t, af);
+      K::mma(acc[i], af, b);
     }
   }
 }
@@ -419,25 +517,25 @@ __device__ __forceinline__ void init_acc(float (&acc)[MT][JN > 0 ? JN : 1][4],
 // units 1.. into Y); 2 = last RGB layer (raw rgb to out_g[:, 1:4]). xs (K2):
 // when given, Y's real columns are also stored there, row-major (points, w1
 // of the next layer).
-template <int MT, int JN, bool kExtras>
-__device__ void forward_layer_j(const MLPDesc& d, const float4* __restrict__ F, int li,
+template <class K, int MT, int JN, bool kExtras>
+__device__ void forward_layer_j(const MLPDesc& d, const typename K::Frag* __restrict__ F, int li,
                                 const float* X1, int ld1, const float* X2, int ld2, float* Y,
                                 int ldy, float* __restrict__ out_g, float* __restrict__ xs,
                                 int p0, int T) {
-  const int out = d.out_dim[li], NT = d.np8[li] / 8, R = NT - 8 * JN;
+  const int out = d.out_dim[li], NT = d.np[li] / 8, R = NT - 8 * JN;
   const int mode = (li == d.n_layers - 1) ? 2 : (li == d.n_feat - 1 ? 1 : 0);
   const int shift = mode == 1 ? 1 : 0;
   const int ncol = mode == 2 ? 0 : d.k1p[li + 1], wnext = mode == 2 ? 0 : d.w1[li + 1];
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
   init_acc<MT, JN, kExtras>(acc, ext, R, d.b[li], out);
-  const AOperand A{X1, ld1, d.k1p[li] / 8, X2, ld2};
-  const float4* Bf = F + d.f_off[li];
+  const AOperand A{X1, ld1, d.k1p[li] / K::kK, X2, ld2};
+  const typename K::Frag* Bf = F + d.f_off[li];
 #ifdef K2_TIME_NO_FWD
   if (xs == nullptr)
 #endif
   {
-    mma_rows<MT, JN>(A, d.kp[li] / 8, Bf, NT, acc);
-    mma_extras<MT, kExtras>(A, d.kp[li] / 8, Bf, NT, 8 * JN, R, ext);
+    mma_rows<K, MT, JN>(A, d.kp[li] / K::kK, Bf, NT, acc);
+    mma_extras<K, MT, kExtras>(A, d.kp[li] / K::kK, Bf, NT, 8 * JN, R, ext);
   }
   __syncthreads();  // every warp has read the input; Y may overwrite it
   for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int col, float z) {
@@ -460,16 +558,16 @@ __device__ void forward_layer_j(const MLPDesc& d, const float4* __restrict__ F, 
   __syncthreads();  // Y complete before the next layer reads it
 }
 
-template <int MT>
-__device__ __forceinline__ void forward_layer(const MLPDesc& d, const float4* F, int li,
+template <class K, int MT>
+__device__ __forceinline__ void forward_layer(const MLPDesc& d, const typename K::Frag* F, int li,
                                               const float* X1, int ld1, const float* X2, int ld2,
                                               float* Y, int ldy, float* out_g, float* xs, int p0,
                                               int T) {
   // one body per JN, with the extras code (an extras-free second body per JN
   // made the register allocation spill in K1)
 #define SPARF_FWD(JN) \
-  forward_layer_j<MT, JN, true>(d, F, li, X1, ld1, X2, ld2, Y, ldy, out_g, xs, p0, T)
-  switch (d.np8[li] / 64) {
+  forward_layer_j<K, MT, JN, true>(d, F, li, X1, ld1, X2, ld2, Y, ldy, out_g, xs, p0, T)
+  switch (d.np[li] / 64) {
     case 0: SPARF_FWD(0); break;
     case 1: SPARF_FWD(1); break;
     case 2: SPARF_FWD(2); break;
@@ -480,10 +578,9 @@ __device__ __forceinline__ void forward_layer(const MLPDesc& d, const float4* F,
 }
 
 // Loads rows [p0, p0 + n) of a (T, width) array into shared memory with row
-// stride ld; zeros past T and in the padding columns [width, pad8(width)).
+// stride ld; zeros past T and in the padding columns [width, wp).
 __device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src,
-                                          int width, int n, int p0, int T) {
-  const int wp = pad8(width);
+                                          int width, int wp, int n, int p0, int T) {
   for (int idx = threadIdx.x; idx < n * wp; idx += kThreads) {
     const int p = idx / wp, k = idx - p * wp;
     dst[p * ld + k] = (p0 + p < T && k < width) ? src[(size_t)(p0 + p) * width + k] : 0.f;
@@ -493,8 +590,9 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* __res
 // Loads the tile's inputs and runs the forward chain on MT * 16 points:
 // layers [0, n_run) (K1/K3: all; K2: all but the last). xws (K2): the stored
 // inputs, layer li's as a (x_rows, w1) array at xws + x_rows * x_off[li].
-template <int MT>
-__device__ __forceinline__ void forward_tile(const MLPDesc& d, const float4* __restrict__ F,
+template <class K, int MT>
+__device__ __forceinline__ void forward_tile(const MLPDesc& d,
+                                             const typename K::Frag* __restrict__ F,
                                              const float* __restrict__ pts,
                                              const float* __restrict__ view, float* smem,
                                              float* __restrict__ out, float* __restrict__ xws,
@@ -503,8 +601,8 @@ __device__ __forceinline__ void forward_tile(const MLPDesc& d, const float4* __r
   float* s_act = smem;
   float* s_pts = s_act + P * d.ld_act;
   float* s_view = s_pts + P * d.ld_pts;
-  load_rows(s_pts, d.ld_pts, pts, d.d_in, P, p0, T);
-  if (d.d_view > 0) load_rows(s_view, d.ld_view, view, d.d_view, P, p0, T);
+  load_rows(s_pts, d.ld_pts, pts, d.d_in, pad_to(d.d_in, K::kK), P, p0, T);
+  if (d.d_view > 0) load_rows(s_view, d.ld_view, view, d.d_view, pad_to(d.d_view, K::kK), P, p0, T);
   __syncthreads();
   for (int li = 0; li < n_run; ++li) {
     const float* x1 = li == 0 ? s_pts : s_act;
@@ -513,26 +611,28 @@ __device__ __forceinline__ void forward_tile(const MLPDesc& d, const float4* __r
     float* xs = (xws != nullptr && li + 1 < d.n_layers)
                     ? xws + (size_t)x_rows * d.x_off[li + 1] + (size_t)p0 * d.w1[li + 1]
                     : nullptr;
-    forward_layer<MT>(d, F, li, x1, ld1, seg2_pts ? s_pts : s_view,
-                      seg2_pts ? d.ld_pts : d.ld_view, s_act, d.ld_act, out, xs, p0, T);
+    forward_layer<K, MT>(d, F, li, x1, ld1, seg2_pts ? s_pts : s_view,
+                         seg2_pts ? d.ld_pts : d.ld_view, s_act, d.ld_act, out, xs, p0, T);
   }
 }
 
+template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
-k1_forward(MLPDesc d, const float4* __restrict__ F, const float* __restrict__ pts,
+k1_forward(MLPDesc d, const typename K::Frag* __restrict__ F, const float* __restrict__ pts,
            const float* __restrict__ view, float* __restrict__ out, int T) {
   extern __shared__ float4 smem4[];
-  forward_tile<kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
-                            d.n_layers, blockIdx.x * kTile1, T);
+  forward_tile<K, kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+                               d.n_layers, blockIdx.x * kTile1, T);
 }
 
 // K3: the same loop on fragments that pack_weights prepared once per call
+template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
-k3_forward(MLPDesc d, const float4* __restrict__ F, const float* __restrict__ pts,
+k3_forward(MLPDesc d, const typename K::Frag* __restrict__ F, const float* __restrict__ pts,
            const float* __restrict__ view, float* __restrict__ out, int T) {
   extern __shared__ float4 smem4[];
-  forward_tile<kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
-                            d.n_layers, blockIdx.x * kTile1, T);
+  forward_tile<K, kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+                               d.n_layers, blockIdx.x * kTile1, T);
 }
 
 // ---------------------------------------------------------------------------
@@ -547,31 +647,25 @@ __device__ __forceinline__ float weight_at(const MLPDesc& d, int li, int n, int 
 }
 
 // F: B = W^T (k over the padded input, n over outputs) for the forward;
-// FT: B = W (k over outputs, n over the padded input) for K2's g_x.
-// Fragment (ks, nt), lane (g, t): {hi(B[ks*8+t, nt*8+g]), hi(B[ks*8+t+4, nt*8+g]), lo, lo}.
-__global__ void k_pack(MLPDesc d, float4* __restrict__ F, float4* __restrict__ FT) {
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < d.n_frag4;
+// FT (blockIdx.y = 1): B = W (k over outputs, n over the padded input) for
+// K2's g_x. Fragment (ks, nt), lane (g, t) = K::make_b of B[ks*kK + ., nt*8 + g].
+template <class K>
+__global__ void k_pack(MLPDesc d, typename K::Frag* __restrict__ F,
+                       typename K::Frag* __restrict__ FT) {
+  const bool tr = FT != nullptr && blockIdx.y == 1;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < d.n_frag;
        idx += gridDim.x * blockDim.x) {
     int li = 0;
     while (li + 1 < d.n_layers && idx >= d.f_off[li + 1]) ++li;
     const int local = idx - d.f_off[li], lane = local & 31, tile = local >> 5;
     const int g = lane >> 2, t = lane & 3;
-    float w0, w1;
-    if (FT == nullptr || blockIdx.y == 0) {
-      const int NT = d.np8[li] / 8, nt = tile % NT, ks = tile / NT;
-      w0 = weight_at(d, li, nt * 8 + g, ks * 8 + t);
-      w1 = weight_at(d, li, nt * 8 + g, ks * 8 + t + 4);
-    } else {
-      const int NT = d.kp[li] / 8, nt = tile % NT, ks = tile / NT;
-      w0 = weight_at(d, li, ks * 8 + t, nt * 8 + g);
-      w1 = weight_at(d, li, ks * 8 + t + 4, nt * 8 + g);
-    }
-    uint32_t h0, l0, h1, l1;
-    split(w0, h0, l0);
-    split(w1, h1, l1);
-    (blockIdx.y == 0 ? F : FT)[idx] =
-        make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
-                    __uint_as_float(l1));
+    const int NT = (tr ? d.kp[li] : d.np[li]) / 8, nt = tile % NT, ks = tile / NT;
+    const int col = nt * 8 + g;
+    auto b = [&](int k) {
+      const int row = ks * K::kK + k;
+      return tr ? weight_at(d, li, row, col) : weight_at(d, li, col, row);
+    };
+    (tr ? FT : F)[idx] = K::make_b(b, t);
   }
 }
 
@@ -606,32 +700,32 @@ __device__ __forceinline__ LayerInput layer_input(const MLPDesc& d, int li,
 
 // g_x = G W over the n-tiles [nt0, nt0 + 8 JN + R) of the padded input,
 // into acc (warp w: n-tiles nt0 + w + 8 j, then the extras).
-template <int JN, bool kExtras>
-__device__ __forceinline__ void gx_mma(const MLPDesc& d, const float4* __restrict__ FT, int li,
-                                       const float* G, int nt0, int R,
+template <class K, int JN, bool kExtras>
+__device__ __forceinline__ void gx_mma(const MLPDesc& d, const typename K::Frag* __restrict__ FT,
+                                       int li, const float* G, int nt0, int R,
                                        float (&acc)[kTile2 / 16][JN > 0 ? JN : 1][4],
                                        float (&ext)[kMaxExtra][4]) {
   constexpr int MT = kTile2 / 16;
   const int NT = d.kp[li] / 8;
   init_acc<MT, JN, kExtras>(acc, ext, R, nullptr, 0);
 #ifndef K2_TIME_NO_GX
-  const AOperand A{G, kLdG, d.np8[li] / 8, G, kLdG};
-  const float4* Bf = FT + d.f_off[li] + nt0 * 32;
-  mma_rows<MT, JN, false>(A, d.np8[li] / 8, Bf, NT, acc);
-  mma_extras<MT, kExtras>(A, d.np8[li] / 8, Bf, NT, 8 * JN, R, ext);
+  const AOperand A{G, kLdG, d.np[li] / K::kK, G, kLdG};
+  const typename K::Frag* Bf = FT + d.f_off[li] + nt0 * 32;
+  mma_rows<K, MT, JN, false>(A, d.np[li] / K::kK, Bf, NT, acc);
+  mma_extras<K, MT, kExtras>(A, d.np[li] / K::kK, Bf, NT, 8 * JN, R, ext);
 #endif
 }
 
 // g_x of the skip (pts_enc) or view segment: added into d_pts or written to
 // d_view. Reads G and writes nothing that another warp reads.
-template <int JN, bool kExtras>
-__device__ void gx_seg2_j(const MLPDesc& d, const float4* FT, int li, const float* G,
+template <class K, int JN, bool kExtras>
+__device__ void gx_seg2_j(const MLPDesc& d, const typename K::Frag* FT, int li, const float* G,
                           float* s_dpts, float* __restrict__ d_view_g, int p0, int T) {
   constexpr int MT = kTile2 / 16;
   const int k1p = d.k1p[li], w2 = d.in_dim[li] - d.w1[li];
   const int R = (d.kp[li] - k1p) / 8 - 8 * JN;
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
-  gx_mma<JN, kExtras>(d, FT, li, G, k1p / 8, R, acc, ext);
+  gx_mma<K, JN, kExtras>(d, FT, li, G, k1p / 8, R, acc, ext);
   for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
     if (k >= w2) return;
     if (d.skip[li])
@@ -644,14 +738,14 @@ __device__ void gx_seg2_j(const MLPDesc& d, const float4* FT, int li, const floa
 // g_x of the feature segment: into d_pts at layer 0; otherwise masked by
 // X > 0 (the ReLU of the previous layer) into the previous layer's g_z,
 // written over G once every warp is done reading it.
-template <int JN, bool kExtras>
-__device__ void gx_seg1_j(const MLPDesc& d, const float4* FT, int li, float* G,
+template <class K, int JN, bool kExtras>
+__device__ void gx_seg1_j(const MLPDesc& d, const typename K::Frag* FT, int li, float* G,
                           const LayerInput& X, float* s_dpts, const float* s_gd, int p0) {
   constexpr int MT = kTile2 / 16;
   const int w1 = d.w1[li], R = d.k1p[li] / 8 - 8 * JN;
   const int shift = (li == d.n_feat) ? 1 : 0;  // g_z of the last trunk layer starts with g_density
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
-  gx_mma<JN, kExtras>(d, FT, li, G, 0, R, acc, ext);
+  gx_mma<K, JN, kExtras>(d, FT, li, G, 0, R, acc, ext);
   if (li == 0) {
     for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
       if (k < w1) s_dpts[p * d.d_in + k] += v;
@@ -678,12 +772,13 @@ __device__ void gx_seg1_j(const MLPDesc& d, const float4* FT, int li, float* G,
 
 // One layer's g_x: the second segment first, then the features (whose
 // routing overwrites G).
-__device__ __forceinline__ void gx_layer(const MLPDesc& d, const float4* FT, int li, float* G,
-                                         const LayerInput& X, float* s_dpts, const float* s_gd,
-                                         float* d_view_g, int p0, int T) {
+template <class K>
+__device__ __forceinline__ void gx_layer(const MLPDesc& d, const typename K::Frag* FT, int li,
+                                         float* G, const LayerInput& X, float* s_dpts,
+                                         const float* s_gd, float* d_view_g, int p0, int T) {
   const int nt2 = (d.kp[li] - d.k1p[li]) / 8, nt1 = d.k1p[li] / 8;
-#define SPARF_SEG2(JN, EXTRAS) gx_seg2_j<JN, EXTRAS>(d, FT, li, G, s_dpts, d_view_g, p0, T)
-#define SPARF_SEG1(JN, EXTRAS) gx_seg1_j<JN, EXTRAS>(d, FT, li, G, X, s_dpts, s_gd, p0)
+#define SPARF_SEG2(JN, EXTRAS) gx_seg2_j<K, JN, EXTRAS>(d, FT, li, G, s_dpts, d_view_g, p0, T)
+#define SPARF_SEG1(JN, EXTRAS) gx_seg1_j<K, JN, EXTRAS>(d, FT, li, G, X, s_dpts, s_gd, p0)
   if (nt2 > 0) SPARF_DISPATCH_JN(nt2, SPARF_SEG2);
   SPARF_DISPATCH_JN(nt1, SPARF_SEG1);
 #undef SPARF_SEG2
@@ -693,12 +788,13 @@ __device__ __forceinline__ void gx_layer(const MLPDesc& d, const float4* FT, int
 // K2, pass 1: per 128-point tile, the recomputed forward (storing every
 // layer's input in xws) and the g_z chain (storing every layer's g_z in gws,
 // (x_rows, pad16(out)) per layer); d_pts and d_view.
+template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
-k2_backward(MLPDesc d, const float4* __restrict__ F, const float4* __restrict__ FT,
-            const float* __restrict__ pts, const float* __restrict__ view,
-            const float* __restrict__ gout, float* __restrict__ d_pts,
-            float* __restrict__ d_view_g, float* __restrict__ xws, float* __restrict__ gws,
-            int T, int x_rows) {
+k2_backward(MLPDesc d, const typename K::Frag* __restrict__ F,
+            const typename K::Frag* __restrict__ FT, const float* __restrict__ pts,
+            const float* __restrict__ view, const float* __restrict__ gout,
+            float* __restrict__ d_pts, float* __restrict__ d_view_g, float* __restrict__ xws,
+            float* __restrict__ gws, int T, int x_rows) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* s_dpts = smem + k2_main_floats(d);
@@ -707,7 +803,8 @@ k2_backward(MLPDesc d, const float4* __restrict__ F, const float4* __restrict__ 
   const int tid = threadIdx.x, p0 = blockIdx.x * kTile2;
 
   // recompute the forward, storing every layer's feature input in xws
-  forward_tile<kTile2 / 16>(d, F, pts, view, smem, nullptr, xws, x_rows, d.n_layers - 1, p0, T);
+  forward_tile<K, kTile2 / 16>(d, F, pts, view, smem, nullptr, xws, x_rows, d.n_layers - 1, p0,
+                               T);
   for (int idx = tid; idx < kTile2 * 16; idx += kThreads) {  // g_z of the last layer
     const int p = idx >> 4, o = idx & 15;
     G[p * kLdG + o] = (o < 3 && p0 + p < T) ? gout[(size_t)(p0 + p) * 4 + 1 + o] : 0.f;
@@ -726,7 +823,7 @@ k2_backward(MLPDesc d, const float4* __restrict__ F, const float4* __restrict__ 
       gdst[idx] = reinterpret_cast<const float4*>(G + p * kLdG)[c];
     }
     const LayerInput X = layer_input(d, li, xws, x_rows, pts, view, T);
-    gx_layer(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
+    gx_layer<K>(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
     __syncthreads();  // G holds the previous layer's g_z
   }
   for (int idx = tid; idx < kTile2 * d.d_in; idx += kThreads) {
@@ -738,15 +835,19 @@ k2_backward(MLPDesc d, const float4* __restrict__ F, const float4* __restrict__ 
 // K2, pass 2: dW (pad16(out) x kp) = sum over points of g_z^T X, one
 // kDwBM x kDwBN output tile per block (blockIdx.x over the tiles of every
 // layer) and one of kDwSplits point ranges (blockIdx.y), written plain into
-// that range's partial; db from the tiles of column 0. The points come in
-// stages of kDwBK through shared memory, the next stage loaded into
-// registers while this one's MMAs run. Warp (wm, wn) = (w % 4, w / 4) owns
-// rows wm*32 .. +32 (2 m-tiles) and columns wn*64 .. +64 (8 n-tiles).
+// that range's partial; db (the unrounded g_z) from the tiles of column 0.
+// The points come in stages of kDwBK through shared memory (fp32), the next
+// stage loaded into registers while this one's MMAs run; the MMA kind splits
+// (Tf32x3) or rounds (Bf16) both operands as it reads them. Warp (wm, wn) =
+// (w % 4, w / 4) owns rows wm*32 .. +32 (2 m-tiles) and columns wn*64 .. +64
+// (8 n-tiles).
+template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
 k2_dw(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
       const float* __restrict__ xws, const float* __restrict__ gws, float* __restrict__ partial,
       int T, int x_rows) {
-  __shared__ float Gs[kDwBK * kLdDw], Xs[kDwBK * kLdDw];
+  constexpr int ld = K::kLdDw;
+  __shared__ float Gs[kDwBK * ld], Xs[kDwBK * ld];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int wm = warp & 3, wn = warp >> 2;
   int li = 0;
@@ -785,36 +886,57 @@ k2_dw(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
       const int idx = tid + i * kThreads, p = idx / kDwBM, c = idx % kDwBM;
-      Gs[p * kLdDw + c] = gr[i];
-      Xs[p * kLdDw + c] = xr[i];
+      Gs[p * ld + c] = gr[i];
+      Xs[p * ld + c] = xr[i];
     }
     __syncthreads();
     if (P0 + kDwBK < P_end) load_stage(P0 + kDwBK);
     if (col0 == 0 && tid < kDwBM)
-      for (int p = 0; p < kDwBK; ++p) bias += Gs[p * kLdDw + tid];
+      for (int p = 0; p < kDwBK; ++p) bias += Gs[p * ld + tid];
 #pragma unroll
-    for (int ks = 0; ks < kDwBK / 8; ++ks) {
+    for (int ks = 0; ks < kDwBK / K::kK; ++ks) {
       // A[m = output][k = point] = Gs[point][output]; B[k = point][n = input] = Xs[point][input]
-      const float* ga = Gs + (ks * 8 + t) * kLdDw + wm * 32 + g;
-      const float* xb = Xs + (ks * 8 + t) * kLdDw + wn * 64 + g;
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        split(ga[i * 16], ah[i][0], al[i][0]);
-        split(ga[i * 16 + 8], ah[i][1], al[i][1]);
-        split(ga[4 * kLdDw + i * 16], ah[i][2], al[i][2]);
-        split(ga[4 * kLdDw + i * 16 + 8], ah[i][3], al[i][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split(xb[j * 8], bh0, bl0);
-        split(xb[4 * kLdDw + j * 8], bh1, bl1);
+      if constexpr (K::kK == 8) {
+        const float* ga = Gs + (ks * 8 + t) * ld + wm * 32 + g;
+        const float* xb = Xs + (ks * 8 + t) * ld + wn * 64 + g;
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          mma_tf32(acc[i][j], al[i], bh0, bh1);
-          mma_tf32(acc[i][j], ah[i], bl0, bl1);
-          mma_tf32(acc[i][j], ah[i], bh0, bh1);
+          split(ga[i * 16], ah[i][0], al[i][0]);
+          split(ga[i * 16 + 8], ah[i][1], al[i][1]);
+          split(ga[4 * ld + i * 16], ah[i][2], al[i][2]);
+          split(ga[4 * ld + i * 16 + 8], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(xb[j * 8], bh0, bl0);
+          split(xb[4 * ld + j * 8], bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_tf32(acc[i][j], al[i], bh0, bh1);
+            mma_tf32(acc[i][j], ah[i], bl0, bl1);
+            mma_tf32(acc[i][j], ah[i], bh0, bh1);
+          }
+        }
+      } else {
+        // k (points) 2t, 2t + 1 in one register, 2t + 8, 2t + 9 in the next
+        const float* ga = Gs + (ks * 16 + 2 * t) * ld + wm * 32 + g;
+        const float* xb = Xs + (ks * 16 + 2 * t) * ld + wn * 64 + g;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          a[i][0] = bf16x2(ga[i * 16], ga[ld + i * 16]);
+          a[i][1] = bf16x2(ga[i * 16 + 8], ga[ld + i * 16 + 8]);
+          a[i][2] = bf16x2(ga[8 * ld + i * 16], ga[9 * ld + i * 16]);
+          a[i][3] = bf16x2(ga[8 * ld + i * 16 + 8], ga[9 * ld + i * 16 + 8]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t b0 = bf16x2(xb[j * 8], xb[ld + j * 8]);
+          const uint32_t b1 = bf16x2(xb[8 * ld + j * 8], xb[9 * ld + j * 8]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
         }
       }
     }
@@ -853,26 +975,82 @@ __global__ void k2_reduce(MLPDesc d, const float* __restrict__ partial, float* _
   out[j] = s;
 }
 
-int launch_pack(const MLPDesc& d, float* frag, float* frag_t, cudaStream_t s) {
-  const int blocks = (d.n_frag4 + kThreads - 1) / kThreads;
-  k_pack<<<dim3(blocks, frag_t != nullptr ? 2 : 1), kThreads, 0, s>>>(
-      d, reinterpret_cast<float4*>(frag), reinterpret_cast<float4*>(frag_t));
+template <class K>
+int launch_pack(const MLPDesc& d, void* frag, void* frag_t, cudaStream_t s) {
+  const int blocks = (d.n_frag + kThreads - 1) / kThreads;
+  k_pack<K><<<dim3(blocks, frag_t != nullptr ? 2 : 1), kThreads, 0, s>>>(
+      d, static_cast<typename K::Frag*>(frag), static_cast<typename K::Frag*>(frag_t));
   return static_cast<int>(cudaGetLastError());
 }
+
+template <class K>
+int forward(const MLPDesc& d, const float* pts, const float* view, float* out, int T, void* frag,
+            int packed, cudaStream_t s) {
+  const int smem = k1_smem_bytes(d);
+  if (smem > kMaxSmem) return -4;
+  if (T <= 0) return 0;
+  if (!packed) {
+    const int rc = launch_pack<K>(d, frag, nullptr, s);
+    if (rc != 0) return rc;
+  }
+  auto kernel = packed ? k3_forward<K> : k1_forward<K>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (T + kTile1 - 1) / kTile1;
+  kernel<<<blocks, kThreads, smem, s>>>(d, static_cast<const typename K::Frag*>(frag), pts, view,
+                                        out, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class K>
+int backward(const MLPDesc& d, const float* pts, const float* view, const float* gout,
+             float* d_pts, float* d_view, float* d_params, void* frag, void* frag_t,
+             float* partial, float* workspace, int T, cudaStream_t s) {
+  const int smem = k2_smem_bytes(d);
+  if (smem > kMaxSmem) return -4;
+  if (T <= 0) return -5;
+  const int n_tiles = (T + kTile2 - 1) / kTile2, x_rows = n_tiles * kTile2;
+  int rc = launch_pack<K>(d, frag, frag_t, s);
+  if (rc != 0) return rc;
+  float* xws = workspace;
+  float* gws = workspace + (size_t)x_rows * d.x_total;
+  cudaFuncSetAttribute(k2_backward<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  k2_backward<K><<<n_tiles, kThreads, smem, s>>>(
+      d, static_cast<const typename K::Frag*>(frag), static_cast<const typename K::Frag*>(frag_t),
+      pts, view, gout, d_pts, d_view, xws, gws, T, x_rows);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+#ifndef K2_TIME_NO_DW
+  k2_dw<K><<<dim3(d.n_dw_tiles, kDwSplits), kThreads, 0, s>>>(d, pts, view, xws, gws, partial, T,
+                                                              x_rows);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+#endif
+  k2_reduce<<<(d.n_params + kThreads - 1) / kThreads, kThreads, 0, s>>>(d, partial, d_params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#if SPARF_KIND == 1
+using Kind = Bf16;
+#define SPARF_EXPORT(name) name##_bf16
+#else
+using Kind = Tf32x3;
+#define SPARF_EXPORT(name) name##_tf32
+#endif
 
 }  // namespace
 
 extern "C" {
 
-// [n_params, n_frag_floats, n_part, x_total, g_total, n_splits] of the
-// chain, or a negative code.
-int sparf_fused_mlp_sizes(const int* dims, int* sizes) {
+// [n_params, n_frag_elems, n_part, x_total, g_total, n_splits] of the chain,
+// or a negative code. n_frag_elems: elements of one fragment set, fp32
+// (Tf32x3, 4 per fragment) or bf16 (Bf16, 4 per fragment).
+int SPARF_EXPORT(sparf_fused_mlp_sizes)(const int* dims, int* sizes) {
   static const void* const null_params[2 * kMaxLayers] = {};
   MLPDesc d;
-  const int rc = build_desc(dims, null_params, &d);
+  const int rc = build_desc(dims, SPARF_KIND, null_params, &d);
   if (rc < 0) return rc;
   sizes[0] = d.n_params;
-  sizes[1] = 4 * d.n_frag4;
+  sizes[1] = 4 * d.n_frag;
   sizes[2] = d.n_part;
   sizes[3] = d.x_total;
   sizes[4] = d.g_total;
@@ -881,77 +1059,47 @@ int sparf_fused_mlp_sizes(const int* dims, int* sizes) {
 }
 
 // Packs params = [W (out, in), b (out), ...] into B fragments: frag for the
-// forward, frag_t (may be null) for K2's g_x; each n_frag_floats, 16-byte aligned.
-int sparf_fused_mlp_pack(const int* dims, const void* const* params, float* frag, float* frag_t,
-                         void* stream) {
+// forward, frag_t (may be null) for K2's g_x; each n_frag_elems, 16-byte aligned.
+int SPARF_EXPORT(sparf_fused_mlp_pack)(const int* dims, const void* const* params, void* frag,
+                                       void* frag_t, void* stream) {
   MLPDesc d;
-  const int rc = build_desc(dims, params, &d);
+  const int rc = build_desc(dims, SPARF_KIND, params, &d);
   if (rc < 0) return rc;
-  return launch_pack(d, frag, frag_t, static_cast<cudaStream_t>(stream));
+  return launch_pack<Kind>(d, frag, frag_t, static_cast<cudaStream_t>(stream));
 }
 
 // K1 (packed = 0: packs params into frag first) and K3 (packed = 1: frag
 // comes from sparf_fused_mlp_pack): out (T, 4) = [raw_density | raw_rgb].
-int sparf_fused_mlp_forward(const float* pts, const float* view, float* out, int T,
-                            const int* dims, const void* const* params, float* frag, int packed,
-                            void* stream) {
+int SPARF_EXPORT(sparf_fused_mlp_forward)(const float* pts, const float* view, float* out, int T,
+                                          const int* dims, const void* const* params, void* frag,
+                                          int packed, void* stream) {
   MLPDesc d;
-  int rc = build_desc(dims, params, &d);
+  const int rc = build_desc(dims, SPARF_KIND, params, &d);
   if (rc < 0) return rc;
-  const int smem = k1_smem_bytes(d);
-  if (smem > kMaxSmem) return -4;
-  if (T <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!packed) {
-    rc = launch_pack(d, frag, nullptr, s);
-    if (rc != 0) return rc;
-  }
-  auto kernel = packed ? k3_forward : k1_forward;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int blocks = (T + kTile1 - 1) / kTile1;
-  kernel<<<blocks, kThreads, smem, s>>>(d, reinterpret_cast<const float4*>(frag), pts, view, out,
-                                        T);
-  return static_cast<int>(cudaGetLastError());
+  return forward<Kind>(d, pts, view, out, T, frag, packed, static_cast<cudaStream_t>(stream));
 }
 
 // K2. gout (T, 4) = [g_density | g_rgb]; d_params (n_params,) in the order
-// W0, b0, W1, b1, ...; frag and frag_t are scratch of n_frag_floats each,
+// W0, b0, W1, b1, ...; frag and frag_t are scratch of n_frag_elems each,
 // partial of n_splits * n_part floats and workspace of T_pad * (x_total +
 // g_total) floats, T_pad = T rounded up to a multiple of 128.
-int sparf_fused_mlp_backward(const float* pts, const float* view, const float* gout,
-                             float* d_pts, float* d_view, float* d_params, float* frag,
-                             float* frag_t, float* partial, float* workspace, int T,
-                             const int* dims, const void* const* params, void* stream) {
+int SPARF_EXPORT(sparf_fused_mlp_backward)(const float* pts, const float* view,
+                                           const float* gout, float* d_pts, float* d_view,
+                                           float* d_params, void* frag, void* frag_t,
+                                           float* partial, float* workspace, int T,
+                                           const int* dims, const void* const* params,
+                                           void* stream) {
   MLPDesc d;
-  int rc = build_desc(dims, params, &d);
+  const int rc = build_desc(dims, SPARF_KIND, params, &d);
   if (rc < 0) return rc;
-  const int smem = k2_smem_bytes(d);
-  if (smem > kMaxSmem) return -4;
-  if (T <= 0) return -5;
-  const int n_tiles = (T + kTile2 - 1) / kTile2, x_rows = n_tiles * kTile2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rc = launch_pack(d, frag, frag_t, s);
-  if (rc != 0) return rc;
-  float* xws = workspace;
-  float* gws = workspace + (size_t)x_rows * d.x_total;
-  cudaFuncSetAttribute(k2_backward, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  k2_backward<<<n_tiles, kThreads, smem, s>>>(
-      d, reinterpret_cast<const float4*>(frag), reinterpret_cast<const float4*>(frag_t), pts,
-      view, gout, d_pts, d_view, xws, gws, T, x_rows);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-#ifndef K2_TIME_NO_DW
-  k2_dw<<<dim3(d.n_dw_tiles, kDwSplits), kThreads, 0, s>>>(d, pts, view, xws, gws, partial, T,
-                                                           x_rows);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-#endif
-  k2_reduce<<<(d.n_params + kThreads - 1) / kThreads, kThreads, 0, s>>>(d, partial, d_params);
-  return static_cast<int>(cudaGetLastError());
+  return backward<Kind>(d, pts, view, gout, d_pts, d_view, d_params, frag, frag_t, partial,
+                        workspace, T, static_cast<cudaStream_t>(stream));
 }
 
+#if SPARF_KIND == 0
 const char* sparf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif
 
 }  // extern "C"

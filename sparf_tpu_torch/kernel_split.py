@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Where K2's time goes: times K2 (csrc/fused_mlp.cu) at T = 262,144 on the
 full 8x256 chain beside timing-only builds that each drop one part of its
-work, and K1 beside them. Needs one CUDA card and nvcc.
+work, and K1 beside them, for the 3xTF32 (compute_dtype float32) and the
+bf16 variants. Needs one CUDA card and nvcc.
 
 Usage (from the repository root):
     python -m sparf_tpu_torch.kernel_split [--T 262144] [--reps 10]
@@ -14,6 +15,7 @@ turns, full first and last.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -69,7 +71,8 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = nerf_mlp.init_nerf_params(gen, cfg, device="cuda")
     weights = fm.flat_weights(params)
-    meta = fm.FusedMeta.from_cfg(cfg)
+    metas = {"fp32": fm.FusedMeta.from_cfg(cfg),
+             "bf16": fm.FusedMeta.from_cfg(dataclasses.replace(cfg, compute_dtype=torch.bfloat16))}
     T = args.T
     pts_enc = nerf_mlp.encode_points(cfg, torch.randn((T, 3), generator=gen, device="cuda"),
                                      0.55).contiguous()
@@ -82,14 +85,16 @@ def main(argv=None) -> dict:
     real_load = _build.load_library
     times = {}
     try:
-        for name in (*VARIANTS, "full"):
-            _build.load_library = lambda defines=(), lib=libs[name]: lib
-            k2 = _median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb),
-                            args.reps)
-            times.setdefault(f"K2_{name}", []).append(k2)
-            if name == "full":
-                k1 = _median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights), args.reps)
-                times.setdefault("K1", []).append(k1)
+        for dtype, meta in metas.items():
+            for name in (*VARIANTS, "full"):
+                _build.load_library = lambda defines=(), lib=libs[name]: lib
+                k2 = _median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d,
+                                                      g_rgb), args.reps)
+                times.setdefault(f"{dtype}_K2_{name}", []).append(k2)
+                if name == "full":
+                    k1 = _median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights),
+                                    args.reps)
+                    times.setdefault(f"{dtype}_K1", []).append(k1)
     finally:
         _build.load_library = real_load
     result = {"card": smi, "T": T, "ms": times}

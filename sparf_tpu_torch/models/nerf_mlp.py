@@ -11,6 +11,8 @@ sparf_tpu/models/nerf_mlp.py).
 Parameters are ``{'feat': [(W, b)], 'rgb': [(W, b)]}`` with W in (out, in)
 layout, as torch.nn.Linear keeps it. The eager `nerf_apply` is the plain
 version of the fused kernels in sparf_tpu_torch/ops/fused_mlp.py.
+`compute_dtype` (cfg.tpu.compute_dtype) is the dtype of the MLP's products:
+float32, or bfloat16 operands with float32 sums (`linear`).
 """
 from __future__ import annotations
 
@@ -65,8 +67,6 @@ class MLPConfig:
     @classmethod
     def from_config(cls, cfg) -> "MLPConfig":
         """Build from the ConfigDict tree (arch/nerf sections)."""
-        if cfg.tpu.compute_dtype == "bfloat16":
-            raise NotImplementedError("bf16 compute is not ported yet; use float32")
         arch, nerf = cfg.arch, cfg.nerf
         pe = arch.posenc
         return cls(
@@ -84,6 +84,8 @@ class MLPConfig:
             tf_init=arch.tf_init,
             barf_c2f=tuple(cfg.barf_c2f) if cfg.get("barf_c2f") else None,
             density_noise_reg=nerf.density_noise_reg if nerf.density_noise_reg else None,
+            compute_dtype=(torch.bfloat16 if cfg.tpu.compute_dtype == "bfloat16"
+                           else torch.float32),
         )
 
 
@@ -134,6 +136,21 @@ def init_nerf_params(gen: torch.Generator, cfg: MLPConfig,
         rgb_layers.append((_xavier_uniform(gen, (k_out, k_in), gain, device),
                            torch.zeros(k_out, device=device)))
     return {"feat": feat_layers, "rgb": rgb_layers}
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to `dtype` (to nearest even) and held in float32; x itself
+    for float32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def linear(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x W^T + b with the product in `dtype`: float32, or both operands
+    rounded to bf16 and summed in float32 (a bf16 x bf16 product is exact in
+    float32), as sparf_tpu's _linear / the Pallas kernels' dots."""
+    if dtype == torch.float32:
+        return torch.addmm(b, x, W.t())
+    return round_to(x, dtype) @ round_to(W, dtype).t() + b
 
 
 def density_activation(raw: torch.Tensor, kind: str) -> torch.Tensor:
@@ -190,7 +207,7 @@ def nerf_apply(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor, ray: t
     for li, (W, b) in enumerate(params["feat"]):
         if li in cfg.skip:
             feat = torch.cat([feat, pts_enc], dim=-1)
-        feat = torch.addmm(b, feat, W.t())
+        feat = linear(feat, W, b, cfg.compute_dtype)
         if li == n - 1:
             raw_density = feat[:, 0]
             feat = feat[:, 1:]
@@ -205,7 +222,7 @@ def nerf_apply(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor, ray: t
         feat = torch.cat([feat, ray_enc.reshape(feat.shape[0], -1)], dim=-1)
     m = len(params["rgb"])
     for li, (W, b) in enumerate(params["rgb"]):
-        feat = torch.addmm(b, feat, W.t())
+        feat = linear(feat, W, b, cfg.compute_dtype)
         if li != m - 1:
             feat = F.relu(feat)
     rgb = torch.sigmoid(feat).reshape(*batch_shape, 3)

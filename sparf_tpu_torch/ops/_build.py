@@ -1,10 +1,12 @@
 """Builds the CUDA kernels of `sparf_tpu_torch/csrc` with nvcc and loads them.
 
 The library has a plain C interface and is loaded with ctypes; it does not
-include PyTorch's headers, so a build takes seconds. It is built at first use
-into `sparf_tpu_torch/build/` (listed in .gitignore), under a name that
-carries a hash of the sources, so an edited source is never served from a
-stale build. Nothing here runs at import time.
+include PyTorch's headers. It is built at first use into
+`sparf_tpu_torch/build/` (listed in .gitignore), under a name that carries a
+hash of the sources, so an edited source is never served from a stale build.
+fused_mlp.cu is compiled once per MMA kind (KINDS: -DSPARF_KIND=0, 3xTF32,
+entry points *_tf32; 1, bf16, *_bf16), the compiles run in parallel, and one
+link makes the library. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("fused_mlp.cu",)
+KINDS = {"tf32": 0, "bf16": 1}  # MMA kind -> SPARF_KIND of its compile
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -55,8 +58,10 @@ def _source_hash(flags: Sequence[str]) -> str:
 
 
 def build(defines: Sequence[str] = ()) -> Path:
-    """Compile the kernels if this version of the sources has no library yet.
-    `defines` (macro names) select a timing-only variant (csrc header note)."""
+    """Compile the kernels if this version of the sources has no library yet:
+    one `nvcc -c` per (source, kind), all started together, then one link.
+    `defines` (macro names) select a timing-only variant (csrc header note).
+    The log holds each compile's output after a line `== <source> <kind> ==`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = (*NVCC_FLAGS, *(f"-D{m}" for m in defines))
     out = BUILD_DIR / f"libsparf_kernels_{_source_hash(flags)}.so"
@@ -66,17 +71,41 @@ def build(defines: Sequence[str] = ()) -> Path:
         BuildInfo.log = log.read_text() if log.exists() else ""
         return out
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, t0 = _nvcc(), time.perf_counter()
+    jobs = []
+    for src in SOURCES:
+        for kind, k in KINDS.items():
+            obj = tmp.with_suffix(f".{Path(src).stem}.{kind}.o")
+            cmd = [nvcc, *flags, f"-DSPARF_KIND={k}", "-c", "-o", str(obj), str(CSRC_DIR / src)]
+            jobs.append((f"{src} {kind}", cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"== {name} ==\n{' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(name)
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, _, obj, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(f"== link ==\n{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append("link")
+    for _, _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    log.write_text(" ".join(cmd) + "\n" + BuildInfo.log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{BuildInfo.log}")
+    BuildInfo.log = "\n".join(logs)
+    log.write_text(BuildInfo.log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{BuildInfo.log}")
     os.replace(tmp, out)
     BuildInfo.path = out
     return out
+
+
+def entry(lib: ctypes.CDLL, name: str, bf16: bool):
+    """The C entry point sparf_fused_mlp_<name> of the 3xTF32 or the bf16 kind."""
+    return getattr(lib, f"sparf_fused_mlp_{name}_{'bf16' if bf16 else 'tf32'}")
 
 
 def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
@@ -86,14 +115,12 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     if key not in _LIBS:
         lib = ctypes.CDLL(str(build(key)))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sparf_fused_mlp_sizes.argtypes = [p, p]
-        lib.sparf_fused_mlp_sizes.restype = i
-        lib.sparf_fused_mlp_pack.argtypes = [p, p, p, p, p]
-        lib.sparf_fused_mlp_pack.restype = i
-        lib.sparf_fused_mlp_forward.argtypes = [p, p, p, i, p, p, p, i, p]
-        lib.sparf_fused_mlp_forward.restype = i
-        lib.sparf_fused_mlp_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, p, p]
-        lib.sparf_fused_mlp_backward.restype = i
+        for kind in KINDS:
+            for name, args in (("sizes", [p, p]), ("pack", [p, p, p, p, p]),
+                               ("forward", [p, p, p, i, p, p, p, i, p]),
+                               ("backward", [p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
+                fn = getattr(lib, f"sparf_fused_mlp_{name}_{kind}")
+                fn.argtypes, fn.restype = args, i
         lib.sparf_cuda_error_string.argtypes = [i]
         lib.sparf_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[key] = lib

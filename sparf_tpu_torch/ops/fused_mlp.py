@@ -7,27 +7,43 @@ sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl); K3 replaces `_kernel`
 of sparf_tpu/ops/fused_mlp.py (the `pallas` impl). The kernels live in
 sparf_tpu_torch/csrc/fused_mlp.cu, whose header note says what bounds them on
 an H100 and what their design does about it: every product runs on the
-tensor cores in 3xTF32 (fp32 accuracy), with the weights laid out once per
-call as ready MMA B fragments.
+tensor cores, in 3xTF32 (fp32 accuracy) for compute_dtype float32 and as one
+bf16 MMA for compute_dtype bfloat16, with the weights laid out once per call
+as ready MMA B fragments.
+
+compute_dtype is how the chain computes, not how its tensors are stored:
+inputs, weights and outputs are float32 either way. Under bfloat16 each dot
+takes its two operands rounded to bf16 (round to nearest even) and sums in
+float32, exactly where the TPU kernels round (sparf_tpu/ops/fused_mlp.py
+_kernel, fused_mlp_vjp.py _mm): bias, ReLU and its masks, g_x, d_pts_enc,
+d_view_enc stay float32, db sums the unrounded g_z, dW = bf16(x)^T bf16(g_z)
+and g_x = bf16(g_z) bf16(W)^T. The plain versions compute a bf16 product as
+x.to(bf16).float() @ w.to(bf16).float(), which is exact in float32 (never a
+bf16 matmul, whose CPU kernel rounds its output to bf16).
 
   - `fused_mlp_forward_plain` is the eager chain.
   - `fused_mlp_backward_plain` is K2's algorithm in torch, not autograd:
     recompute the forward keeping each layer's input, take the ReLU masks
     from the next layer's input > 0, split the skip and view segments.
   - `pack_fragments_plain` is the fragment layout (and `k_pack` its kernel):
-    per layer, per (k-step, n-tile) of 8 x 8, per lane, the float4
-    {hi(b0), hi(b1), lo(b0), lo(b1)} of the mma.sync B operand, hi = TF32
-    round-to-nearest of the weight, lo = the exact rest; the input
-    dimension padded per segment to a multiple of 8, zeros in the padding.
-  - `pack_weights` packs the weights for K3 once per call (`PackedWeights`);
-    `fused_mlp_forward_packed_plain` is the eager chain on them (hi + lo).
+    per layer, per (k-step, n-tile), per lane, the mma.sync B operand: for
+    float32 (k-steps of 8) the float4 {hi(b0), hi(b1), lo(b0), lo(b1)}, hi =
+    TF32 round-to-nearest of the weight, lo = the exact rest; for bfloat16
+    (k-steps of 16) four bf16 {b(2t), b(2t+1), b(2t+8), b(2t+9)}; the input
+    dimension padded per segment, and the outputs, to the k-step, zeros in
+    the padding.
+  - `pack_weights` packs the weights for K3 once per call (`PackedWeights`,
+    in the dtype's layout); `fused_mlp_forward_packed_plain` is the eager
+    chain on them (hi + lo, or the bf16 weights).
   - `FusedMLPFunction` launches K1 in forward (saving only the inputs and the
     weights) and K2 in backward. For a CUDA tensor it launches the kernel or
     raises; the plain versions are taken only for CPU tensors.
   - `nerf_apply_fused` takes K1/K2 when autograd will ask for a gradient,
     K3 otherwise.
   - `K1_LAUNCHES` / `K2_LAUNCHES` / `K3_LAUNCHES` count kernel launches (not
-    plain calls); `PACK_LAUNCHES` counts pack_weights' packing kernel.
+    plain calls) of the float32 (3xTF32) variants, `PACK_LAUNCHES`
+    pack_weights' packing kernel; the `*_BF16_LAUNCHES` the bf16 variants'.
+    `reset_launch_counts` / `launch_counts` set them to 0 and read them.
 
 PE, the density activation and the sigmoid stay outside, in torch.
 """
@@ -48,13 +64,36 @@ K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K3_LAUNCHES = 0
 PACK_LAUNCHES = 0
+K1_BF16_LAUNCHES = 0
+K2_BF16_LAUNCHES = 0
+K3_BF16_LAUNCHES = 0
+PACK_BF16_LAUNCHES = 0
+_KERNELS = ("K1", "K2", "K3", "PACK")
+
+
+def _counted(kernel: str, bf16: bool) -> None:
+    """One launch of `kernel`'s float32 or bf16 variant."""
+    name = f"{kernel}{'_BF16' if bf16 else ''}_LAUNCHES"
+    globals()[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in _KERNELS:
+        globals()[f"{k}_LAUNCHES"] = globals()[f"{k}_BF16_LAUNCHES"] = 0
+
+
+def launch_counts(bf16: bool = False) -> Dict[str, int]:
+    """{"K1", "K2", "K3", "pack"}: the launches of the float32 or the bf16 variants."""
+    return {("pack" if k == "PACK" else k): globals()[f"{k}{'_BF16' if bf16 else ''}_LAUNCHES"]
+            for k in _KERNELS}
 
 K2_TILE = 128  # points per K2 tile (csrc/fused_mlp.cu kTile2)
 
 _DESC_ERRORS = {
     -1: "between 1 and 16 layers with at least one trunk and one RGB layer",
-    -2: ("every layer at most 288 outputs and 320 inputs (each input segment padded to 8), "
-         "with ceil(out / 8) and the padded inputs / 8 at most 4 past a multiple of 8"),
+    -2: ("every layer at most 288 outputs and 320 inputs (each input segment padded to the "
+         "k-step, 8 or 16), with the padded outputs / 8 and inputs / 8 at most 4 past a "
+         "multiple of 8"),
     -3: "a chain whose widths match (layer 0 takes pts_enc, no skip at layer 0, 3 RGB outputs)",
     -4: "activations that fit the 227 KB of shared memory of one block",
     -5: "at least one point",
@@ -71,11 +110,16 @@ class FusedMeta:
     view_dep: bool
     d_in: int
     d_view: int
+    bf16: bool = False  # compute_dtype bfloat16 (the bf16 variants of the kernels)
 
     @classmethod
     def from_cfg(cls, cfg: MLPConfig) -> "FusedMeta":
         return cls(len(cfg.layers_feat), len(cfg.layers_rgb), tuple(cfg.skip), cfg.view_dep,
-                   cfg.input_3d_dim, cfg.input_view_dim)
+                   cfg.input_3d_dim, cfg.input_view_dim, cfg.compute_dtype == torch.bfloat16)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.bf16 else torch.float32
 
     def dims(self, weights: Sequence[torch.Tensor]) -> List[int]:
         """[n_feat, n_rgb, d_in, d_view, view_dep, (out, in, skip) per layer]."""
@@ -91,32 +135,42 @@ def flat_weights(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [t for W, b in list(params["feat"]) + list(params["rgb"]) for t in (W, b)]
 
 
-def _layers(dims: Sequence[int]):
-    """Per layer (out, in, w1, w2, k1p, kp, np8), as csrc/fused_mlp.cu build_desc."""
+def _layers(dims: Sequence[int], bf16: bool = False):
+    """Per layer (out, in, w1, w2, k1p, kp, np), as csrc/fused_mlp.cu build_desc:
+    the input segments and the outputs padded to the MMA's k-step (8 for
+    3xTF32, 16 for bf16)."""
     n_feat, n_rgb, d_in, d_view, view_dep = dims[:5]
-    pad8 = lambda x: -(-x // 8) * 8  # noqa: E731
+    ks = 16 if bf16 else 8
+    pad = lambda x: -(-x // ks) * ks  # noqa: E731
     for li in range(n_feat + n_rgb):
         out, n_in, skip = dims[5 + 3 * li: 8 + 3 * li]
         w2 = d_in if skip else (d_view if li == n_feat and view_dep else 0)
         w1 = n_in - w2
-        yield out, n_in, w1, w2, pad8(w1), pad8(w1) + pad8(w2), pad8(out)
+        yield out, n_in, w1, w2, pad(w1), pad(w1) + pad(w2), pad(out)
 
 
 @functools.lru_cache(maxsize=16)
-def _fragment_sources(dims: Tuple[int, ...], transposed: bool) -> List[torch.Tensor]:
-    """Per layer, for every float of its fragments, the flat index into W
+def _fragment_sources(dims: Tuple[int, ...], transposed: bool,
+                      bf16: bool = False) -> List[torch.Tensor]:
+    """Per layer, for every element of its fragments, the flat index into W
     (out, in) of the weight behind it, or -1 in the padding. Fragment (ks, nt)
-    of the B operand, lane (g, t) = (lane // 4, lane % 4), float c holds
-    B[ks*8 + t + 4 (c % 2), nt*8 + g] (hi for c < 2, lo for c >= 2); B = W^T
-    (rows over the padded input) for the forward, B = W for K2's g_x."""
+    of the B operand, lane (g, t) = (lane // 4, lane % 4), element c holds
+    B[row, nt*8 + g] with row = ks*8 + t + 4 (c % 2) for float32 (hi for
+    c < 2, lo for c >= 2) and ks*16 + 2t + c % 2 + 8 (c // 2) for bf16; B =
+    W^T (rows over the padded input) for the forward, B = W for K2's g_x."""
     out = []
-    for n_out, n_in, w1, w2, k1p, kp, np8 in _layers(dims):
-        KS, NT = (np8 // 8, kp // 8) if transposed else (kp // 8, np8 // 8)
+    step = 16 if bf16 else 8
+    for n_out, n_in, w1, w2, k1p, kp, n_pad in _layers(dims, bf16):
+        KS, NT = (n_pad // step, kp // 8) if transposed else (kp // step, n_pad // 8)
         ks = torch.arange(KS).view(-1, 1, 1, 1)
         nt = torch.arange(NT).view(1, -1, 1, 1)
         lane = torch.arange(32).view(1, 1, -1, 1)
         c = torch.arange(4).view(1, 1, 1, -1)
-        row, col = ks * 8 + lane % 4 + 4 * (c % 2), nt * 8 + lane // 4
+        if step == 16:
+            row = ks * 16 + 2 * (lane % 4) + c % 2 + 8 * (c // 2)
+        else:
+            row = ks * 8 + lane % 4 + 4 * (c % 2)
+        col = nt * 8 + lane // 4
         n, kpad = (row, col) if transposed else (col, row)
         k = torch.where(kpad < k1p, torch.where(kpad < w1, kpad, -1),
                         torch.where(kpad - k1p < w2, w1 + kpad - k1p, -1))
@@ -132,14 +186,18 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_fragments_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
-                         transposed: bool = False) -> torch.Tensor:
-    """The B fragments of every layer, one flat float32 tensor (k_pack's plain
-    version): hi = tf32_round(w) at c < 2, lo = w - hi at c >= 2 (exact; the
-    tensor core reads its top 19 bits)."""
+                         transposed: bool = False, bf16: bool = False) -> torch.Tensor:
+    """The B fragments of every layer, one flat tensor (k_pack's plain
+    version). float32: hi = tf32_round(w) at c < 2, lo = w - hi at c >= 2
+    (exact; the tensor core reads its top 19 bits). bf16: each weight
+    rounded to bf16, to nearest even."""
     parts = []
-    for src, W in zip(_fragment_sources(tuple(dims), transposed), weights[::2]):
+    for src, W in zip(_fragment_sources(tuple(dims), transposed, bf16), weights[::2]):
         src = src.to(W.device)
         w = torch.where(src >= 0, W.detach().reshape(-1)[src.clamp(min=0)], 0.0).view(-1, 4)
+        if bf16:
+            parts.append(w.to(torch.bfloat16).reshape(-1))
+            continue
         hi = tf32_round(w)
         lo = w - hi
         parts.append(torch.cat([hi[:, :2], lo[:, 2:]], dim=1).reshape(-1))
@@ -147,15 +205,20 @@ def pack_fragments_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
 
 
 def unpack_fragments(dims: Sequence[int], frag: torch.Tensor) -> List[torch.Tensor]:
-    """Each layer's W (out, in) back from its forward fragments, as hi + lo
-    (exactly W)."""
+    """Each layer's W (out, in) back from its forward fragments (their dtype
+    says the layout), float32: hi + lo (exactly W), or the bf16 weights."""
     Ws, ofs = [], 0
-    for src, (n_out, n_in, *_) in zip(_fragment_sources(tuple(dims), False), _layers(dims)):
-        f4 = frag[ofs: ofs + src.numel()].view(-1, 4)
+    bf16 = frag.dtype == torch.bfloat16
+    for src, (n_out, n_in, *_) in zip(_fragment_sources(tuple(dims), False, bf16),
+                                      _layers(dims, bf16)):
+        f4 = frag[ofs: ofs + src.numel()].view(-1, 4).float()
         ofs += src.numel()
-        src2 = src.to(frag.device).view(-1, 4)[:, :2].reshape(-1)
-        vals = (f4[:, :2] + f4[:, 2:]).reshape(-1)
-        W = frag.new_zeros(n_out * n_in)
+        if bf16:
+            src2, vals = src.to(frag.device), f4.reshape(-1)
+        else:
+            src2 = src.to(frag.device).view(-1, 4)[:, :2].reshape(-1)
+            vals = (f4[:, :2] + f4[:, 2:]).reshape(-1)
+        W = f4.new_zeros(n_out * n_in)
         W[src2[src2 >= 0]] = vals[src2 >= 0]
         Ws.append(W.view(n_out, n_in))
     return Ws
@@ -163,18 +226,22 @@ def unpack_fragments(dims: Sequence[int], frag: torch.Tensor) -> List[torch.Tens
 
 @dataclass
 class PackedWeights:
-    """K3's operands: the chain's dims, the forward B fragments of every layer
-    (flat, float32) and the biases."""
+    """K3's operands: the chain's dims, the forward B fragments of every
+    layer (flat, in the compute dtype's layout: float32 for 3xTF32, bf16)
+    and the biases."""
 
     dims: Tuple[int, ...]
     frag: torch.Tensor
     biases: List[torch.Tensor]
 
+    @property
+    def bf16(self) -> bool:
+        return self.frag.dtype == torch.bfloat16
+
 
 def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> PackedWeights:
     """The weights laid out once for K3: on a CUDA device by the packing kernel
     (k_pack), on the CPU by pack_fragments_plain; the same bits either way."""
-    global PACK_LAUNCHES
     weights = [w.detach().contiguous() for w in flat_weights(params)]
     if len(weights) != 2 * (meta.n_feat + meta.n_rgb):
         raise ValueError(f"pack_weights: {len(weights) // 2} layers, meta says "
@@ -182,18 +249,19 @@ def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> PackedWeights:
     dims = tuple(meta.dims(weights))
     dev = weights[0].device
     if dev.type == "cpu":
-        frag = pack_fragments_plain(dims, weights)
+        frag = pack_fragments_plain(dims, weights, bf16=meta.bf16)
     elif dev.type == "cuda":
-        from sparf_tpu_torch.ops._build import load_library
+        from sparf_tpu_torch.ops._build import entry, load_library
 
         _check_operands(weights[0], weights[1], weights)
         lib = load_library()
         c_dims = (ctypes.c_int * len(dims))(*dims)
-        frag = torch.empty(_sizes(lib, c_dims, "pack_weights")[1], dtype=torch.float32, device=dev)
-        rc = lib.sparf_fused_mlp_pack(c_dims, _ptrs(weights), frag.data_ptr(), None,
-                                      torch.cuda.current_stream(dev).cuda_stream)
+        frag = torch.empty(_sizes(lib, c_dims, meta.bf16, "pack_weights")[1], dtype=meta.dtype,
+                           device=dev)
+        rc = entry(lib, "pack", meta.bf16)(c_dims, _ptrs(weights), frag.data_ptr(), None,
+                                           torch.cuda.current_stream(dev).cuda_stream)
         _raise_rc(lib, rc, "pack_weights (fragment packing)")
-        PACK_LAUNCHES += 1
+        _counted("PACK", meta.bf16)
     else:
         raise ValueError(f"pack_weights: no kernel for device {dev}")
     return PackedWeights(dims, frag, weights[1::2])
@@ -205,7 +273,8 @@ def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> PackedWeights:
 
 
 def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
-    """Forward keeping every layer's input; returns (raw_density, raw_rgb, xs)."""
+    """Forward keeping every layer's input (float32, unrounded); returns
+    (raw_density, raw_rgb, xs)."""
     xs = []
     feat = pts_enc
     raw_density = raw_rgb = None
@@ -213,7 +282,7 @@ def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
         W, b = weights[2 * li], weights[2 * li + 1]
         x = torch.cat([feat, pts_enc], dim=-1) if li in meta.skip else feat
         xs.append(x)
-        z = torch.addmm(b, x, W.t())
+        z = nerf_mlp.linear(x, W, b, meta.dtype)
         if li == meta.n_feat - 1:
             raw_density = z[:, 0]
             feat = F.relu(z[:, 1:])
@@ -225,7 +294,7 @@ def _forward_chain(meta: FusedMeta, pts_enc, view_enc, weights):
         li = meta.n_feat + lr
         W, b = weights[2 * li], weights[2 * li + 1]
         xs.append(feat)
-        z = torch.addmm(b, feat, W.t())
+        z = nerf_mlp.linear(feat, W, b, meta.dtype)
         if lr == meta.n_rgb - 1:
             raw_rgb = z[:, :3]
         else:
@@ -244,7 +313,7 @@ def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
                                    view_enc: torch.Tensor, packed: PackedWeights
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's plain version: the eager chain on pack_weights' operands (each W
-    as the hi + lo of its fragments)."""
+    as the hi + lo of its fragments, or its bf16 fragments)."""
     Ws = unpack_fragments(packed.dims, packed.frag)
     weights = [t for W, b in zip(Ws, packed.biases) for t in (W, b)]
     raw_density, raw_rgb, _ = _forward_chain(meta, pts_enc, view_enc, weights)
@@ -254,8 +323,11 @@ def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
 def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch.Tensor,
                              weights: Sequence[torch.Tensor], g_density: torch.Tensor,
                              g_rgb: torch.Tensor):
-    """K2's algorithm in torch: (d_pts (T,d_in), d_view (T,d_view), [dW0, db0, ...])."""
+    """K2's algorithm in torch: (d_pts (T,d_in), d_view (T,d_view), [dW0, db0, ...]).
+    Under bf16 each product rounds its operands (dW = bf16(g_z)^T bf16(x),
+    g_x = bf16(g_z) bf16(W)) and db sums the unrounded g_z."""
     n_layers = meta.n_feat + meta.n_rgb
+    rnd = functools.partial(nerf_mlp.round_to, dtype=meta.dtype)
     with torch.no_grad():
         _, _, xs = _forward_chain(meta, pts_enc, view_enc, weights)
         feat_dim = weights[2 * meta.n_feat - 2].shape[0] - 1
@@ -275,9 +347,9 @@ def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: t
         g_z = g_rgb
         for li in range(n_layers - 1, -1, -1):
             x, W = xs[li], weights[2 * li]
-            grads[2 * li] = g_z.t() @ x
+            grads[2 * li] = rnd(g_z).t() @ rnd(x)
             grads[2 * li + 1] = g_z.sum(0)
-            g_x = g_z @ W
+            g_x = rnd(g_z) @ rnd(W)
             if li == meta.n_feat:
                 if meta.view_dep:
                     d_view = g_x[:, feat_dim:]
@@ -299,6 +371,7 @@ def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: t
 
 
 def _check_operands(pts_enc, view_enc, weights, *extra):
+    """Every operand float32 (whatever the compute dtype), contiguous, on one device."""
     dev = pts_enc.device
     for t in (pts_enc, view_enc, *weights, *extra):
         if t.device != dev:
@@ -325,61 +398,65 @@ def _dims(meta, weights):
     return (ctypes.c_int * len(dims))(*dims)
 
 
-def _sizes(lib, dims, which: str) -> List[int]:
-    """[n_params, n_frag_floats, n_part, x_total, g_total, n_splits]
+def _sizes(lib, dims, bf16: bool, which: str) -> List[int]:
+    """[n_params, n_frag_elems, n_part, x_total, g_total, n_splits]
     (csrc sparf_fused_mlp_sizes)."""
     sizes = (ctypes.c_int * 6)()
-    _raise_rc(lib, lib.sparf_fused_mlp_sizes(dims, sizes), which)
+    from sparf_tpu_torch.ops._build import entry
+
+    _raise_rc(lib, entry(lib, "sizes", bf16)(dims, sizes), which)
     return list(sizes)
 
 
 def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
     """Packs the weights into fragments (k_pack) and launches K1 on them."""
-    global K1_LAUNCHES
-    from sparf_tpu_torch.ops._build import load_library
+    from sparf_tpu_torch.ops._build import entry, load_library
 
     _check_operands(pts_enc, view_enc, weights)
     lib = load_library()
     T, dev = pts_enc.shape[0], pts_enc.device
     dims = _dims(meta, weights)
-    frag = torch.empty(_sizes(lib, dims, "K1 (fused MLP forward)")[1], dtype=torch.float32,
-                       device=dev)
+    frag = torch.empty(_sizes(lib, dims, meta.bf16, "K1 (fused MLP forward)")[1],
+                       dtype=meta.dtype, device=dev)
     out = torch.empty((T, 4), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.sparf_fused_mlp_forward(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T,
-                                     dims, _ptrs(weights), frag.data_ptr(), 0, stream)
+    rc = entry(lib, "forward", meta.bf16)(pts_enc.data_ptr(), view_enc.data_ptr(),
+                                          out.data_ptr(), T, dims, _ptrs(weights),
+                                          frag.data_ptr(), 0, stream)
     _raise_rc(lib, rc, "K1 (fused MLP forward)")
-    K1_LAUNCHES += 1
+    _counted("K1", meta.bf16)
     return out[:, 0], out[:, 1:4]
 
 
 def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed: PackedWeights):
-    global K3_LAUNCHES
-    from sparf_tpu_torch.ops._build import load_library
+    from sparf_tpu_torch.ops._build import entry, load_library
 
-    _check_operands(pts_enc, view_enc, [packed.frag, *packed.biases])
+    _check_operands(pts_enc, view_enc, packed.biases)
+    if (list(packed.dims[:5]) != [meta.n_feat, meta.n_rgb, meta.d_in, meta.d_view,
+                                  int(meta.view_dep)] or packed.bf16 != meta.bf16):
+        raise ValueError("K3: packed weights of another chain or compute dtype")
+    if packed.frag.device != pts_enc.device or not packed.frag.is_contiguous():
+        raise ValueError("K3 takes the contiguous fragments of pack_weights on the points' device")
     lib = load_library()
     dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
-    if list(packed.dims[:5]) != [meta.n_feat, meta.n_rgb, meta.d_in, meta.d_view,
-                                 int(meta.view_dep)]:
-        raise ValueError("K3: packed weights of another chain")
-    if packed.frag.numel() != _sizes(lib, dims, "K3 (fused MLP forward, packed weights)")[1]:
+    if packed.frag.numel() != _sizes(lib, dims, meta.bf16,
+                                     "K3 (fused MLP forward, packed weights)")[1]:
         raise ValueError("K3 takes the fragments of pack_weights")
     T = pts_enc.shape[0]
     out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
     stream = torch.cuda.current_stream(pts_enc.device).cuda_stream
     params = (ctypes.c_void_p * (2 * len(packed.biases)))(
         *[p for b in packed.biases for p in (None, b.data_ptr())])
-    rc = lib.sparf_fused_mlp_forward(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T,
-                                     dims, params, packed.frag.data_ptr(), 1, stream)
+    rc = entry(lib, "forward", meta.bf16)(pts_enc.data_ptr(), view_enc.data_ptr(),
+                                          out.data_ptr(), T, dims, params,
+                                          packed.frag.data_ptr(), 1, stream)
     _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights)")
-    K3_LAUNCHES += 1
+    _counted("K3", meta.bf16)
     return out[:, 0], out[:, 1:4]
 
 
 def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
-    global K2_LAUNCHES
-    from sparf_tpu_torch.ops._build import load_library
+    from sparf_tpu_torch.ops._build import entry, load_library
 
     gout = torch.cat([g_density[:, None], g_rgb], dim=-1).contiguous()
     _check_operands(pts_enc, view_enc, weights, gout)
@@ -387,23 +464,23 @@ def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
     T = pts_enc.shape[0]
     dev = pts_enc.device
     dims = _dims(meta, weights)
-    n_params, n_frag, n_part, x_total, g_total, n_splits = _sizes(lib, dims,
+    n_params, n_frag, n_part, x_total, g_total, n_splits = _sizes(lib, dims, meta.bf16,
                                                                   "K2 (fused MLP backward)")
     x_rows = -(-T // K2_TILE) * K2_TILE
     d_pts = torch.empty_like(pts_enc)
     d_view = torch.empty_like(view_enc)
     d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
-    frag = torch.empty((2, n_frag), dtype=torch.float32, device=dev)
+    frag = torch.empty((2, n_frag), dtype=meta.dtype, device=dev)
     partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
     # every layer's input and g_z for the dW pass: ~17 KB per point at full width
     workspace = torch.empty(x_rows * (x_total + g_total), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.sparf_fused_mlp_backward(
+    rc = entry(lib, "backward", meta.bf16)(
         pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
         d_view.data_ptr(), d_params.data_ptr(), frag[0].data_ptr(), frag[1].data_ptr(),
         partial.data_ptr(), workspace.data_ptr(), T, dims, _ptrs(weights), stream)
     _raise_rc(lib, rc, "K2 (fused MLP backward)")
-    K2_LAUNCHES += 1
+    _counted("K2", meta.bf16)
     grads, ofs = [], 0
     for w in weights:
         grads.append(d_params[ofs: ofs + w.numel()].view(w.shape))

@@ -7,16 +7,19 @@ Usage:
 Extra config overrides: --k.k=v (dotted keys, yaml-parsed values).
 A run resumes from the workspace's latest snapshot unless --no_resume, and
 ends with `evaluate_full` on the test split (unless --debug or do_eval is
-off); --test_metrics_only evaluates the latest snapshot without training.
+off); --test_metrics_only evaluates the latest snapshot without training,
+--render_video_only renders the novel-view and pose videos of the latest
+snapshot (animated PNGs under <workspace>/videos).
 The config is the JAX package's: correspondences come from the matcher that
 flow_backbone names (the presets: PDCNet with its bundled weights, refined
 by the matchers' geometry stage, pdcnet_geometry_refine=True);
 --pdcnet_geometry_refine=false trains on raw PDC-Net flows and
 --use_gt_correspondences=true on GT-depth correspondences. Every preset's
 trainer is ported (joint pose+NeRF, GT poses, fixed noisy poses), with
-gradient accumulation (grad_acc_steps) and the COLMAP depth loss. Still
-raising NotImplementedError: video rendering (--render_video_only), the
-eval panels, multi-device (tpu.mesh_shape), merged rendering and bf16.
+gradient accumulation (grad_acc_steps), the COLMAP depth loss and
+--tpu.compute_dtype=bfloat16 (the MLP's products in bf16, through the bf16
+kernels on the card). Not ported: multi-device (tpu.mesh_shape) and merged
+rendering.
 """
 from __future__ import annotations
 
@@ -57,15 +60,20 @@ def run_training(args, extra_overrides):
     project = os.path.join(args.train_module, args.train_name,
                            f"{args.scene}" + (f"_sub{args.train_sub}" if args.train_sub else ""))
     workspace = os.path.join(args.workspace_dir, project)
-    if args.render_video_only:
-        raise NotImplementedError("--render_video_only is not ported to sparf_tpu_torch: the "
-                                  "videos need imageio/matplotlib")
     trainer = define_trainer(cfg, workspace=workspace, debug=args.debug, device=args.device)
     eval_dir = os.path.join(cfg.env.eval_dir, project)
     if args.test_metrics_only:
         if not trainer.load_snapshot("latest"):
             raise FileNotFoundError(f"no snapshot to evaluate in {workspace}")
         trainer.evaluate_full(out_dir=eval_dir)
+        return trainer
+    if args.render_video_only:
+        from sparf_tpu_torch.utils.video import generate_videos_pose, generate_videos_synthesis
+
+        if not trainer.load_snapshot("latest"):
+            raise FileNotFoundError(f"no snapshot to render in {workspace}")
+        generate_videos_synthesis(trainer)
+        generate_videos_pose(trainer)
         return trainer
     trainer.run(load_latest=not args.no_resume)
     if cfg.get("do_eval", True) and not args.debug:

@@ -160,10 +160,22 @@ class TensorboardWriter:
                 pass
 
     def write_image(self, split: str, images: Dict, step: int):
+        """(H, W, 3) float [0, 1] images as image summaries. The PNG is encoded
+        by utils/imgproc.encode_png and the summary added through
+        tensorboardX's protobuf: its add_image encodes with PIL, which the
+        port does not use."""
         if self.writer is None:
             return
+        from tensorboardX.proto.summary_pb2 import Summary
+
+        from sparf_tpu_torch.utils.imgproc import encode_png
+
         for name, img in images.items():
-            self.writer.add_image(f"{split}/{name}", img, step, dataformats="HWC")
+            H, W = img.shape[:2]
+            image = Summary.Image(height=H, width=W, colorspace=3,
+                                  encoded_image_string=encode_png(img))
+            self.writer._get_file_writer().add_summary(
+                Summary(value=[Summary.Value(tag=f"{split}/{name}", image=image)]), step)
 
     def close(self):
         if self.writer is not None:

@@ -4,9 +4,11 @@ The Python loop feeds the step counter, picks the step of the current stage
 (precrop window, fine sampling, pose optimization), logs, validates on
 full-image renders with best-model tracking, and saves snapshots; a run
 resumes from the latest one. `evaluate_full` renders the test split and
-writes the metrics as JSON. Not ported: the training-view visualisation
-(`visualize_train_view` logs that it is skipped) and the eval panels and
-per-image files (`plot`, `save_ind_files`), which need matplotlib/imageio.
+writes the metrics as JSON, with `plot` a panel per test view (plots/) and
+with `save_ind_files` its render and depth (renders/), as PNGs.
+`visualize_train_view` logs a render panel of a train view (and the poses'
+frusta) through the writer's `write_image`. The images come from
+utils/vis.py and utils/imgproc.write_png: no matplotlib, OpenCV or imageio.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from sparf_tpu_torch.models.renderer import RenderConfig
 from sparf_tpu_torch.training import checkpointing, engine
 from sparf_tpu_torch.training import metrics as metrics_mod
 from sparf_tpu_torch.training.sampling import make_ray_sampler
+from sparf_tpu_torch.utils import imgproc, vis
 from sparf_tpu_torch.utils.draws import Draws
 
 
@@ -91,7 +94,6 @@ class NerfTrainerPerScene:
         self.epoch_of_best_val = 0
         self._step_cache: Dict[Tuple, Any] = {}
         self._lpips = None
-        self._vis_logged = False
 
     # ------------------------------------------------------------------ setup
 
@@ -265,12 +267,37 @@ class NerfTrainerPerScene:
         return {}
 
     def visualize_train_view(self, iteration: int):
-        """The JAX package logs a render panel of a train view here; the panel
-        needs matplotlib, which the port does not use yet."""
-        if not self._vis_logged:
-            self.logger.info("visualize_train_view is not ported to sparf_tpu_torch: "
-                             "no train-view panels are written")
-            self._vis_logged = True
+        """Render a random train view; log GT/render/error/depth panel
+        (reference base.py:600-726 septych) and, for a pose-optimizing
+        trainer, the optimized and GT frusta."""
+        H, W = self.train_scene_np["image"].shape[-2:]
+        idx = int(np.random.randint(self.n_train_views))
+        out = self.render_full_image(self.train_scene, idx,
+                                     self.current_poses_w2c()[idx: idx + 1].detach(),
+                                     self.fine_enabled_at(iteration))
+        out = {k: v[0].cpu().numpy() for k, v in out.items()}
+
+        def head(sfx):
+            return dict(pred_rgb=out["rgb" + sfx].reshape(H, W, 3),
+                        pred_depth=out["depth" + sfx].reshape(H, W),
+                        opacity=out["opacity" + sfx].reshape(H, W),
+                        rgb_var=out["rgb_var" + sfx].reshape(H, W, -1).mean(-1)
+                        if "rgb_var" + sfx in out else None,
+                        depth_var=out["depth_var" + sfx].reshape(H, W)
+                        if "depth_var" + sfx in out else None)
+
+        panel = vis.render_panel(
+            gt_rgb=self.train_scene_np["image"][idx].transpose(1, 2, 0),
+            gt_depth=self.train_scene_np["depth_gt"][idx]
+            if "depth_gt" in self.train_scene_np else None,
+            fine_row=head("_fine") if "rgb_fine" in out else None, **head(""))
+        self.writer.write_image("train", {f"render_view{idx}": panel}, iteration)
+        if hasattr(self, "pose_cfg"):
+            frusta = vis.plot_camera_frusta(
+                [("optimized", self.current_poses_w2c().detach().cpu().numpy(), "tab:red"),
+                 ("GT", self.train_scene_np["pose"], "tab:blue")],
+                title=f"iter {iteration}")
+            self.writer.write_image("train", {"poses": frusta}, iteration)
 
     def record_pose_history(self, iteration: int):
         """Append the current pose estimates to workspace/pose_history.npz, as
@@ -382,10 +409,9 @@ class NerfTrainerPerScene:
     def evaluate_full(self, save_ind_files: bool = False, out_dir: Optional[str] = None,
                       plot: bool = False) -> Dict:
         """Test-split evaluation with depth and masked metrics, written as
-        JSON to out_dir/<expname>.json."""
-        if plot or save_ind_files:
-            raise NotImplementedError("evaluate_full(plot=True / save_ind_files=True) is not "
-                                      "ported to sparf_tpu_torch: it needs imageio/matplotlib")
+        JSON to out_dir/<expname>.json; `plot` saves a qualitative panel per
+        test image (plots/eval_NNN.png), `save_ind_files` its render and
+        colorized depth (renders/<name>_pred.png, _depth.png)."""
         cfg = self.cfg
         test_scene_np = create_dataset(cfg, "test")
         test_scene = scene_to_device(test_scene_np, self.device)
@@ -417,6 +443,27 @@ class NerfTrainerPerScene:
                 res["psnr_no_refine"] = -10.0 * np.log10(max(mse_pre, 1e-12))
                 res["refine_psnr_delta"] = res["psnr"] - res["psnr_no_refine"]
             per_image.append(res)
+            pred_hwc = pred_rgb[0].permute(1, 2, 0).cpu().numpy()
+            depth_hw = out[dkey].reshape(H, W).cpu().numpy()
+            if plot:
+                pdir = os.path.join(out_dir or self.workspace, "plots")
+                os.makedirs(pdir, exist_ok=True)
+                panel = vis.render_panel(
+                    gt_rgb=test_scene_np["image"][idx].transpose(1, 2, 0), pred_rgb=pred_hwc,
+                    pred_depth=depth_hw,
+                    opacity=out["opacity_fine" if "opacity_fine" in out else "opacity"]
+                    .reshape(H, W).cpu().numpy(),
+                    gt_depth=test_scene_np["depth_gt"][idx] if "depth_gt" in test_scene_np
+                    else None)
+                imgproc.write_png(os.path.join(pdir, f"eval_{idx:03d}.png"), panel)
+            if save_ind_files:
+                # per-image renders (reference save_ind_files, base.py:506-597)
+                rdir = os.path.join(out_dir or self.workspace, "renders")
+                os.makedirs(rdir, exist_ok=True)
+                name = test_scene_np.get("rgb_path", [f"{i:03d}" for i in range(999)])[idx]
+                stem = os.path.splitext(os.path.basename(str(name)))[0]
+                imgproc.write_png(os.path.join(rdir, f"{stem}_pred.png"), pred_hwc)
+                imgproc.write_png(os.path.join(rdir, f"{stem}_depth.png"), vis.colorize(depth_hw))
         mean: Dict[str, Any] = self._mean(per_image)
         mean["iteration"] = self.iteration
         mean["lpips_tag"] = lpips.weight_tag

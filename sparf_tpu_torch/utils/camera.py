@@ -263,6 +263,32 @@ def R_to_quaternion(R: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def angle_to_rotation_matrix(a: torch.Tensor, axis: str) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) by the angles a around axis X, Y or Z."""
+    roll = dict(X=1, Y=2, Z=0)[axis]
+    zeros, ones = torch.zeros_like(a), torch.ones_like(a)
+    M = torch.stack([torch.stack([torch.cos(a), -torch.sin(a), zeros], -1),
+                     torch.stack([torch.sin(a), torch.cos(a), zeros], -1),
+                     torch.stack([zeros, zeros, ones], -1)], dim=-2)
+    return torch.roll(M, shifts=(roll, roll), dims=(-2, -1))
+
+
+def get_novel_view_poses(pose_anchor: torch.Tensor, N: int = 60, scale: float = 1.0
+                         ) -> torch.Tensor:
+    """N w2c poses (N, 3, 4) oscillating around the anchor w2c pose (3, 4):
+    a rotation of up to asin(0.1) about a point 4 * scale in front of the
+    camera, shifted back by 3.8 * scale."""
+    dev = pose_anchor.device
+    theta = torch.arange(N, dtype=torch.float32, device=dev) / N * 2 * math.pi
+    R_x = angle_to_rotation_matrix(torch.arcsin(torch.sin(theta) * 0.1), "X")
+    R_y = angle_to_rotation_matrix(torch.arcsin(torch.cos(theta) * 0.1), "Y")
+    pose_rot = pose_from_rt(R=R_y @ R_x)
+    pose_shift = pose_from_rt(t=torch.tensor([0.0, 0.0, -4 * scale], device=dev))
+    pose_shift2 = pose_from_rt(t=torch.tensor([0.0, 0.0, 3.8 * scale], device=dev))
+    pose_oscil = pose_compose([pose_shift, pose_rot, pose_shift2])
+    return pose_compose([pose_oscil, pose_anchor[None]])
+
+
 def get_pixel_grid(H: int, W: int, device=None) -> torch.Tensor:
     """(H*W, 2) pixel-center coordinates (x+0.5, y+0.5), row-major over y."""
     y = torch.arange(H, dtype=torch.float32, device=device) + 0.5

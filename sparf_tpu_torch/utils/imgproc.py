@@ -24,6 +24,8 @@ card has no `cv2`, so the port keeps its own versions, held to OpenCV's by
     minimal solver), `recover_pose` (cv2.recoverPose) and
     `solve_pnp_ransac` (cv2.solvePnPRansac with SOLVEPNP_ITERATIVE);
   - `read_png`: PNG decoding with zlib and numpy (imageio.imread's arrays);
+    `encode_png` / `write_png` / `write_apng`: 8-bit RGB PNG and animated
+    PNG (the port's video format) encoding, `read_apng` their frames back;
     `decode_jpeg`: baseline JPEG in libjpeg's integer arithmetic (PIL's and
     OpenCV's arrays, bit for bit); `read_image`: either, by content.
 """
@@ -1027,6 +1029,117 @@ def read_png(path) -> np.ndarray:
             rgba[: len(trns), 3] = trns
         return rgba[img[..., 0]][..., : 4 if trns is not None else 3]
     return img[..., 0] if channels == 1 else img
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _rgb8(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8, or float in [0, 1] (clipped, scaled by 255 and
+    truncated, as `(np.clip(x, 0, 1) * 255).astype(np.uint8)`)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) images, got {img.shape}")
+    return img
+
+
+def _idat(img: np.ndarray) -> bytes:
+    """zlib stream of the rows, each with filter byte 0 (none)."""
+    H = img.shape[0]
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, -1)], 1)
+    return zlib.compress(rows.tobytes(), 6)
+
+
+def _ihdr(H: int, W: int) -> bytes:
+    return _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """An (H, W, 3) image (uint8, or float in [0, 1]) as the bytes of an 8-bit
+    RGB PNG."""
+    img = _rgb8(img)
+    return (_PNG_SIGNATURE + _ihdr(*img.shape[:2]) + _png_chunk(b"IDAT", _idat(img))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_png(path, img: np.ndarray) -> str:
+    """Writes an (H, W, 3) image (uint8, or float in [0, 1]) as an 8-bit RGB
+    PNG; returns the path."""
+    with open(path, "wb") as fh:
+        fh.write(encode_png(img))
+    return str(path)
+
+
+def write_apng(path, frames: Sequence[np.ndarray], fps: int = 15) -> str:
+    """Writes equal-size (H, W, 3) frames as an animated PNG (APNG: acTL, one
+    fcTL per frame, frame 0 in IDAT and the rest in fdAT; every frame full
+    size, drawn over nothing), looping, 1/fps s per frame; lossless. Viewers
+    without APNG show frame 0. Returns the path."""
+    imgs = [_rgb8(f) for f in frames]
+    if not imgs or any(f.shape != imgs[0].shape for f in imgs):
+        raise ValueError("write_apng takes one or more frames of one size")
+    H, W = imgs[0].shape[:2]
+    out = [_PNG_SIGNATURE, _ihdr(H, W), _png_chunk(b"acTL", struct.pack(">II", len(imgs), 0))]
+    seq = 0
+    for i, img in enumerate(imgs):
+        out.append(_png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, W, H, 0, 0, 1,
+                                                   int(fps), 0, 0)))
+        seq += 1
+        if i == 0:
+            out.append(_png_chunk(b"IDAT", _idat(img)))
+        else:
+            out.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + _idat(img)))
+            seq += 1
+    out.append(_png_chunk(b"IEND", b""))
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out))
+    return str(path)
+
+
+def read_apng(path) -> list:
+    """The frames of an 8-bit RGB animated PNG as (H, W, 3) uint8 arrays:
+    each fcTL region (its IDAT or fdAT data, any row filter) drawn over the
+    canvas (blend op 0); a PNG without acTL is one frame. Raises ValueError
+    for other colour types, interlacing, or the dispose / blend ops 1-2."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG")
+    pos, header, frames, regions = 8, None, [], []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos: pos + 4])
+        kind, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"fcTL":
+            _, w, h, x0, y0, _, _, dispose, blend = struct.unpack(">IIIIIHHBB", body)
+            if dispose or blend:
+                raise ValueError(f"{path}: APNG dispose/blend op {dispose}/{blend} not read")
+            regions.append((w, h, x0, y0, []))
+        elif kind in (b"IDAT", b"fdAT"):
+            if not regions:  # a plain PNG, or an APNG whose IDAT is no frame
+                regions.append((None, None, 0, 0, []))
+            regions[-1][4].append(body if kind == b"IDAT" else body[4:])
+        elif kind == b"IEND":
+            break
+    if header is None or header[2:5] != (8, 2, 0) or header[6]:
+        raise ValueError(f"{path}: read_apng reads non-interlaced 8-bit RGB only")
+    W, H = header[:2]
+    canvas = np.zeros((H, W, 3), np.uint8)
+    for w, h, x0, y0, parts in regions:
+        if not parts:
+            continue
+        w, h = w or W, h or H
+        raw = np.frombuffer(zlib.decompress(b"".join(parts)), np.uint8)
+        rows = _unfilter(raw[: h * (3 * w + 1)], h, 3 * w, 3, str(path))
+        canvas[y0: y0 + h, x0: x0 + w] = rows.reshape(h, w, 3)
+        frames.append(canvas.copy())
+    return frames
+
 
 # ---------------------------------------------------------------------------
 # JPEG decoding (baseline, Huffman), as libjpeg(-turbo) decodes by default

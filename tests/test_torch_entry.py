@@ -63,10 +63,39 @@ def test_eval_entry_after_cli_training(tmp_path):
     run_trainval.main(args + ["--test_metrics_only"])
     assert os.path.exists(tmp_path / "eval/joint_pose_nerf_training/synthetic/sparf/spheres/"
                                      "eval.json")
-    with pytest.raises(NotImplementedError):
-        run_trainval.main(args + ["--render_video_only"])
-    with pytest.raises(NotImplementedError):
-        resumed.evaluate_full(plot=True)
+    # the novel-view and pose videos of the latest snapshot, animated PNGs that
+    # decode (PIL here; the port's reader on the card, chip_smoke.py)
+    from PIL import Image
+
+    from sparf_tpu_torch.utils import imgproc
+
+    video = run_trainval.main(args + ["--render_video_only"])
+    vdir = os.path.join(video.workspace, "videos")
+    assert sorted(os.listdir(vdir)) == ["depth_novel_view.png", "poses.png", "rgb_novel_view.png"]
+    for name, n_frames in (("rgb_novel_view.png", 60), ("poses.png", 3 + 10)):
+        frames = imgproc.read_apng(os.path.join(vdir, name))
+        with Image.open(os.path.join(vdir, name)) as im:
+            assert im.n_frames == len(frames) == n_frames
+            im.seek(n_frames - 1)
+            assert np.array_equal(np.asarray(im.convert("RGB")), frames[-1])
+        assert frames[0].shape[2] == 3 and np.ptp(frames[0]) > 0
+    # the eval panels and per-image files
+    ev_dir = tmp_path / "ev_plots"
+    resumed.evaluate_full(plot=True, save_ind_files=True, out_dir=str(ev_dir))
+    H, W = resumed.H, resumed.W
+    panel = imgproc.read_png(ev_dir / "plots" / "eval_000.png")
+    assert panel.shape == (H, 6 * W, 3) and np.ptp(panel) > 0  # GT, render, error, 3 maps
+    stem = os.path.splitext(_test_view_name(resumed))[0]  # the test view's file name
+    assert sorted(os.listdir(ev_dir / "renders")) == [f"{stem}_depth.png", f"{stem}_pred.png"]
+    for name in os.listdir(ev_dir / "renders"):
+        img = imgproc.read_png(ev_dir / "renders" / name)
+        assert img.shape == (H, W, 3) and np.ptp(img) > 0
+
+
+def _test_view_name(trainer) -> str:
+    from sparf_tpu_torch.datasets import create_dataset
+
+    return create_dataset(trainer.cfg, "test")["rgb_path"][0]
 
 
 def test_cuda_device_without_gpu_raises():

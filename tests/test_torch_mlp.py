@@ -96,11 +96,3 @@ def test_composite_values_and_gradients(setbg):
     (torch.sum(out_t["depth"]) + torch.sum(out_t["rgb"])).backward()
     assert_close(d.grad, g_j, atol=1e-4)
 
-
-def test_bf16_compute_is_refused():
-    from sparf_tpu.configs.presets import PRESETS
-
-    cfg = PRESETS["joint_pose_nerf_training/synthetic/sparf"]()
-    cfg.tpu.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError):
-        tmlp.MLPConfig.from_config(cfg)

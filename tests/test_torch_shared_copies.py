@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host modules (configs, admin,
-alignment, logging utilities, the DTU/LLFF loaders and the synthetic scene's
-numpy helpers) against the originals, on the same inputs. The loaders resize,
+alignment, logging utilities, the DTU/LLFF loaders, the synthetic scene's
+numpy helpers, the novel-view paths) against the originals, on the same inputs. The loaders resize,
 crop and decompose projection matrices through the port's OpenCV-free
 utils/imgproc.py and must still give the JAX package's scenes bit for bit
 (area and nearest resizing in OpenCV's arithmetic); so must the ray
@@ -19,6 +19,8 @@ from sparf_tpu.datasets import create_dataset as create_dataset_j
 from sparf_tpu.datasets import synthetic as synthetic_j
 from sparf_tpu.training import logging_utils as logging_j
 from sparf_tpu.utils import alignment as alignment_j
+from sparf_tpu.utils import camera as camera_j
+from sparf_tpu.utils import rendering_paths as paths_j
 from sparf_tpu_torch import admin as admin_t
 from sparf_tpu_torch import datasets as datasets_t
 from sparf_tpu_torch.configs import config as config_t
@@ -26,6 +28,8 @@ from sparf_tpu_torch.configs import presets as presets_t
 from sparf_tpu_torch.datasets import synthetic as synthetic_t
 from sparf_tpu_torch.training import logging_utils as logging_t
 from sparf_tpu_torch.utils import alignment as alignment_t
+from sparf_tpu_torch.utils import camera as camera_t
+from sparf_tpu_torch.utils import rendering_paths as paths_t
 
 PRESET_NAMES = sorted(presets_j.PRESETS)
 
@@ -316,10 +320,27 @@ def test_synthetic_helpers_equal(octaves, specular):
     np.testing.assert_array_equal(synthetic_t.SPHERES, synthetic_j.SPHERES)
 
 
+def test_rendering_paths_equal():
+    sc = synthetic_j.load_synthetic_scene(split="train", H=24, W=32, n_train=4, n_test=1)
+    c2w = alignment_j.invert_poses(sc["pose"])
+    np.testing.assert_array_equal(paths_t.generate_spiral_path(c2w, sc["depth_range"], 20),
+                                  paths_j.generate_spiral_path(c2w, sc["depth_range"], 20))
+    np.testing.assert_array_equal(paths_t.generate_spiral_path_dtu(c2w, 15, perc=50),
+                                  paths_j.generate_spiral_path_dtu(c2w, 15, perc=50))
+    np.testing.assert_array_equal(paths_t.focus_pt_fn(c2w), paths_j.focus_pt_fn(c2w))
+    # the oscillation path (camera.get_novel_view_poses), torch against jax
+    import torch
+
+    osc_t = camera_t.get_novel_view_poses(torch.as_tensor(sc["pose"][2]), N=30, scale=1.3)
+    osc_j = camera_j.get_novel_view_poses(sc["pose"][2], N=30, scale=1.3)
+    np.testing.assert_allclose(osc_t.numpy(), np.asarray(osc_j), atol=2e-6)
+
+
 def test_port_modules_are_copies_not_imports():
     """The copies are their own modules: nothing of the JAX package is
     reachable from them."""
-    for mod in (config_t, presets_t, admin_t, alignment_t, logging_t, synthetic_t, datasets_t):
+    for mod in (config_t, presets_t, admin_t, alignment_t, logging_t, synthetic_t, datasets_t,
+                paths_t):
         assert mod.__name__.startswith("sparf_tpu_torch."), mod
         for value in vars(mod).values():
             owner = getattr(value, "__module__", None) or ""
