@@ -16,7 +16,8 @@ Phases, one line each; any failure raises and the process exits non-zero:
      K3 (forward on packed weights) at the full 8x256 width, ragged T, both
      view_dep settings and an active coarse-to-fine mask, against their
      plain torch versions (K3 also against K1's; bf16 per point, see
-     BF16_FLIPPED); K2 run twice must give the same bits; median times at
+     BF16_FLIPPED; fp32 also at T past the merged fine level's 786,432
+     points); K2 run twice must give the same bits; median times at
      T = 262,144 beside each kernel's bound (fp32 cores, and the variant's
      tensor-core rate) and its plain cuBLAS chain;
   4. slice-check: one step of the tiny sparf config on the card against the
@@ -82,9 +83,28 @@ Phases, one line each; any failure raises and the process exits non-zero:
      (weight 10^0, a backward for every forward): the triangulation's
      seconds, perc_col_depth, it/s;
  12. accum: grad_acc_steps = 2 on the joint recipe at the full shape, it/s,
-     the NeRF updated on every second step and the poses on every step.
+     the NeRF updated on every second step and the poses on every step;
+ 13. merged-check: the tiny step with tpu.merged_render on the card against
+     the CPU in both stages, then against the card's per-bundle step on the
+     same draws per bundle (utils/draws.KeyedDraws), fp32 kernel
+     tolerances; per step one K1 and one K2 per hierarchy level and round
+     of bundles, one K3 per level for the visibility group; merged-slice:
+     the full shape in the joint and the fine stage with merged_render off
+     and on, one step of each held to the other as in the merged-check (K1
+     and K2 at the merged fine level's 786,432 points), then in turns (off,
+     on, on, off), it/s and launches per step;
+ 14. multi-check: two gloo ranks on the one card (spawned processes, CUDA
+     tensors through gloo) run the tiny step sharded over rays against the
+     one-process card step (loss, updated parameters; every rank's
+     parameters equal), then build it on SfM initial poses and the learned
+     matcher's pools, which rank 0 alone computes and every rank must hold
+     bit for bit; a one-rank NCCL group runs the tiny step too, then two
+     ranks train the full shape in the joint stage (it/s per rank);
+ 15. profile: sparf_tpu_torch/scripts/profile_step.py, 10 fine-stage steps at
+     fp32 at the full shape, device time by category and the idle share.
 Each path from 7 on counts its kernel launches from 0; the kernels line sums
-them (the bf16 variants': the bf16-slice's). The geometry stage runs four
+them (the bf16 variants': the bf16-slice's; the two full-shape ranks' counts
+come back from their processes). The geometry stage runs four
 times in all (two matcher routes, the slice's trainer, its refresh); each
 phase's seconds are printed. Then a JSON line with every kernel, and last
 {"ok": true, "device": {...}}.
@@ -101,6 +121,13 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+try:
+    # the port's step shapes: the tiny one and the bench.py full shape
+    from sparf_tpu_torch.parallel import dryrun as dryrun_configs
+except ImportError:
+    print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+    sys.exit(1)
 
 # tolerances (fp32 everywhere; the kernels and the plain versions sum in other
 # orders): forward outputs within 1e-4 of the largest output magnitude; every
@@ -338,8 +365,10 @@ def _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped, f
 
 def check_kernels(bf16: bool = False) -> dict:
     """K1, K2, K3 and k_pack of one variant (3xTF32 or bf16) against their
-    plain versions at the full width; median times at T = 262,144. Every
-    comparison runs and prints before a miss raises."""
+    plain versions at the full width, at ragged T around a timed call's and,
+    for fp32 with view_dep, past the merged fine level's 786,432 points
+    (K2's workspace then holds over 2^31 floats); median times at T =
+    262,144. Every comparison runs and prints before a miss raises."""
     import torch
 
     from sparf_tpu_torch.ops import fused_mlp as fm
@@ -349,7 +378,7 @@ def check_kernels(bf16: bool = False) -> dict:
     flipped = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     failed = []
     for view_dep in (True, False):
-        for T in (131071, 262145):
+        for T in (131071, 262145) + ((786433,) if view_dep and not bf16 else ()):
             meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(
                 view_dep, T, seed=T, bf16=bf16)
             check_packing(meta, weights, params)
@@ -470,11 +499,7 @@ def check_kernels(bf16: bool = False) -> dict:
     return {"max_abs_err": worst, "flipped": flipped, "ms": times, "bounds": bounds}
 
 
-TINY_SPARF = dict(
-    env={}, scene="spheres", max_iter=1000, use_gt_correspondences=True, min_nbr_matches=10,
-    synthetic=dict(H=24, W=32, n_train=3, n_test=1),
-    arch=dict(layers_feat=[None, 64, 64, 64, 64], layers_rgb=[None, 32, 3], skip=[2]),
-    nerf=dict(sample_intvs=32, sample_intvs_fine=16, rand_rays=16), depth_cons_nbr_rays=16)
+TINY_SPARF = dict(dryrun_configs.TINY_GT, env={})
 
 
 def _merged(base: dict, over: dict) -> dict:
@@ -699,7 +724,7 @@ DEVICES = {"card": CARD, "cpu": "cpu"}
 MATCHER_TOL = {"mapping_px": 1e-2, "p_r": 1e-3, "corres_px": 2e-2, "p_r_full": 1e-3,
                "ransac_agreement": 0.99,
                "spsg_agreement": 0.99, "zncc_agreement": 0.98, "zncc_pool_agreement": 0.999}
-FULL_SCENE = dict(env={}, scene="spheres", synthetic=dict(H=300, W=400, n_train=3, n_test=1))
+FULL_SCENE = dict(dryrun_configs.FULL_SCENE, env={})
 MATCHER_POOLS = dict(FULL_SCENE, use_gt_correspondences=False, min_nbr_matches=100)
 # tolerances of the geometry check (card with TF32 on against the CPU): the
 # share of pixels whose best hypothesis agrees in pass 1 of _geom_rematch_pair
@@ -1644,6 +1669,242 @@ def run_accum_phase(steps: int) -> dict:
     return {"it_per_sec": its, "launches": launches}
 
 
+MERGED = dict(tpu=dict(merged_render=True))
+
+
+def _levels(trainer, it: int) -> int:
+    return 2 if trainer.fine_enabled_at(it) else 1
+
+
+def merged_vs_per_bundle(trainers, it: int, what: str, keep_grad: float = 0.0) -> str:
+    """One step at iteration `it` of trainers[True] (merged) and
+    trainers[False] (per-bundle), both on the card, from the same state and
+    the same draws per bundle (KeyedDraws): losses within rtol 1e-4,
+    gradients (Adam's mu / 0.1) within BWD_RTOL of each tensor's largest
+    magnitude, updated parameters within 1e-5 (NeRF parameters where the
+    per-bundle gradient is at least `keep_grad`: Adam's first step moves an
+    element by lr g / (|g| + eps), so a gradient within its rounding of 0
+    can step either way); the merged step launches one K1 and one K2 per
+    level for each of the two rounds of bundles and one K3 per level (the
+    visibility group), the per-bundle step one K1/K2 pair per level for each
+    of its five gradient bundles. Returns the phase's summary."""
+    import dataclasses
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+    from sparf_tpu_torch.training import engine
+    from sparf_tpu_torch.utils.draws import KeyedDraws
+
+    res = {}
+    for merged, tr in trainers.items():
+        st = dataclasses.replace(tr.state, iteration=it, iteration_nerf=it)
+        fm.reset_launch_counts()
+        res[merged] = tr.get_step(it)(st, KeyedDraws(it, "cuda")) + (fm.launch_counts(),)
+    (new_b, stats_b, l_b), (new_m, stats_m, l_m) = res[False], res[True]
+    lv = _levels(trainers[True], it)
+    want_m = {"K1": 2 * lv, "K2": 2 * lv, "K3": lv}
+    want_b = {"K1": 5 * lv, "K2": 5 * lv, "K3": lv}
+    if any(l_m[k] != v for k, v in want_m.items()) or any(l_b[k] != v
+                                                          for k, v in want_b.items()):
+        raise AssertionError(f"{what} at {it}: launches merged {l_m} (want {want_m}), "
+                             f"per-bundle {l_b} (want {want_b})")
+    for k, v in stats_b.items():
+        a, b = float(stats_m[k]), float(v)
+        if not abs(a - b) <= 1e-6 + 1e-4 * abs(b):
+            raise AssertionError(f"{what} at {it}: {k} merged {a} vs per-bundle {b}")
+    pairs = list(zip(new_m.opt_state_nerf.mu, new_b.opt_state_nerf.mu))
+    if new_b.opt_state_pose is not None:
+        pairs += list(zip(new_m.opt_state_pose.mu, new_b.opt_state_pose.mu))
+    worst = 0.0
+    for a, b in pairs:
+        err, rel = rel_err(a, b)
+        worst = max(worst, rel)
+        if not rel <= BWD_RTOL:
+            raise AssertionError(f"{what} at {it}: gradient off by {err:.3g} (rel {rel:.3g})")
+    worst_param, held_out = 0.0, 0
+    for a, b, g in zip(engine.tree_leaves(new_m.nerf_params),
+                       engine.tree_leaves(new_b.nerf_params), new_b.opt_state_nerf.mu):
+        keep = (g / 0.1).abs() >= keep_grad
+        held_out += int((~keep).sum())
+        worst_param = max(worst_param, float((a - b).abs()[keep].max()) if keep.any() else 0.0)
+    for a, b in zip(new_m.pose_params.values(), new_b.pose_params.values()):
+        worst_param = max(worst_param, float((a - b).abs().max()))
+    if not worst_param <= 1e-5:
+        raise AssertionError(f"{what} at {it}: updated parameters differ by {worst_param:.3g}")
+    return (f"step at iteration {it}, card: merged = per-bundle (loss all "
+            f"{float(stats_m['all']):.6g} vs {float(stats_b['all']):.6g}, worst gradient "
+            f"{worst:.3g} of scale, parameters within {worst_param:.3g}"
+            + (f", {held_out} NeRF values with |g| < {keep_grad:g} held out" if keep_grad else "")
+            + f"); launches merged {l_m}, per-bundle {l_b}")
+
+
+def check_merged_cuda_vs_per_bundle() -> None:
+    """merged_vs_per_bundle for the tiny step in both stages."""
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+
+    trainers = {}
+    for merged in (False, True):
+        cfg = build_config("joint_pose_nerf_training/synthetic", "sparf",
+                           _merged(TINY_SPARF, dict(tpu=dict(merged_render=merged))))
+        trainers[merged] = define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_mg_"),
+                                          device="cuda", save_option=False)
+    for it in (0, 350):
+        phase("merged-check", "tiny " + merged_vs_per_bundle(trainers, it, "merged-check"))
+
+
+def run_merged_slice(steps: int) -> dict:
+    """The full shape (GT-depth pools) with tpu.merged_render off and on: in
+    each stage first one step of each held to the other
+    (merged_vs_per_bundle: the merged K1/K2 launches at T = 3,072 rays x
+    the level's samples, 786,432 points on the fine level), then the timed
+    runs in turns off, on, on, off: it/s (the mean of each side's two runs)
+    and launches per step."""
+    trainers = {m: _full_trainer("joint_pose_nerf_training/synthetic", "sparf", dict(
+        use_gt_correspondences=True, min_nbr_matches=100, tpu=dict(merged_render=m)))
+        for m in (False, True)}
+    ratio = float(trainers[True].cfg.ratio_end_joint_nerf_pose_refinement)
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3", "pack"), 0)}
+    it_fine = int(trainers[True].cfg.max_iter * (ratio + 0.05))
+    for name, it0 in (("joint_coarse", 0), ("fine", it_fine)):
+        phase("merged-slice", f"{name}, full shape: " + merged_vs_per_bundle(
+            trainers, it0, "merged-slice", keep_grad=1e-6))
+        rates = {False: [], True: []}
+        per_step = {}
+        for merged in (False, True, True, False):
+            tr = trainers[merged]
+            state, its, launches, losses = _timed_steps(tr, it0, steps,
+                                                        f"merged-slice {name} {merged}")
+            rates[merged].append(its)
+            per_step[merged] = {k: v / (steps + 1) for k, v in launches.items()}
+            for k in out["launches"]:
+                out["launches"][k] += launches[k]
+        out[name] = {("merged" if m else "per_bundle"): sum(r) / len(r) for m, r in rates.items()}
+        out[name]["runs"] = {("merged" if m else "per_bundle"): r for m, r in rates.items()}
+        out[name]["launches_per_step"] = {("merged" if m else "per_bundle"): v
+                                          for m, v in per_step.items()}
+        phase("merged-slice", f"{name} (iteration {it0}), {steps} steps after 1 warm-up per run, "
+                              f"off/on/on/off: per-bundle {rates[False][0]:.3f}, "
+                              f"{rates[False][1]:.3f} it/s, merged {rates[True][0]:.3f}, "
+                              f"{rates[True][1]:.3f} it/s; launches per step per-bundle "
+                              f"{per_step[False]}, merged {per_step[True]}")
+    return out
+
+
+def check_multi() -> dict:
+    """Ray sharding on the card: two gloo ranks (CUDA tensors through gloo,
+    both on cuda:0) run the tiny step in both stages against the one-process
+    card step from the same initial state and draws: every loss within rtol
+    1e-5, the updated parameters within 1e-5 where the one-process gradient
+    is at least 1e-6 (tests/traced_draws.py's holdout), every rank's
+    parameters equal bit for bit; then the same two ranks build the tiny
+    trainer on SfM initial poses and the learned matcher's pools (PDC-Net
+    with the geometry stage on the card), which rank 0 alone computes (the
+    other rank's calls would raise), and every rank must hold rank 0's
+    initial poses and pools bit for bit; a one-rank NCCL group runs the
+    tiny step; then two gloo ranks at the full shape, joint stage, it/s per
+    rank."""
+    import dataclasses
+
+    import torch
+
+    from sparf_tpu_torch.parallel import dryrun
+    from sparf_tpu_torch.training import engine
+    from sparf_tpu_torch.training.define_trainer import define_trainer
+    from sparf_tpu_torch.utils.draws import Draws
+
+    over = dict(use_gt_correspondences=True)
+
+    def one_process(n, iterations):
+        tr = define_trainer(dryrun.tiny_config(n, mesh=False, **over),
+                            workspace=tempfile.mkdtemp(prefix="sparf_ref_"), device="cuda",
+                            save_option=False)
+        out = []
+        for it in iterations:
+            st = dataclasses.replace(tr.state, iteration=it, iteration_nerf=it)
+            new, stats = tr.get_step(it)(st, Draws(it, "cuda"))
+            out.append((new, {k: float(v) for k, v in stats.items() if v.numel() == 1}))
+        return out
+
+    def compare(ranks, ref, what):
+        worst = 0.0
+        for k, (new, stats) in enumerate(ref):
+            for r in ranks:
+                got = r["results"][k]
+                for key in ("all", "render", "corres", "depth_cons"):
+                    a, b = got["stats"][key], stats[key]
+                    if not abs(a - b) <= 1e-5 * abs(b) + 1e-8:
+                        raise AssertionError(f"{what}: {key} rank {r['rank']} {a} vs {b}")
+                for a, b in zip(got["nerf"] + got["pose"], ranks[0]["results"][k]["nerf"]
+                                + ranks[0]["results"][k]["pose"]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{what}: rank {r['rank']} diverged from rank 0")
+            got = ranks[0]["results"][k]
+            for a, b, g in zip(got["nerf"], engine.tree_leaves(new.nerf_params),
+                               new.opt_state_nerf.mu):
+                keep = (g.cpu() / 0.1).abs() >= 1e-6
+                d = float((a - b.cpu()).abs()[keep].max()) if keep.any() else 0.0
+                worst = max(worst, d)
+                if not d <= 1e-5:
+                    raise AssertionError(f"{what}: updated NeRF parameters off by {d:.3g}")
+            for a, b in zip(got["pose"], engine.tree_leaves(new.pose_params)):
+                d = float((a - b.cpu()).abs().max())
+                worst = max(worst, d)
+                if not d <= 1e-5:
+                    raise AssertionError(f"{what}: updated poses off by {d:.3g}")
+        return worst
+
+    its = (0, 350)
+    gloo = dryrun.step_on_ranks(2, backend="gloo", device="cuda:0", cfg_over=over,
+                                iterations=its)
+    worst = compare(gloo, one_process(2, its), "multi-check gloo x2")
+    sent = gloo[0]["results"][0]["collective_bytes"]
+    phase("multi-check", f"2 gloo ranks on {gloo[0]['device']} (CUDA tensors through gloo) = "
+                         f"the one-process card step at iterations {its} (loss all "
+                         f"{gloo[0]['results'][0]['stats']['all']:.6g}; parameters within "
+                         f"{worst:.3g}; ranks equal bit for bit); collective bytes of the joint "
+                         f"step per rank {sent}")
+    with tempfile.TemporaryDirectory(prefix="sparf_sfm_") as cache:
+        pre = dryrun.step_on_ranks(2, backend="gloo", device="cuda:0",
+                                   cfg_over=dict(dryrun.SFM_MATCHER, sfm_cache_dir=cache),
+                                   iterations=(0,), rank_setup=dryrun.precompute_on_rank0_only)
+    differ = dryrun.ranks_disagree(pre)
+    pools = pre[0]["precompute"]["pools"]
+    if differ or not pools.get("n_pairs"):
+        raise AssertionError(f"multi-check: the precompute differs across ranks {differ} or "
+                             f"kept no pair ({pools.get('n_pairs')})")
+    phase("multi-check", f"2 gloo ranks, SfM initial poses and PDC-Net + geometry-stage pools "
+                         f"computed on rank 0 alone: {int(pools['n_pairs'])} pairs, every rank "
+                         f"holds rank 0's poses and pools bit for bit")
+    nccl = dryrun.step_on_ranks(1, backend="nccl", device="cuda:0", cfg_over=over,
+                                iterations=its)
+    worst = compare(nccl, one_process(1, its), "multi-check nccl x1")
+    phase("multi-check", f"1 NCCL rank = the one-process card step (parameters within "
+                         f"{worst:.3g}), backend {nccl[0]['backend']}")
+    full = dryrun.step_on_ranks(2, backend="gloo", device="cuda:0", full=True, iterations=(0,),
+                                timed_steps=5)
+    rates = [r["results"][0]["it_per_sec"] for r in full]
+    launches = {k: sum(r["results"][0]["launches"][k] for r in full)
+                for k in ("K1", "K2", "K3", "pack")}
+    phase("multi-check", f"2 gloo ranks on one card at the full shape, joint stage: "
+                         f"{rates[0]:.3f} / {rates[1]:.3f} it/s per rank over 5 steps after 1, "
+                         f"loss all {full[0]['results'][0]['stats']['all']:.6g}; launches "
+                         f"(both ranks) {launches}")
+    return {"it_per_sec_per_rank": rates, "launches": launches,
+            "collective_bytes_tiny": sent}
+
+
+def run_profile_phase() -> dict:
+    """profile_step.py: 10 fine-stage steps at fp32 at the full shape."""
+    from sparf_tpu_torch.scripts import profile_step
+
+    res = profile_step.main(["--stage", "fine", "--steps", "10"])
+    if res["platform"] != "cuda" or res["ms_per_step"]["K1"] <= 0:
+        raise AssertionError(f"profile: no device time for K1: {res['ms_per_step']}")
+    phase("profile", f"fine stage, fp32, {res['window_ms_per_step']:.3f} ms per step, idle share "
+                     f"{res['idle_share']:.3f}; ms per step by category "
+                     + json.dumps({k: round(v, 3) for k, v in res["ms_per_step"].items()}))
+    return {k: v for k, v in res.items() if k != "kernels"}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true")
@@ -1654,10 +1915,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(REPO, "sparf_tpu_torch")):
-        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1724,6 +1981,15 @@ def main() -> int:
     fx = timed("fixed-pose", run_fixed_pose_phase, steps=3)
     ds = timed("dsnerf", run_dsnerf_phase, steps=3)
     ac = timed("accum", run_accum_phase, steps=4)
+    # 13. merged rendering: the tiny step card vs CPU and vs the card's
+    # per-bundle step, then the full-shape A/B
+    timed("merged-check", check_step_cuda_vs_cpu, MERGED, "merged-check")
+    timed("merged-check-card", check_merged_cuda_vs_per_bundle)
+    ms = timed("merged-slice", run_merged_slice, steps=5)
+    # 14. ray sharding over processes on the one card
+    mu = timed("multi-check", check_multi)
+    # 15. the step profile
+    pr = timed("profile", run_profile_phase)
     phase("phases", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
@@ -1732,7 +1998,7 @@ def main() -> int:
     names = {"K1": "K1_fused_mlp_forward", "K2": "K2_fused_mlp_backward",
              "K3": "K3_fused_mlp_forward_packed"}
     kernels = []
-    for dtype, chk, paths in (("float32", checks, (sl, ev, fx, ds, ac, vd)),
+    for dtype, chk, paths in (("float32", checks, (sl, ev, fx, ds, ac, vd, ms, mu)),
                               ("bfloat16", checks_bf16, (sb,))):
         for k in ("K1", "K2", "K3"):
             b = chk["bounds"][k]
@@ -1754,6 +2020,8 @@ def main() -> int:
                       "dsnerf": {k: ds[k] for k in ("triangulation_s", "it_per_sec",
                                                     "perc_col_depth")},
                       "accum_it_per_sec": ac["it_per_sec"],
+                      "merged_it_per_sec": {k: ms[k] for k in ("joint_coarse", "fine")},
+                      "multi": mu, "profile_fine_fp32": pr,
                       "matcher": {"check": mc, "pools": mp, "refresh_s": sl["refresh_s"],
                                   "refresh_geometry": sl["refresh_geometry"]},
                       "phase_s": seconds}))

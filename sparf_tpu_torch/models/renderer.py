@@ -4,8 +4,9 @@ stratified and hierarchical depth sampling, the MLP call, compositing.
   - `render_rays` renders a (B,R) tile of rays, coarse [+ fine];
   - `render_to_max` renders up to a per-ray max depth; its `all_cumulated`
     is the visibility signal of the depth-consistency loss;
-  - `render_bundles` renders the RayBundles a training step's losses ask for,
-    one render call per bundle;
+  - `render_bundles` renders the RayBundles a training step's losses ask for:
+    one render call per bundle, or (merge=True) one MLP call per hierarchy
+    level and gradient group over the points of every bundle;
   - `render_image_chunked` renders a full image deterministically, in chunks
     of rays, without gradients (validation and evaluation).
 
@@ -13,8 +14,10 @@ The MLP runs through sparf_tpu_torch.ops.fused_mlp: the CUDA kernels on CUDA
 tensors, their plain versions on CPU tensors. Random numbers come from a Draws object
 (sparf_tpu_torch.utils.draws), consumed in the JAX package's order.
 
-Not ported yet: the merged multi-bundle render (`cfg.tpu.merged_render`,
-off by default) and the sharded MLP call.
+Under ray sharding (sparf_tpu_torch.parallel) a training step's bundles
+hold only this rank's rays, sharded where the losses sample them, so the
+renderer sees local rays; `render_image_chunked` splits each chunk's rays
+across ranks itself and gathers the results.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from sparf_tpu_torch.models import nerf_mlp
 from sparf_tpu_torch.models.nerf_mlp import MLPConfig
 from sparf_tpu_torch.ops import fused_mlp
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.utils import camera
 
 
@@ -86,12 +90,13 @@ def render_depth_range(cfg, scene) -> torch.Tensor:
 
 def sample_depth(draws, batch_size: int, num_rays: int, n_samples: int,
                  depth_range: torch.Tensor, depth_param: str = "metric",
-                 stratified: bool = True) -> torch.Tensor:
-    """Stratified (or midpoint) depth samples, (B,R,S,1)."""
+                 stratified: bool = True, n_rays: Optional[int] = None) -> torch.Tensor:
+    """Stratified (or midpoint) depth samples, (B,R,S,1); under ray sharding
+    the R rays are this rank's share of `n_rays` (mesh.draw_rays)."""
     depth_min, depth_max = depth_range[0], depth_range[1]
     shape = (batch_size, num_rays, n_samples, 1)
     if stratified and draws is not None:
-        rand = draws.uniform(shape)
+        rand = mesh_mod.draw_rays(draws, shape, n_rays)
     else:
         rand = torch.full(shape, 0.5, device=depth_range.device)
     rand = rand + torch.arange(n_samples, dtype=torch.float32,
@@ -171,18 +176,19 @@ def _composite(cfg: RenderConfig, ray, pred, depth_samples):
 
 def render_rays(params: Dict[str, Any], cfg: RenderConfig, center: torch.Tensor,
                 ray: torch.Tensor, depth_range: torch.Tensor, progress: float, draws=None,
-                stratified: bool = True, fine_enabled: bool = False
-                ) -> Dict[str, torch.Tensor]:
+                stratified: bool = True, fine_enabled: bool = False,
+                n_rays: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Render a (B,R) tile of rays; params {'coarse': tree [, 'fine': tree]}.
 
     draws=None renders deterministically (midpoint and det fine samples).
+    `n_rays`: see RayBundle.
     """
     B, R = ray.shape[0], ray.shape[1]
     depth_samples = sample_depth(draws, B, R, cfg.sample_intvs, depth_range, cfg.depth_param,
-                                 stratified=cfg.sample_stratified and stratified)
+                                 stratified=cfg.sample_stratified and stratified, n_rays=n_rays)
     noise = None
     if draws is not None and stratified and cfg.mlp.density_noise_reg:
-        noise = draws.normal((B, R, cfg.sample_intvs))
+        noise = mesh_mod.rank_draws(draws).normal((B, R, cfg.sample_intvs))
     pred = forward_samples(params["coarse"], cfg, center, ray, depth_samples, progress,
                            density_noise=noise)
     out = _composite(cfg, ray, pred, depth_samples)
@@ -214,23 +220,28 @@ def _geometry(cfg: RenderConfig, pose_w2c, intr, pixels):
 def render_at_pixels(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: torch.Tensor,
                      intr: torch.Tensor, pixels: torch.Tensor, depth_range: torch.Tensor,
                      progress: float, draws=None, stratified: bool = True,
-                     fine_enabled: bool = False) -> Dict[str, torch.Tensor]:
+                     fine_enabled: bool = False, n_rays: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Render at explicit pixel coords: pose_w2c (B,3,4), intr (B,3,3), pixels (N,2) or (B,N,2)."""
     center, ray = _geometry(cfg, pose_w2c, intr, pixels)
     return render_rays(params, cfg, center, ray, depth_range, progress, draws, stratified,
-                       fine_enabled)
+                       fine_enabled, n_rays)
 
 
 def render_image_chunked(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: torch.Tensor,
                          intr: torch.Tensor, H: int, W: int, depth_range: torch.Tensor,
                          progress: float, fine_enabled: bool = False,
-                         chunk: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                         chunk: Optional[int] = None,
+                         mesh: Optional[mesh_mod.Mesh] = None) -> Dict[str, torch.Tensor]:
     """Full-image deterministic render, `chunk` rays at a time, no gradients.
 
     H*W is padded up to a multiple of `chunk` with pixel (0, 0) and the result
     cropped back, as the JAX package does. Returns rgb, depth, ... of shape
     (B, H*W, k), all_cumulated (B, H*W), and their _fine twins when the fine
-    network runs.
+    network runs. With a `mesh` of several ranks (every rank calls this
+    together), each rank renders its share of every chunk, padded to a
+    multiple of the world size with trailing copies, and the shares are
+    gathered.
     """
     chunk = chunk or cfg.rand_rays
     HW = H * W
@@ -243,12 +254,13 @@ def render_image_chunked(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: to
     parts: Dict[str, list] = {}
     with torch.no_grad():
         for c in range(n_chunks):
-            out = render_at_pixels(params, cfg, pose_w2c, intr, pixels[c * chunk: (c + 1) * chunk],
-                                   depth_range, progress, draws=None, stratified=False,
-                                   fine_enabled=fine_enabled)
+            px = mesh_mod.shard_padded(pixels[c * chunk: (c + 1) * chunk], mesh)
+            out = render_at_pixels(params, cfg, pose_w2c, intr, px, depth_range, progress,
+                                   draws=None, stratified=False, fine_enabled=fine_enabled)
             for k in keep:
                 if k in out:
-                    parts.setdefault(k, []).append(out[k])
+                    parts.setdefault(k, []).append(mesh_mod.gather_rays(out[k], mesh, chunk,
+                                                                        axis=1))
     return {k: torch.cat(v, dim=1)[:, :HW] for k, v in parts.items()}
 
 
@@ -299,25 +311,116 @@ class RayBundle:
     depth_min: Optional[torch.Tensor] = None  # tomax: scalar near plane
     depth_max: Optional[torch.Tensor] = None  # tomax: (B,N)
     no_grad: bool = False
+    # the step's ray count along N, of which the pixels are this rank's
+    # share under ray sharding (the stratified draws are taken at that count)
+    n_rays: Optional[int] = None
+
+
+def _grad_mode(b: RayBundle):
+    return torch.no_grad() if b.no_grad else torch.enable_grad()
+
+
+def _coarse_depths(cfg: RenderConfig, b: RayBundle, center, draws, depth_range):
+    B, R = center.shape[0], center.shape[1]
+    if b.kind == "tomax":
+        return sample_depth_diff_max_range_per_ray(B, R, cfg.sample_intvs, b.depth_min,
+                                                   b.depth_max)
+    return sample_depth(draws, B, R, cfg.sample_intvs, depth_range, cfg.depth_param,
+                        stratified=cfg.sample_stratified and b.stratified, n_rays=b.n_rays)
+
+
+def _merged_mlp_level(params_level, mlp_cfg: MLPConfig, bundles, geoms, depths,
+                      progress: float) -> list:
+    """One MLP call per gradient group over the concatenation of its bundles'
+    sample points (as a (1, T, 1) batch), split back per bundle: the gradient
+    group through K1 (and K2 in the backward), the no-grad group under
+    torch.no_grad(), so through K3 alone."""
+    preds = [None] * len(bundles)
+    for no_grad in (False, True):
+        idxs = [i for i, b in enumerate(bundles) if b.no_grad == no_grad]
+        if not idxs:
+            continue
+        with torch.no_grad() if no_grad else torch.enable_grad():
+            pts, dirs, shapes = [], [], []
+            for i in idxs:
+                (center, ray), d = geoms[i], depths[i]
+                B, R, S = d.shape[:3]
+                p = camera.get_3d_points_from_depth(center, ray, d, multi_samples=True)
+                pts.append(p.reshape(1, B * R * S, 1, 3))
+                dirs.append(ray[..., None, :].expand(B, R, S, 3).reshape(1, B * R * S, 3))
+                shapes.append((B, R, S))
+            out = fused_mlp.nerf_apply_fused(params_level, mlp_cfg, torch.cat(pts, dim=1),
+                                             torch.cat(dirs, dim=1), progress)
+            sizes = [B * R * S for B, R, S in shapes]
+            rgb = out["rgb_samples"].reshape(-1, 3).split(sizes)
+            density = out["density_samples"].reshape(-1).split(sizes)
+            for i, (B, R, S), c, s in zip(idxs, shapes, rgb, density):
+                preds[i] = dict(rgb_samples=c.reshape(B, R, S, 3),
+                                density_samples=s.reshape(B, R, S))
+    return preds
 
 
 def render_bundles(params: Dict[str, Any], cfg: RenderConfig, bundles: list,
                    depth_range: torch.Tensor, progress: float, draws=None,
-                   fine_enabled: bool = False, merge: bool = False) -> list:
-    """Render a list of RayBundles, one render call each; one output dict per bundle."""
-    if merge:
-        raise NotImplementedError("merged multi-bundle rendering is not ported yet "
-                                  "(cfg.tpu.merged_render must stay False)")
-    outs = []
+                   fine_enabled: bool = False, merge: bool = True) -> list:
+    """Render a list of RayBundles; one output dict per bundle, with the
+    render_at_pixels / render_to_max keys.
+
+    merge=True evaluates every bundle with one MLP call per hierarchy level
+    and gradient group (one K1/K2 pair for the bundles that carry a
+    gradient, one K3 for the no-grad ones), then splits and composites per
+    bundle. The MLP is pointwise over samples, so the outputs are those of
+    the per-bundle calls; the draws are taken in the JAX package's merged
+    order: every bundle's coarse draws, then every bundle's fine draws.
+    Density noise is not drawn here (the trainer keeps the per-bundle path
+    for density-noise training, as the JAX package does).
+
+    merge=False renders one bundle at a time (coarse and fine draws of a
+    bundle together)."""
+    if not merge:
+        outs = []
+        for b in bundles:
+            with _grad_mode(b):
+                if b.kind == "tomax":
+                    outs.append(render_to_max(params, cfg, b.pose_w2c, b.intr, b.pixels,
+                                              b.depth_min, b.depth_max, progress,
+                                              fine_enabled=fine_enabled))
+                else:
+                    outs.append(render_at_pixels(params, cfg, b.pose_w2c, b.intr, b.pixels,
+                                                 depth_range, progress, draws=draws,
+                                                 stratified=b.stratified,
+                                                 fine_enabled=fine_enabled, n_rays=b.n_rays))
+        return outs
+
+    geoms, depths = [], []
     for b in bundles:
-        with torch.no_grad() if b.no_grad else torch.enable_grad():
+        with _grad_mode(b):
+            center, ray = _geometry(cfg, b.pose_w2c, b.intr, b.pixels)
+            geoms.append((center, ray))
+            depths.append(_coarse_depths(cfg, b, center, draws, depth_range))
+    preds = _merged_mlp_level(params["coarse"], cfg.mlp, bundles, geoms, depths, progress)
+    outs = []
+    for b, (center, ray), d, pred in zip(bundles, geoms, depths, preds):
+        with _grad_mode(b):
+            out = _composite(cfg, ray, pred, d)
+        out["origins"] = center
+        out["viewdirs"] = ray
+        outs.append(out)
+
+    if cfg.fine_sampling and fine_enabled:
+        depths_f = []
+        for b, d, out in zip(bundles, depths, outs):
             if b.kind == "tomax":
-                outs.append(render_to_max(params, cfg, b.pose_w2c, b.intr, b.pixels,
-                                          b.depth_min, b.depth_max, progress,
-                                          fine_enabled=fine_enabled))
-            else:
-                outs.append(render_at_pixels(params, cfg, b.pose_w2c, b.intr, b.pixels,
-                                             depth_range, progress, draws=draws,
-                                             stratified=b.stratified,
-                                             fine_enabled=fine_enabled))
+                depths_f.append(d)  # the same samples through the fine MLP
+                continue
+            det = not (cfg.sample_stratified and b.stratified)
+            depth_fine = sample_depth_from_pdf(draws, out["weights"][..., 0].detach(),
+                                               cfg.sample_intvs, cfg.sample_intvs_fine,
+                                               depth_range, det=det)
+            depths_f.append(torch.sort(torch.cat([d, depth_fine], dim=2), dim=2).values.detach())
+        preds_f = _merged_mlp_level(params["fine"], cfg.fine_mlp, bundles, geoms, depths_f,
+                                    progress)
+        for b, (center, ray), d, pred, out in zip(bundles, geoms, depths_f, preds_f, outs):
+            with _grad_mode(b):
+                out.update({k + "_fine": v for k, v in _composite(cfg, ray, pred, d).items()})
     return outs

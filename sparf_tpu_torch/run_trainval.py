@@ -18,8 +18,15 @@ by the matchers' geometry stage, pdcnet_geometry_refine=True);
 trainer is ported (joint pose+NeRF, GT poses, fixed noisy poses), with
 gradient accumulation (grad_acc_steps), the COLMAP depth loss and
 --tpu.compute_dtype=bfloat16 (the MLP's products in bf16, through the bf16
-kernels on the card). Not ported: multi-device (tpu.mesh_shape) and merged
-rendering.
+kernels on the card), --tpu.merged_render=true (one MLP call per hierarchy
+level for all of a step's bundles) and ray sharding over processes:
+
+  torchrun --nproc_per_node N -m sparf_tpu_torch.run_trainval \
+      joint_pose_nerf_training/synthetic sparf --scene spheres --tpu.mesh_shape [N]
+
+joins the process group torchrun describes (NCCL on the card, one GPU per
+rank as cuda:LOCAL_RANK; gloo with --device cpu); --tpu.mesh_shape auto
+takes the world size.
 """
 from __future__ import annotations
 
@@ -60,6 +67,9 @@ def run_training(args, extra_overrides):
     project = os.path.join(args.train_module, args.train_name,
                            f"{args.scene}" + (f"_sub{args.train_sub}" if args.train_sub else ""))
     workspace = os.path.join(args.workspace_dir, project)
+    from sparf_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.init_from_env(args.device)
     trainer = define_trainer(cfg, workspace=workspace, debug=args.debug, device=args.device)
     eval_dir = os.path.join(cfg.env.eval_dir, project)
     if args.test_metrics_only:
@@ -72,8 +82,9 @@ def run_training(args, extra_overrides):
 
         if not trainer.load_snapshot("latest"):
             raise FileNotFoundError(f"no snapshot to render in {workspace}")
-        generate_videos_synthesis(trainer)
-        generate_videos_pose(trainer)
+        generate_videos_synthesis(trainer)   # every rank renders its share, rank 0 writes
+        if trainer.is_main:
+            generate_videos_pose(trainer)
         return trainer
     trainer.run(load_latest=not args.no_resume)
     if cfg.get("do_eval", True) and not args.debug:
@@ -99,7 +110,13 @@ def main(argv=None):
     parser.add_argument("--render_video_only", action="store_true")
     parser.add_argument("--test_metrics_only", action="store_true")
     args, extra = parser.parse_known_args(argv)
-    return run_training(args, extra)
+    try:
+        return run_training(args, extra)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,8 +16,10 @@ def build_config(train_module: str, train_name: str,
 
 def define_trainer(cfg: ConfigDict, workspace: Optional[str] = None, debug: bool = False,
                    save_option: bool = True, device="cuda"):
+    import torch.distributed as dist
+
     cfg = apply_max_iter_schedule(cfg)
-    if save_option and workspace:
+    if save_option and workspace and not (dist.is_initialized() and dist.get_rank() != 0):
         save_options_file(cfg, workspace)
     if cfg.model == "nerf_gt_poses":
         from sparf_tpu_torch.training.trainer import NerfTrainerPerScene

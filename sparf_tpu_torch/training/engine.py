@@ -23,6 +23,7 @@ import torch
 from sparf_tpu_torch.models import pose_params as pose_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.models.renderer import RenderConfig
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training.losses import base as loss_base
 from sparf_tpu_torch.training.losses import photometric as photo_mod
 
@@ -230,10 +231,14 @@ def default_photometric_loss_builder(cfg, scene, sampler, *, sample_in_center: b
 
     def builder(nerf_params, poses_w2c, draws, iteration, progress):
         ray_idx = sampler(draws, cfg.nerf.rand_rays, sample_in_center=sample_in_center)
+        n_rays = ray_idx.shape[-1]
+        ray_idx = mesh_mod.shard_rays(ray_idx, axis=-1,
+                                      unit=sampler.patch_size**2 if sampler.depth_patch else 1)
         pixels = torch.stack([(ray_idx % W).to(torch.float32) + 0.5,
                               (ray_idx // W).to(torch.float32) + 0.5], dim=-1)
         (out,) = yield [renderer_mod.RayBundle(pixels=pixels, pose_w2c=poses_w2c,
-                                               intr=scene["intr"], stratified=True)]
+                                               intr=scene["intr"], stratified=True,
+                                               n_rays=n_rays)]
         image_at_rays = photo_mod.gather_pixels_at_rays(scene["image"], ray_idx)
         fg_at_rays = None
         if cfg.loss_weight.get("fg_mask") is not None and "fg_mask" in scene:
@@ -245,12 +250,12 @@ def default_photometric_loss_builder(cfg, scene, sampler, *, sample_in_center: b
             depth_regu_patch_size=int(cfg.get("depth_regu_patch_size", 2)),
             gate=loss_base.iteration_gate(iteration, start_iter_photo))
         B = image_at_rays.shape[0]
-        stats = {"mse": torch.mean((out["rgb"].reshape(B, -1, 3) - image_at_rays) ** 2),
-                 "avg_pred_depth": torch.mean(out["depth"])}
+        stats = {"mse": mesh_mod.global_mean((out["rgb"].reshape(B, -1, 3) - image_at_rays) ** 2),
+                 "avg_pred_depth": mesh_mod.global_mean(out["depth"])}
         if "rgb_fine" in out:
-            stats["mse_fine"] = torch.mean((out["rgb_fine"].reshape(B, -1, 3)
-                                            - image_at_rays) ** 2)
-        return loss_dict, {k: v.detach() for k, v in stats.items()}
+            stats["mse_fine"] = mesh_mod.global_mean((out["rgb_fine"].reshape(B, -1, 3)
+                                                      - image_at_rays) ** 2)
+        return loss_dict, stats
 
     return builder
 
@@ -258,18 +263,27 @@ def default_photometric_loss_builder(cfg, scene, sampler, *, sample_in_center: b
 def make_train_step(cfg, loss_builder, tx_nerf, tx_pose: Optional[Adam] = None,
                     pose_cfg: Optional[pose_mod.PoseConfig] = None,
                     pose_constants: Optional[Dict] = None, scene=None,
-                    optimize_poses: bool = False, update_nerf: bool = True
+                    optimize_poses: bool = False, update_nerf: bool = True,
+                    mesh: Optional[mesh_mod.Mesh] = None
                     ) -> Callable[[TrainState, Any], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """One training iteration: step(state, draws) -> (state, stats).
 
     optimize_poses=False freezes the pose branch (GT poses or the frozen-pose
-    stage of the joint schedule).
+    stage of the joint schedule). With a `mesh` the step is active on it:
+    each rank renders its share of the rays, its losses are its share of the
+    loss, and the NeRF and pose gradients are summed over the ranks in one
+    all-reduce before the clip, the non-finite check and Adam, so every rank
+    takes the same update. The logged losses are summed over the ranks.
     """
     max_iter = float(cfg.max_iter)
     apply_c2f = cfg.get("barf_c2f") is not None and cfg.get("apply_cf_pe", True)
     skip_large = cfg.get("skip_large_gradients")
 
     def step(state: TrainState, draws) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with mesh_mod.active(mesh):
+            return sharded_step(state, draws)
+
+    def sharded_step(state: TrainState, draws) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         progress = state.iteration_nerf / max_iter if apply_c2f else 1.0
         nerf_leaves = [t.detach().requires_grad_(True) for t in tree_leaves(state.nerf_params)]
         pose_leaves = [t.detach().requires_grad_(True) for t in tree_leaves(state.pose_params)]
@@ -293,6 +307,9 @@ def make_train_step(cfg, loss_builder, tx_nerf, tx_pose: Optional[Adam] = None,
         leaves = nerf_leaves + pose_leaves
         grads = torch.autograd.grad(summed["all"], leaves, allow_unused=True)
         grads = [torch.zeros_like(l) if g is None else g for g, l in zip(grads, leaves)]
+        # the frozen poses' zero gradients stay out of the all-reduce
+        n_reduced = len(grads) if optimize_poses else len(nerf_leaves)
+        grads = mesh_mod.all_reduce_grads(grads[:n_reduced]) + grads[n_reduced:]
         g_nerf, g_pose = grads[: len(nerf_leaves)], grads[len(nerf_leaves):]
 
         with torch.no_grad():
@@ -315,7 +332,7 @@ def make_train_step(cfg, loss_builder, tx_nerf, tx_pose: Optional[Adam] = None,
                 opt_pose = select_state(finite, cand, state.opt_state_pose)
 
             stats = dict(stats)
-            stats.update({k: v.detach() for k, v in summed.items()})
+            stats.update(mesh_mod.all_reduce_scalars({k: v.detach() for k, v in summed.items()}))
             stats["grad_norm_nerf"] = global_norm(g_nerf)
             if optimize_poses:
                 stats["grad_norm_pose"] = global_norm(g_pose)

@@ -31,6 +31,7 @@ from sparf_tpu_torch.utils import alignment
 from sparf_tpu_torch.models import pose_params as pose_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.models.pose_params import PoseConfig
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training import engine
 from sparf_tpu_torch.training.losses import base as loss_base
 from sparf_tpu_torch.training.trainer import NerfTrainerPerScene
@@ -117,10 +118,12 @@ class PoseAndNerfTrainerPerScene(NerfTrainerPerScene):
         elif "sfm" in initial_pose:
             from sparf_tpu_torch.colmap_init import sfm
 
-            result = sfm.compute_sfm_from_matches(
+            # on rank 0 alone under ray sharding: one SfM result, one cache file
+            result = mesh_mod.on_rank0(lambda: sfm.compute_sfm_from_matches(
                 cfg, self.train_scene_np,
                 save_dir=cfg.get("sfm_cache_dir") or f"{self.workspace}/init_sfm",
-                load_colmap_depth=bool(cfg.get("load_colmap_depth")), device=self.device)
+                load_colmap_depth=bool(cfg.get("load_colmap_depth")), device=self.device),
+                self.mesh)
             init_aligned, sim3 = alignment.prealign_w2c_small_camera_systems(
                 result.poses_w2c[:, :3], pose_GT_w2c)
             init = alignment.pad_poses(init_aligned)

@@ -1,16 +1,20 @@
 """Loss primitives + weighted combination (torch port of
 sparf_tpu/training/losses/base.py). "Loss inactive before iteration X" is a
-0/1 gate, as in the JAX package."""
+0/1 gate, as in the JAX package. Under ray sharding every reduction is this
+rank's share (a local sum over the global count, sparf_tpu_torch.parallel),
+so the ranks' losses sum to the unsharded loss."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
 
+from sparf_tpu_torch.parallel import mesh as mesh_mod
+
 
 def mse_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     d = (pred - label) ** 2
-    return torch.sum(d) / (d.numel() + 1e-6)
+    return torch.sum(d) / (mesh_mod.ray_count(d) + 1e-6)
 
 
 def huber(diff: torch.Tensor, delta: float) -> torch.Tensor:
@@ -21,7 +25,7 @@ def huber(diff: torch.Tensor, delta: float) -> torch.Tensor:
 
 def huber_loss(pred: torch.Tensor, label: torch.Tensor, delta: float = 0.5) -> torch.Tensor:
     """Photometric huber: delta 0.5, scaled x2."""
-    return torch.mean(huber(pred - label, delta)) * 2.0
+    return mesh_mod.ray_mean(huber(pred - label, delta)) * 2.0
 
 
 def compute_diff_loss(loss_type: str, diff: torch.Tensor, weights: Optional[torch.Tensor] = None,
@@ -46,8 +50,8 @@ def compute_diff_loss(loss_type: str, diff: torch.Tensor, weights: Optional[torc
         if mask.ndim != loss.ndim:
             raise ValueError("mask must have the loss's rank")
         mask = mask.to(loss.dtype)
-        return torch.sum(loss * mask) / (torch.sum(mask) + 1e-6)
-    return torch.sum(loss) / (loss.numel() + 1e-6)
+        return torch.sum(loss * mask) / (mesh_mod.global_sum(torch.sum(mask)) + 1e-6)
+    return torch.sum(loss) / (mesh_mod.ray_count(loss) + 1e-6)
 
 
 def summarize_loss_w_predefined_weights(loss_dict: Dict[str, torch.Tensor], loss_weight: Dict,
@@ -71,15 +75,16 @@ def summarize_loss_w_predefined_weights(loss_dict: Dict[str, torch.Tensor], loss
 
 def summarize_loss_w_equal_weights(loss_dict: Dict[str, torch.Tensor],
                                    loss_weight: Dict) -> Dict[str, torch.Tensor]:
-    """Scale every loss to the render loss's magnitude."""
-    render_loss = loss_dict["render"].detach()
+    """Scale every loss to the render loss's magnitude (the ranks' summed
+    magnitudes under ray sharding)."""
+    render_loss = mesh_mod.global_sum(loss_dict["render"].detach())
     loss_all = 0.0
     updated = {}
     for key, value in loss_dict.items():
         if loss_weight.get(key) is None:
             continue
-        w = torch.where(value != 0.0, render_loss / (value.detach() + 1e-6),
-                        torch.ones_like(value))
+        total = mesh_mod.global_sum(value.detach())
+        w = torch.where(total != 0.0, render_loss / (total + 1e-6), torch.ones_like(value))
         weighted = w * value
         loss_all = loss_all + weighted
         updated[key + "_after_w"] = weighted

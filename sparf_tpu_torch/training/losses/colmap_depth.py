@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from sparf_tpu_torch.models import renderer as renderer_mod
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 
 
 def make_colmap_depth_loss_builder(trainer):
@@ -31,7 +32,9 @@ def make_colmap_depth_loss_builder(trainer):
         from sparf_tpu_torch.colmap_init.triangulation import compute_triangulation_from_matches
 
         trainer.logger.info("triangulating matches with known poses for SparseCOLMAPDepthLoss")
-        out = compute_triangulation_from_matches(cfg, scene_np, device=device)
+        out = mesh_mod.on_rank0(
+            lambda: compute_triangulation_from_matches(cfg, scene_np, device=device),
+            trainer.mesh)
         scene["colmap_depth"] = torch.as_tensor(out["colmap_depth"], dtype=torch.float32,
                                                 device=device)
         scene["colmap_conf"] = torch.as_tensor(out["colmap_conf"], dtype=torch.float32,
@@ -70,7 +73,8 @@ def make_colmap_depth_loss_builder(trainer):
 
     def make(fine_enabled: bool):
         def builder(nerf_params, poses_w2c, draws, iteration, progress):
-            idx = draws.randint((B, N), 0, 2**31 - 1) % counts_t[:, None]
+            idx = mesh_mod.shard_rays(draws.randint((B, N), 0, 2**31 - 1) % counts_t[:, None],
+                                      axis=1)
             pix = torch.gather(pool_t, 1, idx[..., None].expand(B, N, 2))   # (B,N,2)
             flat = pix[..., 1] * W + pix[..., 0]
             gt_depth = torch.gather(depth_t, 1, flat)
@@ -78,11 +82,11 @@ def make_colmap_depth_loss_builder(trainer):
 
             (ret,) = yield [renderer_mod.RayBundle(pixels=pix.to(torch.float32),
                                                    pose_w2c=poses_w2c, intr=scene["intr"],
-                                                   stratified=True)]
+                                                   stratified=True, n_rays=N)]
 
             def term(key):
                 pred = ret[key][..., 0]  # (B,N)
-                return torch.sum(torch.mean(((gt_depth - pred) ** 2) * weight, dim=1))
+                return torch.sum(mesh_mod.ray_mean(((gt_depth - pred) ** 2) * weight, dim=1))
 
             loss = term("depth")
             if "depth_fine" in ret:

@@ -21,6 +21,7 @@ import torch
 
 from sparf_tpu_torch.models import flow_net as flow_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training.losses import base as L
 from sparf_tpu_torch.utils import camera, geometry, imgproc
 
@@ -209,8 +210,11 @@ def make_corres_loss_builder(trainer):
         prior = getattr(trainer, "initial_poses_w2c", None)
     if torch.is_tensor(prior):
         prior = prior.detach().cpu().numpy()
-    pools_np = build_correspondence_pools(cfg, trainer.train_scene_np, trainer.logger,
-                                          init_poses_w2c=prior, device=trainer.device)
+    # on rank 0 alone under ray sharding, so that every rank trains on its pools
+    pools_np = mesh_mod.on_rank0(
+        lambda: build_correspondence_pools(cfg, trainer.train_scene_np, trainer.logger,
+                                           init_poses_w2c=prior, device=trainer.device),
+        trainer.mesh)
     trainer.corres_pools = pools_np
     flow_stats = compute_flow_metrics(pools_np, trainer.train_scene_np)
     if flow_stats:
@@ -260,7 +264,7 @@ def make_corres_loss_builder(trainer):
         def builder(nerf_params, poses_w2c, draws, iteration, progress):
             p = draws.randint((), 0, n_pairs)
             count = pools["pool_count"][p]
-            idx = draws.randint((N,), 0, 2**31 - 1) % count
+            idx = mesh_mod.shard_rays(draws.randint((N,), 0, 2**31 - 1) % count)
             pix_self = pools["pool_pix_self"][p][idx]      # (N,2)
             pix_other = pools["pool_pix_other"][p][idx]
             conf = pools["pool_conf"][p][idx]              # (N,)
@@ -272,9 +276,9 @@ def make_corres_loss_builder(trainer):
 
             ret_self, ret_other = yield [
                 renderer_mod.RayBundle(pixels=pix_self[None], pose_w2c=pose_self,
-                                       intr=intr_self, stratified=True),
+                                       intr=intr_self, stratified=True, n_rays=N),
                 renderer_mod.RayBundle(pixels=pix_other[None], pose_w2c=pose_other,
-                                       intr=intr_other, stratified=True),
+                                       intr=intr_other, stratified=True, n_rays=N),
             ]
             T_s2o = geometry.pose_to_T4x4(
                 camera.pose_compose_pair(camera.pose_invert(pose_self), pose_other))
@@ -322,7 +326,7 @@ def make_corres_loss_builder(trainer):
                 loss_dict["render_matches"] = gate * (photo(ret_self, pix_self, id_self)
                                                       + photo(ret_other, pix_other, id_other)) / 2
             stats = {
-                "depth_in_corr_loss": torch.mean(ret_self["depth"]).detach(),
+                "depth_in_corr_loss": mesh_mod.global_mean(ret_self["depth"]),
                 "perc_valid_corr_mask": count.to(torch.float32) / p_max,
             }
             return loss_dict, stats

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from sparf_tpu_torch.models import renderer as renderer_mod
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training.losses import base as L
 from sparf_tpu_torch.utils import camera, geometry
 
@@ -63,7 +64,7 @@ def make_depth_cons_loss_builder(trainer):
                 cy = draws.randint((n_center,), H // 2 - dH, H // 2 + dH)
                 xs = torch.cat([cx.to(torch.float32), xs[n_center:]])
                 ys = torch.cat([cy.to(torch.float32), ys[n_center:]])
-            pixels_ref = torch.stack([xs, ys], -1)  # (N,2)
+            pixels_ref = mesh_mod.shard_rays(torch.stack([xs, ys], -1))  # (N,2)
 
             poses_det = poses_w2c.detach()
             poses_c2w_4 = camera.pose_inverse_4x4(geometry.pose_to_T4x4(poses_det))
@@ -74,7 +75,8 @@ def make_depth_cons_loss_builder(trainer):
 
             # the reference view, with gradient to the NeRF (poses detached)
             (ret_ref,) = yield [renderer_mod.RayBundle(
-                pixels=pixels_ref[None], pose_w2c=pose_ref, intr=intr_ref, stratified=True)]
+                pixels=pixels_ref[None], pose_w2c=pose_ref, intr=intr_ref, stratified=True,
+                n_rays=N)]
             if fine_enabled and "depth_fine" in ret_ref:
                 use_fine = 1.0 if iteration >= fine_warm_iter else 0.0
                 depth_ref = (use_fine * ret_ref["depth_fine"][0, :, 0]
@@ -106,7 +108,7 @@ def make_depth_cons_loss_builder(trainer):
                                        intr=intr_ref, kind="tomax", depth_min=vis_depth_min,
                                        depth_max=depth_max_safe[None], no_grad=True),
                 renderer_mod.RayBundle(pixels=pts2d_safe[None], pose_w2c=w2c_unseen,
-                                       intr=intr_ref, stratified=True),
+                                       intr=intr_ref, stratified=True, n_rays=N),
             ]
             ac_key = "all_cumulated_fine" if "all_cumulated_fine" in ret_vis else "all_cumulated"
             visibility = ret_vis[ac_key][0].detach()  # (N,)
@@ -122,12 +124,14 @@ def make_depth_cons_loss_builder(trainer):
             loss, wgt = term("depth", "opacity")
             if "depth_fine" in ret_unseen:
                 loss = loss + term("depth_fine", "opacity_fine")[0]
-            # zero when no point survives (the reference returns early)
-            gate = L.iteration_gate(iteration, start_iter) * (torch.sum(mask) > 0).to(torch.float32)
+            # zero when no point survives on any rank (the reference returns early)
+            n_mask = mesh_mod.global_sum(torch.sum(mask))
+            gate = L.iteration_gate(iteration, start_iter) * (n_mask > 0).to(torch.float32)
             if decay:
                 loss = loss / 2.0 ** (iteration // reduct_every)
-            stats = {"avg_vis_weight": torch.sum(wgt * mask[:, 0]) / (torch.sum(mask) + 1e-6),
-                     "nbr_px_sampling": torch.sum(mask)}
+            stats = {"avg_vis_weight": mesh_mod.global_sum(torch.sum(wgt * mask[:, 0]))
+                     / (n_mask + 1e-6),
+                     "nbr_px_sampling": n_mask}
             return {"depth_cons": loss * gate}, stats
 
         return builder

@@ -6,6 +6,7 @@ from typing import Dict, Optional
 
 import torch
 
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training.losses import base as L
 from sparf_tpu_torch.training.losses import regularization as regu
 
@@ -30,10 +31,10 @@ def photometric_and_regu_loss(output_dict: Dict[str, torch.Tensor], image_at_ray
     loss_dict["render"] = render * gate
 
     if loss_weight.get("fg_mask") is not None and fg_mask_at_rays is not None:
-        mask_loss = 0.5 * torch.mean(
+        mask_loss = 0.5 * mesh_mod.ray_mean(
             torch.abs(fg_mask_at_rays - output_dict["opacity"].reshape(B, -1, 1)))
         if "opacity_fine" in output_dict:
-            mask_loss = mask_loss + 0.5 * torch.mean(
+            mask_loss = mask_loss + 0.5 * mesh_mod.ray_mean(
                 torch.abs(fg_mask_at_rays - output_dict["opacity_fine"].reshape(B, -1, 1)))
         loss_dict["fg_mask"] = mask_loss * gate
 

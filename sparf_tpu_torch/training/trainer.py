@@ -9,6 +9,12 @@ with `save_ind_files` its render and depth (renders/), as PNGs.
 `visualize_train_view` logs a render panel of a train view (and the poses'
 frusta) through the writer's `write_image`. The images come from
 utils/vis.py and utils/imgproc.write_png: no matplotlib, OpenCV or imageio.
+
+`cfg.tpu.mesh_shape` = [N] (N the world size of the initialised process
+group) or "auto" shards every step's rays over the ranks
+(sparf_tpu_torch.parallel); every rank runs the same loop, renders for
+validation and evaluation are split across the ranks and gathered, and
+only rank 0 writes logs, TensorBoard events, snapshots, panels and videos.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from sparf_tpu_torch.training.logging_utils import SummaryBoard, TensorboardWrit
 from sparf_tpu_torch.datasets import create_dataset
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.models.renderer import RenderConfig
+from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training import checkpointing, engine
 from sparf_tpu_torch.training import metrics as metrics_mod
 from sparf_tpu_torch.training.sampling import make_ray_sampler
@@ -38,6 +45,33 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is available")
     return device
+
+
+def merged_render(cfg) -> bool:
+    """Whether a step renders its bundles merged (renderer.render_bundles):
+    cfg.tpu.merged_render, True when the key is absent, as in the JAX
+    trainer; density-noise training keeps the per-bundle path."""
+    return bool(cfg.tpu.get("merged_render", True)) and not cfg.nerf.density_noise_reg
+
+
+def mesh_from_config(cfg) -> Optional[mesh_mod.Mesh]:
+    """The mesh that cfg.tpu.mesh_shape asks for: [N] needs an initialised
+    process group of N ranks ([1] without one runs unsharded), "auto" takes
+    the group's world size when there is one of several ranks."""
+    import torch.distributed as dist
+
+    shape = cfg.tpu.get("mesh_shape")
+    if not shape:
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError("a process group of several ranks needs cfg.tpu.mesh_shape "
+                             "([world size] or 'auto'): ranks would train the same rays")
+        return None
+    if shape == "auto":
+        return mesh_mod.make_mesh() if dist.is_initialized() and dist.get_world_size() > 1 \
+            else None
+    if int(shape[0]) == 1 and not dist.is_initialized():
+        return None
+    return mesh_mod.make_mesh(int(shape[0]))
 
 
 def scene_to_device(scene: Dict[str, Any], device) -> Dict[str, Any]:
@@ -55,25 +89,34 @@ class NerfTrainerPerScene:
                  device="cuda"):
         self.cfg = cfg
         self.debug = debug
+        self.mesh = mesh_from_config(cfg)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        if self.mesh is not None and str(device) == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
         self.device = resolve_device(device)
         self.workspace = workspace or cfg.get("workspace") or "./workspace"
         os.makedirs(self.workspace, exist_ok=True)
         # one logger per workspace: create_logger attaches its file handler
         # once per logger name, so a shared name would send every later
         # trainer's log (e.g. eval after training) to the first workspace
-        self.logger = create_logger(
-            os.path.join(self.workspace, "train.log"),
-            name=f"sparf_tpu_torch:{os.path.abspath(self.workspace)}")
-        self.writer = TensorboardWriter(cfg.get("tensorboard_dir")
-                                        or os.path.join(self.workspace, "tb"))
+        name = f"sparf_tpu_torch:{os.path.abspath(self.workspace)}"
+        if self.is_main:
+            self.logger = create_logger(os.path.join(self.workspace, "train.log"), name=name)
+        else:
+            self.logger = create_logger(None, name=f"{name}:rank{self.mesh.rank}")
+            self.logger.setLevel("WARNING")
+        self.writer = TensorboardWriter((cfg.get("tensorboard_dir")
+                                         or os.path.join(self.workspace, "tb"))
+                                        if self.is_main else None)
         self.timer = Timer()
         self.summary = SummaryBoard(last_n=cfg.log_steps)
         if debug:
             cfg.max_iter = min(cfg.max_iter, 10)
             cfg.vis_steps, cfg.log_steps = 2, 2
             cfg.val_steps, cfg.snapshot_steps = 5, 5
-        if cfg.tpu.get("mesh_shape"):
-            raise NotImplementedError("multi-device training is not ported yet")
+        if self.mesh is not None:
+            self.logger.info(f"ray sharding over {self.mesh.world_size} ranks "
+                             f"({self.mesh.backend})")
 
         seed = int(cfg.get("seed", 0))
         np.random.seed(seed)
@@ -89,6 +132,7 @@ class NerfTrainerPerScene:
             pose_cfg=getattr(self, "pose_cfg", None),
             initial_poses_w2c=getattr(self, "initial_poses_w2c", None),
             tx_pose=getattr(self, "tx_pose", None))
+        mesh_mod.replicate_tree([self.state.nerf_params, self.state.pose_params], self.mesh)
         self.define_loss_module()
         self.best_val = float("inf")
         self.epoch_of_best_val = 0
@@ -162,7 +206,7 @@ class NerfTrainerPerScene:
                                                        sample_in_center=sample_in_center)
         builders = [base] + [mk(fine_enabled) for mk in self.extra_loss_builders]
         render_cfg, scene = self.render_cfg, self.train_scene
-        merge = bool(cfg.tpu.get("merged_render", False)) and not cfg.nerf.density_noise_reg
+        merge = merged_render(cfg)
 
         def combined(nerf_params, poses_w2c, draws, iteration, progress):
             depth_range = renderer_mod.render_depth_range(cfg, scene)
@@ -207,7 +251,8 @@ class NerfTrainerPerScene:
                 self.cfg, self.make_loss_builder(sample_in_center, fine_enabled),
                 tx_nerf=self.tx_nerf, tx_pose=getattr(self, "tx_pose", None),
                 pose_cfg=getattr(self, "pose_cfg", None), pose_constants=self.pose_constants,
-                scene=self.train_scene, optimize_poses=optimize_poses, update_nerf=update_nerf)
+                scene=self.train_scene, optimize_poses=optimize_poses, update_nerf=update_nerf,
+                mesh=self.mesh)
         return self._step_cache[sig]
 
     # ------------------------------------------------------------------- run
@@ -250,7 +295,8 @@ class NerfTrainerPerScene:
             if it % cfg.vis_steps == 0:
                 self.visualize_train_view(it)
             if it % cfg.val_steps == 0:
-                self.record_pose_history(it)
+                if self.is_main:
+                    self.record_pose_history(it)
                 self.validate(it)
             if it % cfg.snapshot_steps == 0:
                 self.save_snapshot()
@@ -335,7 +381,7 @@ class NerfTrainerPerScene:
         return renderer_mod.render_image_chunked(
             self.state.nerf_params, self.render_cfg, pose, scene["intr"][idx: idx + 1], H, W,
             renderer_mod.render_depth_range(self.cfg, scene), self.progress(),
-            fine_enabled=fine_enabled, chunk=self.cfg.nerf.rand_rays)
+            fine_enabled=fine_enabled, chunk=self.cfg.nerf.rand_rays, mesh=self.mesh)
 
     def val_pose_and_scale(self, idx: int) -> Tuple[torch.Tensor, float]:
         """w2c pose used to render val image idx, and the depth scaling factor."""
@@ -445,7 +491,7 @@ class NerfTrainerPerScene:
             per_image.append(res)
             pred_hwc = pred_rgb[0].permute(1, 2, 0).cpu().numpy()
             depth_hw = out[dkey].reshape(H, W).cpu().numpy()
-            if plot:
+            if plot and self.is_main:
                 pdir = os.path.join(out_dir or self.workspace, "plots")
                 os.makedirs(pdir, exist_ok=True)
                 panel = vis.render_panel(
@@ -456,7 +502,7 @@ class NerfTrainerPerScene:
                     gt_depth=test_scene_np["depth_gt"][idx] if "depth_gt" in test_scene_np
                     else None)
                 imgproc.write_png(os.path.join(pdir, f"eval_{idx:03d}.png"), panel)
-            if save_ind_files:
+            if save_ind_files and self.is_main:
                 # per-image renders (reference save_ind_files, base.py:506-597)
                 rdir = os.path.join(out_dir or self.workspace, "renders")
                 os.makedirs(rdir, exist_ok=True)
@@ -473,7 +519,9 @@ class NerfTrainerPerScene:
                                              if isinstance(v, float)))
         return result
 
-    def write_eval_json(self, result: Dict, out_dir: Optional[str] = None) -> str:
+    def write_eval_json(self, result: Dict, out_dir: Optional[str] = None) -> Optional[str]:
+        if not self.is_main:
+            return None
         out_dir = out_dir or self.workspace
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"{self.cfg.get('expname', 'eval')}.json")
@@ -487,6 +535,8 @@ class NerfTrainerPerScene:
     # ---------------------------------------------------------- checkpointing
 
     def save_snapshot(self, is_best: bool = False):
+        if not self.is_main:
+            return
         path = checkpointing.save_snapshot(self.workspace, self.state, self.best_val,
                                            self.epoch_of_best_val, is_best=is_best)
         self.logger.info(f"saved snapshot {os.path.basename(path)}"

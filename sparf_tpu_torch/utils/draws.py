@@ -3,10 +3,15 @@
 The JAX package splits PRNG keys inside its jitted step. The port consumes
 draws in program order from one object instead: `Draws` wraps a seeded
 torch.Generator on the training device; `ReplayDraws` hands out given arrays
-in order, which lets a test feed the JAX step and the port the same numbers.
+in order, which lets a test feed the JAX step and the port the same numbers;
+`KeyedDraws` hands out numbers by the request's kind and shape, which lets
+two programs that take the same draws in another order (the merged and the
+per-bundle render) get the same numbers per request.
 """
 from __future__ import annotations
 
+import zlib
+from collections import defaultdict
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -57,3 +62,36 @@ class ReplayDraws:
 
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return self._next(shape, torch.float32)
+
+
+class KeyedDraws:
+    """Draws whose numbers depend only on the request's kind and shape (and
+    range) and on how many requests of that key came before: two programs
+    that request the same draws, interleaved differently across keys, get
+    the same numbers per request."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        self.count = defaultdict(int)
+
+    def _rng(self, key) -> np.random.RandomState:
+        n = self.count[key]
+        self.count[key] += 1
+        return np.random.RandomState((zlib.crc32(repr(key).encode()) + 7919 * n + self.seed)
+                                     % 2**32)
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        shape = tuple(int(s) for s in shape)
+        a = self._rng(("u", shape)).uniform(size=shape).astype(np.float32)
+        return torch.as_tensor(a, device=self.device)
+
+    def randint(self, shape: Sequence[int], low: int, high: int) -> torch.Tensor:
+        shape = tuple(int(s) for s in shape)
+        a = self._rng(("i", shape, int(low), int(high))).randint(int(low), int(high), size=shape)
+        return torch.as_tensor(a, dtype=torch.int64, device=self.device)
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        shape = tuple(int(s) for s in shape)
+        a = self._rng(("n", shape)).standard_normal(shape).astype(np.float32)
+        return torch.as_tensor(a, device=self.device)

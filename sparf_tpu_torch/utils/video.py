@@ -45,9 +45,9 @@ def novel_view_poses_w2c(trainer, n_frames: int = 60) -> np.ndarray:
 
 def generate_videos_synthesis(trainer, out_dir: Optional[str] = None,
                               n_frames: int = 60, fps: int = 15) -> List[str]:
-    """Render rgb+depth along the novel-view path; write videos."""
+    """Render rgb+depth along the novel-view path; write videos. Under ray
+    sharding every rank renders its share of each frame and rank 0 writes."""
     out_dir = out_dir or os.path.join(trainer.workspace, "videos")
-    os.makedirs(out_dir, exist_ok=True)
     H, W = trainer.train_scene_np["image"].shape[-2:]
     poses = torch.as_tensor(novel_view_poses_w2c(trainer, n_frames), dtype=torch.float32,
                             device=trainer.device)
@@ -60,12 +60,16 @@ def generate_videos_synthesis(trainer, out_dir: Optional[str] = None,
         for i in range(len(poses)):
             out = renderer_mod.render_image_chunked(
                 trainer.state.nerf_params, trainer.render_cfg, poses[i: i + 1], intr, H, W,
-                depth_range, 1.0, fine_enabled=fine_enabled, chunk=trainer.cfg.nerf.rand_rays)
+                depth_range, 1.0, fine_enabled=fine_enabled, chunk=trainer.cfg.nerf.rand_rays,
+                mesh=trainer.mesh)
             key = "rgb_fine" if "rgb_fine" in out else "rgb"
             dkey = "depth_fine" if "depth_fine" in out else "depth"
             rgb_frames.append(out[key].reshape(H, W, 3).cpu().numpy())
             depth_frames.append(vis.colorize(out[dkey].reshape(H, W).cpu().numpy()))
 
+    if not trainer.is_main:
+        return []
+    os.makedirs(out_dir, exist_ok=True)
     paths = [
         write_video(rgb_frames, os.path.join(out_dir, "rgb_novel_view.mp4"), fps),
         write_video(depth_frames, os.path.join(out_dir, "depth_novel_view.mp4"), fps),

@@ -7,12 +7,19 @@ as prior, with the stage's candidates traced round by round.
     JAX_PLATFORMS=cpu python tests/geometry_reference.py port [--backend zncc] [--seed 1]
     python tests/geometry_reference.py port --device cuda --seed 2    (the port on the card)
     JAX_PLATFORMS=cpu python tests/geometry_reference.py jax --rig 64x80 [--bootstrap 40] --priors 0,1,2
-        [--texture_octaves 3]
+        [--texture_octaves 3] [--keypoints] [--flat_share 1.0]
+    python tests/geometry_reference.py --compare jax.jsonl port.jsonl port
 
 The last form runs the ZNCC stage of tests/test_torch_geometry_vs_jax*.py
 on its DTU-like rig instead (H x W, `_BOOTSTRAP_MAX_DIM` set to --bootstrap),
 from the rig's noisy prior drawn with each of --priors as the numpy seed
 (that test uses 3), and prints one JSON line per prior (~1-2 min each).
+With --keypoints it also reads the first sparse guided rematch (round 1)
+per grid keypoint: each seed's z1, z2, cycle error, whether the package
+kept the match, the port's flat rule at its share (`textured`), and, when
+the rematch runs at 32x40, the match's distance from the GT correspondence
+of the synthetic scene rendered at 32x40; --flat_share sets the port's
+`_SPARSE_FLAT_SHARE` for the run (1.0 turns the rule off).
 
 Prints, per round, each candidate's mean relative rotation error against GT
 and its rematched-flow score, then one JSON line: seconds, pairs kept, pool
@@ -22,6 +29,7 @@ package, the port's solvers in sparf_tpu_torch). A run takes ~7-20 min on
 2-3 CPU threads. tests/test_torch_geometry_full.py (marked slow) runs it
 for both packages from four priors."""
 import argparse
+import importlib
 import json
 import os
 import sys
@@ -109,15 +117,67 @@ def run(package: str, backend: str = "PDCNet", seed: int = 0, device: str = "cpu
                 candidates=candidates)
 
 
+def _traced_sparse_matches(mod, calls):
+    """`mod._sparse_matches_for_sfm` that also records, per call, every grid
+    keypoint's rematch readings (see --keypoints) into `calls`."""
+    from sparf_tpu_torch.datasets import synthetic
+    from sparf_tpu_torch.models import flow_net as tfn
+
+    original = mod._sparse_matches_for_sfm
+    rule_share = tfn._SPARSE_FLAT_SHARE   # the rule's share, whatever --flat_share sets
+    scene32 = synthetic.load_synthetic_scene(split="train", H=32, W=40, n_train=3, n_test=1,
+                                             angular_span=0.35)
+
+    def traced(imgs, flows, unordered, H, W, stride=2, min_zncc=0.8, max_cycle_px=1.5,
+               search_radius=6, extra_flows=None):
+        sfm = importlib.import_module(mod.__name__.replace("models.flow_net", "colmap_init.sfm"))
+        kps = sfm.grid_keypoints(H, W, stride, margin=6)
+        kx, ky = kps[:, 0].astype(int), kps[:, 1].astype(int)
+        rec = dict(H=H, W=W, pairs={})
+        for i, j in unordered:
+            i, j = int(i), int(j)
+            run_share, tfn._SPARSE_FLAT_SHARE = tfn._SPARSE_FLAT_SHARE, rule_share
+            textured = ~tfn._near_flat(torch.as_tensor(np.array(imgs[i])), 5)[ky, kx]
+            tfn._SPARSE_FLAT_SHARE = run_share
+            gt, gt_valid = (tfn.gt_correspondences_for_pair(scene32, i, j) if (H, W) == (32, 40)
+                            else (None, None))
+            seeds = []
+            for fl in ([flows] if extra_flows is None else [flows, extra_flows]):
+                xy, z1 = mod._sparse_guided_rematch(imgs[i], imgs[j], fl[(i, j)][0], kps,
+                                                    search_radius=search_radius)
+                back, z2 = mod._sparse_guided_rematch(imgs[j], imgs[i], fl[(j, i)][0], xy,
+                                                      search_radius=search_radius)
+                xy, back, z1, z2 = (np.asarray(a) for a in (xy, back, z1, z2))
+                cyc = np.linalg.norm(back - kps, axis=-1)
+                ok = ((z1 > min_zncc) & (z2 > min_zncc) & (cyc < max_cycle_px)
+                      & (xy[:, 0] >= 0) & (xy[:, 0] <= W - 1) & (xy[:, 1] >= 0)
+                      & (xy[:, 1] <= H - 1))
+                seeds.append(dict(z1=z1.tolist(), z2=z2.tolist(), cyc=cyc.tolist(),
+                                  ok=ok.tolist(),
+                                  gt_err_px=None if gt is None else
+                                  np.linalg.norm(xy - gt[:, ky, kx].T, axis=-1).tolist()))
+            rec["pairs"][f"{i}-{j}"] = dict(
+                textured=textured.tolist(), seeds=seeds,
+                gt_valid=None if gt_valid is None else gt_valid[ky, kx].tolist())
+        calls.append(rec)
+        return original(imgs, flows, unordered, H, W, stride, min_zncc, max_cycle_px,
+                        search_radius, extra_flows)
+
+    return traced
+
+
 def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
-            texture_octaves: int = 1):
+            texture_octaves: int = 1, keypoints: bool = False, flat_share=None):
     """The ZNCC geometry stage on the H x W DTU-like rig (its spheres'
     albedo with `texture_octaves` octaves) from the noisy prior of each numpy
     seed: yields one dict per seed (the prior's and the stage's mean relative
-    rotation error, each round's candidates)."""
+    rotation error, each round's candidates; with `keypoints` the sparse
+    rematch readings per keypoint, `sparse_calls`). `flat_share` sets the
+    port's `_SPARSE_FLAT_SHARE` for the run."""
     from scipy.spatial.transform import Rotation
 
     from sparf_tpu_torch.datasets import synthetic
+    from sparf_tpu_torch.models import flow_net as tfn
 
     if package == "jax":
         from sparf_tpu.models import flow_net as mod
@@ -131,8 +191,9 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
                                         angular_span=0.35, texture_octaves=texture_octaves)
     gt = np.asarray(sc["pose"], np.float64)
     combi = np.array([[0, 0, 1], [1, 2, 2]], np.int32)
-    saved = (mod._BOOTSTRAP_MAX_DIM, mod._rematched_flow_quality, mod._global_poses_from_flows)
-    candidates = []
+    saved = (mod._BOOTSTRAP_MAX_DIM, mod._rematched_flow_quality, mod._global_poses_from_flows,
+             mod._sparse_matches_for_sfm, tfn._SPARSE_FLAT_SHARE)
+    candidates, calls = [], []
 
     def traced_quality(flows, unordered):
         candidates[-1]["score"] = saved[1](flows, unordered)
@@ -149,6 +210,10 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
     if bootstrap_max_dim is not None:
         mod._BOOTSTRAP_MAX_DIM = bootstrap_max_dim
     mod._rematched_flow_quality, mod._global_poses_from_flows = traced_quality, traced_poses
+    if keypoints:
+        mod._sparse_matches_for_sfm = _traced_sparse_matches(mod, calls)
+    if flat_share is not None:
+        tfn._SPARSE_FLAT_SHARE = flat_share
     try:
         for seed in seeds:
             rng = np.random.RandomState(seed)
@@ -159,6 +224,7 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
                     [dR @ P[:3, :3], (dR @ P[:3, 3] + rng.randn(3) * 0.05)[:, None]], 1))
             prior = np.stack(prior)
             candidates.clear()
+            calls.clear()
             geom = {}
             t0 = time.time()
             mod.compute_zncc_flow_of_combi_list(sc["image"], combi, intr=sc["intr"],
@@ -168,9 +234,55 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
                        prior_rot_err_deg=cs.mean_rel_rot_deg(prior, gt),
                        internal_rot_err_deg=(cs.mean_rel_rot_deg(geom["poses_w2c"], gt)
                                              if "poses_w2c" in geom else None),
-                       candidates=list(candidates))
+                       candidates=list(candidates),
+                       **(dict(sparse_calls=list(calls)) if keypoints else {}))
     finally:
-        mod._BOOTSTRAP_MAX_DIM, mod._rematched_flow_quality, mod._global_poses_from_flows = saved
+        (mod._BOOTSTRAP_MAX_DIM, mod._rematched_flow_quality, mod._global_poses_from_flows,
+         mod._sparse_matches_for_sfm, tfn._SPARSE_FLAT_SHARE) = saved
+
+
+def _round1_keypoints(pair):
+    """Per keypoint of one pair's first rematch: kept (by any seed) and the
+    GT distance of the seed that wins it (the higher min(z1, z2))."""
+    seeds = pair["seeds"]
+    best = np.full(len(seeds[0]["z1"]), -np.inf)
+    kept = np.zeros(best.shape, bool)
+    err = np.full(best.shape, np.nan)
+    for sd in seeds:
+        ok, score = np.array(sd["ok"]), np.minimum(sd["z1"], sd["z2"])
+        take = ok & (score > best)
+        best[take], kept = score[take], kept | ok
+        err[take] = np.array(sd["gt_err_px"])[take]
+    return kept, err
+
+
+def compare_keypoints(jax_rows, port_rows) -> list:
+    """Round 1's sparse rematch per keypoint, the JAX stage's against the
+    port's (each a --keypoints --rig 64x80 --bootstrap 40 run, the port's
+    with --flat_share 1.0): per prior and pair, the keypoints each kept,
+    those both kept, those of JAX's that the port's flat rule drops, and the
+    median distance from the GT correspondence of the kept matches on the
+    spheres, split by the rule's verdict; and over every prior and pair."""
+    out, pooled = [], {}
+    for j, p in zip(jax_rows, port_rows):
+        for key, pj in j["sparse_calls"][0]["pairs"].items():
+            pp = p["sparse_calls"][0]["pairs"][key]
+            tex, gtv = np.array(pp["textured"]), np.array(pp["gt_valid"])
+            (kj, ej), (kp, ep) = _round1_keypoints(pj), _round1_keypoints(pp)
+            row = dict(prior=j["prior_seed"], pair=key, jax_kept=int(kj.sum()),
+                       port_kept=int(kp.sum()), both=int((kj & kp).sum()),
+                       rule_keeps=int(tex.sum()), jax_kept_rule_drops=int((kj & ~tex).sum()))
+            for name, kept, err in (("jax", kj, ej), ("port", kp, ep)):
+                for verdict, sel in (("textured", tex), ("flat", ~tex)):
+                    e = err[kept & sel & gtv]
+                    pooled.setdefault(f"{name}_{verdict}", []).extend(e.tolist())
+                    row[f"{name}_{verdict}_median_px"] = float(np.median(e)) if e.size else None
+            out.append(row)
+    for k, v in pooled.items():
+        v = np.array(v)
+        out.append(dict(pooled=k, n=int(v.size), median_px=float(np.median(v)),
+                        mean_px=float(v.mean()), share_over_1px=float((v > 1).mean())))
+    return out
 
 
 def main() -> None:
@@ -187,12 +299,24 @@ def main() -> None:
     parser.add_argument("--priors", default="3", help="with --rig: the prior's numpy seeds")
     parser.add_argument("--texture_octaves", type=int, default=1,
                         help="with --rig: octaves of the spheres' albedo texture")
+    parser.add_argument("--keypoints", action="store_true",
+                        help="with --rig: per-keypoint readings of each sparse rematch")
+    parser.add_argument("--compare", nargs=2, default=None, metavar=("JAX", "PORT"),
+                        help="compare two --keypoints outputs (JSON lines files)")
+    parser.add_argument("--flat_share", type=float, default=None,
+                        help="with --rig: the port's _SPARSE_FLAT_SHARE (1.0: rule off)")
     args = parser.parse_args()
     torch.set_num_threads(args.threads)
-    if args.rig:
+    if args.compare:
+        rows = [[json.loads(line) for line in open(f) if line.startswith("{")]
+                for f in args.compare]
+        for row in compare_keypoints(*rows):
+            print(json.dumps(row))
+    elif args.rig:
         H, W = (int(v) for v in args.rig.split("x"))
         for row in run_rig(args.package, H, W, args.bootstrap,
-                           [int(v) for v in args.priors.split(",")], args.texture_octaves):
+                           [int(v) for v in args.priors.split(",")], args.texture_octaves,
+                           args.keypoints, args.flat_share):
             print(json.dumps(row), flush=True)
     else:
         print(json.dumps(run(args.package, args.backend, args.seed, args.device)))

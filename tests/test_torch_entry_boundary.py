@@ -19,7 +19,9 @@ def test_package_imports_without_jax():
         "for m in ('training.joint_trainer', 'training.metrics', 'training.lpips',\n"
         "          'training.checkpointing', 'eval', 'configs.presets', 'admin',\n"
         "          'datasets.dtu', 'datasets.llff', 'utils.alignment', 'utils.imgproc',\n"
-        "          'models.pdcnet', 'models.sparse_matcher'):\n"
+        "          'models.pdcnet', 'models.sparse_matcher', 'parallel.mesh', 'parallel.dryrun',\n"
+        "          'scripts.profile_step', 'scripts.validate_dataset',\n"
+        "          'scripts.test_matcher_installation'):\n"
         "    assert 'sparf_tpu_torch.' + m in mods, mods\n"
         "print(len(mods))\n"
     )
