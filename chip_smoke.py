@@ -102,6 +102,21 @@ Phases, one line each; any failure raises and the process exits non-zero:
      ranks train the full shape in the joint stage (it/s per rank);
  15. profile: sparf_tpu_torch/scripts/profile_step.py, 10 fine-stage steps at
      fp32 at the full shape, device time by category and the idle share.
+ 16. pdcnet-train: the PDC-Net trainer (scripts/train_pdcnet_synth.py) at
+     300x400, batch 2, on 4 pairs generated through --data_cache: one step on
+     the card against the CPU with TF32 on, both held to the float64
+     gradient (PDC_TRAIN_TOL), then 30 steps
+     through its entry point on the card (s/step, peak memory, loss trend),
+     then --eval-only of the bundled weights, card against CPU;
+ 17. lpips-train: the LPIPS trainer (scripts/train_lpips_selfsup.py), 10 steps
+     at batch 16 from seed 0 on the card and on the CPU through its entry
+     point (s/step; the free-running drift beside the CPU's float32 against
+     float64), then in lockstep, the card's step from the CPU's state, its
+     gradient held to the float64 one along the same max-pool and ReLU routes
+     (LPIPS_TRAIN_TOL), with a TF32-on control;
+ 18. diag: diag_matcher (the 32x40 bootstrap rig with --rounds),
+     diag_sfm_init (32x40, zncc) and diag_sfm_oracle (150x200) on the card,
+     exit 0.
 Each path from 7 on counts its kernel launches from 0; the kernels line sums
 them (the bf16 variants': the bf16-slice's; the two full-shape ranks' counts
 come back from their processes). The geometry stage runs four
@@ -112,6 +127,7 @@ phase's seconds are printed. Then a JSON line with every kernel, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1905,6 +1921,344 @@ def run_profile_phase() -> dict:
     return {k: v for k, v in res.items() if k != "kernels"}
 
 
+# the card's name and power limit (nvidia-smi), printed beside every time
+# and memory figure of the phases that follow
+CARD_TAG = ""
+
+# the PDC-Net trainer, card against CPU (TF32 on globally; the step turns it
+# off): the loss within 1e-5 relative. Its gradients at 300x400 are sums
+# over ~60k pixels with cancellation: the CPU's float32 gradient lies up to
+# 1.14e-4 of scale from the float64 one (ref4_dec1's bias, random init), so
+# two float32 orders do not agree within 1e-4 of scale. Each parameter's
+# gradient on the card is held to the float64 gradient of the same
+# augmented batch (computed on the CPU) within twice the CPU's largest
+# float32 error. The bundled weights' ladder eval: per-pair median EPE
+# within 0.01 px
+PDC_TRAIN_TOL = {"loss_rel": 1e-5, "grad_vs_cpu": 2.0, "epe_px": 1e-2}
+# the LPIPS trainer, ten steps in lockstep (the card's step from the CPU's
+# state each time): losses within 1e-5 relative; each gradient tensor,
+# computed in float32 along the max-pool routes and ReLU masks of the card's
+# float64 forward of the same batch, within 1e-4 of the largest magnitude of
+# that float64 gradient. Left to choose its own routes, the float32 gradient
+# is discontinuous: max-pool windows whose top activations lie within float32
+# rounding of each other route their gradient elsewhere in float32 than in
+# float64, on the CPU as on the card (up to 4.7e-2 of scale at batch 16 from
+# seed 0, and 7.1e-6 once the routes are given; PERF.md), so those gaps are
+# printed, not held
+LPIPS_TRAIN_TOL = {"loss_rel": 1e-5, "grad_routed": 1e-4}
+
+
+def _pdcnet_step_draws(rng, B: int, H: int, W: int, n_pairs: int) -> list:
+    """One training step's draws in the order train_step takes them: pair
+    indices, pair orders, zoom factors, then each view's photometric draws."""
+    import numpy as np
+
+    draws = [rng.randint(0, n_pairs, B), rng.randint(0, 2, B),
+             rng.uniform(size=(B, 2)).astype(np.float32)]
+    for _ in range(2):
+        draws += [rng.uniform(size=(B, 3, 1, 1)).astype(np.float32),
+                  rng.uniform(size=(B, 1, 1, 1)).astype(np.float32),
+                  rng.standard_normal((B, 3, H, W)).astype(np.float32),
+                  rng.uniform(size=(B, 1, 1, 1)).astype(np.float32)]
+    return draws
+
+
+def run_pdcnet_train_phase(steps: int = 30, H: int = 300, W: int = 400) -> dict:
+    """The PDC-Net trainer at 300x400, batch 2: 4 pairs generated through
+    --data_cache; one step on the card against the CPU with TF32 on; then
+    `steps` steps through the script's entry point on the card (s/step, peak
+    memory, loss trend) and --eval-only of the bundled weights, card against
+    CPU."""
+    import numpy as np
+    import torch
+
+    from sparf_tpu_torch.models import pdcnet as P
+    from sparf_tpu_torch.scripts import train_pdcnet_synth as tr
+    from sparf_tpu_torch.training.engine import Adam
+    from sparf_tpu_torch.utils.draws import ReplayDraws
+
+    B = 2
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "pairs.npz")
+        t0 = time.perf_counter()
+        tr.main(["--gen_only", "--pairs", "4", "--H", str(H), "--W", str(W), "--data_cache",
+                 cache, "--out", os.path.join(tmp, "w.npz")])
+        out["generate_s"] = time.perf_counter() - t0
+        with np.load(cache) as d:
+            imgs, corres, valid = d["imgs"], d["corres"], d["valid"]
+        # one step, card against CPU, TF32 on for cuBLAS and cuDNN
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        draws = _pdcnet_step_draws(np.random.RandomState(5), B, H, W, imgs.shape[0])
+        u8 = np.clip(imgs * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        res = {}
+        for key, dev in (("cpu", "cpu"), ("card", CARD)):
+            model = P.PDCNet(generator=torch.Generator().manual_seed(0), device=dev)
+            tx = Adam(tr.cosine_lr(2e-4, 3000), clip_norm=1.0)
+            pool = tuple(torch.as_tensor(a, device=dev) for a in (u8, corres, valid))
+            loss, _, grads, _ = tr.train_step(model, tx, tx.init(list(model.parameters())), pool,
+                                              ReplayDraws(draws, dev), B)
+            res[key] = (float(loss), [g.detach().cpu().double() for g in grads])
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        # the float64 gradient of the same augmented batch (augmented in float32 on the CPU)
+        d = ReplayDraws(draws, "cpu")
+        pool = tuple(torch.as_tensor(a) for a in (u8, corres, valid))
+        tgt, src, c, v = tr.zoom_aug(d, *tr.sample_batch(pool, d, B))
+        tgt, src = tr.photometric_aug(d, tgt), tr.photometric_aug(d, src)
+        model = P.PDCNet(generator=torch.Generator().manual_seed(0)).double()
+        loss64, _ = tr.pdcnet_loss(model, tgt.double(), src.double(), c.double(), v.double())
+        g64 = torch.autograd.grad(loss64, list(model.parameters()))
+        names = [n for n, _ in model.named_parameters()]
+        (l_cpu, g_cpu), (l_card, g_card) = res["cpu"], res["card"]
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        worst = []
+        for n, a, b, g in zip(names, g_card, g_cpu, g64):
+            scale = float(g.abs().max().clamp(min=1e-30))
+            worst.append((float((a - g).abs().max()) / scale, float((b - g).abs().max()) / scale,
+                          float((a - b).abs().max()) / scale, n))
+        bound = PDC_TRAIN_TOL["grad_vs_cpu"] * max(w[1] for w in worst)
+        bad = [w for w in worst if w[0] > bound]
+        if loss_rel > PDC_TRAIN_TOL["loss_rel"] or bad:
+            raise AssertionError(f"pdcnet-train: card step differs from the CPU step: loss "
+                                 f"{l_card} vs {l_cpu} (rel {loss_rel:.3g}); gradients (card vs "
+                                 f"float64, cpu vs float64, card vs cpu; of scale) past {bound:.3g}:"
+                                 f" {bad}")
+        top = max(worst)
+        phase("pdcnet-train", f"TF32 on: one step at {H}x{W}, batch {B}, card = CPU: loss "
+                              f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.3g}; float64 "
+                              f"{float(loss64):.6f}); gradients of {len(names)} parameters "
+                              f"against float64: card within {top[0]:.3g} of scale ({top[3]}; "
+                              f"the CPU's float32 {top[1]:.3g} there), card vs CPU within "
+                              f"{max(w[2] for w in worst):.3g}")
+        out.update(step_check={"loss_rel": loss_rel, "grad_card_vs_f64": top[0],
+                               "grad_cpu_vs_f64": max(w[1] for w in worst),
+                               "grad_card_vs_cpu": max(w[2] for w in worst), "worst": top[3]})
+        # the entry point: `steps` steps on the card, then its ladder eval
+        torch.cuda.reset_peak_memory_stats()
+        run = tr.main(["--steps", str(steps), "--pairs", "4", "--H", str(H), "--W", str(W),
+                       "--data_cache", cache, "--out", os.path.join(tmp, "w.npz")])
+        tr_out = run["train"]
+        steady = tr_out["step_seconds"][3:]
+        losses = tr_out["losses"]
+        out.update(s_per_step=float(np.median(steady)), s_per_step_min=float(np.min(steady)),
+                   s_per_step_max=float(np.max(steady)),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   loss_first5=float(np.mean(losses[:5])), loss_last5=float(np.mean(losses[-5:])))
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"pdcnet-train: non-finite loss {losses}")
+        with np.load(os.path.join(tmp, "w.npz")) as w:
+            if "provenance" not in w.files:
+                raise AssertionError("pdcnet-train: the written npz has no provenance")
+    phase("pdcnet-train", f"{steps} steps at {H}x{W}, batch {B} ({CARD_TAG}): median "
+                          f"{out['s_per_step']:.4f} s/step after 3 (min {out['s_per_step_min']:.4f},"
+                          f" max {out['s_per_step_max']:.4f}), peak memory "
+                          f"{out['peak_mem_gib']:.3f} GiB, loss {out['loss_first5']:.4f} (first 5)"
+                          f" -> {out['loss_last5']:.4f} (last 5); pairs generated in "
+                          f"{out['generate_s']:.1f} s (host)")
+    # --eval-only on the bundled weights, card against CPU
+    evals = {}
+    for key, dev in (("cpu", "cpu"), ("card", CARD)):
+        t0 = time.perf_counter()
+        evals[key] = tr.main(["--eval-only", P.BUNDLED_WEIGHTS, "--H", str(H), "--W", str(W),
+                              "--device", dev])["eval"]
+        out[f"eval_{key}_s"] = time.perf_counter() - t0
+    worst = 0.0
+    for span, row in evals["cpu"].items():
+        for a, b in zip(evals["card"][span]["median_epe"], row["median_epe"]):
+            if np.isfinite(b) or np.isfinite(a):
+                worst = max(worst, abs(a - b))
+    if not worst <= PDC_TRAIN_TOL["epe_px"]:
+        raise AssertionError(f"pdcnet-train: the card's ladder eval differs from the CPU's by "
+                             f"{worst} px: {evals}")
+    out.update(eval=evals["card"], eval_epe_gap_px=worst)
+    phase("pdcnet-train", f"--eval-only bundled weights at {H}x{W}: card = CPU within {worst:.3g} "
+                          f"px (median EPE per pair, span 0.35 "
+                          f"{[round(v, 3) for v in evals['card']['0.35']['median_epe']]}, span 1.0 "
+                          f"{[round(v, 3) for v in evals['card']['1.0']['median_epe']]}); "
+                          f"{out['eval_card_s']:.2f} s on the card ({CARD_TAG}), "
+                          f"{out['eval_cpu_s']:.2f} s on the CPU")
+    return out
+
+
+@contextlib.contextmanager
+def _lpips_routes(record=None, replay=None):
+    """Inside the block the max-pools and ReLUs of training/lpips.py's
+    features record their routes (argmax indices, ReLU masks) into `record`,
+    two lists, or follow those of `replay`."""
+    import torch.nn.functional as F
+
+    if record is None and replay is None:
+        yield
+        return
+    pool0, relu0 = F.max_pool2d, F.relu
+    pools, relus = (iter(replay[0]), iter(replay[1])) if replay is not None else (None, None)
+
+    def pool(x, k, s):
+        if pools is not None:
+            idx = next(pools).to(x.device)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        y, idx = pool0(x, k, s, return_indices=True)
+        record[0].append(idx)
+        return y
+
+    def relu(x):
+        if relus is not None:
+            return x * next(relus).to(x.device, x.dtype)
+        record[1].append(x > 0)
+        return relu0(x)
+
+    F.max_pool2d, F.relu = pool, relu
+    try:
+        yield
+    finally:
+        F.max_pool2d, F.relu = pool0, relu0
+
+
+def _lpips_grads(tl, params, arrays, dtype, device, record=None, replay=None, tf32=False):
+    """(loss, gradients in sorted-name order as float64 on the CPU) of the
+    LPIPS trainer's loss at `params` on one batch, in `dtype` on `device`."""
+    import torch
+
+    from sparf_tpu_torch.utils.precision import ieee_fp32
+
+    names = sorted(params)
+    p = {k: v.detach().to(device, dtype).requires_grad_(True) for k, v in params.items()}
+    batch = [torch.as_tensor(x, device=device, dtype=dtype) for x in arrays]
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    if tf32:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with contextlib.nullcontext() if tf32 else ieee_fp32(), _lpips_routes(record, replay):
+            loss, _ = tl.loss_fn(p, *batch)
+            grads = torch.autograd.grad(loss, [p[k] for k in names])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    return float(loss.detach()), [g.detach().cpu().double() for g in grads]
+
+
+def _of_scale(got, ref) -> float:
+    """The largest over tensors of max |got - ref| / max |ref|."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(got, ref))
+
+
+def run_lpips_train_phase(steps: int = 10, batch: int = 16) -> dict:
+    """The LPIPS trainer: `steps` steps through its entry point on the card and
+    on the CPU from one seed (time per step, the free-running losses, beside
+    the CPU's float32 run against a float64 run from the same seed); then the
+    same steps in lockstep, the card's step from the CPU's state each time,
+    each batch's gradient also in float64 on the card and on the CPU, in
+    float32 along the card's float64 routes (held, LPIPS_TRAIN_TOL) and, as
+    a control, the same with TF32 on (printed)."""
+    import numpy as np
+    import torch
+
+    from sparf_tpu_torch.scripts import train_lpips_selfsup as tl
+    from sparf_tpu_torch.training.engine import Adam, AdamState
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, dev in (("cpu", "cpu"), ("card", CARD)):
+            runs[key] = tl.main(["--steps", str(steps), "--batch", str(batch), "--device", dev,
+                                 "--out", os.path.join(tmp, f"{key}.npz")])
+    scene_imgs = tl.scene_images()
+
+    def lr_fn(count):
+        return torch.full((), 1e-4, device=count.device)
+
+    # the CPU's run in float64 from the same seed: the CPU's own float32 drift
+    rng = np.random.RandomState(0)
+    p64 = {k: v.detach().double().requires_grad_(True)
+           for k, v in tl.initial_params(0, "cpu").items()}
+    tx = Adam(lr_fn)
+    s64, losses64 = tx.init([p64[k] for k in sorted(p64)]), []
+    for it in range(steps):
+        arrays = tl.batch_triplets(scene_imgs, rng, batch) + tl.batch_cross(scene_imgs, rng, batch)
+        loss, _, _, s64 = tl.train_step(p64, tx, s64, [torch.as_tensor(
+            np.asarray(x, np.float32)).double() for x in arrays])
+        losses64.append(float(loss))
+    a, b, c = (np.array(runs["card"]["losses"]), np.array(runs["cpu"]["losses"]),
+               np.array(losses64))
+    free = dict(card_vs_cpu=float(np.max(np.abs(a - b) / np.abs(b))),
+                cpu_vs_f64=float(np.max(np.abs(b - c) / np.abs(c))),
+                card_vs_f64=float(np.max(np.abs(a - c) / np.abs(c))))
+
+    rng = np.random.RandomState(0)
+    params = tl.initial_params(0, "cpu")
+    state = tx.init([params[k] for k in sorted(params)])
+    rows = []
+    for it in range(steps):
+        arrays = [np.asarray(x, np.float32) for x in tl.batch_triplets(scene_imgs, rng, batch)
+                  + tl.batch_cross(scene_imgs, rng, batch)]
+        routes = ([], [])
+        _, g64_card = _lpips_grads(tl, params, arrays, torch.float64, CARD, record=routes)
+        _, g64_cpu = _lpips_grads(tl, params, arrays, torch.float64, "cpu")
+        _, g_routed = _lpips_grads(tl, params, arrays, torch.float32, CARD, replay=routes)
+        _, g_tf32 = _lpips_grads(tl, params, arrays, torch.float32, CARD, replay=routes,
+                                 tf32=True)
+        p_card = {k: v.detach().clone().to(CARD).requires_grad_(True) for k, v in params.items()}
+        s_card = AdamState(state.count.to(CARD), [m.to(CARD) for m in state.mu],
+                           [v.to(CARD) for v in state.nu])
+        l_card, _, g_card, _ = tl.train_step(p_card, tx, s_card,
+                                             [torch.as_tensor(x, device=CARD) for x in arrays])
+        l_cpu, _, g_cpu, state = tl.train_step(params, tx, state,
+                                               [torch.as_tensor(x) for x in arrays])
+        g_card = [g.detach().cpu().double() for g in g_card]
+        g_cpu = [g.detach().double() for g in g_cpu]
+        rows.append(dict(loss_rel=abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu)),
+                         routed=_of_scale(g_routed, g64_card),
+                         routed_tf32=_of_scale(g_tf32, g64_card),
+                         card_vs_f64=_of_scale(g_card, g64_card),
+                         cpu_vs_f64=_of_scale(g_cpu, g64_cpu),
+                         f64_card_vs_cpu=_of_scale(g64_card, g64_cpu),
+                         card_vs_cpu=_of_scale(g_card, g_cpu)))
+    worst = {k: max(r[k] for r in rows) for k in rows[0]}
+    if (worst["loss_rel"] > LPIPS_TRAIN_TOL["loss_rel"]
+            or worst["routed"] > LPIPS_TRAIN_TOL["grad_routed"]):
+        raise AssertionError(f"lpips-train: the card's step from the CPU's state differs: loss "
+                             f"{worst['loss_rel']:.3g} relative, gradient along the float64 "
+                             f"routes {worst['routed']:.3g} of scale; per step {rows}")
+    steady = runs["card"]["step_seconds"][2:]
+    out = dict(lockstep=rows, worst=worst, free_running=free,
+               s_per_step=float(np.median(steady)),
+               s_per_step_cpu=float(np.median(runs["cpu"]["step_seconds"][2:])),
+               loop_s=runs["card"]["seconds"], rank_acc=runs["card"]["rank_acc"])
+    per_step = ", ".join(f"{r['cpu_vs_f64']:.2g}/{r['card_vs_f64']:.2g}" for r in rows)
+    phase("lpips-train", f"{steps} steps at batch {batch} from seed 0 in lockstep, card = CPU: "
+                         f"losses within {worst['loss_rel']:.3g} relative; gradients along the "
+                         f"card's float64 routes within {worst['routed']:.3g} of scale of "
+                         f"float64 (TF32 on: {worst['routed_tf32']:.3g}); on their own routes, "
+                         f"float32 against float64 per step (CPU/card, of scale): {per_step}; "
+                         f"float64 card vs CPU {worst['f64_card_vs_cpu']:.3g}. Free-running "
+                         f"from the same seed the losses part by up to "
+                         f"{free['card_vs_cpu']:.3g} relative card vs CPU, "
+                         f"{free['cpu_vs_f64']:.3g} CPU float32 vs float64 ({a[0]:.5f} -> "
+                         f"{a[-1]:.5f}); median {out['s_per_step']:.4f} s/step after 2 on the "
+                         f"card ({CARD_TAG}), {out['s_per_step_cpu']:.4f} on the CPU; the "
+                         f"card's loop with host batch generation {out['loop_s']:.2f} s")
+    return out
+
+
+def run_diag_phase() -> dict:
+    """The three diagnostic scripts at a small size on the card."""
+    from sparf_tpu_torch.scripts import diag_matcher, diag_sfm_init, diag_sfm_oracle
+
+    out = {}
+    for name, fn, argv in (
+            ("diag_matcher", diag_matcher.main,
+             ["--H", "64", "--W", "80", "--span", "0.35", "--priors", "3", "--bootstrap", "40",
+              "--rounds"]),
+            ("diag_sfm_init", diag_sfm_init.main, ["--backend", "zncc", "--H", "32", "--W", "40"]),
+            ("diag_sfm_oracle", diag_sfm_oracle.main, [])):
+        t0 = time.perf_counter()
+        if fn(argv) != 0:
+            raise AssertionError(f"diag: {name} failed")
+        out[name] = time.perf_counter() - t0
+    phase("diag", "exit 0 on the card: " + ", ".join(f"{k} {v:.1f} s" for k, v in out.items())
+          + f" ({CARD_TAG})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true")
@@ -1922,7 +2276,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD_TAG
+    CARD_TAG = smi.stdout.strip().splitlines()[0]
+    print(CARD_TAG, flush=True)
     phase("device", f"{kind}, {torch.cuda.device_count()} visible, torch {torch.__version__} "
                     f"cuda {torch.version.cuda}, TF32 off")
 
@@ -1990,6 +2346,10 @@ def main() -> int:
     mu = timed("multi-check", check_multi)
     # 15. the step profile
     pr = timed("profile", run_profile_phase)
+    # 16.-18. the PDC-Net and LPIPS trainers and the diagnostic scripts
+    pt = timed("pdcnet-train", run_pdcnet_train_phase)
+    lt = timed("lpips-train", run_lpips_train_phase)
+    dg = timed("diag", run_diag_phase)
     phase("phases", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
@@ -2022,6 +2382,8 @@ def main() -> int:
                       "accum_it_per_sec": ac["it_per_sec"],
                       "merged_it_per_sec": {k: ms[k] for k in ("joint_coarse", "fine")},
                       "multi": mu, "profile_fine_fp32": pr,
+                      "pdcnet_train": {k: v for k, v in pt.items() if k != "eval"},
+                      "lpips_train": lt, "diag_s": dg,
                       "matcher": {"check": mc, "pools": mp, "refresh_s": sl["refresh_s"],
                                   "refresh_geometry": sl["refresh_geometry"]},
                       "phase_s": seconds}))

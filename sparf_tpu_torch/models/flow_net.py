@@ -1181,17 +1181,26 @@ def _rematch_all_pairs(imgs: torch.Tensor, intr: np.ndarray, flows, unordered, p
             extras[(s, t)] = (cv_st, d_st)
 
 
-def _rematched_flow_quality(flows, unordered) -> float:
+def _rematched_flow_quality(flows, unordered, parts: bool = False):
     """Round score: mean over directed pairs of the confident-pixel fraction
     x mean confident ZNCC (the mean of score where margin > 0.5) of flows
-    rematched at the round's poses; -inf without pairs."""
-    vals = []
+    rematched at the round's poses; -inf without pairs. With `parts`,
+    (score, coverage, mean confident ZNCC), the last two each a mean over
+    directed pairs, from the same host copies."""
+    vals, cover, zncc = [], [], []
     for t, s in unordered:
         for key in ((t, s), (s, t)):
             _, sc, m = flows[key]
+            sc, m = sc.cpu().numpy(), m.cpu().numpy() > 0.5
             # numpy's float32 mean over the host copy, as the JAX package takes it
-            vals.append(float(np.where(m.cpu().numpy() > 0.5, sc.cpu().numpy(), 0.0).mean()))
-    return float(np.mean(vals)) if vals else -np.inf
+            vals.append(float(np.where(m, sc, 0.0).mean()))
+            if parts:
+                cover.append(float(m.mean()))
+                zncc.append(float(sc[m].mean()) if m.any() else 0.0)
+    score = float(np.mean(vals)) if vals else -np.inf
+    if not parts:
+        return score
+    return score, float(np.mean(cover)), float(np.mean(zncc))
 
 
 def _clock(device) -> float:
@@ -1202,7 +1211,8 @@ def _clock(device) -> float:
 
 def _geometry_rounds(images: np.ndarray, imgs: torch.Tensor, intr: np.ndarray, flows,
                      unordered, init_poses_w2c, geom_iters: int, radius: int = 1,
-                     seed: int = 0, report: Optional[list] = None):
+                     seed: int = 0, report: Optional[list] = None,
+                     candidates: bool = False):
     """mini-SfM <-> plane-sweep-rematch rounds, in place on `flows`.
 
     Each round races the prior-chained candidate (SfM refined from the
@@ -1215,8 +1225,12 @@ def _geometry_rounds(images: np.ndarray, imgs: torch.Tensor, intr: np.ndarray, f
     independent per-pair poses (`_pairwise_geom_round`). The flows and poses
     of the best-scoring round are kept. `report` receives one dict per round:
     winner ("prior", "fresh" or "pairwise"), score, views registered,
-    seconds. Returns (poses (B,3,4) float64, depth_pool) or (None, None) when
-    every round fell back to pairwise geometry."""
+    seconds and the SfM matches kept per pair (`keypoints`: {"i-j": count}
+    of sparse rematch matches, or None for the flows' grid matches); with
+    `candidates` also each candidate (`candidates`: name, poses as a (B,3,4)
+    nested list or None, score, coverage and mean confident ZNCC). Returns
+    (poses (B,3,4) float64, depth_pool) or (None, None) when every round fell
+    back to pairwise geometry."""
     dev = imgs.device
     best, best_score, best_flows = (None, None), -np.inf, None
     stage1 = dict(flows)
@@ -1230,25 +1244,34 @@ def _geometry_rounds(images: np.ndarray, imgs: torch.Tensor, intr: np.ndarray, f
             matches = _sparse_matches_for_sfm(imgs, flows, unordered, H, W,
                                               search_radius=6 + 4 * it, extra_flows=stage1)
         inits = [prior] if prior is None else [prior, None]
-        round_best = None
+        round_best, cands = None, []
         for c, init_p in enumerate(inits):
+            name = "fresh" if init_p is None else "prior"
             poses, depth_pool = _global_poses_from_flows(
                 np.asarray(images), intr, flows, unordered, min_conf=0.80, matches=matches,
                 init_poses_w2c=init_p, seed=int(seed) * 1000 + 10 * it + c, device=dev)
             if poses is None:
+                cands.append(dict(candidate=name, poses=None))
                 continue
             trial = dict(flows)
             _rematch_all_pairs(imgs, intr, trial, unordered, poses, depth_pool, radius=radius)
-            score = _rematched_flow_quality(trial, unordered)
+            if candidates:
+                score, coverage, zncc = _rematched_flow_quality(trial, unordered, parts=True)
+                cands.append(dict(candidate=name, poses=poses.tolist(), score=score,
+                                  coverage=coverage, mean_zncc=zncc))
+            else:
+                score = _rematched_flow_quality(trial, unordered)
             if round_best is None or score > round_best[0]:
-                round_best = (score, poses, depth_pool, trial,
-                              "fresh" if init_p is None else "prior")
+                round_best = (score, poses, depth_pool, trial, name)
+        keypoints = (None if matches is None
+                     else {f"{i}-{j}": int(len(v[0])) for (i, j), v in matches[1].items()})
         if round_best is None:
             _pairwise_geom_round(imgs, intr, flows, unordered, init_poses_w2c,
                                  lk_for_next=not last, seed=seed, round_index=it)
             if report is not None:
                 report.append(dict(round=it, winner="pairwise", score=None, views=0,
-                                   seconds=_clock(dev) - t0))
+                                   seconds=_clock(dev) - t0, keypoints=keypoints,
+                                   **(dict(candidates=cands) if candidates else {})))
             continue
         score, poses, depth_pool, trial, winner = round_best
         flows.clear()
@@ -1258,7 +1281,8 @@ def _geometry_rounds(images: np.ndarray, imgs: torch.Tensor, intr: np.ndarray, f
             best, best_score, best_flows = (poses, depth_pool), score, dict(trial)
         if report is not None:
             report.append(dict(round=it, winner=winner, score=score, views=len(poses),
-                               seconds=_clock(dev) - t0))
+                               seconds=_clock(dev) - t0, keypoints=keypoints,
+                               **(dict(candidates=cands) if candidates else {})))
     if best_flows is not None:
         flows.clear()
         flows.update(best_flows)
@@ -1315,7 +1339,7 @@ def _n_levels_for(H: int, W: int) -> int:
 
 def _compute_zncc_flow_impl(images, combi_list, n_levels, patch, min_zncc_score, min_margin,
                             intr, init_poses_w2c, geom_iters, return_cc, use_homography,
-                            stage1_fn, geom_out, seed, device):
+                            stage1_fn, geom_out, seed, round_candidates, device):
     stage1 = stage1_fn or _stage1_flows
     images_np = np.asarray(images)
     imgs = torch.as_tensor(images_np, dtype=torch.float32, device=device)
@@ -1342,7 +1366,8 @@ def _compute_zncc_flow_impl(images, combi_list, n_levels, patch, min_zncc_score,
         seconds["stage1"] = _clock(device) - t0
         poses, depth_pool = _geometry_rounds(small_np, imgs_small, intr_small, flows_small,
                                              unordered, init_poses_w2c, geom_iters, radius=1,
-                                             seed=seed, report=rounds)
+                                             seed=seed, report=rounds,
+                                             candidates=round_candidates)
         geom.update(bootstrap=(Hs, Ws), rounds=rounds, seconds=seconds)
 
         def upsampled(key):
@@ -1377,7 +1402,7 @@ def _compute_zncc_flow_impl(images, combi_list, n_levels, patch, min_zncc_score,
     if intr is not None:
         poses, _ = _geometry_rounds(images_np, imgs, np.asarray(intr), flows, unordered,
                                     init_poses_w2c, geom_iters, radius=1, seed=seed,
-                                    report=rounds)
+                                    report=rounds, candidates=round_candidates)
         geom.update(bootstrap=None, rounds=rounds, seconds=seconds,
                     output="rematched flows" if poses is not None else "pairwise or stage-1 flows")
         if poses is not None:
@@ -1446,7 +1471,7 @@ def compute_zncc_flow_of_combi_list(images: np.ndarray, combi_list: np.ndarray,
                                     geom_iters: int = 3, return_cc: bool = False,
                                     use_homography: bool = False, stage1_fn=None,
                                     geom_out: Optional[dict] = None, seed: int = 0,
-                                    device="cuda"):
+                                    round_candidates: bool = False, device="cuda"):
     """Dense matching of every pair: (P,2,H,W) corres + (P,1,H,W) conf (+ cc).
 
     Stage 1 (`stage1_fn`, default the ZNCC pyramid) matches by appearance.
@@ -1454,7 +1479,9 @@ def compute_zncc_flow_of_combi_list(images: np.ndarray, combi_list: np.ndarray,
     the `init_poses_w2c` prior when given), at <= _BOOTSTRAP_MAX_DIM px for
     larger scenes with one full-resolution rematch after. `geom_out` receives
     the stage's report: 'poses_w2c' (B,3,4) float64 when global poses were
-    found, 'rounds' (winner, score, views, seconds per round), 'seconds'
+    found, 'rounds' (winner, score, views, seconds and SfM matches per
+    round; with `round_candidates` every candidate's poses and score parts,
+    _geometry_rounds), 'seconds'
     (stage1, rematch_full), 'bootstrap' (the small size or None) and
     'output' (which flows were emitted). RANSAC generators derive from
     `seed`. Everything from stage 1 to the assembled maps runs in full
@@ -1462,7 +1489,8 @@ def compute_zncc_flow_of_combi_list(images: np.ndarray, combi_list: np.ndarray,
     with torch.no_grad(), ieee_fp32():
         return _compute_zncc_flow_impl(images, combi_list, n_levels, patch, min_zncc_score,
                                        min_margin, intr, init_poses_w2c, geom_iters, return_cc,
-                                       use_homography, stage1_fn, geom_out, seed, device)
+                                       use_homography, stage1_fn, geom_out, seed,
+                                       round_candidates, device)
 
 
 # ---------------------------------------------------------------------------

@@ -132,3 +132,7 @@ def get_w2c_poses(cfg: PoseConfig, params: Dict, constants: Dict) -> torch.Tenso
         decoded = torch.cat([constants["initial_poses_w2c"][: cfg.n_fixed], decoded], dim=0)
     return decoded
 
+
+def get_c2w_poses(cfg: PoseConfig, params: Dict, constants: Dict) -> torch.Tensor:
+    """Current c2w pose estimates (N,3,4)."""
+    return camera.pose_invert(get_w2c_poses(cfg, params, constants))

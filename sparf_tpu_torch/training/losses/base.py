@@ -12,6 +12,10 @@ import torch
 from sparf_tpu_torch.parallel import mesh as mesh_mod
 
 
+def l1_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    return mesh_mod.ray_mean(torch.abs(pred - label))
+
+
 def mse_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     d = (pred - label) ** 2
     return torch.sum(d) / (mesh_mod.ray_count(d) + 1e-6)

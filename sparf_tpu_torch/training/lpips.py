@@ -52,6 +52,40 @@ def _init_random_params(seed: int = 0) -> Dict[str, np.ndarray]:
     return params
 
 
+def load_weights_npz(path: str) -> Dict[str, np.ndarray]:
+    """Every array of an LPIPS weight file (`provenance` included)."""
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def convert_torch_lpips_checkpoint(alexnet_pth: str, lpips_pth: str, out_npz: str) -> None:
+    """Convert official torchvision-alexnet + lpips-lin checkpoints to npz.
+
+    alexnet_pth: a torchvision alexnet state_dict (features.0.weight, ...);
+    lpips_pth: the lpips 'alex' linear weights (lin0.model.1.weight, ...)."""
+    alex = torch.load(alexnet_pth, map_location="cpu")
+    lin = torch.load(lpips_pth, map_location="cpu")
+    out: Dict[str, np.ndarray] = {}
+    for i, fid in enumerate([0, 3, 6, 8, 10]):
+        out[f"conv{i}_w"] = alex[f"features.{fid}.weight"].numpy()
+        out[f"conv{i}_b"] = alex[f"features.{fid}.bias"].numpy()
+        out[f"lin{i}_w"] = lin[f"lin{i}.model.1.weight"].numpy().reshape(-1)
+    np.savez(out_npz, **out)
+
+
+def features(params: Dict[str, torch.Tensor], x: torch.Tensor) -> List[torch.Tensor]:
+    """The five AlexNet ReLU activations of normalised NCHW images (the
+    caller chooses no_grad and the precision)."""
+    feats = []
+    for i, (_, _, _, stride, pad) in enumerate(_ALEX_CONVS):
+        x = F.relu(F.conv2d(x, params[f"conv{i}_w"], params[f"conv{i}_b"], stride=stride,
+                            padding=pad))
+        feats.append(x)
+        if i in _POOL_AFTER:
+            x = F.max_pool2d(x, 3, 2)
+    return feats
+
+
 def _normalize_tensor(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     return x / (torch.sqrt(torch.sum(x**2, dim=1, keepdim=True)) + eps)
 
@@ -65,8 +99,7 @@ class LPIPS:
                       os.path.join(DATA_DIR, "lpips_selfsup.npz")]
         weights_path = next((p for p in candidates if p and os.path.exists(p)), None)
         if weights_path:
-            with np.load(weights_path) as data:
-                raw = {k: data[k] for k in data.files}
+            raw = load_weights_npz(weights_path)
             self.provenance = str(raw.pop("provenance", "converted official weights"))
             official = "official" in self.provenance.lower()
             self.weight_tag = "lpips" if official else "lpips(selfsup)"
@@ -84,16 +117,6 @@ class LPIPS:
                                     for k, v in self._params_np.items()}
         return self._params[device]
 
-    def _features(self, params, x: torch.Tensor) -> List[torch.Tensor]:
-        feats = []
-        for i, (_, _, _, stride, pad) in enumerate(_ALEX_CONVS):
-            x = F.relu(F.conv2d(x, params[f"conv{i}_w"], params[f"conv{i}_b"], stride=stride,
-                                padding=pad))
-            feats.append(x)
-            if i in _POOL_AFTER:
-                x = F.max_pool2d(x, 3, 2)
-        return feats
-
     def __call__(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         params = self.params_on(img1.device)
         with torch.no_grad(), ieee_fp32():
@@ -108,8 +131,8 @@ class LPIPS:
                                      align_corners=False)
             shift = torch.as_tensor(_SHIFT, device=img1.device)
             scale = torch.as_tensor(_SCALE, device=img1.device)
-            f1 = self._features(params, (img1 - shift) / scale)
-            f2 = self._features(params, (img2 - shift) / scale)
+            f1 = features(params, (img1 - shift) / scale)
+            f2 = features(params, (img2 - shift) / scale)
             total = torch.zeros((), device=img1.device)
             for i, (a, b) in enumerate(zip(f1, f2)):
                 d = (_normalize_tensor(a) - _normalize_tensor(b)) ** 2

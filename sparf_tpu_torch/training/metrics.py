@@ -71,7 +71,7 @@ def _depthwise_conv(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          size_average: bool = True) -> torch.Tensor:
     """SSIM on (B,C,H,W) images in [0,1]."""
-    window = torch.as_tensor(_gaussian_window(window_size), device=img1.device)
+    window = torch.as_tensor(_gaussian_window(window_size), device=img1.device, dtype=img1.dtype)
     mu1 = _depthwise_conv(img1, window)
     mu2 = _depthwise_conv(img2, window)
     mu1_sq, mu2_sq, mu1_mu2 = mu1**2, mu2**2, mu1 * mu2

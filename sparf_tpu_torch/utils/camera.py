@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -167,6 +168,11 @@ def taylor_B(x: torch.Tensor) -> torch.Tensor:
     return _taylor_poly_sq(x * x, _DENOMS_B)
 
 
+def taylor_C(x: torch.Tensor) -> torch.Tensor:
+    """(x-sin(x))/x^3."""
+    return _taylor_poly_sq(x * x, _DENOMS_C)
+
+
 def so3_to_SO3(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (...,3) axis-angle -> (...,3,3) rotation."""
     wx = skew_symmetric(w)
@@ -258,9 +264,47 @@ def R_to_quaternion(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quaternion_product(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product (...,4)x(...,4) -> (...,4)."""
+    q1a, q1b, q1c, q1d = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    q2a, q2b, q2c, q2d = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([
+        q1a * q2a - q1b * q2b - q1c * q2c - q1d * q2d,
+        q1a * q2b + q1b * q2a + q1c * q2d - q1d * q2c,
+        q1a * q2c - q1b * q2d + q1c * q2a + q1d * q2b,
+        q1a * q2d + q1b * q2c - q1c * q2b + q1d * q2a,
+    ], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # rays
 # ---------------------------------------------------------------------------
+
+
+def rotation_distance(R1: torch.Tensor, R2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Geodesic angle between rotation matrices, radians."""
+    R_diff = R1 @ R2.transpose(-2, -1)
+    trace = R_diff[..., 0, 0] + R_diff[..., 1, 1] + R_diff[..., 2, 2]
+    return torch.arccos(torch.clamp((trace - 1) / 2, -1 + eps, 1 - eps))
+
+
+def procrustes_analysis(X0: np.ndarray, X1: np.ndarray) -> dict:
+    """sim3 {t0,t1,s0,s1,R} aligning point sets; X1->X0 is ((X1-t1)/s1)R^T s0+t0.
+
+    Host numpy in float64 (the eval and alignment path only), as the JAX
+    package computes it."""
+    X0 = np.asarray(X0, np.float64)
+    X1 = np.asarray(X1, np.float64)
+    t0, t1 = X0.mean(axis=0), X1.mean(axis=0)
+    X0c, X1c = X0 - t0, X1 - t1
+    s0 = max(np.sqrt((X0c**2).sum(-1).mean()), 1e-12)
+    s1 = max(np.sqrt((X1c**2).sum(-1).mean()), 1e-12)
+    U, _, Vh = np.linalg.svd((X0c / s0).T @ (X1c / s1), full_matrices=False)
+    R = U @ Vh
+    if np.linalg.det(R) < 0:
+        R[2] *= -1
+    return dict(t0=t0.astype(np.float32), t1=t1.astype(np.float32), s0=np.float32(s0),
+                s1=np.float32(s1), R=R.astype(np.float32))
 
 
 def angle_to_rotation_matrix(a: torch.Tensor, axis: str) -> torch.Tensor:

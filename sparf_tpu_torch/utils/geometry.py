@@ -32,6 +32,12 @@ def batch_backproject_to_3d(kpi: torch.Tensor, di: torch.Tensor, Ki: torch.Tenso
     return from_homogeneous(to_homogeneous(pts3d_i) @ T_itoj.transpose(-1, -2))
 
 
+def batch_project(kpi_3d: torch.Tensor, T_itoj: torch.Tensor, Kj: torch.Tensor) -> torch.Tensor:
+    """Project 3D points in frame i into image j: (B,N,3) -> (B,N,2)."""
+    kpi_3d_j = from_homogeneous(to_homogeneous(kpi_3d) @ T_itoj.transpose(-1, -2))
+    return from_homogeneous(kpi_3d_j @ Kj.transpose(-1, -2))
+
+
 def batch_project_to_other_img(kpi: torch.Tensor, di: torch.Tensor, Ki: torch.Tensor,
                                Kj: torch.Tensor, T_itoj: torch.Tensor,
                                return_depth: bool = False):

@@ -14,6 +14,10 @@ card has no `cv2`, so the port keeps its own versions, held to OpenCV's by
     (a triangle kernel, antialiased when downsampling), which the matchers
     use where the JAX package resizes flows and confidences;
   - `dilate` (cv2.dilate with a 3x3 box, iterated);
+  - `gaussian_blur` (cv2.GaussianBlur, BORDER_REFLECT_101, ksize (0, 0)
+    from sigma), `warp_affine_reflect` (cv2.warpAffine, bilinear,
+    BORDER_REFLECT) and `fill_poly` (cv2.fillPoly, LINE_8, pixel for pixel),
+    the LPIPS trainer's patch operations;
   - `decompose_projection_matrix` (cv2.decomposeProjectionMatrix's K, R, t);
   - `find_fundamental_ransac`: epipolar RANSAC in place of
     cv2.findFundamentalMat(FM_RANSAC). RANSAC draws random samples, so its
@@ -191,7 +195,7 @@ def resize_bilinear(x: torch.Tensor, size_hw: Sequence[int], antialias: bool = T
             n_in = out.shape[axis]
             if n_in == n_out:
                 continue
-            wmat = _triangle_weights(n_in, n_out, antialias).to(out.device)
+            wmat = _triangle_weights(n_in, n_out, antialias).to(out.device, out.dtype)
             out = torch.movedim(torch.movedim(out, axis, -1) @ wmat, -1, axis)
     return out
 
@@ -224,6 +228,161 @@ def dilate(mask: np.ndarray, iterations: int = 1) -> np.ndarray:
     for _ in range(int(iterations)):
         x = F.max_pool2d(x, 3, stride=1, padding=1)
     return x[0, 0].numpy().astype(m.dtype)
+
+
+# ---------------------------------------------------------------------------
+# filtering, warping and polygon filling (host numpy, like OpenCV)
+# ---------------------------------------------------------------------------
+
+
+def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
+    """cv2.getGaussianKernel(ksize, sigma, CV_32F) for sigma > 0: the
+    normalised exp(-x^2 / (2 sigma^2)) at x = i - (ksize - 1) / 2, computed in
+    double and stored as float32."""
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
+    k = np.exp(-(x * x) / (2.0 * float(sigma) ** 2))
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(image: np.ndarray, ksize: Sequence[int], sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(image, ksize, sigma) for a float32 (H, W) or (H, W, C)
+    image with sigma > 0 and the default border (BORDER_REFLECT_101). A ksize
+    of (0, 0) takes OpenCV's float size, round(sigma * 8 + 1) | 1. The
+    separable passes (rows, then columns) accumulate in float64 and store
+    float32, as OpenCV stores its intermediate rows."""
+    img, squeeze = _float_image(image)
+    kx, ky = int(ksize[0]), int(ksize[1])
+    if kx <= 0:
+        kx = int(np.rint(sigma * 8 + 1)) | 1
+    if ky <= 0:
+        ky = int(np.rint(sigma * 8 + 1)) | 1
+    out = img.astype(np.float32)
+    for axis, k in ((1, kx), (0, ky)):
+        w = gaussian_kernel(k, sigma).astype(np.float64)
+        r = k // 2
+        pad = [(0, 0)] * out.ndim
+        pad[axis] = (r, r)
+        padded = np.pad(out, pad, mode="reflect").astype(np.float64)
+        n = out.shape[axis]
+        acc = np.zeros(out.shape, np.float64)
+        for i in range(k):
+            acc += w[i] * np.take(padded, np.arange(i, i + n), axis=axis)
+        out = acc.astype(np.float32)
+    return out[..., 0] if squeeze else out
+
+
+def _reflect_index(i: np.ndarray, n: int) -> np.ndarray:
+    """OpenCV's BORDER_REFLECT ("fedcba|abcdefgh|hgfedcb") index into [0, n)."""
+    period = 2 * n
+    i = np.mod(i, period)
+    return np.where(i >= n, period - 1 - i, i)
+
+
+def warp_affine_reflect(image: np.ndarray, M: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
+    """cv2.warpAffine(image, M, dsize, borderMode=cv2.BORDER_REFLECT) with
+    bilinear interpolation for a float32 (H, W) or (H, W, C) image; dsize is
+    (W, H). M maps source to destination, so each destination pixel samples
+    the source at M^-1 (x, y) in float32 coordinates (OpenCV 5 does not round
+    float32 warps to 1/32 px), weighted in float64."""
+    img, squeeze = _float_image(image)
+    H, W = img.shape[:2]
+    Wo, Ho = int(dsize[0]), int(dsize[1])
+    A = np.asarray(M, np.float64)
+    inv = np.linalg.inv(np.vstack([A, [0.0, 0.0, 1.0]]))[:2]
+    yy, xx = np.meshgrid(np.arange(Ho, dtype=np.float64), np.arange(Wo, dtype=np.float64),
+                         indexing="ij")
+    # the source coordinates are rounded to float32, as OpenCV holds them
+    sx = (inv[0, 0] * xx + inv[0, 1] * yy + inv[0, 2]).astype(np.float32).astype(np.float64)
+    sy = (inv[1, 0] * xx + inv[1, 1] * yy + inv[1, 2]).astype(np.float32).astype(np.float64)
+    x0, y0 = np.floor(sx), np.floor(sy)
+    wx, wy = (sx - x0)[..., None], (sy - y0)[..., None]
+    xi = [_reflect_index(x0.astype(np.int64) + d, W) for d in (0, 1)]
+    yi = [_reflect_index(y0.astype(np.int64) + d, H) for d in (0, 1)]
+    src = img.astype(np.float64)
+    top = src[yi[0], xi[0]] * (1 - wx) + src[yi[0], xi[1]] * wx
+    bottom = src[yi[1], xi[0]] * (1 - wx) + src[yi[1], xi[1]] * wx
+    out = (top * (1 - wy) + bottom * wy).astype(np.float32)
+    return out[..., 0] if squeeze else out
+
+
+_XY_SHIFT = 16
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _line8(img: np.ndarray, p0, p1, color) -> None:
+    """OpenCV's Line() with 8-connectivity (its LineIterator, left to right)
+    between integer points inside the image."""
+    (x0, y0), (x1, y1) = p0, p1
+    if x1 < x0:
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    dx, dy = x1 - x0, y1 - y0
+    sx, sy = 1, 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = x0, y0
+    for _ in range(dx + 1):
+        img[y, x] = color
+        if err < 0:            # a diagonal step
+            err += 2 * dx - 2 * dy
+            x, y = x + sx, y + sy
+        else:                  # a step along the major axis
+            err -= 2 * dy
+            if vert:
+                y += sy
+            else:
+                x += sx
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C's integer division (towards zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def fill_poly(img: np.ndarray, polygons, color) -> np.ndarray:
+    """cv2.fillPoly(img, polygons, color) in place for int32 vertices inside
+    the image (lineType LINE_8, shift 0), convex or not: OpenCV draws each
+    edge as an 8-connected line, then fills its edge table scanline by
+    scanline (even-odd, x in 16.16 fixed point, each span from the ceiling
+    of its left x to the floor of its right x). Returns img."""
+    color = np.asarray(color, img.dtype)
+    H, W = img.shape[:2]
+    edges = []
+    for poly in polygons:
+        pts = [(int(x), int(y)) for x, y in np.asarray(poly).reshape(-1, 2)]
+        px, py = pts[-1]
+        for x, y in pts:
+            _line8(img, (px, py), (x, y), color)
+            if py != y:
+                (ax, ay), (bx, by) = ((px, py), (x, y)) if py < y else ((x, y), (px, py))
+                edges.append([ay, by, ax << _XY_SHIFT,
+                              _trunc_div((bx - ax) << _XY_SHIFT, by - ay)])
+            px, py = x, y
+    if len(edges) < 2:
+        return img
+    edges.sort(key=lambda e: (e[0], e[2], e[3]))   # y0, x, dx
+    active, i = [], 0
+    y = edges[0][0]
+    y_max = min(max(e[1] for e in edges), H)
+    while y < y_max:
+        active = [e for e in active if e[1] != y]
+        while i < len(edges) and edges[i][0] == y:
+            active.append(edges[i])
+            i += 1
+        active.sort(key=lambda e: e[2])
+        for a, b in zip(active[0::2], active[1::2]):
+            x1 = max((a[2] + _XY_ONE - 1) >> _XY_SHIFT, 0)
+            x2 = min(b[2] >> _XY_SHIFT, W - 1)
+            if x1 < W and x2 >= 0 and 0 <= y:
+                img[y, x1: x2 + 1] = color
+            a[2] += a[3]
+            b[2] += b[3]
+        y += 1
+    return img
 
 
 # ---------------------------------------------------------------------------

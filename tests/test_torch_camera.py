@@ -135,3 +135,48 @@ def test_pose_parametrizations(param, extra):
     torch.sum(tpose.get_w2c_poses(ct, pt, constt) * t(weights)).backward()
     for k in pj:
         assert_close(pt[k].grad, g_j[k], atol=1e-4, what=k)
+
+
+def test_taylor_quaternion_rotation_distance_procrustes():
+    """The helpers the JAX package's own tests exercise: taylor_C, the
+    quaternion product, the geodesic rotation distance (values and
+    gradients) and the Procrustes sim3 (host float64, so to 1e-6)."""
+    rng = np.random.RandomState(7)
+    x = (rng.uniform(-3, 3, size=(64,))).astype(np.float32)
+    assert_close(tcam.taylor_C(t(x)), jcam.taylor_C(jnp.asarray(x)), atol=1e-6)
+    q1, q2 = (rng.normal(size=(5, 4)).astype(np.float32) for _ in range(2))
+    assert_close(tcam.quaternion_product(t(q1), t(q2)),
+                 jcam.quaternion_product(jnp.asarray(q1), jnp.asarray(q2)), atol=1e-6)
+    R1 = _random_poses(rng, 6)[..., :3]
+    R2 = _random_poses(rng, 6)[..., :3]
+    assert_close(tcam.rotation_distance(t(R1), t(R2)),
+                 jcam.rotation_distance(jnp.asarray(R1), jnp.asarray(R2)), atol=1e-5)
+    g_j = jax.grad(lambda r: jnp.sum(jcam.rotation_distance(r, jnp.asarray(R2))))(jnp.asarray(R1))
+    r = t(R1, requires_grad=True)
+    torch.sum(tcam.rotation_distance(r, t(R2))).backward()
+    assert_close(r.grad, g_j, atol=1e-4)
+    X1 = rng.normal(size=(20, 3))
+    for flip in (False, True):
+        X0 = 2.5 * X1 @ _random_poses(rng, 1)[0, :, :3].T + 0.3
+        if flip:
+            X0[:, 2] *= -1      # a reflection: det < 0 branch
+        out_t, out_j = tcam.procrustes_analysis(X0, X1), jcam.procrustes_analysis(X0, X1)
+        for k in out_j:
+            np.testing.assert_allclose(out_t[k], out_j[k], atol=1e-6, err_msg=k)
+
+
+def test_batch_project_and_c2w_poses():
+    rng = np.random.RandomState(8)
+    pts = (rng.normal(size=(2, 30, 3)) + np.array([0, 0, 4.0])).astype(np.float32)
+    T = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    T[:, :3] = _random_poses(rng, 2, scale=0.1)
+    K = np.tile(np.array([[50.0, 0, 20], [0, 50.0, 16], [0, 0, 1]], np.float32), (2, 1, 1))
+    assert_close(tgeo.batch_project(t(pts), t(T), t(K)),
+                 jgeo.batch_project(jnp.asarray(pts), jnp.asarray(T), jnp.asarray(K)),
+                 atol=1e-4)
+    cfg_kw = dict(parametrization="two_columns", nbr_poses=3)
+    init = _random_poses(rng, 3)
+    pj, constj = jpose.init_pose_params(jpose.PoseConfig(**cfg_kw), init)
+    pt, constt = tpose.init_pose_params(tpose.PoseConfig(**cfg_kw), t(init))
+    assert_close(tpose.get_c2w_poses(tpose.PoseConfig(**cfg_kw), pt, constt),
+                 jpose.get_c2w_poses(jpose.PoseConfig(**cfg_kw), pj, constj), atol=1e-5)

@@ -5,6 +5,9 @@ lazy imports inside functions are covered too. The interpreter runs with
 the workers' thread cap (torch_parity.run_python)."""
 import os
 
+import pytest
+import torch
+
 from torch_entry_common import REPO, TINY
 from torch_parity import BLOCK, run_python
 
@@ -21,7 +24,9 @@ def test_package_imports_without_jax():
         "          'datasets.dtu', 'datasets.llff', 'utils.alignment', 'utils.imgproc',\n"
         "          'models.pdcnet', 'models.sparse_matcher', 'parallel.mesh', 'parallel.dryrun',\n"
         "          'scripts.profile_step', 'scripts.validate_dataset',\n"
-        "          'scripts.test_matcher_installation'):\n"
+        "          'scripts.test_matcher_installation', 'scripts.train_pdcnet_synth',\n"
+        "          'scripts.train_lpips_selfsup', 'scripts.diag_matcher', 'scripts.diag_sfm_init',\n"
+        "          'scripts.diag_sfm_oracle'):\n"
         "    assert 'sparf_tpu_torch.' + m in mods, mods\n"
         "print(len(mods))\n"
     )
@@ -47,3 +52,34 @@ def test_entry_points_run_without_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "lpips(selfsup)"
     assert os.path.exists(tmp_path / "ev" / "e.json")
+
+
+def test_trainers_and_diag_scripts_run_without_jax_or_opencv(tmp_path):
+    """The PDC-Net and LPIPS trainers (one step, tiny) and two diag scripts
+    with JAX, the JAX package, OpenCV, imageio and PIL blocked."""
+    code = BLOCK + (
+        "from sparf_tpu_torch.scripts import (train_pdcnet_synth, train_lpips_selfsup,\n"
+        "                                     diag_matcher, diag_sfm_oracle)\n"
+        f"train_pdcnet_synth.main(['--steps', '1', '--pairs', '1', '--H', '32', '--W', '40',\n"
+        f"                         '--device', 'cpu', '--out', {str(tmp_path / 'p.npz')!r}])\n"
+        f"train_lpips_selfsup.main(['--steps', '1', '--batch', '2', '--device', 'cpu',\n"
+        f"                          '--out', {str(tmp_path / 'l.npz')!r}])\n"
+        "diag_matcher.main(['--H', '32', '--W', '40', '--skip-stage1', '--device', 'cpu'])\n"
+        "diag_sfm_oracle.main(['--H', '32', '--W', '40', '--device', 'cpu'])\n"
+        "print('ok')\n"
+    )
+    proc = run_python(code, REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    assert os.path.exists(tmp_path / "p.npz") and os.path.exists(tmp_path / "l.npz")
+
+
+@pytest.mark.parametrize("name", ["train_pdcnet_synth", "train_lpips_selfsup", "diag_matcher",
+                                  "diag_sfm_init", "diag_sfm_oracle"])
+def test_scripts_without_a_card_or_device_cpu_fail_loudly(monkeypatch, name):
+    import importlib
+
+    mod = importlib.import_module(f"sparf_tpu_torch.scripts.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        mod.main([])

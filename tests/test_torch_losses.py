@@ -139,3 +139,9 @@ def test_ray_sampler_with_injected_draws(monkeypatch, mode):
     n = len(shim.recorded)
     idx_t = sampler_t(ReplayDraws(shim.recorded[n // 2:]), 48, sample_in_center=True)
     np.testing.assert_array_equal(to_np(idx_t), np.asarray(idx_j))
+
+
+def test_l1_loss_matches_jax():
+    rng = np.random.RandomState(11)
+    a, b = (rng.normal(size=(64, 3)).astype(np.float32) for _ in range(2))
+    assert_close(tL.l1_loss(t(a), t(b)), jL.l1_loss(jnp.asarray(a), jnp.asarray(b)), atol=0, rtol=1e-6)

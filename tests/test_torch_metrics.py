@@ -114,3 +114,33 @@ def test_compute_metrics_bundle_matches_jax(lpips_pair, suffix):
     assert_close(m_c, jmet.compute_mse_on_rays(jnp.asarray(b.reshape(1, -1, 3)),
                                                {"rgb": jnp.asarray(a.reshape(1, -1, 3))})[0],
                  0, 1e-5)
+
+
+def test_lpips_weight_io_matches_jax(tmp_path):
+    """load_weights_npz and convert_torch_lpips_checkpoint against the JAX
+    package's, on torch state dicts this test writes (official layouts:
+    torchvision alexnet `features.<i>.*`, lpips `lin<i>.model.1.weight`)."""
+    rng = np.random.RandomState(12)
+    alex, lin = {}, {}
+    for i, fid in enumerate([0, 3, 6, 8, 10]):
+        out_c, in_c, k, _, _ = tlpips._ALEX_CONVS[i]
+        alex[f"features.{fid}.weight"] = torch.as_tensor(
+            rng.normal(size=(out_c, in_c, k, k)).astype(np.float32))
+        alex[f"features.{fid}.bias"] = torch.as_tensor(rng.normal(size=out_c).astype(np.float32))
+        lin[f"lin{i}.model.1.weight"] = torch.as_tensor(
+            rng.uniform(size=(1, out_c, 1, 1)).astype(np.float32))
+    torch.save(alex, tmp_path / "alex.pth")
+    torch.save(lin, tmp_path / "lin.pth")
+    tlpips.convert_torch_lpips_checkpoint(str(tmp_path / "alex.pth"), str(tmp_path / "lin.pth"),
+                                          str(tmp_path / "t.npz"))
+    lpips_jax.convert_torch_lpips_checkpoint(str(tmp_path / "alex.pth"),
+                                             str(tmp_path / "lin.pth"), str(tmp_path / "j.npz"))
+    wt = tlpips.load_weights_npz(str(tmp_path / "t.npz"))
+    wj = lpips_jax.load_weights_npz(str(tmp_path / "j.npz"))
+    assert sorted(wt) == sorted(wj)
+    for k in wj:
+        np.testing.assert_array_equal(wt[k], wj[k], err_msg=k)
+    a, b = _images((1, 3, 64, 64), 13)
+    assert_close(tlpips.LPIPS(str(tmp_path / "t.npz"))(t(a * 2 - 1), t(b * 2 - 1)),
+                 lpips_jax.LPIPS(str(tmp_path / "j.npz"))(jnp.asarray(a * 2 - 1),
+                                                          jnp.asarray(b * 2 - 1)), atol=0, rtol=1e-5)
