@@ -8,11 +8,13 @@ Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
 Phases, one line each; any failure raises and the process exits non-zero:
   1. device: name, power limit, TF32 off for matmuls and cuDNN;
-  2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a, one
-     compile per MMA kind (3xTF32, bf16), in parallel;
+  2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a,
+     fused_mlp.cu once per MMA kind (3xTF32, bf16) and fused_mlp_wgmma.cu
+     (K1 and K2 at bf16), in parallel; registers and spills per kernel;
   3. kernels: for each variant, 3xTF32 (compute_dtype float32) and bf16
      (compute_dtype bfloat16): the fragment packing (k_pack) bit for bit
-     against its plain version; K1 (fused MLP forward), K2 (backward) and
+     against its plain version, and at bf16 the wgmma kernels' weight
+     layouts (k_wg_layout); K1 (fused MLP forward), K2 (backward) and
      K3 (forward on packed weights) at the full 8x256 width, ragged T, both
      view_dep settings and an active coarse-to-fine mask, against their
      plain torch versions (K3 also against K1's; bf16 per point, see
@@ -361,6 +363,33 @@ def check_packing(meta, weights, params) -> None:
                                  f"{int((a != b).sum())} of {a.numel()} floats")
 
 
+def check_wg_layout(meta, weights) -> None:
+    """The bf16 K1 / K2's weight layouts (k_wg_layout) against
+    wgmma_layout_plain, bit for bit, and the kernel's sizes against the
+    Python mirror of its layout (wg_layout)."""
+    import torch
+
+    from sparf_tpu_torch.ops import _build
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    dims = meta.dims(weights)
+    lay = fm.wg_layout(tuple(dims))
+    sizes = fm._wg_sizes(_build.load_library(), fm._dims(meta, weights), "k_wg_layout")
+    want = [sum(int(w.numel()) for w in weights), lay.RF * lay.KF, lay.RT * lay.KT, lay.RF,
+            lay.KX, lay.KG]
+    if sizes[:6] != want:
+        raise AssertionError(f"fused_mlp_wgmma.cu sizes {sizes[:6]} != wg_layout's {want}")
+    got = fm.wg_layout_kernel(dims, weights)
+    plain = fm.wgmma_layout_plain(dims, weights)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("forward", "transposed", "bias"), got, plain):
+        a, b = a.reshape(-1), b.reshape(-1)
+        iv = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        if a.shape != b.shape or not torch.equal(a.view(iv), b.view(iv)):
+            raise AssertionError(f"k_wg_layout {name} differs from wgmma_layout_plain in "
+                                 f"{int((a != b).sum()) if a.shape == b.shape else 'shape'}")
+
+
 def _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped, failed) -> None:
     """One forward output pair against its reference: fp32 within FWD_RTOL of
     scale; bf16 per point (module note). A miss is appended to `failed`."""
@@ -398,6 +427,8 @@ def check_kernels(bf16: bool = False) -> dict:
             meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(
                 view_dep, T, seed=T, bf16=bf16)
             check_packing(meta, weights, params)
+            if bf16:
+                check_wg_layout(meta, weights)
             packed = fm.pack_weights(params, meta)
             dens_k, rgb_k = fm._launch_k1(meta, pts_enc, view_enc, weights)
             dens_3, rgb_3 = fm._launch_k3(meta, pts_enc, view_enc, packed)
@@ -480,8 +511,12 @@ def check_kernels(bf16: bool = False) -> dict:
                                 f"{flipped['K3']:.4f}, K2 {flipped['K2']:.4f}; weight gradients "
                                 f"without them {isolated:.3g}" if bf16 else "")
                              + f"), K2 bit-identical on rerun, K3 "
-                             f"{'' if k3_same_bits else 'not '}bit-identical to K1, k_pack "
-                             f"bit-identical to its plain version; {1 - float(keep.mean()):.4f} "
+                             f"{'' if k3_same_bits else 'not '}bit-identical to K1"
+                             + (" (K1 sums on wgmma, K3 on mma.sync: another fp32 order)"
+                                if bf16 and not k3_same_bits else "")
+                             + ", k_pack" + (" and k_wg_layout" if bf16 else "")
+                             + f" bit-identical to their plain versions; "
+                             f"{1 - float(keep.mean()):.4f} "
                              f"of the points held out of the backward check (|z| < "
                              f"{UNAMBIGUOUS_Z})")
             torch.cuda.empty_cache()
@@ -2353,6 +2388,7 @@ def main() -> int:
     phase("phases", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
+    src_wg = "sparf_tpu_torch/csrc/fused_mlp_wgmma.cu"  # K1 and K2 at bf16
     replaces = {"K1": "sparf_tpu/ops/fused_mlp_vjp.py:175", "K2": "sparf_tpu/ops/fused_mlp_vjp.py:86",
                 "K3": "sparf_tpu/ops/fused_mlp.py:97"}
     names = {"K1": "K1_fused_mlp_forward", "K2": "K2_fused_mlp_backward",
@@ -2364,7 +2400,8 @@ def main() -> int:
             b = chk["bounds"][k]
             kernels.append({
                 "name": names[k] + ("_bf16" if dtype == "bfloat16" else ""), "route": "cuda",
-                "source": src, "replaces": replaces[k], "dtype": dtype,
+                "source": src_wg if dtype == "bfloat16" and k != "K3" else src,
+                "replaces": replaces[k], "dtype": dtype,
                 "launches": sum(p["launches"][k] for p in paths),
                 "max_abs_err": chk["max_abs_err"][k], "ms": chk["ms"][k],
                 "plain_ms": chk["ms"][f"{k}_plain"], "bound_ms": b["bound_ms"],

@@ -1,7 +1,11 @@
 // Fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper (sm_90a),
 // every product on the tensor cores, in two variants: fp32 accuracy (3xTF32,
 // compute_dtype float32) and bf16 operands with fp32 sums (compute_dtype
-// bfloat16).
+// bfloat16). This file holds the 3xTF32 K1, K2, K3 and the bf16 K3 on
+// mma.sync; the bf16 K1 and K2 run wgmma on TMA-fed bf16 tiles with a bf16
+// workspace (fused_mlp_wgmma.cu, its own header note; redesigned in PR 10
+// from this file's mma.sync loops, which bounded them: K2 bf16 at 13.7 ms
+// of a 0.84-ms bound, K1 bf16 at 2.1 ms of 0.28).
 //
 // Replaces the Pallas TPU kernels of sparf_tpu/ops/fused_mlp_vjp.py:
 //   K1 = _fwd_kernel (launched by _core_forward), K2 = _bwd_kernel (launched
@@ -26,8 +30,8 @@
 //     leave an error of about 2^-21 of the product, within a small factor
 //     of fp32's own (tests/test_torch_fused_mlp.py holds an emulation of it
 //     to the float64 chain; one TF32 pass misses that bound).
-//   * Bf16: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one MMA per
-//     product. The TPU kernels' compute_dtype contract: each dot takes its
+//   * Bf16 (K3 here): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
+//     one MMA per product. The TPU kernels' compute_dtype contract: each dot takes its
 //     two operands rounded to bf16 (round to nearest even, cvt.rn.bf16x2.f32
 //     as astype does) and sums in fp32; bias add, ReLU and its masks, g_x,
 //     d_pts_enc and d_view_enc stay fp32; db sums the unrounded g_z; dW =
@@ -82,13 +86,12 @@
 //     X > 0 (the ReLU of the previous layer, exactly as before) into the
 //     previous layer's g_z, written over g_z after a barrier. Splitting by
 //     segment keeps every phase at <= 4 n-tiles per warp (the 320-wide skip
-//     layer in one phase spilled). Shared memory 219,136 bytes (Bf16
-//     225,280). Both variants keep the workspace in fp32: the Bf16 dW pass
-//     rounds as it loads, and db needs the unrounded g_z.
+//     layer in one phase spilled). Shared memory 219,136 bytes. The
+//     workspace is fp32 (3xTF32 splits both operands of dW).
 //     k2_dw: dW = g_z^T X per layer as a GEMM over the points: 128 x 128
 //     output tiles x 64 point ranges (short fp32 sums: 4,096 points at
 //     T = 262,144), points staged 32 at a time through shared memory (both
-//     operands split or rounded on the fly), the next stage loaded into
+//     operands split on the fly), the next stage loaded into
 //     registers during this one's MMAs; each range writes its own partial,
 //     and k2_reduce sums the 64 in order into the (out, in) layout: no
 //     atomics, two runs give the same bits. The workspace (~17 KB per point,
@@ -105,9 +108,11 @@
 // only their times are read.
 //
 // Build: the file is compiled once per MMA kind, -DSPARF_KIND=0 (Tf32x3,
-// entry points *_tf32) and -DSPARF_KIND=1 (Bf16, *_bf16), in parallel
-// (ops/_build.py), and the two objects are linked into one library; each
-// compile instantiates the layer loops of its kind only.
+// entry points *_tf32: K1, K2, K3, k_pack) and -DSPARF_KIND=1 (Bf16, *_bf16:
+// K3 and its k_pack), in parallel with fused_mlp_wgmma.cu (ops/_build.py),
+// and the objects are linked into one library; each compile instantiates the
+// layer loops of its kind only. On the H100 machine the three compiles take
+// ~80 s together (PERF.md).
 //
 // Interface: plain C, loaded with ctypes; every entry point takes the chain's
 // dims, launches on the given stream, allocates nothing, and returns
@@ -116,6 +121,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef SPARF_KIND
 #error "compile with -DSPARF_KIND=0 (3xTF32) or -DSPARF_KIND=1 (bf16)"
@@ -326,7 +333,6 @@ struct Tf32x3 {
 // fragment: {B[2t, g], B[2t + 1, g]}, {B[2t + 8, g], B[2t + 9, g]}.
 struct Bf16 {
   static constexpr int kK = 16;
-  static constexpr int kLdDw = kDwBM + 4;  // k2_dw staging stride (= 4 mod 32: rows 2t, 2t + 1)
   using Frag = uint2;
   struct AFrag {
     uint32_t r[4];
@@ -896,47 +902,26 @@ k2_dw(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
 #pragma unroll
     for (int ks = 0; ks < kDwBK / K::kK; ++ks) {
       // A[m = output][k = point] = Gs[point][output]; B[k = point][n = input] = Xs[point][input]
-      if constexpr (K::kK == 8) {
-        const float* ga = Gs + (ks * 8 + t) * ld + wm * 32 + g;
-        const float* xb = Xs + (ks * 8 + t) * ld + wn * 64 + g;
-        uint32_t ah[2][4], al[2][4];
+      const float* ga = Gs + (ks * 8 + t) * ld + wm * 32 + g;
+      const float* xb = Xs + (ks * 8 + t) * ld + wn * 64 + g;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        split(ga[i * 16], ah[i][0], al[i][0]);
+        split(ga[i * 16 + 8], ah[i][1], al[i][1]);
+        split(ga[4 * ld + i * 16], ah[i][2], al[i][2]);
+        split(ga[4 * ld + i * 16 + 8], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(xb[j * 8], bh0, bl0);
+        split(xb[4 * ld + j * 8], bh1, bl1);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          split(ga[i * 16], ah[i][0], al[i][0]);
-          split(ga[i * 16 + 8], ah[i][1], al[i][1]);
-          split(ga[4 * ld + i * 16], ah[i][2], al[i][2]);
-          split(ga[4 * ld + i * 16 + 8], ah[i][3], al[i][3]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split(xb[j * 8], bh0, bl0);
-          split(xb[4 * ld + j * 8], bh1, bl1);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma_tf32(acc[i][j], al[i], bh0, bh1);
-            mma_tf32(acc[i][j], ah[i], bl0, bl1);
-            mma_tf32(acc[i][j], ah[i], bh0, bh1);
-          }
-        }
-      } else {
-        // k (points) 2t, 2t + 1 in one register, 2t + 8, 2t + 9 in the next
-        const float* ga = Gs + (ks * 16 + 2 * t) * ld + wm * 32 + g;
-        const float* xb = Xs + (ks * 16 + 2 * t) * ld + wn * 64 + g;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          a[i][0] = bf16x2(ga[i * 16], ga[ld + i * 16]);
-          a[i][1] = bf16x2(ga[i * 16 + 8], ga[ld + i * 16 + 8]);
-          a[i][2] = bf16x2(ga[8 * ld + i * 16], ga[9 * ld + i * 16]);
-          a[i][3] = bf16x2(ga[8 * ld + i * 16 + 8], ga[9 * ld + i * 16 + 8]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t b0 = bf16x2(xb[j * 8], xb[ld + j * 8]);
-          const uint32_t b1 = bf16x2(xb[8 * ld + j * 8], xb[9 * ld + j * 8]);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+          mma_tf32(acc[i][j], al[i], bh0, bh1);
+          mma_tf32(acc[i][j], ah[i], bl0, bl1);
+          mma_tf32(acc[i][j], ah[i], bh0, bh1);
         }
       }
     }
@@ -989,11 +974,17 @@ int forward(const MLPDesc& d, const float* pts, const float* view, float* out, i
   const int smem = k1_smem_bytes(d);
   if (smem > kMaxSmem) return -4;
   if (T <= 0) return 0;
+  void (*kernel)(MLPDesc, const typename K::Frag*, const float*, const float*, float*, int) =
+      k3_forward<K>;
   if (!packed) {
-    const int rc = launch_pack<K>(d, frag, nullptr, s);
-    if (rc != 0) return rc;
+    if constexpr (std::is_same<K, Bf16>::value) {
+      return -8;  // K1 at bf16 is fused_mlp_wgmma.cu's
+    } else {
+      const int rc = launch_pack<K>(d, frag, nullptr, s);
+      if (rc != 0) return rc;
+      kernel = k1_forward<K>;
+    }
   }
-  auto kernel = packed ? k3_forward<K> : k1_forward<K>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int blocks = (T + kTile1 - 1) / kTile1;
   kernel<<<blocks, kThreads, smem, s>>>(d, static_cast<const typename K::Frag*>(frag), pts, view,
@@ -1068,8 +1059,9 @@ int SPARF_EXPORT(sparf_fused_mlp_pack)(const int* dims, const void* const* param
   return launch_pack<Kind>(d, frag, frag_t, static_cast<cudaStream_t>(stream));
 }
 
-// K1 (packed = 0: packs params into frag first) and K3 (packed = 1: frag
-// comes from sparf_fused_mlp_pack): out (T, 4) = [raw_density | raw_rgb].
+// K1 (packed = 0: packs params into frag first; 3xTF32 only, -8 at bf16)
+// and K3 (packed = 1: frag comes from sparf_fused_mlp_pack): out (T, 4) =
+// [raw_density | raw_rgb].
 int SPARF_EXPORT(sparf_fused_mlp_forward)(const float* pts, const float* view, float* out, int T,
                                           const int* dims, const void* const* params, void* frag,
                                           int packed, void* stream) {
@@ -1079,7 +1071,9 @@ int SPARF_EXPORT(sparf_fused_mlp_forward)(const float* pts, const float* view, f
   return forward<Kind>(d, pts, view, out, T, frag, packed, static_cast<cudaStream_t>(stream));
 }
 
-// K2. gout (T, 4) = [g_density | g_rgb]; d_params (n_params,) in the order
+#if SPARF_KIND == 0
+// K2 (3xTF32; at bf16 fused_mlp_wgmma.cu's). gout (T, 4) = [g_density |
+// g_rgb]; d_params (n_params,) in the order
 // W0, b0, W1, b1, ...; frag and frag_t are scratch of n_frag_elems each,
 // partial of n_splits * n_part floats and workspace of T_pad * (x_total +
 // g_total) floats, T_pad = T rounded up to a multiple of 128.
@@ -1096,7 +1090,6 @@ int SPARF_EXPORT(sparf_fused_mlp_backward)(const float* pts, const float* view,
                         workspace, T, static_cast<cudaStream_t>(stream));
 }
 
-#if SPARF_KIND == 0
 const char* sparf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,0 +1,1431 @@
+// The bf16 fused NeRF-MLP forward (K1) and backward (K2) for Hopper (sm_90a)
+// on warpgroup MMAs (wgmma) fed by the Tensor Memory Accelerator (TMA).
+//
+// Replaces, at compute_dtype bfloat16, the Pallas TPU kernels of
+// sparf_tpu/ops/fused_mlp_vjp.py: K1 = _fwd_kernel (:175, launched by
+// _core_forward) and K2 = _bwd_kernel (:86, the custom_vjp backward). The
+// float32 (3xTF32) variants of K1/K2/K3 and the bf16 K3 stay in fused_mlp.cu
+// (mma.sync on packed fragments); this file is compiled once, beside that
+// file's two compiles (ops/_build.py), and its entry points are
+// sparf_fused_mlp_wg_*.
+//
+// The compute_dtype contract of the TPU kernels: each dot takes its two
+// operands rounded to bf16 (round to nearest even) and sums in fp32; bias,
+// ReLU and its masks, g_x, d_pts_enc and d_view_enc stay fp32; db sums the
+// unrounded g_z; dW = bf16(g_z)^T bf16(x), g_x = bf16(g_z) bf16(W).
+//
+// What bounds them on an H100 (T = 262,144 points, the 8x256 chain with the
+// 128-wide view head: 527,872 multiply-adds per point), and what the design
+// does about it:
+//   * K1: 0.28 ms of bf16 tensor-core work; bytes < 0.05 ms. Each 128-point
+//     tile streams every weight (1.2 MB in bf16) from L2. Design: per tile
+//     one block of two consumer warpgroups (64 points each) and one producer
+//     warpgroup. The tile's activations stay in shared memory as bf16, in
+//     wgmma's 128-byte-swizzled K-major layout ([points][64 columns] chunks),
+//     written once per layer by the epilogue (ReLU in fp32, then rounded;
+//     each sum starts from its bias, in fp32): that is the A operand every
+//     next product reads. W is
+//     streamed per layer in 64-column k-chunks by TMA ([rows][64] boxes,
+//     the same swizzle) through a 3-stage ring of 33 KB stages, full and
+//     empty mbarriers between the producer and the consumers. One
+//     m64nNk16 wgmma per 16 columns, N = the layer's width (256, 128, 8 for
+//     the RGB output) plus one m64n8k16 for the density unit of the 257-wide
+//     layer; the skip concat [features | pts_enc] and the view concat
+//     [features | view_enc] are two segments of the k loop (their own
+//     chunks), never a copy.
+//   * K2: 0.84 ms of tensor-core work (recompute, g_x and dW); its floor is
+//     the workspace: every layer's input X and every g_z, stored by the
+//     backward pass and read by the dW pass. It is bf16 (exactly the
+//     operands dW rounds to): 9.3 KB per point, 2.4 GB written and read at
+//     T = 262,144, >= 1.45 ms at 3.35 TB/s (the earlier fp32 workspace: 17.5
+//     KB per point). Design, three passes and a reduction:
+//     - k2_wg (one block per 128-point tile, the same roles and ring): the
+//       recompute runs K1's layer loop and stores each layer's input chunks
+//       to the workspace with TMA stores straight from shared memory; then,
+//       from the last layer down, g_z sits in shared memory as bf16 (the A
+//       operand), is stored to the workspace by TMA, and g_x = g_z W runs on
+//       wgmma against the transposed weights (TMA through the same ring): the
+//       second segment first (pts_enc's share of a skip layer into d_pts,
+//       view_enc's into d_view), then the features, masked by X > 0 into the
+//       previous layer's g_z, in place. The ReLU masks are the fp32 X > 0,
+//       not the bf16 copy's (a positive fp32 subnormal can round to +0): the
+//       recompute keeps each thread's mask bits of its accumulator fragment
+//       (16 bytes per thread and layer) and the backward reads them back in
+//       the same thread with one load issued before the layer's products
+//       (reading the bf16 X back for it was a chain of global loads per
+//       layer). db leaves the workspace: each warpgroup writes the column
+//       sums of its 64 points' fp32 g_z per layer (a warp reduce-scatter, a
+//       fixed order, no atomics, no barrier between the two warpgroups, so
+//       one's epilogue runs beside the other's MMAs).
+//     - k2_dw_wg: dW = g_z^T X per layer as a GEMM over the points: 128 x N
+//       output tiles (N = 256, 128 or 64 input columns) x 64 point ranges;
+//       both operands come point-major from the workspace ([64 points][64
+//       columns] TMA boxes, 4-stage ring of 48 KB), read by wgmma in its
+//       transposed (MN-major) mode, which 16-bit types allow; each range
+//       writes its partial, and the db partials of its tiles in order.
+//     - k2_reduce_wg sums the 64 ranges in order into the (out, in) layout:
+//       two runs give the same bits.
+//   * Weights: k_wg_layout writes every W once per call as bf16 in the two
+//     layouts the TMA maps read: forward rows = outputs (the density unit
+//     of the last trunk layer moved behind the features, so the features
+//     feed the next layer's columns 0..), columns = the padded input
+//     segments; transposed rows = the padded input, columns = the same
+//     output order; and the biases in the forward row order.
+//     ops/fused_mlp.py::wgmma_layout_plain is the same map.
+//   * Registers: 384 threads, one block per SM; the producer warpgroup
+//     (one thread issues the TMA loads) gives its registers to the two
+//     consumer warpgroups (setmaxnreg: 56 and 224 per thread); the
+//     accumulators of one 64 x 256 product are 128 of them. No kernel
+//     spills. Global loads are issued in batches ahead of the shared-memory
+//     stores (whose asm carries a memory clobber), and L2 keeps the weights
+//     (evict_last) while the workspace streams through (evict_first).
+//   * Measured on an H100 80GB HBM3 at 700 W (PERF.md, PR 10): K1 0.67 ms
+//     (from 2.11 on mma.sync) and K2 3.55 ms (from 13.66) at T = 262,144;
+//     of K2, the dW pass 0.94 ms. Building this file beside fused_mlp.cu's
+//     two compiles, in parallel, takes ~61 s in chip_smoke.py.
+//
+// Shapes the kernels take (build_wg_desc, else a negative code): pts_enc and
+// view_enc at most 64 wide, the features of every layer at most 256 and
+// padded to 64, 128 or 256 where they are a g_x product's width, the RGB
+// output 3.
+//
+// Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
+// K2_TIME_NO_DW and K2_TIME_NO_GX drop the recompute's MMAs, the dW pass and
+// the g_x MMAs; their outputs are wrong and only their times are read.
+//
+// Interface: plain C, loaded with ctypes; every entry point launches on the
+// given stream, allocates nothing, and returns cudaGetLastError() (> 0), a
+// negative code, or 0.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kMaxLayers = 16;
+constexpr int kTile = 128;                 // points per tile (two warpgroups of 64)
+constexpr int kThreadsWg = 384;            // two consumer warpgroups, one producer warpgroup
+constexpr int kConsumers = 256;
+constexpr int kChunkBytes = kTile * 128;   // one [128 points][64 bf16] chunk
+constexpr int kRowsBytes = 64 * 128;       // one warpgroup's 64 points of a chunk
+constexpr int kActChunks = 6;              // features 0-3, pts_enc 4, view_enc 5
+constexpr int kFwdStages = 3;
+constexpr int kStageBytes = (256 + 8) * 128;  // W box of up to 256 rows + the density rows
+constexpr int kDbufCols = 320;
+constexpr int kRingOff = kActChunks * kChunkBytes;
+constexpr int kDbufOff = kRingOff + kFwdStages * kStageBytes;
+constexpr int kBarOff = kDbufOff + 8 * kDbufCols * 4;
+constexpr int kFwdSmem = kBarOff + 2 * kFwdStages * 8 + 1024;  // + alignment slack
+constexpr int kDwStages = 4;
+constexpr int kDwStageBytes = (2 + 4) * 8192;  // two g_z boxes, up to four X boxes
+constexpr int kDwSmem = kDwStages * kDwStageBytes + 2 * kDwStages * 8 + 1024;
+constexpr int kSplits = 64;                // dW point ranges summed by k2_reduce_wg
+constexpr int kCodes = 5;                  // TMA box heights
+constexpr int kMaxSmem = 232448;          // a block's dynamic shared memory on an H100
+static_assert(kFwdSmem <= kMaxSmem && kDwSmem <= kMaxSmem, "shared memory of one block");
+
+__host__ __device__ constexpr int code_height(int c) {
+  return c == 0 ? 8 : (c == 1 ? 32 : (c == 2 ? 64 : (c == 3 ? 128 : 256)));
+}
+__host__ __device__ constexpr int pad64(int x) { return (x + 63) / 64 * 64; }
+
+// The chain as the kernels run it. Layer row order ("rows"): the outputs,
+// except at the last trunk layer (dens), whose features come first (rows 0
+// .. out-2) and whose density unit sits at row nm, behind the nm main rows.
+struct WgDesc {
+  int n_layers, n_feat, d_in, d_view;
+  int n_params, n_part, n_dw_tiles;
+  int KF, RF;      // forward weights: RF rows x KF columns (bf16)
+  int KT, RT;      // transposed weights: RT rows x KT columns
+  int KX, KG;      // workspace columns per point: stored inputs, g_z (bf16)
+  int out[kMaxLayers], in[kMaxLayers], w1[kMaxLayers], w2[kMaxLayers];
+  int k1p[kMaxLayers], kp[kMaxLayers];  // segment 1 padded to 64; both segments
+  int seg2c[kMaxLayers];  // chunk of the second segment: 4 (pts_enc), 5 (view_enc), -1
+  int dens[kMaxLayers];   // 1 at the last trunk layer (unit 0 is raw density)
+  int nm[kMaxLayers], ncode[kMaxLayers];  // the forward product's N and its box code
+  int kz[kMaxLayers];     // g_z columns: rows padded to 64 (g_x's K, dW's M)
+  int rf[kMaxLayers], rt[kMaxLayers];     // first row in the forward / transposed weights
+  int xo[kMaxLayers], go[kMaxLayers];     // first workspace column of X / g_z
+  int po[kMaxLayers];     // offset of the layer's dW (kz x kp) and db (kz) in a partial
+  int wo[kMaxLayers], bo[kMaxLayers];     // flat gradient offsets, (out, in) layout
+  int to[kMaxLayers + 1], nnt[kMaxLayers];  // dW tiles before the layer; n-tiles per m-block
+  const float* W[kMaxLayers];
+  const float* b[kMaxLayers];
+};
+
+struct Maps {
+  CUtensorMap wf[kCodes];  // forward weights, box {64, code_height}
+  CUtensorMap wt[kCodes];  // transposed weights
+  CUtensorMap x, g;        // workspace, box {64 columns, 64 points}
+};
+
+int code_of(int n) {
+  for (int c = 0; c < kCodes; ++c)
+    if (code_height(c) >= n) return c;
+  return -1;
+}
+
+int n_tiles_of(int kp) {  // dW n-tiles over kp columns: 256 while it lasts, then 128, 64
+  int n = 0;
+  for (int n0 = 0; n0 < kp; ++n) n0 += kp - n0 >= 256 ? 256 : (kp - n0 >= 128 ? 128 : 64);
+  return n;
+}
+
+// dims = [n_feat, n_rgb, d_in, d_view, view_dep, (out, in, skip) per layer];
+// params = [W0, b0, W1, b1, ...] (fp32, W (out, in)).
+int build_wg_desc(const int* dims, const void* const* params, WgDesc* d) {
+  memset(d, 0, sizeof(*d));
+  d->n_feat = dims[0];
+  const int n_rgb = dims[1];
+  d->n_layers = d->n_feat + n_rgb;
+  if (d->n_feat < 1 || n_rgb < 1 || d->n_layers > kMaxLayers) return -1;
+  d->d_in = dims[2];
+  d->d_view = dims[3];
+  const int view_dep = dims[4];
+  if (d->d_in < 1 || d->d_in > 64 || d->d_view < 0 || d->d_view > 64) return -7;
+  int off = 0, tiles = 0;
+  d->KF = d->KT = 64;
+  for (int li = 0; li < d->n_layers; ++li) {
+    const int out = dims[5 + 3 * li], in = dims[6 + 3 * li], skip = dims[7 + 3 * li];
+    const int w2 = skip ? d->d_in : ((li == d->n_feat && view_dep) ? d->d_view : 0);
+    const int w1 = in - w2, dens = li == d->n_feat - 1;
+    if (out < 1 + dens || w1 < 1) return -3;
+    if (li == 0 && (skip || w1 != d->d_in)) return -3;
+    if (li > 0 && d->out[li - 1] - d->dens[li - 1] != w1) return -3;
+    const int ncode = code_of(out - dens), k1p = pad64(w1);
+    if (ncode < 0 || (k1p != 64 && k1p != 128 && k1p != 256)) return -7;
+    const int nm = code_height(ncode), kz = pad64(dens ? nm + 8 : out);
+    if (kz > kDbufCols) return -7;
+    d->out[li] = out;
+    d->in[li] = in;
+    d->w1[li] = w1;
+    d->w2[li] = w2;
+    d->k1p[li] = k1p;
+    d->kp[li] = k1p + pad64(w2);
+    d->seg2c[li] = w2 == 0 ? -1 : (skip ? 4 : 5);
+    d->dens[li] = dens;
+    d->nm[li] = nm;
+    d->ncode[li] = ncode;
+    d->kz[li] = kz;
+    d->rf[li] = d->RF;
+    d->RF += nm + (dens ? 8 : 0);
+    d->rt[li] = d->RT;
+    d->RT += d->kp[li];
+    if (d->kp[li] > d->KF) d->KF = d->kp[li];
+    if (kz > d->KT) d->KT = kz;
+    d->xo[li] = d->KX;
+    d->KX += d->kp[li];
+    d->go[li] = d->KG;
+    d->KG += kz;
+    d->po[li] = d->n_part;
+    d->n_part += kz * d->kp[li] + kz;
+    d->wo[li] = off;
+    off += out * in;
+    d->bo[li] = off;
+    off += out;
+    d->nnt[li] = n_tiles_of(d->kp[li]);
+    d->to[li] = tiles;
+    tiles += (kz + 127) / 128 * d->nnt[li];
+    d->W[li] = static_cast<const float*>(params[2 * li]);
+    d->b[li] = static_cast<const float*>(params[2 * li + 1]);
+  }
+  if (d->out[d->n_layers - 1] != 3) return -3;
+  d->to[d->n_layers] = tiles;
+  d->n_dw_tiles = tiles;
+  d->n_params = off;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// PTX: shared memory, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// (Its memory clobber keeps loads from moving across it: the loops below
+// issue their global loads in batches before their stores.)
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// A wait that has not completed after ~2^35 cycles (~20 s) traps: a fault in
+// the producer / consumer schedule fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 35)) __trap();
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// L2 policies: the weights, read by every tile, stay (evict_last); the
+// workspace, 2.4 GB streamed through, goes first (evict_first).
+__device__ __forceinline__ uint64_t policy_keep() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_stream() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, "
+      "%4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3}], [%1], "
+      "%4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {  // the stores have read shared memory
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {  // the stores are complete
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {  // generic writes -> TMA / wgmma reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_bar(int wg) {  // one consumer warpgroup
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the producer warpgroup's registers to the consumers: 128 x 56 + 256 x 224
+// <= 384 x 168, the block's registers at launch (each side in one branch
+// that never rejoins the other)
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+}
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator accesses across the async MMAs
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void zero(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) r[i] = 0.f;
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (layout type 1):
+// SBO = 1024 bytes between 8-row groups; LBO = 0 for K-major (unused), the
+// distance between 64-column atoms for MN-major.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// byte offset of (row, col) in a [rows][64] bf16 tile with the 128-byte
+// swizzle of TMA's CU_TENSOR_MAP_SWIZZLE_128B (the tile 1024-byte aligned)
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
+}
+
+// {bf16(lo), bf16(hi)}, round to nearest even; lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+// The ReLU masks of K2 (the fp32 z > 0 of each layer's output), per
+// consumer thread its accumulator fragment's bits: column block j, row half
+// h, column e of the pair at bit 4 (j % 8) + 2 h + e of word j / 8 (N <= 256:
+// four words). The recompute writes them, the backward reads them back in
+// the same thread (ops/fused_mlp.py::relu_mask_words_plain).
+__device__ __forceinline__ uint32_t mask_bit(int j, int h, int e) {
+  return 1u << (4 * (j & 7) + 2 * h + e);
+}
+
+// D (64 x N, fp32, in registers) (+)= A (64 x 16) B (16 x N), bf16 operands
+// from shared memory; TR = 0: both K-major, 1: both MN-major (transposed)
+template <int N, int TR>
+struct Wgmma;
+
+template <>
+struct Wgmma<8, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64, 1> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128, 1> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256, 1> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// The ring of weight (or workspace) stages between the producer and the
+// consumers: full[s] completes when the stage's TMA bytes have landed,
+// empty[s] when all 8 consumer warps are done reading it. A consumer keeps
+// one chunk's MMAs in flight: it releases a stage once the MMAs of the next
+// chunk are issued and those reading it are done (wgmma.wait_group 1).
+struct Ring {
+  uint32_t full, empty, data, bytes;
+  int n, stage, phase;
+  __device__ uint32_t buf(int s) const { return data + s * bytes; }
+  // waits for the next stage's bytes; its index
+  __device__ int acquire() {
+    mbar_wait(full + 8 * stage, phase);
+    const int s = stage;
+    if (++stage == n) {
+      stage = 0;
+      phase ^= 1;
+    }
+    return s;
+  }
+  __device__ void release(int s) const {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * s);
+  }
+};
+
+// Initializes the ring's barriers at `bars` (thread 0) and syncs the block.
+__device__ __forceinline__ Ring make_ring(uint32_t data, uint32_t bytes, int n, uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (n + s), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return Ring{bars, bars + 8 * n, data, bytes, n, 0, 0};
+}
+
+// The producer's side of the ring: one TMA issue per stage.
+struct Producer {
+  Ring r;
+  // waits for the stage to be free, then loads the boxes; `bytes` in all
+  template <typename F>
+  __device__ void issue(uint32_t bytes, F load) {
+    mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1);
+    const uint32_t fb = r.full + 8 * r.stage;
+    mbar_expect_tx(fb, bytes);
+    load(r.buf(r.stage), fb);
+    if (++r.stage == r.n) {
+      r.stage = 0;
+      r.phase ^= 1;
+    }
+  }
+};
+
+// K1 / K2's weight schedule: the forward layers' k-chunks (layers [0,
+// n_fwd)), then for K2 each layer's g_x k-chunks from the last layer down
+// (the second segment's product first).
+__device__ void produce_weights(const Maps& m, const WgDesc& d, Ring ring, bool k2) {
+  Producer p{ring};
+  const uint64_t keep = policy_keep();
+  const int n_fwd = k2 ? d.n_layers - 1 : d.n_layers;
+  for (int li = 0; li < n_fwd; ++li) {
+    const int h = code_height(d.ncode[li]), extra = d.dens[li] ? 8 : 0;
+    for (int kc = 0; kc < d.kp[li] / 64; ++kc)
+      p.issue((h + extra) * 128, [&](uint32_t dst, uint32_t fb) {
+        tma_load(dst, &m.wf[d.ncode[li]], fb, 64 * kc, d.rf[li], keep);
+        if (extra) tma_load(dst + h * 128, &m.wf[0], fb, 64 * kc, d.rf[li] + d.nm[li], keep);
+      });
+  }
+  if (!k2) return;
+  for (int li = d.n_layers - 1; li >= 0; --li) {
+    const int nk = d.kz[li] / 64, k1p = d.k1p[li];
+    if (d.seg2c[li] >= 0)
+      for (int kc = 0; kc < nk; ++kc)
+        p.issue(64 * 128, [&](uint32_t dst, uint32_t fb) {
+          tma_load(dst, &m.wt[2], fb, 64 * kc, d.rt[li] + k1p, keep);
+        });
+    const int c1 = k1p == 64 ? 2 : (k1p == 128 ? 3 : 4);
+    for (int kc = 0; kc < nk; ++kc)
+      p.issue(k1p * 128, [&](uint32_t dst, uint32_t fb) {
+        tma_load(dst, &m.wt[c1], fb, 64 * kc, d.rt[li], keep);
+      });
+  }
+}
+
+// Per consumer thread: warpgroup, thread in it, and the accumulator rows
+// r0, r0 + 8 (of the warpgroup's 64) and column pair 2t of each 8 columns.
+struct Lane {
+  int wg, tid, lane, g, t, r0;
+  uint32_t rows;  // byte offset of the warpgroup's 64 rows in a chunk
+  __device__ Lane() {
+    wg = threadIdx.x >> 7;
+    tid = threadIdx.x & 127;
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    r0 = 16 * (tid >> 5) + g;
+    rows = wg * kRowsBytes;
+  }
+};
+
+// The warpgroup's 64 rows of a (T, width) fp32 input, rounded to bf16, into a
+// chunk (zeros past T and past width).
+__device__ void load_input(uint32_t chunk, const float* __restrict__ src, int width, int p0, int T,
+                           const Lane& L) {
+  constexpr int kPer = 64 * 32 / 128;  // column pairs per thread, all loaded first
+  float v[kPer][2];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = L.tid + 128 * k, r = i >> 5, c = (i & 31) * 2, P = p0 + 64 * L.wg + r;
+    v[k][0] = (P < T && c < width) ? src[(size_t)P * width + c] : 0.f;
+    v[k][1] = (P < T && c + 1 < width) ? src[(size_t)P * width + c + 1] : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = L.tid + 128 * k;
+    sts32(chunk + L.rows + swz(i >> 5, (i & 31) * 2), bf16x2(v[k][0], v[k][1]));
+  }
+}
+
+// One forward layer of the tile (both warpgroups, each its 64 rows): the
+// product over the layer's k-chunks from the ring, then bias and ReLU in
+// fp32 into the feature chunks as bf16 (or, at the last layer, raw rgb into
+// out[:, 1:4]); with EXT (K1's last trunk layer) the density unit's product
+// too, into out[:, 0]. out may be null (K2). k2: the previous layer's input
+// chunks may still be being stored (TMA), the ReLU mask words go to masks
+// (slot li + 1: the next layer's input), and the recompute's MMAs may be
+// dropped (K2_TIME_NO_FWD).
+template <int N, bool EXT>
+__device__ void fwd_layer(const WgDesc& d, int li, Ring& ring, uint32_t s,
+                          const float* __restrict__ bias_f, float* __restrict__ out,
+                          uint4* __restrict__ masks, int p0, int T, bool k2, const Lane& L) {
+  const int nk = d.kp[li] >> 6, nk1 = d.k1p[li] >> 6;
+  const uint32_t seg1 = s + (li == 0 ? 4 : 0) * kChunkBytes + L.rows;
+  const uint32_t seg2 = s + (d.seg2c[li] < 0 ? 0 : d.seg2c[li]) * kChunkBytes + L.rows;
+  const bool last = li == d.n_layers - 1;
+  // every sum starts from its row's bias (fp32; all loads in flight before
+  // the first stage is waited for)
+  const float* bias = bias_f + d.rf[li];
+  float acc[N / 2], ext[4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[4 * j + c] = __ldg(bias + 8 * j + 2 * L.t + (c & 1));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) ext[c] = EXT ? __ldg(bias + N + 2 * L.t + (c & 1)) : 0.f;
+  int prev = -1;
+  for (int kc = 0; kc < nk; ++kc) {
+    const int st = ring.acquire();
+    const uint32_t a = kc < nk1 ? seg1 + kc * kChunkBytes : seg2, b = ring.buf(st);
+#ifdef K2_TIME_NO_FWD
+    if (!k2)
+#endif
+    {
+      fence_regs(acc);
+      fence_regs(ext);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        Wgmma<N, 0>::mma(acc, sdesc(a + 32 * ks, 0), sdesc(b + 32 * ks, 0), 1);
+        if constexpr (EXT)
+          Wgmma<8, 0>::mma(ext, sdesc(a + 32 * ks, 0), sdesc(b + N * 128 + 32 * ks, 0), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    if (prev >= 0) ring.release(prev);
+    prev = st;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(ext);
+  ring.release(prev);
+  if (k2) {  // the stores of this layer's input (TMA) are done reading the chunks
+    if (L.tid == 0) bulk_wait_read();
+    wg_bar(L.wg);
+  }
+  uint32_t mw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * L.t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = L.r0 + 8 * h, P = p0 + 64 * L.wg + r;
+      const float z0 = acc[4 * j + 2 * h], z1 = acc[4 * j + 2 * h + 1];
+      if (last) {
+        if (out != nullptr && P < T) {
+          if (col < 3) out[(size_t)P * 4 + 1 + col] = z0;
+          if (col + 1 < 3) out[(size_t)P * 4 + 2 + col] = z1;
+        }
+      } else {
+        sts32(s + (col >> 6) * kChunkBytes + L.rows + swz(r, col & 63),
+              bf16x2(fmaxf(z0, 0.f), fmaxf(z1, 0.f)));
+        mw[j >> 3] |= (z0 > 0.f ? mask_bit(j, h, 0) : 0u) | (z1 > 0.f ? mask_bit(j, h, 1) : 0u);
+      }
+    }
+  }
+  if (k2 && !last)
+    masks[((size_t)(li + 1) * gridDim.x + blockIdx.x) * kConsumers + threadIdx.x] =
+        make_uint4(mw[0], mw[1], mw[2], mw[3]);
+  if (EXT && out != nullptr && L.t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int P = p0 + 64 * L.wg + L.r0 + 8 * h;
+      if (P < T) out[(size_t)P * 4] = ext[2 * h];
+    }
+  }
+  if constexpr (N < 64) {  // zeros in the rest of the chunk: the next layer reads 64 columns
+    constexpr int per = (64 - N) / 2;
+    if (!last)
+      for (int i = L.tid; i < 64 * per; i += 128)
+        sts32(s + L.rows + swz(i / per, N + 2 * (i % per)), 0u);
+  }
+  fence_async_smem();
+  wg_bar(L.wg);
+}
+
+template <bool EXT>
+__device__ __forceinline__ void fwd_layer_n(const WgDesc& d, int li, Ring& ring, uint32_t s,
+                                            const float* bias_f, float* out, uint4* masks,
+                                            int p0, int T, bool k2, const Lane& L) {
+#define SPARF_FWD(N) fwd_layer<N, EXT>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L)
+  switch (d.ncode[li]) {
+    case 0: SPARF_FWD(8); break;
+    case 1: SPARF_FWD(32); break;
+    case 2: SPARF_FWD(64); break;
+    case 3: SPARF_FWD(128); break;
+    default: SPARF_FWD(256); break;
+  }
+#undef SPARF_FWD
+}
+
+// K2's recompute needs no raw density (its gradient comes from gout).
+__device__ __forceinline__ void fwd_layer_any(const WgDesc& d, int li, Ring& ring, uint32_t s,
+                                              const float* bias_f, float* out, uint4* masks,
+                                              int p0, int T, bool k2, const Lane& L) {
+  if (!k2 && d.dens[li])
+    fwd_layer_n<true>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L);
+  else
+    fwd_layer_n<false>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L);
+}
+
+// Shared memory of K1 and K2, 1024-byte aligned: the 6 activation chunks,
+// the ring, K2's db buffer, the barriers.
+__device__ __forceinline__ uint32_t aligned_base(uint8_t* raw, uint8_t** generic) {
+  const uint32_t a = smem_u32(raw), base = (a + 1023) & ~1023u;
+  *generic = raw + (base - a);
+  return base;
+}
+
+// K1: out (T, 4) = [raw_density | raw_rgb] per 128-point tile.
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k1_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+      const float* __restrict__ bias_f, const float* __restrict__ pts,
+      const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gen;
+  const uint32_t s = aligned_base(smem_raw, &gen);
+  Ring ring = make_ring(s + kRingOff, kStageBytes, kFwdStages, s + kBarOff);
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec();
+    if (threadIdx.x == kConsumers) produce_weights(maps, d, ring, false);
+    return;
+  }
+  setmaxnreg_inc();
+  const Lane L;
+  const int p0 = blockIdx.x * kTile;
+  load_input(s + 4 * kChunkBytes, pts, d.d_in, p0, T, L);
+  if (d.d_view > 0) load_input(s + 5 * kChunkBytes, view, d.d_view, p0, T, L);
+  fence_async_smem();
+  wg_bar(L.wg);
+  for (int li = 0; li < d.n_layers; ++li)
+    fwd_layer_any(d, li, ring, s, bias_f, out, nullptr, p0, T, false, L);
+}
+
+// ---------------------------------------------------------------------------
+// K2, pass 1: recompute, workspace, g_x, db per tile
+// ---------------------------------------------------------------------------
+
+// g_x = g_z W over the layer's g_z chunks (K = kz) for N columns of the
+// padded input, B from the ring (the transposed weights).
+template <int N>
+__device__ __forceinline__ void gx_gemm(const WgDesc& d, int li, Ring& ring, uint32_t gz,
+                                        float (&acc)[N / 2]) {
+  zero(acc);
+  int prev = -1;
+  for (int kc = 0; kc < d.kz[li] / 64; ++kc) {
+    const int st = ring.acquire();
+#ifndef K2_TIME_NO_GX
+    const uint32_t a = gz + kc * kChunkBytes, b = ring.buf(st);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      Wgmma<N, 0>::mma(acc, sdesc(a + 32 * ks, 0), sdesc(b + 32 * ks, 0), kc | ks);
+    wgmma_commit();
+    wgmma_wait<1>();
+#endif
+    if (prev >= 0) ring.release(prev);
+    prev = st;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  ring.release(prev);
+}
+
+// g_x of an input segment read by no ReLU: added into d_pts (pts_enc, of a
+// skip layer or of layer 0) or written to d_view.
+template <int N>
+__device__ __forceinline__ void gx_to_inputs(const float (&acc)[N / 2], float* d_in_g, int width,
+                                             bool add, int p0, int T, const Lane& L) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * L.t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int P = p0 + 64 * L.wg + L.r0 + 8 * h;
+      if (P >= T) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col + e >= width) continue;
+        float* q = d_in_g + (size_t)P * width + col + e;
+        *q = add ? *q + acc[4 * j + 2 * h + e] : acc[4 * j + 2 * h + e];
+      }
+    }
+  }
+}
+
+// Column sums of the warpgroup's 64 rows of the fp32 g_z of layer pl into
+// its row of db_part (one per 64 points): per-warp sums in dbuf (written by
+// the caller), then the warpgroup's 4 warps in order. Each warpgroup on its
+// own, so one's epilogue can run beside the other's MMAs.
+__device__ __forceinline__ void db_flush(const WgDesc& d, int pl, const float* dbuf,
+                                         float* __restrict__ db_part, const Lane& L) {
+  wg_bar(L.wg);
+  for (int c = L.tid; c < d.kz[pl]; c += 128) {
+    float sum = 0.f;
+    for (int w = 4 * L.wg; w < 4 * L.wg + 4; ++w) sum += dbuf[w * kDbufCols + c];
+    db_part[(size_t)(2 * blockIdx.x + L.wg) * d.KG + d.go[pl] + c] = sum;
+  }
+  wg_bar(L.wg);
+}
+
+// One step of the reduce-scatter over lanes m apart: v[i], i < W / 2, becomes
+// this lane's half of the pair (v[i], v[i + W / 2]) (the upper one where
+// `upper`) plus the partner's copy of the same element.
+template <int W, int R>
+__device__ __forceinline__ void halve(float (&v)[R], int upper, int m) {
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) {
+    const float keep = upper ? v[i + W / 2] : v[i], send = upper ? v[i] : v[i + W / 2];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+  }
+}
+
+// The stores of the warpgroup's g_z chunks of layer pl to the workspace.
+__device__ __forceinline__ void store_gz(const Maps& maps, const WgDesc& d, int pl, uint32_t s,
+                                         int p0, const Lane& L) {
+  fence_async_smem();
+  wg_bar(L.wg);
+  if (L.tid == 0) {
+    const uint64_t stream = policy_stream();
+    for (int q = 0; q < d.kz[pl] / 64; ++q)
+      tma_store(&maps.g, s + q * kChunkBytes + L.rows, d.go[pl] + 64 * q, p0 + 64 * L.wg, stream);
+    bulk_commit();
+  }
+}
+
+// g_x of layer li's features (li >= 1): masked by its input's ReLU mask
+// (the recompute's words), it is g_z of layer pl = li - 1 (and the density
+// gradient at row nm of the last trunk layer): into the g_z chunks as bf16,
+// to the workspace, and its column sums (unrounded) into db_part.
+template <int N>
+__device__ void gx_features(const Maps& maps, const WgDesc& d, int li, float (&acc)[N / 2],
+                            uint32_t s, float* dbuf, const uint4& mwords,
+                            const float* __restrict__ gout, float* __restrict__ db_part, int p0,
+                            int T, const Lane& L) {
+  const int pl = li - 1, w1 = d.w1[li], kzp = d.kz[pl];
+  const int wl = 4 * L.wg + (L.tid >> 5);  // warp of the tile
+  const uint32_t mw[4] = {mwords.x, mwords.y, mwords.z, mwords.w};
+  if (L.tid == 0) bulk_wait_read();  // the previous g_z stores are done reading the chunks
+  wg_bar(L.wg);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * L.t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = L.r0 + 8 * h;
+      float& v0 = acc[4 * j + 2 * h];
+      float& v1 = acc[4 * j + 2 * h + 1];
+      v0 = (col < w1 && (mw[j >> 3] & mask_bit(j, h, 0))) ? v0 : 0.f;
+      v1 = (col + 1 < w1 && (mw[j >> 3] & mask_bit(j, h, 1))) ? v1 : 0.f;
+      sts32(s + (col >> 6) * kChunkBytes + L.rows + swz(r, col & 63), bf16x2(v0, v1));
+    }
+  }
+  // the columns past this product: zeros, and the density gradient
+  const int per = (kzp - N) / 2, nd = d.dens[pl] ? d.nm[pl] : -1;
+  for (int i = L.tid; i < 64 * per; i += 128) {
+    const int r = i / per, c = N + 2 * (i % per), P = p0 + 64 * L.wg + r;
+    const float v = (c == nd && P < T) ? gout[(size_t)P * 4] : 0.f;
+    sts32(s + (c >> 6) * kChunkBytes + L.rows + swz(r, c & 63), bf16x2(v, 0.f));
+  }
+  store_gz(maps, d, pl, s, p0, L);
+  // db: rows g and g + 8 (value 2 j + e: column 8 j + 2 t + e), then the
+  // warp's 8 row groups (lanes 4, 8, 16 apart) by a reduce-scatter: each
+  // halving keeps half of the values and adds the partner's half of the
+  // other, so lane g ends with the sums of values g V/8 .. (g + 1) V/8.
+  constexpr int V = N / 4;
+  float v[V];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    v[2 * j] = acc[4 * j] + acc[4 * j + 2];
+    v[2 * j + 1] = acc[4 * j + 1] + acc[4 * j + 3];
+  }
+  halve<V>(v, (L.lane >> 4) & 1, 16);
+  halve<V / 2>(v, (L.lane >> 3) & 1, 8);
+  halve<V / 4>(v, (L.lane >> 2) & 1, 4);
+#pragma unroll
+  for (int i = 0; i < V / 8; ++i) {
+    const int idx = L.g * (V / 8) + i;
+    dbuf[wl * kDbufCols + 8 * (idx >> 1) + 2 * L.t + (idx & 1)] = v[i];
+  }
+  for (int c = N + L.lane; c < kzp; c += 32) {
+    float v = 0.f;
+    if (c == nd)
+      for (int i = 0; i < 16; ++i) {
+        const int P = p0 + 16 * wl + i;
+        v += P < T ? gout[(size_t)P * 4] : 0.f;
+      }
+    dbuf[wl * kDbufCols + c] = v;
+  }
+  db_flush(d, pl, dbuf, db_part, L);
+}
+
+// One layer of the backward: the second segment's g_x (into d_pts or
+// d_view), then the features' (into d_pts at layer 0, else the previous
+// layer's g_z).
+template <int N>
+__device__ void bwd_layer(const Maps& maps, const WgDesc& d, int li, Ring& ring, uint32_t s,
+                          float* dbuf, const uint4* masks, const float* __restrict__ gout,
+                          float* d_pts, float* d_view, float* __restrict__ db_part, int p0, int T,
+                          const Lane& L) {
+  // the mask words of the layer's input, loaded before the products
+  const uint4 mwords = li > 0 ? masks[((size_t)li * gridDim.x + blockIdx.x) * kConsumers +
+                                      threadIdx.x]
+                              : make_uint4(0u, 0u, 0u, 0u);
+  if (d.seg2c[li] >= 0) {
+    float acc2[32];
+    gx_gemm<64>(d, li, ring, s + L.rows, acc2);
+    if (d.seg2c[li] == 4)
+      gx_to_inputs<64>(acc2, d_pts, d.d_in, true, p0, T, L);
+    else
+      gx_to_inputs<64>(acc2, d_view, d.d_view, false, p0, T, L);
+  }
+  float acc[N / 2];
+  gx_gemm<N>(d, li, ring, s + L.rows, acc);
+  if (li == 0)
+    gx_to_inputs<N>(acc, d_pts, d.d_in, true, p0, T, L);
+  else
+    gx_features<N>(maps, d, li, acc, s, dbuf, mwords, gout, db_part, p0, T, L);
+}
+
+// K2, pass 1, per 128-point tile: the recomputed forward stores every layer's
+// input in the X workspace (bf16); then the g_z chain stores every layer's
+// g_z in the G workspace (bf16) and its column sums in db_part; d_pts (zeroed
+// by the caller) and d_view.
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k2_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+      const float* __restrict__ bias_f, const float* __restrict__ pts,
+      const float* __restrict__ view, const float* __restrict__ gout, float* d_pts,
+      float* d_view, uint4* __restrict__ masks, float* __restrict__ db_part, int T) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gen;
+  const uint32_t s = aligned_base(smem_raw, &gen);
+  float* dbuf = reinterpret_cast<float*>(gen + kDbufOff);
+  Ring ring = make_ring(s + kRingOff, kStageBytes, kFwdStages, s + kBarOff);
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec();
+    if (threadIdx.x == kConsumers) produce_weights(maps, d, ring, true);
+    return;
+  }
+  setmaxnreg_inc();
+  const Lane L;
+  const int p0 = blockIdx.x * kTile, Lr = d.n_layers;
+  const int row = p0 + 64 * L.wg;
+  load_input(s + 4 * kChunkBytes, pts, d.d_in, p0, T, L);
+  if (d.d_view > 0) load_input(s + 5 * kChunkBytes, view, d.d_view, p0, T, L);
+  fence_async_smem();
+  wg_bar(L.wg);
+  const uint64_t stream = policy_stream();
+  if (L.tid == 0) {
+    tma_store(&maps.x, s + 4 * kChunkBytes + L.rows, d.xo[0], row, stream);
+    bulk_commit();
+  }
+  for (int li = 0; li + 1 < Lr; ++li) {
+    fwd_layer_any(d, li, ring, s, bias_f, nullptr, masks, p0, T, true, L);
+    if (L.tid == 0) {  // layer li + 1's input: the features, then the second segment
+      const int nl = li + 1;
+      for (int q = 0; q < d.k1p[nl] / 64; ++q)
+        tma_store(&maps.x, s + q * kChunkBytes + L.rows, d.xo[nl] + 64 * q, row, stream);
+      if (d.seg2c[nl] >= 0)
+        tma_store(&maps.x, s + d.seg2c[nl] * kChunkBytes + L.rows, d.xo[nl] + d.k1p[nl], row,
+                  stream);
+      bulk_commit();
+    }
+  }
+  if (L.tid == 0) bulk_wait_all();  // every input store has read the chunks (g_z reuses them)
+  wg_bar(L.wg);
+
+  // g_z of the last layer: the rgb gradient
+  const int wl = 4 * L.wg + (L.tid >> 5);
+  for (int i = L.tid; i < 64 * 32; i += 128) {
+    const int r = i >> 5, c = (i & 31) * 2, P = row + r;
+    const float v0 = (c < 3 && P < T) ? gout[(size_t)P * 4 + 1 + c] : 0.f;
+    const float v1 = (c + 1 < 3 && P < T) ? gout[(size_t)P * 4 + 2 + c] : 0.f;
+    sts32(s + L.rows + swz(r, c), bf16x2(v0, v1));
+  }
+  store_gz(maps, d, Lr - 1, s, p0, L);
+  for (int c = L.lane; c < d.kz[Lr - 1]; c += 32) {
+    float v = 0.f;
+    if (c < 3)
+      for (int i = 0; i < 16; ++i) {
+        const int P = p0 + 16 * wl + i;
+        v += P < T ? gout[(size_t)P * 4 + 1 + c] : 0.f;
+      }
+    dbuf[wl * kDbufCols + c] = v;
+  }
+  db_flush(d, Lr - 1, dbuf, db_part, L);
+
+  for (int li = Lr - 1; li >= 0; --li) {
+    switch (d.k1p[li]) {
+      case 64: bwd_layer<64>(maps, d, li, ring, s, dbuf, masks, gout, d_pts, d_view, db_part, p0, T, L); break;
+      case 128: bwd_layer<128>(maps, d, li, ring, s, dbuf, masks, gout, d_pts, d_view, db_part, p0, T, L); break;
+      default: bwd_layer<256>(maps, d, li, ring, s, dbuf, masks, gout, d_pts, d_view, db_part, p0, T, L); break;
+    }
+  }
+  if (L.tid == 0) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
+// K2, pass 2: dW = g_z^T X over the points (wgmma, MN-major operands)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void dw_tile(const WgDesc& d, int b, int& li, int& m0, int& n0,
+                                        int& nt) {
+  li = 0;
+  while (li + 1 < d.n_layers && b >= d.to[li + 1]) ++li;
+  const int local = b - d.to[li], ni = local % d.nnt[li];
+  m0 = 128 * (local / d.nnt[li]);
+  n0 = 0;
+  for (int i = 0;; ++i) {
+    const int rest = d.kp[li] - n0;
+    nt = rest >= 256 ? 256 : (rest >= 128 ? 128 : 64);
+    if (i == ni) break;
+    n0 += nt;
+  }
+}
+
+// The consumers of one output tile: rows m0 + 64 wg .. of the layer's g_z
+// columns (a warpgroup past kz has no rows and only keeps the ring going),
+// columns n0 .. n0 + NT of its padded input; the partial of this point range
+// and, on the tiles of column 0, its db (the sums of its 64-point rows of
+// db_part, in order).
+template <int NT>
+__device__ void dw_consume(const WgDesc& d, int li, int m0, int n0, int n_chunks, Ring& ring,
+                           float* __restrict__ dst, const float* __restrict__ db_part, int t0,
+                           int t1) {
+  const Lane L;
+  const bool active = m0 + 64 * L.wg < d.kz[li];
+  float acc[NT / 2];
+  zero(acc);
+  int prev = -1;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = ring.acquire();
+    if (active) {
+      const uint32_t a = ring.buf(st) + L.wg * 8192, b = ring.buf(st) + 2 * 8192;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<NT, 1>::mma(acc, sdesc(a + 2048 * kk, 8192), sdesc(b + 2048 * kk, 8192), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    if (prev >= 0) ring.release(prev);
+    prev = st;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (prev >= 0) ring.release(prev);
+  if (!active) return;
+  const int kp = d.kp[li];
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * L.t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + 64 * L.wg + L.r0 + 8 * h;
+      *reinterpret_cast<float2*>(dst + (size_t)r * kp + col) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  if (n0 == 0 && L.tid < 64) {
+    const int r = m0 + 64 * L.wg + L.tid;
+    float sum = 0.f;
+    for (int t = 2 * t0; t < 2 * t1; ++t) sum += __ldg(db_part + (size_t)t * d.KG + d.go[li] + r);
+    dst[(size_t)d.kz[li] * kp + r] = sum;
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k2_dw_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+         const float* __restrict__ db_part, float* __restrict__ partial, int n_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gen;
+  const uint32_t s = aligned_base(smem_raw, &gen);
+  Ring ring = make_ring(s, kDwStageBytes, kDwStages, s + kDwStages * kDwStageBytes);
+  int li, m0, n0, nt;
+  dw_tile(d, blockIdx.x, li, m0, n0, nt);
+  const int per = (n_tiles + kSplits - 1) / kSplits;
+  const int t0 = min(n_tiles, (int)blockIdx.y * per), t1 = min(n_tiles, t0 + per);
+  const int n_chunks = 2 * (t1 - t0);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x != kConsumers) return;
+    Producer p{ring};
+    const int n_a = (m0 + 64 < d.kz[li]) ? 2 : 1;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int P0 = t0 * kTile + 64 * c;
+      p.issue((n_a + nt / 64) * 8192, [&](uint32_t dst, uint32_t fb) {
+        for (int a = 0; a < n_a; ++a) tma_load(dst + a * 8192, &maps.g, fb, d.go[li] + m0 + 64 * a, P0);
+        for (int j = 0; j < nt / 64; ++j)
+          tma_load(dst + (2 + j) * 8192, &maps.x, fb, d.xo[li] + n0 + 64 * j, P0);
+      });
+    }
+    return;
+  }
+  float* dst = partial + (size_t)blockIdx.y * d.n_part + d.po[li];
+  switch (nt) {
+    case 64: dw_consume<64>(d, li, m0, n0, n_chunks, ring, dst, db_part, t0, t1); break;
+    case 128: dw_consume<128>(d, li, m0, n0, n_chunks, ring, dst, db_part, t0, t1); break;
+    default: dw_consume<256>(d, li, m0, n0, n_chunks, ring, dst, db_part, t0, t1); break;
+  }
+}
+
+// layer row of output unit n (WgDesc note)
+__host__ __device__ __forceinline__ int row_of(const WgDesc& d, int li, int n) {
+  return d.dens[li] ? (n == 0 ? d.nm[li] : n - 1) : n;
+}
+// output unit of layer row r, or -1
+__host__ __device__ __forceinline__ int unit_of(const WgDesc& d, int li, int r) {
+  if (d.dens[li]) return r < d.out[li] - 1 ? r + 1 : (r == d.nm[li] ? 0 : -1);
+  return r < d.out[li] ? r : -1;
+}
+// input index of padded column k, or -1
+__host__ __device__ __forceinline__ int input_of(const WgDesc& d, int li, int k) {
+  if (k < d.k1p[li]) return k < d.w1[li] ? k : -1;
+  return k - d.k1p[li] < d.w2[li] ? d.w1[li] + k - d.k1p[li] : -1;
+}
+
+// Sums the kSplits partials in order (deterministic) into the (out, in)
+// layout of the flat gradient.
+__global__ void k2_reduce_wg(const __grid_constant__ WgDesc d, const float* __restrict__ partial,
+                             float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d.n_params) return;
+  int li = 0;
+  while (li + 1 < d.n_layers && j >= d.wo[li + 1]) ++li;
+  const int kp = d.kp[li];
+  int pos;
+  if (j < d.bo[li]) {
+    const int q = j - d.wo[li], n = q / d.in[li], k = q - n * d.in[li];
+    pos = d.po[li] + row_of(d, li, n) * kp + (k < d.w1[li] ? k : d.k1p[li] + k - d.w1[li]);
+  } else {
+    pos = d.po[li] + d.kz[li] * kp + row_of(d, li, j - d.bo[li]);
+  }
+  float sum = 0.f;
+  for (int s = 0; s < kSplits; ++s) sum += partial[(size_t)s * d.n_part + pos];
+  out[j] = sum;
+}
+
+// The weights in the TMA maps' layouts (ops/fused_mlp.py::wgmma_layout_plain):
+// wf (RF x KF) W[unit_of(row)][input_of(col)], wt (RT x KT) the same with
+// rows and columns swapped, bias_f (RF) b[unit_of(row)]; bf16 rounded to
+// nearest even, zeros in the padding. wt may be null.
+__global__ void k_wg_layout(const __grid_constant__ WgDesc d, uint16_t* __restrict__ wf,
+                            uint16_t* __restrict__ wt, float* __restrict__ bias_f) {
+  const int nf = d.RF * d.KF, nt = wt != nullptr ? d.RT * d.KT : 0;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < nf + nt + d.RF;
+       idx += gridDim.x * blockDim.x) {
+    if (idx >= nf + nt) {
+      const int R = idx - nf - nt;
+      int li = 0;
+      while (li + 1 < d.n_layers && R >= d.rf[li + 1]) ++li;
+      const int n = unit_of(d, li, R - d.rf[li]);
+      bias_f[R] = n >= 0 ? d.b[li][n] : 0.f;
+      continue;
+    }
+    const bool tr = idx >= nf;
+    const int e = tr ? idx - nf : idx, K = tr ? d.KT : d.KF, R = e / K, C = e - R * K;
+    int li = 0;
+    if (tr) {
+      while (li + 1 < d.n_layers && R >= d.rt[li + 1]) ++li;
+    } else {
+      while (li + 1 < d.n_layers && R >= d.rf[li + 1]) ++li;
+    }
+    const int r = tr ? C : R - d.rf[li], k = tr ? R - d.rt[li] : C;
+    const int n = (r < d.kz[li]) ? unit_of(d, li, r) : -1;
+    const int i = k < d.kp[li] ? input_of(d, li, k) : -1;
+    const float v = (n >= 0 && i >= 0) ? d.W[li][(size_t)n * d.in[li] + i] : 0.f;
+    (tr ? wt : wf)[e] = static_cast<uint16_t>(bf16x2(v, 0.f) & 0xFFFFu);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2D bf16 map over rows x cols (row-major), box {64 columns, box_rows},
+// 128-byte swizzle
+int make_map(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -6;
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {64, box_rows}, es[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -6;
+}
+
+// The weight maps the layers use: forward boxes of each main product's
+// height (and 8 rows for the density unit); transposed (wt may be null) of
+// each g_x product's width.
+int weight_maps(const WgDesc& d, const void* wf, const void* wt, Maps* m) {
+  bool f[kCodes] = {}, t[kCodes] = {};
+  for (int li = 0; li < d.n_layers; ++li) {
+    f[d.ncode[li]] = true;
+    if (d.dens[li]) f[0] = true;
+    t[d.k1p[li] == 64 ? 2 : (d.k1p[li] == 128 ? 3 : 4)] = true;
+    if (d.seg2c[li] >= 0) t[2] = true;
+  }
+  for (int c = 0; c < kCodes; ++c) {
+    if (f[c] && make_map(&m->wf[c], wf, d.RF, d.KF, code_height(c)) != 0) return -6;
+    if (wt != nullptr && t[c] && make_map(&m->wt[c], wt, d.RT, d.KT, code_height(c)) != 0)
+      return -6;
+  }
+  return 0;
+}
+
+int launch_layout(const WgDesc& d, void* wf, void* wt, void* bias_f, cudaStream_t s) {
+  k_wg_layout<<<264, 256, 0, s>>>(d, static_cast<uint16_t*>(wf), static_cast<uint16_t*>(wt),
+                                  static_cast<float*>(bias_f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// [n_params, wf elements (RF x KF), wt elements (RT x KT), RF, KX, KG,
+// n_part, n_splits, tile] of the chain, or a negative code.
+int sparf_fused_mlp_wg_sizes(const int* dims, int* sizes) {
+  static const void* const null_params[2 * kMaxLayers] = {};
+  WgDesc d;
+  const int rc = build_wg_desc(dims, null_params, &d);
+  if (rc < 0) return rc;
+  const int v[9] = {d.n_params, d.RF * d.KF, d.RT * d.KT, d.RF, d.KX, d.KG, d.n_part, kSplits, kTile};
+  for (int i = 0; i < 9; ++i) sizes[i] = v[i];
+  return 0;
+}
+
+// The weights in the kernels' layouts (wt may be null): the layout check.
+int sparf_fused_mlp_wg_layout(const int* dims, const void* const* params, void* wf, void* wt,
+                              void* bias_f, void* stream) {
+  WgDesc d;
+  const int rc = build_wg_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  return launch_layout(d, wf, wt, bias_f, static_cast<cudaStream_t>(stream));
+}
+
+// K1 at bf16: lays out the weights into wf / bias_f (scratch of the sizes'
+// elements), then out (T, 4) = [raw_density | raw_rgb].
+int sparf_fused_mlp_wg_forward(const float* pts, const float* view, float* out, int T,
+                               const int* dims, const void* const* params, void* wf,
+                               void* bias_f, void* stream) {
+  WgDesc d;
+  int rc = build_wg_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  if (T <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if ((rc = weight_maps(d, wf, nullptr, &maps)) != 0) return rc;
+  if ((rc = launch_layout(d, wf, nullptr, bias_f, s)) != 0) return rc;
+  cudaFuncSetAttribute(k1_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  k1_wg<<<(T + kTile - 1) / kTile, kThreadsWg, kFwdSmem, s>>>(
+      maps, d, static_cast<const float*>(bias_f), pts, view, out, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 at bf16. gout (T, 4) = [g_density | g_rgb]; d_pts zeroed by the caller;
+// d_params (n_params,) in the order W0, b0, W1, b1, ...; scratch: wf, wt,
+// bias_f (the sizes' elements), xws (T_pad x KX bf16) and gws (T_pad x KG),
+// T_pad = T rounded up to the tile, masks (n_layers x T_pad / 128 x 256
+// uint4), db_part (T_pad / 64 x KG fp32),
+// partial (n_splits x n_part fp32).
+int sparf_fused_mlp_wg_backward(const float* pts, const float* view, const float* gout,
+                                float* d_pts, float* d_view, float* d_params, void* wf, void* wt,
+                                void* bias_f, void* xws, void* gws, void* masks, float* db_part,
+                                float* partial, int T, const int* dims,
+                                const void* const* params, void* stream) {
+  WgDesc d;
+  int rc = build_wg_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  if (T <= 0) return -5;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (T + kTile - 1) / kTile, x_rows = n_tiles * kTile;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if ((rc = weight_maps(d, wf, wt, &maps)) != 0) return rc;
+  if (make_map(&maps.x, xws, x_rows, d.KX, 64) != 0 || make_map(&maps.g, gws, x_rows, d.KG, 64) != 0)
+    return -6;
+  if ((rc = launch_layout(d, wf, wt, bias_f, s)) != 0) return rc;
+  cudaFuncSetAttribute(k2_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  k2_wg<<<n_tiles, kThreadsWg, kFwdSmem, s>>>(maps, d, static_cast<const float*>(bias_f), pts,
+                                               view, gout, d_pts, d_view,
+                                               static_cast<uint4*>(masks), db_part, T);
+  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+#ifndef K2_TIME_NO_DW
+  cudaFuncSetAttribute(k2_dw_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
+  k2_dw_wg<<<dim3(d.n_dw_tiles, kSplits), kThreadsWg, kDwSmem, s>>>(maps, d, db_part, partial,
+                                                                    n_tiles);
+  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+#endif
+  k2_reduce_wg<<<(d.n_params + 255) / 256, 256, 0, s>>>(d, partial, d_params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,16 +1,16 @@
 #!/usr/bin/env python
-"""Where K2's time goes: times K2 (csrc/fused_mlp.cu) at T = 262,144 on the
-full 8x256 chain beside timing-only builds that each drop one part of its
-work, and K1 beside them, for the 3xTF32 (compute_dtype float32) and the
-bf16 variants. Needs one CUDA card and nvcc.
+"""Where K2's time goes: times K2 at T = 262,144 on the full 8x256 chain
+beside timing-only builds that each drop one part of its work, and K1
+beside them, for the 3xTF32 (compute_dtype float32, csrc/fused_mlp.cu) and
+the bf16 variants (csrc/fused_mlp_wgmma.cu). Needs one CUDA card and nvcc.
 
 Usage (from the repository root):
     python -m sparf_tpu_torch.kernel_split [--T 262144] [--reps 10]
 
-Variants (macros of the csrc header note; their outputs are wrong, only
+Variants (macros of the csrc header notes; their outputs are wrong, only
 their times are read): no_fwd drops the recompute's MMAs, no_dw the dW pass
-(k2_dw), no_gx the g_x MMAs. The builds run in parallel; the timings run in
-turns, full first and last.
+(k2_dw, k2_dw_wg), no_gx the g_x MMAs. The builds run in parallel; the
+timings run in turns, full first and last.
 """
 from __future__ import annotations
 

@@ -4,9 +4,11 @@ The library has a plain C interface and is loaded with ctypes; it does not
 include PyTorch's headers. It is built at first use into
 `sparf_tpu_torch/build/` (listed in .gitignore), under a name that carries a
 hash of the sources, so an edited source is never served from a stale build.
-fused_mlp.cu is compiled once per MMA kind (KINDS: -DSPARF_KIND=0, 3xTF32,
-entry points *_tf32; 1, bf16, *_bf16), the compiles run in parallel, and one
-link makes the library. Nothing here runs at import time.
+fused_mlp.cu is compiled once per MMA kind (-DSPARF_KIND=0, 3xTF32, entry
+points *_tf32; 1, bf16, *_bf16: K3 at bf16), fused_mlp_wgmma.cu once (K1 and
+K2 at bf16 on wgmma and TMA, entry points sparf_fused_mlp_wg_*); the compiles
+run in parallel, and one link makes the library. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -22,8 +24,12 @@ from typing import Dict, Optional, Sequence, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("fused_mlp.cu",)
-KINDS = {"tf32": 0, "bf16": 1}  # MMA kind -> SPARF_KIND of its compile
+# (source, name of the compile in the log, its own flags)
+COMPILES = (("fused_mlp.cu", "tf32", ("-DSPARF_KIND=0",)),
+            ("fused_mlp.cu", "bf16", ("-DSPARF_KIND=1",)),
+            ("fused_mlp_wgmma.cu", "wg", ()))
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in COMPILES))
+KINDS = ("tf32", "bf16")  # the MMA kinds of fused_mlp.cu's entry points
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,7 +65,7 @@ def _source_hash(flags: Sequence[str]) -> str:
 
 def build(defines: Sequence[str] = ()) -> Path:
     """Compile the kernels if this version of the sources has no library yet:
-    one `nvcc -c` per (source, kind), all started together, then one link.
+    one `nvcc -c` per entry of COMPILES, all started together, then one link.
     `defines` (macro names) select a timing-only variant (csrc header note).
     The log holds each compile's output after a line `== <source> <kind> ==`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -73,12 +79,11 @@ def build(defines: Sequence[str] = ()) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc, t0 = _nvcc(), time.perf_counter()
     jobs = []
-    for src in SOURCES:
-        for kind, k in KINDS.items():
-            obj = tmp.with_suffix(f".{Path(src).stem}.{kind}.o")
-            cmd = [nvcc, *flags, f"-DSPARF_KIND={k}", "-c", "-o", str(obj), str(CSRC_DIR / src)]
-            jobs.append((f"{src} {kind}", cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for src, kind, own in COMPILES:
+        obj = tmp.with_suffix(f".{Path(src).stem}.{kind}.o")
+        cmd = [nvcc, *flags, *own, "-c", "-o", str(obj), str(CSRC_DIR / src)]
+        jobs.append((f"{src} {kind}", cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
     for name, cmd, _, proc in jobs:
         text = proc.communicate()[0]
@@ -108,6 +113,11 @@ def entry(lib: ctypes.CDLL, name: str, bf16: bool):
     return getattr(lib, f"sparf_fused_mlp_{name}_{'bf16' if bf16 else 'tf32'}")
 
 
+def wg_entry(lib: ctypes.CDLL, name: str):
+    """The C entry point sparf_fused_mlp_wg_<name> (K1 and K2 at bf16)."""
+    return getattr(lib, f"sparf_fused_mlp_wg_{name}")
+
+
 def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The kernel library, built on first call and then cached for the process
     (one per set of timing-only `defines`; the port uses the default)."""
@@ -119,8 +129,15 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
             for name, args in (("sizes", [p, p]), ("pack", [p, p, p, p, p]),
                                ("forward", [p, p, p, i, p, p, p, i, p]),
                                ("backward", [p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
+                if (name, kind) == ("backward", "bf16"):  # K2 at bf16 is a wg entry point
+                    continue
                 fn = getattr(lib, f"sparf_fused_mlp_{name}_{kind}")
                 fn.argtypes, fn.restype = args, i
+        for name, args in (("sizes", [p, p]), ("layout", [p, p, p, p, p, p]),
+                           ("forward", [p, p, p, i, p, p, p, p, p]),
+                           ("backward", [p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
+            fn = getattr(lib, f"sparf_fused_mlp_wg_{name}")
+            fn.argtypes, fn.restype = args, i
         lib.sparf_cuda_error_string.argtypes = [i]
         lib.sparf_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[key] = lib

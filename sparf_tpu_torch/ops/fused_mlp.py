@@ -5,11 +5,12 @@ gradient; their plain torch versions on CPU tensors.
 K1 replaces `_fwd_kernel` and K2 replaces `_bwd_kernel` of
 sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl); K3 replaces `_kernel`
 of sparf_tpu/ops/fused_mlp.py (the `pallas` impl). The kernels live in
-sparf_tpu_torch/csrc/fused_mlp.cu, whose header note says what bounds them on
-an H100 and what their design does about it: every product runs on the
-tensor cores, in 3xTF32 (fp32 accuracy) for compute_dtype float32 and as one
-bf16 MMA for compute_dtype bfloat16, with the weights laid out once per call
-as ready MMA B fragments.
+sparf_tpu_torch/csrc/, whose header notes say what bounds them on an H100 and
+what their design does about it: every product runs on the tensor cores. For
+compute_dtype float32 all three run 3xTF32 `mma.sync` on weights laid out
+once per call as ready MMA B fragments (fused_mlp.cu), as does K3 for
+bfloat16; K1 and K2 for bfloat16 run `wgmma` on bf16 tiles that TMA brings
+into shared memory, with a bf16 workspace (fused_mlp_wgmma.cu).
 
 compute_dtype is how the chain computes, not how its tensors are stored:
 inputs, weights and outputs are float32 either way. Under bfloat16 each dot
@@ -32,6 +33,14 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     (k-steps of 16) four bf16 {b(2t), b(2t+1), b(2t+8), b(2t+9)}; the input
     dimension padded per segment, and the outputs, to the k-step, zeros in
     the padding.
+  - `wg_layout` is fused_mlp_wgmma.cu's build_wg_desc in Python (layer rows,
+    padded input columns, workspace columns); `wgmma_layout_plain` the
+    bf16 weight layouts its TMA maps read (and `k_wg_layout` its kernel),
+    `unpack_wgmma_layout` the way back; `bf16_workspace_plain` what K2's
+    first pass stores at bf16: every layer's input X and g_z in bf16 (the
+    operands of dW), the ReLU masks as each thread's bits
+    (`relu_mask_words_plain`), and per 64 points (a warpgroup's rows) the
+    column sums of the fp32 g_z (db's partials).
   - `pack_weights` packs the weights for K3 once per call (`PackedWeights`,
     in the dtype's layout); `fused_mlp_forward_packed_plain` is the eager
     chain on them (hi + lo, or the bf16 weights).
@@ -97,6 +106,10 @@ _DESC_ERRORS = {
     -3: "a chain whose widths match (layer 0 takes pts_enc, no skip at layer 0, 3 RGB outputs)",
     -4: "activations that fit the 227 KB of shared memory of one block",
     -5: "at least one point",
+    -6: "TMA tensor maps of its operands (cuTensorMapEncodeTiled failed)",
+    -7: ("at compute_dtype bfloat16 (wgmma): pts_enc and view_enc at most 64 wide, every "
+         "layer's features at most 256 wide and, as a layer's input, padded to 64, 128 or 256"),
+    -8: "K1 at compute_dtype bfloat16 through sparf_fused_mlp_wg_forward",
 }
 
 
@@ -322,10 +335,11 @@ def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
 
 def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch.Tensor,
                              weights: Sequence[torch.Tensor], g_density: torch.Tensor,
-                             g_rgb: torch.Tensor):
+                             g_rgb: torch.Tensor, g_zs: Optional[List[torch.Tensor]] = None):
     """K2's algorithm in torch: (d_pts (T,d_in), d_view (T,d_view), [dW0, db0, ...]).
     Under bf16 each product rounds its operands (dW = bf16(g_z)^T bf16(x),
-    g_x = bf16(g_z) bf16(W)) and db sums the unrounded g_z."""
+    g_x = bf16(g_z) bf16(W)) and db sums the unrounded g_z. `g_zs` (a list)
+    receives each layer's g_z (fp32), first layer first."""
     n_layers = meta.n_feat + meta.n_rgb
     rnd = functools.partial(nerf_mlp.round_to, dtype=meta.dtype)
     with torch.no_grad():
@@ -345,7 +359,9 @@ def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: t
             return x > 0
 
         g_z = g_rgb
+        per_layer = [None] * n_layers
         for li in range(n_layers - 1, -1, -1):
+            per_layer[li] = g_z
             x, W = xs[li], weights[2 * li]
             grads[2 * li] = rnd(g_z).t() @ rnd(x)
             grads[2 * li + 1] = g_z.sum(0)
@@ -362,7 +378,225 @@ def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: t
                 g_z = g_x * mask_into(li)
             else:
                 d_pts = d_pts + g_x
+    if g_zs is not None:
+        g_zs.extend(per_layer)
     return d_pts, d_view, grads
+
+
+# ---------------------------------------------------------------------------
+# the bf16 K1 / K2 layouts (csrc/fused_mlp_wgmma.cu), plain
+# ---------------------------------------------------------------------------
+
+_WG_BOX = (8, 32, 64, 128, 256)  # TMA box heights: the forward products' N
+WG_TILE = 128  # points per tile of the bf16 K1 / K2
+
+
+@dataclass(frozen=True)
+class WgLayer:
+    """One layer as fused_mlp_wgmma.cu runs it. Its rows: the outputs, but at
+    the last trunk layer (dens) the features first (rows 0 .. out-2) and the
+    density unit at row nm; the padded input: segment 1 at 0 .. w1, padded
+    to k1p (64, 128 or 256), segment 2 at k1p .. k1p + w2, padded to kp."""
+
+    out: int
+    n_in: int
+    w1: int
+    w2: int
+    k1p: int
+    kp: int
+    dens: bool
+    nm: int  # the forward product's N (rows of the forward weights, + 8 at dens)
+    kz: int  # g_z columns: rows padded to 64
+    rf: int  # first row in the forward weights
+    rt: int  # first row in the transposed weights
+    xo: int  # first column of X in the workspace
+    go: int  # first column of g_z in the workspace
+
+    def units(self, n_rows: int) -> torch.Tensor:
+        """The output unit of each of the first n_rows rows, -1 in padding."""
+        r = torch.arange(n_rows)
+        if self.dens:
+            return torch.where(r < self.out - 1, r + 1,
+                               torch.where(r == self.nm, 0, -1))
+        return torch.where(r < self.out, r, -1)
+
+    def inputs(self) -> torch.Tensor:
+        """The input index of each padded input column, -1 in padding."""
+        k = torch.arange(self.kp)
+        return torch.where(k < self.k1p, torch.where(k < self.w1, k, -1),
+                           torch.where(k - self.k1p < self.w2, self.w1 + k - self.k1p, -1))
+
+
+@dataclass(frozen=True)
+class WgLayout:
+    layers: Tuple[WgLayer, ...]
+    RF: int  # forward weights RF x KF
+    KF: int
+    RT: int  # transposed weights RT x KT
+    KT: int
+    KX: int  # workspace columns per point: stored inputs, g_z
+    KG: int
+
+
+@functools.lru_cache(maxsize=16)
+def wg_layout(dims: Tuple[int, ...]) -> WgLayout:
+    """csrc/fused_mlp_wgmma.cu build_wg_desc: raises ValueError for a chain
+    its kernels do not take."""
+    n_feat, n_rgb, d_in, d_view, view_dep = dims[:5]
+    pad = lambda x: -(-x // 64) * 64  # noqa: E731
+    if not (1 <= d_in <= 64 and 0 <= d_view <= 64):
+        raise ValueError(_DESC_ERRORS[-7])
+    layers, RF, RT, KX, KG, KF, KT = [], 0, 0, 0, 0, 64, 64
+    for li, (out, n_in, w1, w2, *_) in enumerate(_layers(dims)):
+        dens = li == n_feat - 1
+        if li > 0 and layers[-1].out - layers[-1].dens != w1:
+            raise ValueError(_DESC_ERRORS[-3])
+        nm = next((h for h in _WG_BOX if h >= out - dens), None)
+        k1p = pad(w1)
+        if nm is None or k1p not in (64, 128, 256):
+            raise ValueError(_DESC_ERRORS[-7])
+        kz = pad(nm + 8 if dens else out)
+        kp = k1p + pad(w2)
+        if kz > 320:
+            raise ValueError(_DESC_ERRORS[-7])
+        layers.append(WgLayer(out, n_in, w1, w2, k1p, kp, dens, nm, kz, RF, RT, KX, KG))
+        RF += nm + (8 if dens else 0)
+        RT += kp
+        KX += kp
+        KG += kz
+        KF, KT = max(KF, kp), max(KT, kz)
+    return WgLayout(tuple(layers), RF, KF, RT, KT, KX, KG)
+
+
+def _wg_block(L: WgLayer, W: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """W (out, in) at (layer row, padded input column), zeros in padding."""
+    u, i = L.units(n_rows).to(W.device), L.inputs().to(W.device)
+    block = W.detach()[u.clamp(min=0)][:, i.clamp(min=0)]
+    return torch.where((u[:, None] >= 0) & (i[None, :] >= 0), block, torch.zeros_like(block))
+
+
+def wgmma_layout_plain(dims: Sequence[int], weights: Sequence[torch.Tensor]):
+    """The bf16 K1 / K2's weights (k_wg_layout's plain version): (wf (RF, KF)
+    bf16, the forward B operands, rows = layer rows, columns = padded inputs;
+    wt (RT, KT) bf16, g_x's, rows = padded inputs, columns = layer rows;
+    bias_f (RF,) fp32 in the forward row order); bf16 rounded to nearest
+    even, zeros in the padding."""
+    lay = wg_layout(tuple(dims))
+    dev = weights[0].device
+    wf = torch.zeros((lay.RF, lay.KF), device=dev)
+    wt = torch.zeros((lay.RT, lay.KT), device=dev)
+    bias = torch.zeros(lay.RF, device=dev)
+    for L, W, b in zip(lay.layers, weights[::2], weights[1::2]):
+        n_rows = L.nm + (8 if L.dens else 0)
+        wf[L.rf: L.rf + n_rows, : L.kp] = _wg_block(L, W, n_rows)
+        wt[L.rt: L.rt + L.kp, : L.kz] = _wg_block(L, W, L.kz).t()
+        u = L.units(n_rows).to(dev)
+        bias[L.rf: L.rf + n_rows] = torch.where(u >= 0, b.detach()[u.clamp(min=0)], 0.0)
+    return wf.to(torch.bfloat16), wt.to(torch.bfloat16), bias
+
+
+def unpack_wgmma_layout(dims: Sequence[int], wf: torch.Tensor, wt: Optional[torch.Tensor] = None,
+                        bias_f: Optional[torch.Tensor] = None) -> List[List[torch.Tensor]]:
+    """Per layer, W (out, in) as float32 read back from wf, from wt (if given)
+    and b from bias_f (if given): each an exact copy of the bf16-rounded W
+    (and of b) when the layouts are right."""
+    lay = wg_layout(tuple(dims))
+    outs = []
+    for L in lay.layers:
+        n_rows = L.nm + (8 if L.dens else 0)
+        got = []
+        sources = [(wf[L.rf: L.rf + n_rows, : L.kp].float(), n_rows)]
+        if wt is not None:
+            sources.append((wt[L.rt: L.rt + L.kp, : L.kz].float().t(), L.kz))
+        for block, rows in sources:
+            u, i = L.units(rows).to(block.device), L.inputs().to(block.device)
+            W = block.new_zeros((L.out, L.n_in))
+            W[u[u >= 0][:, None], i[i >= 0][None, :]] = block[u >= 0][:, i >= 0]
+            got.append(W)
+        if bias_f is not None:
+            u = L.units(n_rows).to(bias_f.device)
+            b = bias_f.new_zeros(L.out)
+            b[u[u >= 0]] = bias_f[L.rf: L.rf + n_rows][u >= 0]
+            got.append(b)
+        outs.append(got)
+    return outs
+
+
+def _fragment_index(n_rows: int, device=None):
+    """For the bf16 K2's mask words: per tile row and column (< 256), the
+    consumer thread that holds it in the wgmma accumulator fragment, and its
+    bit (word, position): thread = 128 wg + 32 w + 4 g + t holds rows 64 wg +
+    16 w + g + 8 h and columns 8 j + 2 t + e at bit 4 (j % 8) + 2 h + e of
+    word j // 8."""
+    r = torch.arange(n_rows, device=device)[:, None] % WG_TILE
+    c = torch.arange(256, device=device)[None, :]
+    wg, w, g, h = r // 64, (r % 64) // 16, r % 8, (r % 16) // 8
+    j, t, e = c // 8, (c % 8) // 2, c % 2
+    thread = 128 * wg + 32 * w + 4 * g + t
+    return thread, j // 8, 4 * (j % 8) + 2 * h + e
+
+
+def relu_mask_words_plain(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 K2's ReLU mask words of one layer's input features x (T,
+    width <= 256, the float32 ReLU outputs): (T_pad / 128, 256, 4) int32, bit
+    set where x > 0 (csrc fused_mlp_wgmma.cu mask_bit)."""
+    T, width = x.shape
+    n_tiles = -(-T // WG_TILE)
+    m = torch.zeros((n_tiles * WG_TILE, 256), dtype=torch.int64, device=x.device)
+    m[:T, :width] = (x > 0).long()
+    thread, word, bit = _fragment_index(n_tiles * WG_TILE, x.device)
+    tile = torch.arange(n_tiles * WG_TILE, device=x.device)[:, None] // WG_TILE
+    flat = ((tile * 256 + thread) * 4 + word).expand(-1, 256).reshape(-1)
+    words = torch.zeros(n_tiles * 256 * 4, dtype=torch.int64, device=x.device)
+    words.index_add_(0, flat, (m << bit).reshape(-1))
+    return (words - (words >= 2 ** 31).long() * 2 ** 32).to(torch.int32).view(n_tiles, 256, 4)
+
+
+def relu_mask_from_words(words: torch.Tensor, T: int, width: int) -> torch.Tensor:
+    """relu_mask_words_plain's way back: the (T, width) bool mask."""
+    n_tiles = words.shape[0]
+    thread, word, bit = _fragment_index(n_tiles * WG_TILE, words.device)
+    tile = torch.arange(n_tiles * WG_TILE, device=words.device)[:, None] // WG_TILE
+    w = words.long().view(-1)[(tile * 256 + thread) * 4 + word] & 0xFFFFFFFF
+    return ((w >> bit) & 1).bool()[:T, :width]
+
+
+def bf16_workspace_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch.Tensor,
+                         weights: Sequence[torch.Tensor], g_density: torch.Tensor,
+                         g_rgb: torch.Tensor):
+    """What the bf16 K2's first pass (k2_wg) stores, plain: (X (T_pad, KX)
+    bf16: every layer's input, its segments at the layer's padded columns;
+    G (T_pad, KG) bf16: every layer's g_z at its rows (WgLayer); masks
+    (n_layers, T_pad / 128, 256, 4) int32: per layer the ReLU mask words of
+    its input features (relu_mask_words_plain; layer 0's, pts_enc, unused
+    and 0); db_part (T_pad / 64, KG) fp32: per 64 points the column sums of
+    the unrounded g_z). T_pad = T rounded up to the tile of 128; the padded
+    points hold zeros here (the kernel's X holds their activations, whose
+    g_z is 0)."""
+    dims = meta.dims(weights)
+    lay = wg_layout(tuple(dims))
+    T = pts_enc.shape[0]
+    n_tiles = -(-T // WG_TILE)
+    x_rows = n_tiles * WG_TILE
+    g_zs: List[torch.Tensor] = []
+    with torch.no_grad():
+        _, _, xs = _forward_chain(meta, pts_enc, view_enc, weights)
+        fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_density, g_rgb, g_zs=g_zs)
+    dev = pts_enc.device
+    X = torch.zeros((x_rows, lay.KX), dtype=torch.bfloat16, device=dev)
+    G = torch.zeros((x_rows, lay.KG), dtype=torch.bfloat16, device=dev)
+    db = torch.zeros((x_rows, lay.KG), device=dev)
+    masks = torch.zeros((len(lay.layers), n_tiles, 256, 4), dtype=torch.int32, device=dev)
+    for li, (L, x, g) in enumerate(zip(lay.layers, xs, g_zs)):
+        X[:T, L.xo: L.xo + L.w1] = x[:, : L.w1].to(torch.bfloat16)
+        X[:T, L.xo + L.k1p: L.xo + L.k1p + L.w2] = x[:, L.w1:].to(torch.bfloat16)
+        if li > 0:
+            masks[li] = relu_mask_words_plain(x[:, : L.w1])
+        u = L.units(L.kz).to(dev)
+        cols = L.go + torch.nonzero(u >= 0).reshape(-1)
+        G[:T, cols] = g[:, u[u >= 0]].to(torch.bfloat16)
+        db[:T, cols] = g[:, u[u >= 0]]
+    return X, G, masks, db.view(2 * n_tiles, WG_TILE // 2, lay.KG).sum(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -408,11 +642,97 @@ def _sizes(lib, dims, bf16: bool, which: str) -> List[int]:
     return list(sizes)
 
 
+def _wg_sizes(lib, dims, which: str) -> List[int]:
+    """[n_params, wf elements, wt elements, RF, KX, KG, n_part, n_splits, tile]
+    of the bf16 K1 / K2 (csrc sparf_fused_mlp_wg_sizes)."""
+    from sparf_tpu_torch.ops._build import wg_entry
+
+    sizes = (ctypes.c_int * 9)()
+    _raise_rc(lib, wg_entry(lib, "sizes")(dims, sizes), which)
+    return list(sizes)
+
+
+def wg_layout_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor]):
+    """k_wg_layout on the card: (wf, wt, bias_f) as wgmma_layout_plain."""
+    from sparf_tpu_torch.ops._build import load_library, wg_entry
+
+    lib = load_library()
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    sizes = _wg_sizes(lib, c_dims, "k_wg_layout")
+    dev = weights[0].device
+    wf = torch.empty(sizes[1], dtype=torch.bfloat16, device=dev)
+    wt = torch.empty(sizes[2], dtype=torch.bfloat16, device=dev)
+    bias_f = torch.empty(sizes[3], dtype=torch.float32, device=dev)
+    rc = wg_entry(lib, "layout")(c_dims, _ptrs(weights), wf.data_ptr(), wt.data_ptr(),
+                                 bias_f.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc(lib, rc, "k_wg_layout")
+    return wf.view(-1, sizes[1] // sizes[3]), wt.view(-1, wg_layout(tuple(dims)).KT), bias_f
+
+
+def _launch_k1_wg(meta: FusedMeta, pts_enc, view_enc, weights):
+    """K1 at bf16 (fused_mlp_wgmma.cu): lays out the weights (k_wg_layout),
+    then the wgmma forward."""
+    from sparf_tpu_torch.ops._build import load_library, wg_entry
+
+    lib = load_library()
+    T, dev = pts_enc.shape[0], pts_enc.device
+    dims = _dims(meta, weights)
+    sizes = _wg_sizes(lib, dims, "K1 (fused MLP forward, bf16)")
+    wf = torch.empty(sizes[1], dtype=torch.bfloat16, device=dev)
+    bias_f = torch.empty(sizes[3], dtype=torch.float32, device=dev)
+    out = torch.empty((T, 4), dtype=torch.float32, device=dev)
+    rc = wg_entry(lib, "forward")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T,
+                                  dims, _ptrs(weights), wf.data_ptr(), bias_f.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc(lib, rc, "K1 (fused MLP forward, bf16)")
+    _counted("K1", True)
+    return out[:, 0], out[:, 1:4]
+
+
+def _launch_k2_wg(meta: FusedMeta, pts_enc, view_enc, weights, gout):
+    """K2 at bf16 (fused_mlp_wgmma.cu): k_wg_layout, k2_wg, k2_dw_wg,
+    k2_reduce_wg."""
+    from sparf_tpu_torch.ops._build import load_library, wg_entry
+
+    lib = load_library()
+    T, dev = pts_enc.shape[0], pts_enc.device
+    dims = _dims(meta, weights)
+    n_params, n_wf, n_wt, RF, KX, KG, n_part, n_splits, tile = _wg_sizes(
+        lib, dims, "K2 (fused MLP backward, bf16)")
+    n_tiles = -(-T // tile)
+    x_rows = n_tiles * tile
+    d_pts = torch.zeros_like(pts_enc)
+    d_view = torch.empty_like(view_enc)
+    d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    wf, wt = torch.empty(n_wf, **bf), torch.empty(n_wt, **bf)
+    bias_f = torch.empty(RF, dtype=torch.float32, device=dev)
+    # every layer's input and g_z in bf16 for the dW pass: ~9 KB per point at full width
+    xws, gws = torch.empty((x_rows, KX), **bf), torch.empty((x_rows, KG), **bf)
+    # the recompute's ReLU mask words: per layer, tile and consumer thread 4 x 32 bits
+    masks = torch.empty((meta.n_feat + meta.n_rgb, n_tiles, 256, 4), dtype=torch.int32,
+                        device=dev)
+    db_part = torch.empty((2 * n_tiles, KG), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
+    rc = wg_entry(lib, "backward")(
+        pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
+        d_view.data_ptr(), d_params.data_ptr(), wf.data_ptr(), wt.data_ptr(), bias_f.data_ptr(),
+        xws.data_ptr(), gws.data_ptr(), masks.data_ptr(), db_part.data_ptr(), partial.data_ptr(),
+        T, dims,
+        _ptrs(weights), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc(lib, rc, "K2 (fused MLP backward, bf16)")
+    _counted("K2", True)
+    return d_pts, d_view, d_params
+
+
 def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
-    """Packs the weights into fragments (k_pack) and launches K1 on them."""
+    """Packs the weights into fragments (k_pack) and launches K1 on them; at
+    bf16 the wgmma K1."""
     from sparf_tpu_torch.ops._build import entry, load_library
 
     _check_operands(pts_enc, view_enc, weights)
+    if meta.bf16:
+        return _launch_k1_wg(meta, pts_enc, view_enc, weights)
     lib = load_library()
     T, dev = pts_enc.shape[0], pts_enc.device
     dims = _dims(meta, weights)
@@ -456,10 +776,14 @@ def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed: PackedWeights):
 
 
 def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
+    """K2: the 3xTF32 kernels, or at bf16 the wgmma ones."""
     from sparf_tpu_torch.ops._build import entry, load_library
 
     gout = torch.cat([g_density[:, None], g_rgb], dim=-1).contiguous()
     _check_operands(pts_enc, view_enc, weights, gout)
+    if meta.bf16:
+        d_pts, d_view, d_params = _launch_k2_wg(meta, pts_enc, view_enc, weights, gout)
+        return d_pts, d_view, _split_flat(d_params, weights)
     lib = load_library()
     T = pts_enc.shape[0]
     dev = pts_enc.device
@@ -481,11 +805,16 @@ def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
         partial.data_ptr(), workspace.data_ptr(), T, dims, _ptrs(weights), stream)
     _raise_rc(lib, rc, "K2 (fused MLP backward)")
     _counted("K2", meta.bf16)
+    return d_pts, d_view, _split_flat(d_params, weights)
+
+
+def _split_flat(d_params, weights) -> List[torch.Tensor]:
+    """The flat gradient [W0, b0, W1, ...] as views in the weights' shapes."""
     grads, ofs = [], 0
     for w in weights:
         grads.append(d_params[ofs: ofs + w.numel()].view(w.shape))
         ofs += w.numel()
-    return d_pts, d_view, grads
+    return grads
 
 
 def fused_mlp_forward(meta, pts_enc, view_enc, weights):

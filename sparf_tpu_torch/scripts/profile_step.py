@@ -10,7 +10,8 @@ The step is the bench.py full shape (300x400 synthetic scene, 1024
 photometric, 2x512 correspondence and 3x1024 depth-consistency rays, 128 +
 128 samples, the 8x256 MLP, GT-depth correspondences) unless --tiny. It
 prints a table of the device kernels by time, then one JSON line: ms per
-step by category (K1, K2's three parts, K3 and k_pack by kernel name, then
+step by category (K1, K2's three parts, K3 and the weight layouts (k_pack,
+and k_wg_layout of the bf16 K1 / K2) by kernel name, then
 GEMM, elementwise, reduction, sort, memcpy, collective, other), the traced
 window per step and the share of it in which the device ran a kernel.
 
@@ -37,8 +38,9 @@ CATEGORIES = ("K1", "k2_backward", "k2_dw", "k2_reduce", "K3", "k_pack", "gemm",
 def categorize(name: str) -> str:
     """The category of a kernel (or, on the CPU, operator) name."""
     n = name.lower()
-    for key, cat in (("k1_forward", "K1"), ("k2_backward", "k2_backward"), ("k2_dw", "k2_dw"),
-                     ("k2_reduce", "k2_reduce"), ("k3_forward", "K3"), ("k_pack", "k_pack")):
+    for key, cat in (("k1_forward", "K1"), ("k1_wg", "K1"), ("k2_backward", "k2_backward"),
+                     ("k2_wg", "k2_backward"), ("k2_dw", "k2_dw"), ("k2_reduce", "k2_reduce"),
+                     ("k3_forward", "K3"), ("k_pack", "k_pack"), ("k_wg_layout", "k_pack")):
         if key in n:
             return cat
     if any(k in n for k in ("nccl", "gloo", "all_reduce", "allreduce", "broadcast")):

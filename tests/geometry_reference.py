@@ -7,7 +7,7 @@ as prior, with the stage's candidates traced round by round.
     JAX_PLATFORMS=cpu python tests/geometry_reference.py port [--backend zncc] [--seed 1]
     python tests/geometry_reference.py port --device cuda --seed 2    (the port on the card)
     JAX_PLATFORMS=cpu python tests/geometry_reference.py jax --rig 64x80 [--bootstrap 40] --priors 0,1,2
-        [--texture_octaves 3] [--keypoints] [--flat_share 1.0]
+        [--texture_octaves 3] [--keypoints] [--flat_share 1.0] [--flat-zero]
     python tests/geometry_reference.py --compare jax.jsonl port.jsonl port
 
 The last form runs the ZNCC stage of tests/test_torch_geometry_vs_jax*.py
@@ -19,7 +19,10 @@ per grid keypoint: each seed's z1, z2, cycle error, whether the package
 kept the match, the port's flat rule at its share (`textured`), and, when
 the rematch runs at 32x40, the match's distance from the GT correspondence
 of the synthetic scene rendered at 32x40; --flat_share sets the port's
-`_SPARSE_FLAT_SHARE` for the run (1.0 turns the rule off).
+`_SPARSE_FLAT_SHARE` for the run (1.0 turns the rule off). --flat-zero runs
+the JAX stage with the two sweeps of tests/geometry_vs_jax_common.py that
+score a flat window 0, as the port does, instead of rounding noise divided
+by a clamped variance (install_flat_zero).
 
 Prints, per round, each candidate's mean relative rotation error against GT
 and its rematched-flow score, then one JSON line: seconds, pairs kept, pool
@@ -167,13 +170,15 @@ def _traced_sparse_matches(mod, calls):
 
 
 def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
-            texture_octaves: int = 1, keypoints: bool = False, flat_share=None):
+            texture_octaves: int = 1, keypoints: bool = False, flat_share=None,
+            flat_zero: bool = False):
     """The ZNCC geometry stage on the H x W DTU-like rig (its spheres'
     albedo with `texture_octaves` octaves) from the noisy prior of each numpy
     seed: yields one dict per seed (the prior's and the stage's mean relative
     rotation error, each round's candidates; with `keypoints` the sparse
     rematch readings per keypoint, `sparse_calls`). `flat_share` sets the
-    port's `_SPARSE_FLAT_SHARE` for the run."""
+    port's `_SPARSE_FLAT_SHARE` for the run; `flat_zero` (package "jax")
+    installs the flat-zero sweeps of geometry_vs_jax_common for the run."""
     from scipy.spatial.transform import Rotation
 
     from sparf_tpu_torch.datasets import synthetic
@@ -193,6 +198,7 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
     combi = np.array([[0, 0, 1], [1, 2, 2]], np.int32)
     saved = (mod._BOOTSTRAP_MAX_DIM, mod._rematched_flow_quality, mod._global_poses_from_flows,
              mod._sparse_matches_for_sfm, tfn._SPARSE_FLAT_SHARE)
+    sweeps = {name: getattr(mod, name) for name in ("_plane_sweep_pair", "_local_depth_sweep")}
     candidates, calls = [], []
 
     def traced_quality(flows, unordered):
@@ -214,6 +220,12 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
         mod._sparse_matches_for_sfm = _traced_sparse_matches(mod, calls)
     if flat_share is not None:
         tfn._SPARSE_FLAT_SHARE = flat_share
+    if flat_zero:
+        if package != "jax":
+            raise ValueError("--flat-zero patches the JAX stage (the port scores flat windows 0)")
+        from geometry_vs_jax_common import install_flat_zero
+
+        install_flat_zero(setattr)
     try:
         for seed in seeds:
             rng = np.random.RandomState(seed)
@@ -230,7 +242,8 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
             mod.compute_zncc_flow_of_combi_list(sc["image"], combi, intr=sc["intr"],
                                                 init_poses_w2c=prior, geom_out=geom, **kw)
             yield dict(package=package, rig=f"{H}x{W}", bootstrap_max_dim=bootstrap_max_dim,
-                       texture_octaves=texture_octaves, prior_seed=seed, seconds=time.time() - t0,
+                       texture_octaves=texture_octaves, flat_zero=flat_zero, prior_seed=seed,
+                       seconds=time.time() - t0,
                        prior_rot_err_deg=cs.mean_rel_rot_deg(prior, gt),
                        internal_rot_err_deg=(cs.mean_rel_rot_deg(geom["poses_w2c"], gt)
                                              if "poses_w2c" in geom else None),
@@ -239,6 +252,8 @@ def run_rig(package: str, H: int, W: int, bootstrap_max_dim=None, seeds=(3,),
     finally:
         (mod._BOOTSTRAP_MAX_DIM, mod._rematched_flow_quality, mod._global_poses_from_flows,
          mod._sparse_matches_for_sfm, tfn._SPARSE_FLAT_SHARE) = saved
+        for name, fn in sweeps.items():
+            setattr(mod, name, fn)
 
 
 def _round1_keypoints(pair):
@@ -305,6 +320,8 @@ def main() -> None:
                         help="compare two --keypoints outputs (JSON lines files)")
     parser.add_argument("--flat_share", type=float, default=None,
                         help="with --rig: the port's _SPARSE_FLAT_SHARE (1.0: rule off)")
+    parser.add_argument("--flat-zero", dest="flat_zero", action="store_true",
+                        help="with --rig, jax: flat windows score 0 in the JAX sweeps")
     args = parser.parse_args()
     torch.set_num_threads(args.threads)
     if args.compare:
@@ -316,7 +333,7 @@ def main() -> None:
         H, W = (int(v) for v in args.rig.split("x"))
         for row in run_rig(args.package, H, W, args.bootstrap,
                            [int(v) for v in args.priors.split(",")], args.texture_octaves,
-                           args.keypoints, args.flat_share):
+                           args.keypoints, args.flat_share, args.flat_zero):
             print(json.dumps(row), flush=True)
     else:
         print(json.dumps(run(args.package, args.backend, args.seed, args.device)))

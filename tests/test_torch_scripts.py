@@ -57,3 +57,13 @@ def test_profile_categories_name_the_kernels():
     assert cat("void at::native::vectorized_elementwise_kernel<4, ...>") == "elementwise"
     assert cat("void at::native::reduce_kernel<512, 1, ...>") == "reduction"
     assert cat("void at::native::bitonicSortKVInPlace<...>") == "sort"
+
+
+def test_profile_categories_name_the_wgmma_kernels():
+    """The bf16 K1 / K2 of csrc/fused_mlp_wgmma.cu fall in K1's and K2's parts."""
+    cat = profile_step.categorize
+    assert cat("(anonymous namespace)::k1_wg(Maps, WgDesc, ...)") == "K1"
+    assert cat("(anonymous namespace)::k2_wg(Maps, WgDesc, ...)") == "k2_backward"
+    assert cat("(anonymous namespace)::k2_dw_wg(Maps, WgDesc, ...)") == "k2_dw"
+    assert cat("(anonymous namespace)::k2_reduce_wg(WgDesc, ...)") == "k2_reduce"
+    assert cat("(anonymous namespace)::k_wg_layout(WgDesc, ...)") == "k_pack"
