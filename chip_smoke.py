@@ -8,20 +8,22 @@ Usage (from the repository root, on a machine with a CUDA card and nvcc):
 
 Phases, one line each; any failure raises and the process exits non-zero:
   1. device: name, power limit, TF32 off for matmuls and cuDNN;
-  2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a,
-     fused_mlp.cu once per MMA kind (3xTF32, bf16) and fused_mlp_wgmma.cu
-     (K1 and K2 at bf16), in parallel; registers and spills per kernel;
+  2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a in
+     two compiles run in parallel, fused_mlp.cu (K1, K2, K3 in 3xTF32) and
+     fused_mlp_wgmma.cu (K1, K2, K3 at bf16); registers and spills per
+     kernel;
   3. kernels: for each variant, 3xTF32 (compute_dtype float32) and bf16
-     (compute_dtype bfloat16): the fragment packing (k_pack) bit for bit
-     against its plain version, and at bf16 the wgmma kernels' weight
-     layouts (k_wg_layout); K1 (fused MLP forward), K2 (backward) and
-     K3 (forward on packed weights) at the full 8x256 width, ragged T, both
-     view_dep settings and an active coarse-to-fine mask, against their
-     plain torch versions (K3 also against K1's; bf16 per point, see
-     BF16_FLIPPED; fp32 also at T past the merged fine level's 786,432
-     points); K2 run twice must give the same bits; median times at
-     T = 262,144 beside each kernel's bound (fp32 cores, and the variant's
-     tensor-core rate) and its plain cuBLAS chain;
+     (compute_dtype bfloat16): the weight layouts bit for bit against their
+     plain versions (k_pack's fragments at fp32; at bf16 k_wg_layout, and
+     pack_weights' forward layout for K3); K1 (fused MLP forward), K2
+     (backward) and K3 (forward on packed weights) at the full 8x256 width,
+     ragged T, both view_dep settings and an active coarse-to-fine mask,
+     against their plain torch versions (K3 also against K1's, and at bf16
+     bit-identical to K1: the same body; bf16 per point, see BF16_FLIPPED;
+     fp32 also at T past the merged fine level's 786,432 points); K2 run
+     twice must give the same bits; median times at T = 262,144 beside each
+     kernel's bound (fp32 cores, and the variant's tensor-core rate) and its
+     plain cuBLAS chain;
   4. slice-check: one step of the tiny sparf config on the card against the
      same step on the CPU (plain versions, same parameters and draws), in
      both stages; accum-check: grad_acc_steps = 2, six steps, one with a NaN
@@ -33,6 +35,14 @@ Phases, one line each; any failure raises and the process exits non-zero:
      (only the bf16 variants launch) and the 200-step trajectory at
      compute_dtype bfloat16, card against CPU (TRAJ_TOL_BF16), then the
      training CLI and the eval entry point at bf16 on the card;
+     wide-check: the tiny config with the presets' 8x256 MLP and
+     posenc.L_3D=12 (pts_enc 75 wide, past both kernels' widths), fp32 and
+     bf16: with the kernels its step raises ValueError before any launch;
+     with cfg.tpu.use_pallas=False (nerf_mlp.nerf_apply in torch ops, no
+     kernel launch) the slice-check on it, under the same bounds but, at
+     bf16, the gradients' (BF16_WIDE_GRAD_RTOL, see WIDE), and at bf16 a
+     control that must miss them; use_pallas=False: the slice-check on the
+     tiny config's own chain with use_pallas=False;
   5. matcher-check: with TF32 on for cuBLAS and cuDNN, the port's matchers
      on the card against the same calls on the CPU, on the 300x400 3-view
      synthetic scene: the PDC-Net forward with the bundled weights (max
@@ -174,9 +184,9 @@ UNAMBIGUOUS_Z = 1e-4
 # every point (row of the outputs, d_pts, d_view) is held to FWD_RTOL /
 # BWD_RTOL, all but BF16_FLIPPED of them, and every point to BF16_LOOSE
 # (forward, backward); each weight and bias gradient to BF16_WEIGHT_RTOL of
-# its largest magnitude. A wrong fragment index or rounding mode moves every
-# point and every weight by O(1) of scale; the kernels' rounding is the bf16
-# k_pack's, bit for bit.
+# its largest magnitude. A wrong layout index or rounding mode moves every
+# point and every weight by O(1) of scale; the kernels' rounding is
+# k_wg_layout's, bit for bit.
 BF16_FLIPPED = 0.15
 BF16_LOOSE = (5e-2, 0.3)
 BF16_WEIGHT_RTOL = 5e-2
@@ -337,7 +347,8 @@ def kernel_bounds(meta, weights, T: int) -> dict:
 
 
 def check_packing(meta, weights, params) -> None:
-    """k_pack's two fragment sets against pack_fragments_plain, bit for bit."""
+    """The 3xTF32 weight layout: k_pack's two fragment sets and pack_weights'
+    fragments against pack_fragments_plain, bit for bit."""
     import torch
 
     from sparf_tpu_torch.ops import _build
@@ -345,28 +356,26 @@ def check_packing(meta, weights, params) -> None:
 
     lib = _build.load_library()
     dims = fm._dims(meta, weights)
-    frag = torch.empty((2, fm._sizes(lib, dims, meta.bf16, "pack")[1]), dtype=meta.dtype,
-                       device="cuda")
-    rc = _build.entry(lib, "pack", meta.bf16)(dims, fm._ptrs(weights), frag[0].data_ptr(),
-                                              frag[1].data_ptr(),
-                                              torch.cuda.current_stream().cuda_stream)
+    frag = torch.empty((2, fm._sizes(lib, dims, "pack")[1]), device="cuda")
+    rc = _build.entry(lib, "pack")(dims, fm._ptrs(weights), frag[0].data_ptr(),
+                                   frag[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
     fm._raise_rc(lib, rc, "k_pack")
-    plain = [fm.pack_fragments_plain(meta.dims(weights), weights, transposed=t, bf16=meta.bf16)
+    plain = [fm.pack_fragments_plain(meta.dims(weights), weights, transposed=t)
              for t in (False, True)]
     packed = fm.pack_weights(params, meta).frag
     torch.cuda.synchronize()
     for name, a, b in (("forward", frag[0], plain[0]), ("transposed", frag[1], plain[1]),
                        ("pack_weights", packed, plain[0])):
-        if not torch.equal(a.view(torch.int16 if meta.bf16 else torch.int32),
-                           b.view(torch.int16 if meta.bf16 else torch.int32)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"k_pack {name} fragments differ from the plain packing in "
                                  f"{int((a != b).sum())} of {a.numel()} floats")
 
 
-def check_wg_layout(meta, weights) -> None:
-    """The bf16 K1 / K2's weight layouts (k_wg_layout) against
-    wgmma_layout_plain, bit for bit, and the kernel's sizes against the
-    Python mirror of its layout (wg_layout)."""
+def check_wg_layout(meta, weights, params) -> None:
+    """The bf16 kernels' weight layouts (k_wg_layout: K1 / K2's, and
+    pack_weights' forward layout for K3) against wgmma_layout_plain, bit for
+    bit, and the kernel's sizes against the Python mirror of its layout
+    (wg_layout)."""
     import torch
 
     from sparf_tpu_torch.ops import _build
@@ -381,8 +390,11 @@ def check_wg_layout(meta, weights) -> None:
         raise AssertionError(f"fused_mlp_wgmma.cu sizes {sizes[:6]} != wg_layout's {want}")
     got = fm.wg_layout_kernel(dims, weights)
     plain = fm.wgmma_layout_plain(dims, weights)
+    packed = fm.pack_weights(params, meta)
     torch.cuda.synchronize()
-    for name, a, b in zip(("forward", "transposed", "bias"), got, plain):
+    for name, a, b in zip(("forward", "transposed", "bias", "pack_weights forward",
+                           "pack_weights bias"),
+                          (*got, packed.wf, packed.bias_f), (*plain, plain[0], plain[2])):
         a, b = a.reshape(-1), b.reshape(-1)
         iv = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
         if a.shape != b.shape or not torch.equal(a.view(iv), b.view(iv)):
@@ -426,9 +438,10 @@ def check_kernels(bf16: bool = False) -> dict:
         for T in (131071, 262145) + ((786433,) if view_dep and not bf16 else ()):
             meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(
                 view_dep, T, seed=T, bf16=bf16)
-            check_packing(meta, weights, params)
             if bf16:
-                check_wg_layout(meta, weights)
+                check_wg_layout(meta, weights, params)
+            else:
+                check_packing(meta, weights, params)
             packed = fm.pack_weights(params, meta)
             dens_k, rgb_k = fm._launch_k1(meta, pts_enc, view_enc, weights)
             dens_3, rgb_3 = fm._launch_k3(meta, pts_enc, view_enc, packed)
@@ -442,6 +455,8 @@ def check_kernels(bf16: bool = False) -> dict:
                 _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped,
                                  failed)
             k3_same_bits = torch.equal(dens_3, dens_k) and torch.equal(rgb_3, rgb_k)
+            if bf16 and not k3_same_bits:  # k3_wg runs k1_wg's body on the same layout
+                failed.append(f"K3 bf16 not bit-identical to K1 (view_dep={view_dep}, T={T})")
             fwd_past = ((row_errors(dens_k[:, None], dens_p[:, None]) > FWD_RTOL)
                         | (row_errors(rgb_k, rgb_p) > FWD_RTOL))
 
@@ -511,11 +526,9 @@ def check_kernels(bf16: bool = False) -> dict:
                                 f"{flipped['K3']:.4f}, K2 {flipped['K2']:.4f}; weight gradients "
                                 f"without them {isolated:.3g}" if bf16 else "")
                              + f"), K2 bit-identical on rerun, K3 "
-                             f"{'' if k3_same_bits else 'not '}bit-identical to K1"
-                             + (" (K1 sums on wgmma, K3 on mma.sync: another fp32 order)"
-                                if bf16 and not k3_same_bits else "")
-                             + ", k_pack" + (" and k_wg_layout" if bf16 else "")
-                             + f" bit-identical to their plain versions; "
+                             f"{'' if k3_same_bits else 'not '}bit-identical to K1, "
+                             + ("k_wg_layout" if bf16 else "k_pack")
+                             + f" bit-identical to its plain version; "
                              f"{1 - float(keep.mean()):.4f} "
                              f"of the points held out of the backward check (|z| < "
                              f"{UNAMBIGUOUS_Z})")
@@ -588,14 +601,47 @@ class RecordingDraws:
 # (tests/test_torch_bf16_trainer.py); the gradients themselves stay held.
 BF16_KEEP_GRAD = 1e-5
 BF16 = dict(tpu=dict(compute_dtype="bfloat16"))
+# the presets' 8x256 MLP (skip at 4, 128-wide view head) with 12 point PE
+# frequencies: pts_enc 75 wide, past both dtypes' kernels (wide-check: the
+# kernels refuse it; use_pallas=False runs it, nerf_mlp.nerf_apply in torch
+# ops). At bf16 the card's step is held to the CPU's with its gradients
+# within BF16_WIDE_GRAD_RTOL of scale, not 1e-3: at 8x256 two correct sum
+# orders of the same bf16 chain (cuBLAS on the card, the CPU's BLAS) round
+# enough products to another bf16 value to move a gradient by 5.2e-3 and
+# 7.7e-3 of its scale (iterations 0 and 350 on the H100; 5.1e-3 to 6.3e-3
+# between two CPU orders, tests/bf16_sum_orders.py), where the 4x64 chain of
+# the bf16-check moves by 1.7e-5. The wide-check's control, the card's step
+# without the bf16 rounding (compute_dtype float32) against the CPU's bf16
+# step, moves them by 9.8e-2 (H100; 7.0e-2 to 9.8e-2 on the CPU) and must
+# miss the bound, which lies between the two (PERF.md). Loss and updated
+# parameters keep the slice-check's bounds.
+WIDE = dict(arch=dict(layers_feat=[None] + [256] * 8, layers_rgb=[None, 128, 3], skip=[4],
+                      posenc=dict(L_3D=12)))
+PLAIN_MLP = dict(tpu=dict(use_pallas=False))
+BF16_WIDE_GRAD_RTOL = 2e-2
 
 
-def check_step_cuda_vs_cpu(over=None, what: str = "slice-check") -> None:
+class StepMismatch(AssertionError):
+    """check_step_cuda_vs_cpu's failure, with the readings of the step that
+    missed (`readings`: the worst loss error over its bound, the worst
+    gradient error of scale, the worst parameter difference)."""
+
+    def __init__(self, msg: str, readings: dict):
+        super().__init__(msg)
+        self.readings = readings
+
+
+def check_step_cuda_vs_cpu(over=None, what: str = "slice-check", grad_rtol: float = 1e-3,
+                           card_over=None) -> dict:
     """One step of the tiny sparf config (with `over`) on the card (kernels)
     and on the CPU (plain versions) from the same parameters and draws, in
     both stages. Losses within rtol 1e-4, gradients (Adam's first moment /
-    0.1) within 1e-3 of each tensor's largest magnitude, updated parameters
-    within 1e-5 (bf16: where |gradient| >= BF16_KEEP_GRAD)."""
+    0.1) within grad_rtol of each tensor's largest magnitude, updated
+    parameters within 1e-5 (bf16: where |gradient| >= BF16_KEEP_GRAD);
+    StepMismatch otherwise. The card's step launches K1 and K2 of its dtype,
+    and under use_pallas=False (nerf_mlp.nerf_apply on both devices) no
+    kernel. `card_over`: options of the card's trainer alone (the
+    wide-check's control). Returns the readings per iteration."""
     import dataclasses
 
     import torch
@@ -605,14 +651,19 @@ def check_step_cuda_vs_cpu(over=None, what: str = "slice-check") -> None:
     from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
     from sparf_tpu_torch.utils.draws import Draws, ReplayDraws
 
-    def trainer_on(device):
+    def trainer_on(device, extra=None):
         cfg = build_config("joint_pose_nerf_training/synthetic", "sparf",
-                           _merged(TINY_SPARF, over or {}))
+                           _merged(_merged(TINY_SPARF, over or {}), extra or {}))
         return define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_tiny_"),
                               device=device, save_option=False)
 
-    cpu, gpu = trainer_on("cpu"), trainer_on("cuda")
-    bf16 = gpu.render_cfg.mlp.compute_dtype == torch.bfloat16
+    cpu, gpu = trainer_on("cpu"), trainer_on("cuda", card_over)
+    bf16 = cpu.render_cfg.mlp.compute_dtype == torch.bfloat16
+    impl = gpu.render_cfg.mlp_impl
+    if cpu.render_cfg.mlp_impl != impl:
+        raise AssertionError(f"{what}: MLP {impl} on the card, {cpu.render_cfg.mlp_impl} on "
+                             f"the CPU")
+    readings = {}
     for it in (0, 350):
         st_c = dataclasses.replace(cpu.state, iteration=it, iteration_nerf=it)
         st_g = dataclasses.replace(
@@ -626,24 +677,29 @@ def check_step_cuda_vs_cpu(over=None, what: str = "slice-check") -> None:
         fm.reset_launch_counts()
         new_g, stats_g = gpu.get_step(it)(st_g, ReplayDraws(rec.recorded, "cuda"))
         launches = (fm.launch_counts(bf16), fm.launch_counts(not bf16))
-        if 0 in (launches[0]["K1"], launches[0]["K2"]) or any(launches[1].values()):
+        if impl == "plain":
+            bad = any(launches[0].values())
+        else:
+            bad = 0 in (launches[0]["K1"], launches[0]["K2"])
+        if bad or any(launches[1].values()):
             raise AssertionError(f"step at {it}: launches of the {'bf16' if bf16 else 'fp32'} "
                                  f"variants {launches[0]}, of the other {launches[1]}")
+        failed, worst_l = [], 0.0
         for k, v in stats_c.items():
             a, b = float(stats_g[k]), float(v)
+            worst_l = max(worst_l, abs(a - b) / (1e-6 + 1e-4 * abs(b)))
             if not abs(a - b) <= 1e-6 + 1e-4 * abs(b):
-                raise AssertionError(f"step at {it}: {k} cuda {a} vs cpu {b}")
+                failed.append(f"{k} cuda {a} vs cpu {b}")
         pairs = list(zip(new_g.opt_state_nerf.mu, new_c.opt_state_nerf.mu))
         if new_c.opt_state_pose is not None:
             pairs += list(zip(new_g.opt_state_pose.mu, new_c.opt_state_pose.mu))
-        for a, b in pairs:
-            err, rel = rel_err(a.cpu(), b)
-            if not rel <= 1e-3:
-                raise AssertionError(f"step at {it}: gradient off by {err:.3g} (rel {rel:.3g})")
+        worst_g = max(rel_err(a.cpu(), b)[1] for a, b in pairs)
+        if not worst_g <= grad_rtol:
+            failed.append(f"a gradient off by {worst_g:.3g} of its scale (bound {grad_rtol})")
         grads = list(new_c.opt_state_nerf.mu) + (
             list(new_c.opt_state_pose.mu) if new_c.opt_state_pose is not None
             else [None] * len(new_c.pose_params))
-        held = 1.0
+        held, worst_p = 1.0, 0.0
         for a, b, g in zip(engine.tree_leaves(new_g.nerf_params) + list(new_g.pose_params.values()),
                            engine.tree_leaves(new_c.nerf_params) + list(new_c.pose_params.values()),
                            grads):
@@ -652,12 +708,73 @@ def check_step_cuda_vs_cpu(over=None, what: str = "slice-check") -> None:
             if keep is not None:
                 held = min(held, float(keep.float().mean()))
                 diff = diff[keep]
-            if diff.numel() and not float(diff.max()) <= 1e-5:
-                raise AssertionError(f"step at {it}: updated parameters differ")
-        phase(what, f"tiny sparf step at iteration {it}: cuda (kernels) matches cpu "
-                    f"(plain versions), loss all={float(stats_g['all']):.6g}, launches "
+            worst_p = max(worst_p, float(diff.max()) if diff.numel() else 0.0)
+        if not worst_p <= 1e-5:
+            failed.append(f"updated parameters differ by {worst_p:.3g}")
+        readings[it] = dict(loss_over_bound=worst_l, grad=worst_g, params=worst_p)
+        if failed:
+            raise StepMismatch(f"{what}: step at {it}: " + "; ".join(failed), readings[it])
+        phase(what, f"tiny sparf step at iteration {it}: cuda "
+                    f"({'kernels' if impl == 'fused' else 'use_pallas=False, torch ops'}) "
+                    f"matches cpu ({'plain versions' if impl == 'fused' else 'torch ops'}), "
+                    f"loss all={float(stats_g['all']):.6g}, gradients within {worst_g:.3g} of "
+                    f"scale, parameters within {worst_p:.3g}, launches "
                     f"{launches[0]}" + (f"; parameters held where |g| >= {BF16_KEEP_GRAD} "
                                         f"(at least {held:.3f} of each tensor)" if bf16 else ""))
+    return readings
+
+
+def check_wide_refused(over=None) -> str:
+    """The wide chain (WIDE) with the kernels (use_pallas=True) on the card:
+    its step raises ValueError naming the kernels' width limit and
+    use_pallas=False, before any launch (the C sizes entries refuse it)."""
+    import dataclasses
+
+    from sparf_tpu_torch.ops import fused_mlp as fm
+    from sparf_tpu_torch.training.define_trainer import build_config, define_trainer
+    from sparf_tpu_torch.utils.draws import Draws
+
+    cfg = build_config("joint_pose_nerf_training/synthetic", "sparf",
+                       _merged(_merged(TINY_SPARF, WIDE), over or {}))
+    gpu = define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_tiny_"),
+                         device="cuda", save_option=False)
+    fm.reset_launch_counts()
+    try:
+        gpu.get_step(0)(dataclasses.replace(gpu.state, iteration=0, iteration_nerf=0),
+                        Draws(0, "cuda"))
+    except ValueError as err:
+        counts = fm.launch_counts(), fm.launch_counts(True)
+        if "use_pallas=False" not in str(err) or any(v for c in counts for v in c.values()):
+            raise AssertionError(f"wide chain refused with {err!r}, launches {counts}") from err
+        return str(err)
+    raise AssertionError("the kernels ran a chain past their widths")
+
+
+def check_wide(bf16: bool) -> dict:
+    """wide-check: the kernels refuse the wide chain; use_pallas=False runs
+    it, card against CPU (at bf16 the gradients within BF16_WIDE_GRAD_RTOL,
+    then the control, which must miss that bound)."""
+    dtype = BF16 if bf16 else {}
+    tag = "wide-check" + (" bf16" if bf16 else "")
+    refused = check_wide_refused(dtype)
+    phase(tag, f"kernels (use_pallas=True): {refused}")
+    rtol = BF16_WIDE_GRAD_RTOL if bf16 else 1e-3
+    out = {"readings": check_step_cuda_vs_cpu(_merged(_merged(WIDE, PLAIN_MLP), dtype), tag,
+                                              grad_rtol=rtol)}
+    if not bf16:
+        return out
+    try:
+        check_step_cuda_vs_cpu(_merged(_merged(WIDE, PLAIN_MLP), BF16), tag + " control",
+                               grad_rtol=rtol, card_over=dict(tpu=dict(compute_dtype="float32")))
+    except StepMismatch as err:
+        if not err.readings["grad"] > rtol:
+            raise AssertionError(f"the control missed, but its gradients are within {rtol}: "
+                                 f"{err}") from err
+        out["control"] = err.readings
+        phase(tag, f"control (the card without bf16 rounding) comes out not correct, as it "
+                   f"must: {err}")
+        return out
+    raise AssertionError("wide-check control: a step without bf16 rounding met the bf16 bounds")
 
 
 # Tiny config of the eval-check: 4 point and 2 view PE frequencies instead of
@@ -2350,6 +2467,11 @@ def main() -> int:
     traj_bf16 = timed("bf16-trajectory-check", check_trajectory_cuda_vs_cpu, BF16, TRAJ_TOL_BF16,
                       "bf16-check")
     timed("bf16-cli", check_bf16_cli)
+    # wide-check: the kernels refuse a chain past their widths, use_pallas=False
+    # runs it; use_pallas=False at the tiny config's chain; card vs CPU
+    timed("wide-check", check_wide, False)
+    timed("wide-check-bf16", check_wide, True)
+    timed("use_pallas=False", check_step_cuda_vs_cpu, PLAIN_MLP, "use_pallas=False")
     # 5.-6. matcher-check and matcher, TF32 on (the matchers switch it off)
     scene = full_scene()
     mc = timed("matcher-check", check_matchers_cuda_vs_cpu, scene)
@@ -2388,7 +2510,7 @@ def main() -> int:
     phase("phases", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     src = "sparf_tpu_torch/csrc/fused_mlp.cu"
-    src_wg = "sparf_tpu_torch/csrc/fused_mlp_wgmma.cu"  # K1 and K2 at bf16
+    src_wg = "sparf_tpu_torch/csrc/fused_mlp_wgmma.cu"  # K1, K2 and K3 at bf16
     replaces = {"K1": "sparf_tpu/ops/fused_mlp_vjp.py:175", "K2": "sparf_tpu/ops/fused_mlp_vjp.py:86",
                 "K3": "sparf_tpu/ops/fused_mlp.py:97"}
     names = {"K1": "K1_fused_mlp_forward", "K2": "K2_fused_mlp_backward",
@@ -2400,7 +2522,7 @@ def main() -> int:
             b = chk["bounds"][k]
             kernels.append({
                 "name": names[k] + ("_bf16" if dtype == "bfloat16" else ""), "route": "cuda",
-                "source": src_wg if dtype == "bfloat16" and k != "K3" else src,
+                "source": src_wg if dtype == "bfloat16" else src,
                 "replaces": replaces[k], "dtype": dtype,
                 "launches": sum(p["launches"][k] for p in paths),
                 "max_abs_err": chk["max_abs_err"][k], "ms": chk["ms"][k],

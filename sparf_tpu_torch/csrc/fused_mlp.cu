@@ -1,11 +1,9 @@
-// Fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper (sm_90a),
-// every product on the tensor cores, in two variants: fp32 accuracy (3xTF32,
-// compute_dtype float32) and bf16 operands with fp32 sums (compute_dtype
-// bfloat16). This file holds the 3xTF32 K1, K2, K3 and the bf16 K3 on
-// mma.sync; the bf16 K1 and K2 run wgmma on TMA-fed bf16 tiles with a bf16
-// workspace (fused_mlp_wgmma.cu, its own header note; redesigned in PR 10
-// from this file's mma.sync loops, which bounded them: K2 bf16 at 13.7 ms
-// of a 0.84-ms bound, K1 bf16 at 2.1 ms of 0.28).
+// Fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper (sm_90a) at
+// compute_dtype float32, every product on the tensor cores in 3xTF32 (fp32
+// accuracy). The bf16 K1, K2 and K3 run wgmma on TMA-fed bf16 tiles
+// (fused_mlp_wgmma.cu, its own header note); they replaced bf16 variants of
+// this file's mma.sync loops, which bounded them: K2 bf16 at 13.7 ms of a
+// 0.84-ms bound, K1 bf16 at 2.1 ms and K3 bf16 at 2.0 ms of 0.28.
 //
 // Replaces the Pallas TPU kernels of sparf_tpu/ops/fused_mlp_vjp.py:
 //   K1 = _fwd_kernel (launched by _core_forward), K2 = _bwd_kernel (launched
@@ -21,30 +19,21 @@
 // backpropagates [g_density | g_rgb] into d_pts_enc (incl. the skip share),
 // d_view_enc and the gradients of all weights and biases.
 //
-// The two MMA kinds (a template parameter of every layer loop):
-//   * Tf32x3: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (warp-level
-//     tensor-core MMA; no wgmma yet). Every operand x is split as hi = TF32
-//     of x (round to nearest), lo = x - hi (of which the tensor core reads
-//     the top 19 bits), and each product is hi*hi + hi*lo + lo*hi
-//     accumulated in fp32: the dropped lo*lo term and the truncation of lo
-//     leave an error of about 2^-21 of the product, within a small factor
-//     of fp32's own (tests/test_torch_fused_mlp.py holds an emulation of it
-//     to the float64 chain; one TF32 pass misses that bound).
-//   * Bf16 (K3 here): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
-//     one MMA per product. The TPU kernels' compute_dtype contract: each dot takes its
-//     two operands rounded to bf16 (round to nearest even, cvt.rn.bf16x2.f32
-//     as astype does) and sums in fp32; bias add, ReLU and its masks, g_x,
-//     d_pts_enc and d_view_enc stay fp32; db sums the unrounded g_z; dW =
-//     bf16(x)^T bf16(g_z), g_x = bf16(g_z) bf16(W)^T. k-steps of 16, so
-//     every input segment and every output is padded to 16.
+// The MMA (Tf32x3):
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (warp-level tensor-core
+// MMA). Every operand x is split as hi = TF32 of x (round to nearest), lo =
+// x - hi (of which the tensor core reads the top 19 bits), and each product
+// is hi*hi + hi*lo + lo*hi accumulated in fp32: the dropped lo*lo term and
+// the truncation of lo leave an error of about 2^-21 of the product, within
+// a small factor of fp32's own (tests/test_torch_fused_mlp.py holds an
+// emulation of it to the float64 chain; one TF32 pass misses that bound).
 //
 // What bounds them on an H100, and what the design does about it:
 //   * Arithmetic: 527,872 multiply-adds per point through the full 8x256
 //     chain: at T = 262,144 the 3xTF32 bound is 1.68 ms for the forward and
-//     5.03 ms for K2 (recompute + g_x + dW), the bf16 bound a sixth of that
-//     (one MMA at twice the rate); bytes are < 0.1 ms.
-//     Measured (PERF.md): K1/K3 at ~1/3 of the 3xTF32 bound, bound by
-//     mma.sync issue and what feeds it: every warp loads and converts the A
+//     5.03 ms for K2 (recompute + g_x + dW); bytes are < 0.1 ms.
+//     Measured (PERF.md): K1/K3 at ~1/3 of the bound, bound by mma.sync
+//     issue and what feeds it: every warp loads and converts the A
 //     fragments of all 8 m-tiles from shared memory. K2 at ~1/5: the dW
 //     pass reads its ~17 KB per point of workspace from device memory, and
 //     its g_x loop spills registers.
@@ -54,27 +43,23 @@
 //     k2_backward's g_x spills (~1.7 KB of spill loads), k2_dw a little.
 //   * Weights: ops/fused_mlp.py::pack_fragments_plain is the layout (k_pack
 //     here, once per call): every W as ready B fragments, per (k-step,
-//     n-tile) one Frag per lane: Tf32x3 a float4 {hi(b0), hi(b1), lo(b0),
-//     lo(b1)}, Bf16 a uint2 of two bf16x2 {b(2t), b(2t+1)}, {b(2t+8),
-//     b(2t+9)}: a warp loads a fragment with one coalesced read from L2 and
-//     converts nothing. K2 also takes the transposed set (B = W for g_x =
-//     g_z W). Each n-tile is 8 wide, each k-step 8 (16) deep, with the input
-//     dimension padded per segment ([feat | pts_enc] at the skip layer,
-//     [feat | view_enc] at the RGB head: the concat is two segments of the k
-//     loop, never a copy).
+//     n-tile) one float4 per lane {hi(b0), hi(b1), lo(b0), lo(b1)}: a warp
+//     loads a fragment with one coalesced read from L2 and converts nothing.
+//     K2 also takes the transposed set (B = W for g_x = g_z W). Each n-tile
+//     is 8 wide, each k-step 8 deep, with the input dimension padded per
+//     segment ([feat | pts_enc] at the skip layer, [feat | view_enc] at the
+//     RGB head: the concat is two segments of the k loop, never a copy).
 //   * Forward layer loop (forward_layer, shared by K1, K3 and K2's
 //     recompute): the tile's activations stay in shared memory in fp32 with
-//     a row stride = 4 (Tf32x3, scalar A loads) or 8 (Bf16, float2 A loads)
-//     mod 32 floats, so a warp's A-fragment loads hit 32 different banks.
-//     Warp w owns n-tiles w, w + 8, ... for all m-tiles of the tile and
-//     keeps their sums in registers; the next k-step's B fragments are
-//     loaded while this one's MMAs run. A layer's output overwrites its
-//     input in place after a barrier. n-tiles past a multiple of 8
-//     ("extras", at most 4: the density unit of the 257-wide layer, the 3
-//     RGB outputs) are spread over the warps one m-tile each.
+//     a row stride = 4 mod 32 floats, so a warp's A-fragment loads hit 32
+//     different banks. Warp w owns n-tiles w, w + 8, ... for all m-tiles of
+//     the tile and keeps their sums in registers; the next k-step's B
+//     fragments are loaded while this one's MMAs run. A layer's output
+//     overwrites its input in place after a barrier. n-tiles past a
+//     multiple of 8 ("extras", at most 4: the density unit of the 257-wide
+//     layer, the 3 RGB outputs) are spread over the warps one m-tile each.
 //   * K1/K3: 128-point tiles (8 m-tiles), 256 threads, one block per SM;
-//     shared memory 128 x (260 + 68 + 36) floats = 186,368 bytes (Bf16:
-//     128 x (264 + 72 + 40) = 192,512).
+//     shared memory 128 x (260 + 68 + 36) floats = 186,368 bytes.
 //   * K2 in two passes. k2_backward: 128-point tiles (8 m-tiles), one block
 //     per tile; the recomputed forward (the same loop) stores each layer's
 //     input in a workspace in device memory (2,176 fp32 per point); then,
@@ -102,17 +87,20 @@
 //     output gradients, and store nothing. Padded rows and columns hold
 //     zeros, so they add nothing.
 //
+// Shapes the kernels take (build_desc and the shared-memory checks, else a
+// negative code, which sparf_fused_mlp_sizes_tf32 returns before any launch
+// and ops/fused_mlp.py raises as ValueError; cfg.tpu.use_pallas=False runs
+// such a chain in torch ops): every layer at most 288 outputs and 320
+// padded inputs, at most 4 n-tiles past a multiple of 8, activations within
+// the 227 KB of one block.
+//
 // Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
 // K2_TIME_NO_DW and K2_TIME_NO_GX each drop one part of K2's work (the
 // recompute's MMAs, the dW pass, the g_x MMAs); their outputs are wrong and
 // only their times are read.
 //
-// Build: the file is compiled once per MMA kind, -DSPARF_KIND=0 (Tf32x3,
-// entry points *_tf32: K1, K2, K3, k_pack) and -DSPARF_KIND=1 (Bf16, *_bf16:
-// K3 and its k_pack), in parallel with fused_mlp_wgmma.cu (ops/_build.py),
-// and the objects are linked into one library; each compile instantiates the
-// layer loops of its kind only. On the H100 machine the three compiles take
-// ~80 s together (PERF.md).
+// Build: compiled once, in parallel with fused_mlp_wgmma.cu (ops/_build.py),
+// and the two objects are linked into one library; entry points *_tf32.
 //
 // Interface: plain C, loaded with ctypes; every entry point takes the chain's
 // dims, launches on the given stream, allocates nothing, and returns
@@ -122,12 +110,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#ifndef SPARF_KIND
-#error "compile with -DSPARF_KIND=0 (3xTF32) or -DSPARF_KIND=1 (bf16)"
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -135,7 +117,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 16;
 constexpr int kTile1 = 128;    // K1/K3: points per block (8 m-tiles)
 constexpr int kTile2 = 128;    // K2: points per tile (8 m-tiles)
-constexpr int kMaxPad = 320;   // padded input width and 16-padded output width
+constexpr int kMaxPad = 320;   // padded input width
 constexpr int kLdG = 296;      // K2: row stride of the g_z buffer (= 8 mod 32)
 constexpr int kDwBM = 128, kDwBN = 128;  // k2_dw: output tile (outputs x padded inputs)
 constexpr int kDwBK = 32;      // k2_dw: points per stage
@@ -145,7 +127,6 @@ constexpr int kMaxOut = 8 * (8 * 4 + kMaxExtra);  // 288: the forward's JN <= 4
 constexpr int kMaxSmem = 232448;
 
 struct MLPDesc {
-  int bf16;          // the MMA kind: 0 = Tf32x3, 1 = Bf16
   int n_layers, n_feat;
   int d_in, d_view, view_dep;
   int n_params;      // flat gradient, (out, in) layout
@@ -154,13 +135,13 @@ struct MLPDesc {
   int g_total;       // K2: workspace floats per point (every layer's g_z, out padded to 16)
   int n_dw_tiles;    // K2: dW output tiles of kDwBM x kDwBN over all layers
   int n_frag;        // B fragments (one per lane per (k-step, n-tile)) of one set
-  int ld_act, ld_pts, ld_view;  // forward strides (= 4 (Tf32x3) or 8 (Bf16) mod 32)
+  int ld_act, ld_pts, ld_view;  // forward strides (= 4 mod 32)
   int skip[kMaxLayers];
   int in_dim[kMaxLayers], out_dim[kMaxLayers];
   int w1[kMaxLayers];   // width of input segment 1 (features; pts_enc for layer 0)
-  int k1p[kMaxLayers];  // w1 padded to the k-step (8 or 16)
-  int kp[kMaxLayers];   // k1p + (in - w1) padded to the k-step
-  int np[kMaxLayers];   // out padded to the k-step (n-tiles of 8; K2's g_x k-steps)
+  int k1p[kMaxLayers];  // w1 padded to the k-step of 8
+  int kp[kMaxLayers];   // k1p + (in - w1) padded to 8
+  int np[kMaxLayers];   // out padded to 8 (n-tiles; K2's g_x k-steps)
   int w_off[kMaxLayers], b_off[kMaxLayers];  // flat gradient offsets
   int f_off[kMaxLayers];  // offset of the layer's fragments, in fragments
   int g_off[kMaxLayers];  // K2: offset of the layer's dW in a split's partial
@@ -177,9 +158,8 @@ __host__ __device__ constexpr int pad16(int x) { return pad_to(x, 16); }
 __host__ __device__ constexpr int ld_mod(int w, int r) { return w + ((32 + r - w % 32) % 32); }
 
 // Host-side description of the chain. dims = [n_feat, n_rgb, d_in, d_view,
-// view_dep, (out, in, skip) per layer]; bf16 the MMA kind; params = [W0, b0,
-// W1, b1, ...].
-int build_desc(const int* dims, int bf16, const void* const* params, MLPDesc* d) {
+// view_dep, (out, in, skip) per layer]; params = [W0, b0, W1, b1, ...].
+int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
   d->n_feat = dims[0];
   const int n_rgb = dims[1];
   d->n_layers = d->n_feat + n_rgb;
@@ -187,8 +167,7 @@ int build_desc(const int* dims, int bf16, const void* const* params, MLPDesc* d)
   d->d_in = dims[2];
   d->d_view = dims[3];
   d->view_dep = dims[4];
-  d->bf16 = bf16 != 0;
-  const int ks = d->bf16 ? 16 : 8;  // the kind's k-step
+  const int ks = 8;  // the k-step
   int off = 0, frag = 0, part = 0, x_total = 0, g_total = 0, tiles = 0, max_w1 = 0;
   for (int li = 0; li < d->n_layers; ++li) {
     const int out = dims[5 + 3 * li], in = dims[6 + 3 * li], skip = dims[7 + 3 * li];
@@ -236,10 +215,9 @@ int build_desc(const int* dims, int bf16, const void* const* params, MLPDesc* d)
   d->x_total = x_total;
   d->g_total = g_total;
   d->n_dw_tiles = tiles;
-  const int r = d->bf16 ? 8 : 4;
-  d->ld_act = ld_mod(pad_to(max_w1, ks), r);
-  d->ld_pts = ld_mod(pad_to(d->d_in, ks), r);
-  d->ld_view = ld_mod(pad_to(d->d_view > 0 ? d->d_view : 1, ks), r);
+  d->ld_act = ld_mod(pad_to(max_w1, ks), 4);
+  d->ld_pts = ld_mod(pad_to(d->d_in, ks), 4);
+  d->ld_view = ld_mod(pad_to(d->d_view > 0 ? d->d_view : 1, ks), 4);
   return 0;
 }
 
@@ -254,7 +232,7 @@ __host__ __device__ inline int k2_main_floats(const MLPDesc& d) {
 int k2_smem_bytes(const MLPDesc& d) { return 4 * (k2_main_floats(d) + kTile2 * d.d_in + kTile2); }
 
 // ---------------------------------------------------------------------------
-// the two MMA kinds
+// the MMA (3xTF32)
 // ---------------------------------------------------------------------------
 
 // x = hi + lo: hi the nearest TF32 value (ties away from zero, as
@@ -271,22 +249,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// {bf16(lo), bf16(hi)}, round to nearest even; lo in the low half
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -327,37 +289,8 @@ struct Tf32x3 {
   }
 };
 
-// bf16, k-steps of 16. A fragment of the 16 x 16 block at A: a0 (g, 2t..2t+1),
-// a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..), each a bf16x2
-// rounded from two fp32 values (one float2 load; stride = 8 mod 32). B
-// fragment: {B[2t, g], B[2t + 1, g]}, {B[2t + 8, g], B[2t + 9, g]}.
-struct Bf16 {
-  static constexpr int kK = 16;
-  using Frag = uint2;
-  struct AFrag {
-    uint32_t r[4];
-  };
-  static __device__ __forceinline__ void load_a(const float* A, int lda, int g, int t,
-                                                AFrag& a) {
-    const float* p = A + g * lda + 2 * t;
-    const float2 v0 = *reinterpret_cast<const float2*>(p);
-    const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * lda);
-    const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
-    const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * lda + 8);
-    a.r[0] = bf16x2(v0.x, v0.y);
-    a.r[1] = bf16x2(v1.x, v1.y);
-    a.r[2] = bf16x2(v2.x, v2.y);
-    a.r[3] = bf16x2(v3.x, v3.y);
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const AFrag& a, const Frag& b) {
-    mma_bf16(c, a.r, b.x, b.y);
-  }
-  // the fragment of lane (g, t), b(k) = B[ks * 16 + k, nt * 8 + g]
-  template <typename B>
-  static __device__ __forceinline__ Frag make_b(B b, int t) {
-    return make_uint2(bf16x2(b(2 * t), b(2 * t + 1)), bf16x2(b(2 * t + 8), b(2 * t + 9)));
-  }
-};
+using Frag = Tf32x3::Frag;
+using AFrag = Tf32x3::AFrag;
 
 // The A operand of a layer product: k-steps [0, ks1) read segment 1, the rest
 // segment 2 (the skip or view concat); a tile of rows starts at row 0.
@@ -381,14 +314,14 @@ struct AOperand {
 // w; B comes as packed fragments Bf[(ks * NT + nt) * 32 + lane]. With
 // kPrefetch the next k-step's fragments are loaded while this one's MMAs run
 // (K2's g_x goes without: it has more live state, and the registers spilled).
-template <class K, int MT, int JN, bool kPrefetch = true>
+template <int MT, int JN, bool kPrefetch = true>
 __device__ __forceinline__ void mma_rows(const AOperand& A, int KS,
-                                         const typename K::Frag* __restrict__ Bf, int NT,
+                                         const Frag* __restrict__ Bf, int NT,
                                          float (&acc)[MT][JN > 0 ? JN : 1][4]) {
   if constexpr (JN > 0) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-    const typename K::Frag* bp = Bf + warp * 32 + lane;
-    typename K::Frag b[JN], bn[JN];
+    const Frag* bp = Bf + warp * 32 + lane;
+    Frag b[JN], bn[JN];
 #pragma unroll
     for (int j = 0; j < JN; ++j) b[j] = __ldg(bp + j * 8 * 32);
     for (int ks = 0; ks < KS; ++ks) {
@@ -397,13 +330,13 @@ __device__ __forceinline__ void mma_rows(const AOperand& A, int KS,
         for (int j = 0; j < JN; ++j) bn[j] = __ldg(bp + ((size_t)(ks + 1) * NT + j * 8) * 32);
       }
       int lda;
-      const float* a = A.at<K::kK>(ks, lda);
+      const float* a = A.at<Tf32x3::kK>(ks, lda);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        typename K::AFrag af;
-        K::load_a(a + m * 16 * lda, lda, g, t, af);
+        AFrag af;
+        Tf32x3::load_a(a + m * 16 * lda, lda, g, t, af);
 #pragma unroll
-        for (int j = 0; j < JN; ++j) K::mma(acc[m][j], af, b[j]);
+        for (int j = 0; j < JN; ++j) Tf32x3::mma(acc[m][j], af, b[j]);
       }
 #pragma unroll
       for (int j = 0; j < JN; ++j) {
@@ -418,9 +351,9 @@ __device__ __forceinline__ void mma_rows(const AOperand& A, int KS,
 
 // The extra n-tiles 8 JN + e, e < R <= kMaxExtra, over MT m-tiles: pair q =
 // warp + 8 i is (m-tile q % MT, n-tile 8 JN + q / MT).
-template <class K, int MT, bool kExtras>
+template <int MT, bool kExtras>
 __device__ __forceinline__ void mma_extras(const AOperand& A, int KS,
-                                           const typename K::Frag* __restrict__ Bf, int NT,
+                                           const Frag* __restrict__ Bf, int NT,
                                            int nt0, int R, float (&acc)[kMaxExtra][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -429,12 +362,12 @@ __device__ __forceinline__ void mma_extras(const AOperand& A, int KS,
     if (q >= MT * R) break;
     const int m = q % MT, nt = nt0 + q / MT;
     for (int ks = 0; ks < KS; ++ks) {
-      const typename K::Frag b = __ldg(Bf + ((size_t)ks * NT + nt) * 32 + lane);
+      const Frag b = __ldg(Bf + ((size_t)ks * NT + nt) * 32 + lane);
       int lda;
-      const float* a = A.at<K::kK>(ks, lda);
-      typename K::AFrag af;
-      K::load_a(a + m * 16 * lda, lda, g, t, af);
-      K::mma(acc[i], af, b);
+      const float* a = A.at<Tf32x3::kK>(ks, lda);
+      AFrag af;
+      Tf32x3::load_a(a + m * 16 * lda, lda, g, t, af);
+      Tf32x3::mma(acc[i], af, b);
     }
   }
 }
@@ -523,8 +456,8 @@ __device__ __forceinline__ void init_acc(float (&acc)[MT][JN > 0 ? JN : 1][4],
 // units 1.. into Y); 2 = last RGB layer (raw rgb to out_g[:, 1:4]). xs (K2):
 // when given, Y's real columns are also stored there, row-major (points, w1
 // of the next layer).
-template <class K, int MT, int JN, bool kExtras>
-__device__ void forward_layer_j(const MLPDesc& d, const typename K::Frag* __restrict__ F, int li,
+template <int MT, int JN, bool kExtras>
+__device__ void forward_layer_j(const MLPDesc& d, const Frag* __restrict__ F, int li,
                                 const float* X1, int ld1, const float* X2, int ld2, float* Y,
                                 int ldy, float* __restrict__ out_g, float* __restrict__ xs,
                                 int p0, int T) {
@@ -534,14 +467,14 @@ __device__ void forward_layer_j(const MLPDesc& d, const typename K::Frag* __rest
   const int ncol = mode == 2 ? 0 : d.k1p[li + 1], wnext = mode == 2 ? 0 : d.w1[li + 1];
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
   init_acc<MT, JN, kExtras>(acc, ext, R, d.b[li], out);
-  const AOperand A{X1, ld1, d.k1p[li] / K::kK, X2, ld2};
-  const typename K::Frag* Bf = F + d.f_off[li];
+  const AOperand A{X1, ld1, d.k1p[li] / Tf32x3::kK, X2, ld2};
+  const Frag* Bf = F + d.f_off[li];
 #ifdef K2_TIME_NO_FWD
   if (xs == nullptr)
 #endif
   {
-    mma_rows<K, MT, JN>(A, d.kp[li] / K::kK, Bf, NT, acc);
-    mma_extras<K, MT, kExtras>(A, d.kp[li] / K::kK, Bf, NT, 8 * JN, R, ext);
+    mma_rows<MT, JN>(A, d.kp[li] / Tf32x3::kK, Bf, NT, acc);
+    mma_extras<MT, kExtras>(A, d.kp[li] / Tf32x3::kK, Bf, NT, 8 * JN, R, ext);
   }
   __syncthreads();  // every warp has read the input; Y may overwrite it
   for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int col, float z) {
@@ -564,15 +497,15 @@ __device__ void forward_layer_j(const MLPDesc& d, const typename K::Frag* __rest
   __syncthreads();  // Y complete before the next layer reads it
 }
 
-template <class K, int MT>
-__device__ __forceinline__ void forward_layer(const MLPDesc& d, const typename K::Frag* F, int li,
+template <int MT>
+__device__ __forceinline__ void forward_layer(const MLPDesc& d, const Frag* F, int li,
                                               const float* X1, int ld1, const float* X2, int ld2,
                                               float* Y, int ldy, float* out_g, float* xs, int p0,
                                               int T) {
   // one body per JN, with the extras code (an extras-free second body per JN
   // made the register allocation spill in K1)
 #define SPARF_FWD(JN) \
-  forward_layer_j<K, MT, JN, true>(d, F, li, X1, ld1, X2, ld2, Y, ldy, out_g, xs, p0, T)
+  forward_layer_j<MT, JN, true>(d, F, li, X1, ld1, X2, ld2, Y, ldy, out_g, xs, p0, T)
   switch (d.np[li] / 64) {
     case 0: SPARF_FWD(0); break;
     case 1: SPARF_FWD(1); break;
@@ -596,9 +529,9 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* __res
 // Loads the tile's inputs and runs the forward chain on MT * 16 points:
 // layers [0, n_run) (K1/K3: all; K2: all but the last). xws (K2): the stored
 // inputs, layer li's as a (x_rows, w1) array at xws + x_rows * x_off[li].
-template <class K, int MT>
+template <int MT>
 __device__ __forceinline__ void forward_tile(const MLPDesc& d,
-                                             const typename K::Frag* __restrict__ F,
+                                             const Frag* __restrict__ F,
                                              const float* __restrict__ pts,
                                              const float* __restrict__ view, float* smem,
                                              float* __restrict__ out, float* __restrict__ xws,
@@ -607,8 +540,8 @@ __device__ __forceinline__ void forward_tile(const MLPDesc& d,
   float* s_act = smem;
   float* s_pts = s_act + P * d.ld_act;
   float* s_view = s_pts + P * d.ld_pts;
-  load_rows(s_pts, d.ld_pts, pts, d.d_in, pad_to(d.d_in, K::kK), P, p0, T);
-  if (d.d_view > 0) load_rows(s_view, d.ld_view, view, d.d_view, pad_to(d.d_view, K::kK), P, p0, T);
+  load_rows(s_pts, d.ld_pts, pts, d.d_in, pad_to(d.d_in, Tf32x3::kK), P, p0, T);
+  if (d.d_view > 0) load_rows(s_view, d.ld_view, view, d.d_view, pad_to(d.d_view, Tf32x3::kK), P, p0, T);
   __syncthreads();
   for (int li = 0; li < n_run; ++li) {
     const float* x1 = li == 0 ? s_pts : s_act;
@@ -617,27 +550,25 @@ __device__ __forceinline__ void forward_tile(const MLPDesc& d,
     float* xs = (xws != nullptr && li + 1 < d.n_layers)
                     ? xws + (size_t)x_rows * d.x_off[li + 1] + (size_t)p0 * d.w1[li + 1]
                     : nullptr;
-    forward_layer<K, MT>(d, F, li, x1, ld1, seg2_pts ? s_pts : s_view,
+    forward_layer<MT>(d, F, li, x1, ld1, seg2_pts ? s_pts : s_view,
                          seg2_pts ? d.ld_pts : d.ld_view, s_act, d.ld_act, out, xs, p0, T);
   }
 }
 
-template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
-k1_forward(MLPDesc d, const typename K::Frag* __restrict__ F, const float* __restrict__ pts,
+k1_forward(MLPDesc d, const Frag* __restrict__ F, const float* __restrict__ pts,
            const float* __restrict__ view, float* __restrict__ out, int T) {
   extern __shared__ float4 smem4[];
-  forward_tile<K, kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+  forward_tile<kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
                                d.n_layers, blockIdx.x * kTile1, T);
 }
 
 // K3: the same loop on fragments that pack_weights prepared once per call
-template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
-k3_forward(MLPDesc d, const typename K::Frag* __restrict__ F, const float* __restrict__ pts,
+k3_forward(MLPDesc d, const Frag* __restrict__ F, const float* __restrict__ pts,
            const float* __restrict__ view, float* __restrict__ out, int T) {
   extern __shared__ float4 smem4[];
-  forward_tile<K, kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+  forward_tile<kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
                                d.n_layers, blockIdx.x * kTile1, T);
 }
 
@@ -654,10 +585,8 @@ __device__ __forceinline__ float weight_at(const MLPDesc& d, int li, int n, int 
 
 // F: B = W^T (k over the padded input, n over outputs) for the forward;
 // FT (blockIdx.y = 1): B = W (k over outputs, n over the padded input) for
-// K2's g_x. Fragment (ks, nt), lane (g, t) = K::make_b of B[ks*kK + ., nt*8 + g].
-template <class K>
-__global__ void k_pack(MLPDesc d, typename K::Frag* __restrict__ F,
-                       typename K::Frag* __restrict__ FT) {
+// K2's g_x. Fragment (ks, nt), lane (g, t) = Tf32x3::make_b of B[ks*kK + ., nt*8 + g].
+__global__ void k_pack(MLPDesc d, Frag* __restrict__ F, Frag* __restrict__ FT) {
   const bool tr = FT != nullptr && blockIdx.y == 1;
   for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < d.n_frag;
        idx += gridDim.x * blockDim.x) {
@@ -668,10 +597,10 @@ __global__ void k_pack(MLPDesc d, typename K::Frag* __restrict__ F,
     const int NT = (tr ? d.kp[li] : d.np[li]) / 8, nt = tile % NT, ks = tile / NT;
     const int col = nt * 8 + g;
     auto b = [&](int k) {
-      const int row = ks * K::kK + k;
+      const int row = ks * Tf32x3::kK + k;
       return tr ? weight_at(d, li, row, col) : weight_at(d, li, col, row);
     };
-    (tr ? FT : F)[idx] = K::make_b(b, t);
+    (tr ? FT : F)[idx] = Tf32x3::make_b(b, t);
   }
 }
 
@@ -706,8 +635,8 @@ __device__ __forceinline__ LayerInput layer_input(const MLPDesc& d, int li,
 
 // g_x = G W over the n-tiles [nt0, nt0 + 8 JN + R) of the padded input,
 // into acc (warp w: n-tiles nt0 + w + 8 j, then the extras).
-template <class K, int JN, bool kExtras>
-__device__ __forceinline__ void gx_mma(const MLPDesc& d, const typename K::Frag* __restrict__ FT,
+template <int JN, bool kExtras>
+__device__ __forceinline__ void gx_mma(const MLPDesc& d, const Frag* __restrict__ FT,
                                        int li, const float* G, int nt0, int R,
                                        float (&acc)[kTile2 / 16][JN > 0 ? JN : 1][4],
                                        float (&ext)[kMaxExtra][4]) {
@@ -715,23 +644,23 @@ __device__ __forceinline__ void gx_mma(const MLPDesc& d, const typename K::Frag*
   const int NT = d.kp[li] / 8;
   init_acc<MT, JN, kExtras>(acc, ext, R, nullptr, 0);
 #ifndef K2_TIME_NO_GX
-  const AOperand A{G, kLdG, d.np[li] / K::kK, G, kLdG};
-  const typename K::Frag* Bf = FT + d.f_off[li] + nt0 * 32;
-  mma_rows<K, MT, JN, false>(A, d.np[li] / K::kK, Bf, NT, acc);
-  mma_extras<K, MT, kExtras>(A, d.np[li] / K::kK, Bf, NT, 8 * JN, R, ext);
+  const AOperand A{G, kLdG, d.np[li] / Tf32x3::kK, G, kLdG};
+  const Frag* Bf = FT + d.f_off[li] + nt0 * 32;
+  mma_rows<MT, JN, false>(A, d.np[li] / Tf32x3::kK, Bf, NT, acc);
+  mma_extras<MT, kExtras>(A, d.np[li] / Tf32x3::kK, Bf, NT, 8 * JN, R, ext);
 #endif
 }
 
 // g_x of the skip (pts_enc) or view segment: added into d_pts or written to
 // d_view. Reads G and writes nothing that another warp reads.
-template <class K, int JN, bool kExtras>
-__device__ void gx_seg2_j(const MLPDesc& d, const typename K::Frag* FT, int li, const float* G,
+template <int JN, bool kExtras>
+__device__ void gx_seg2_j(const MLPDesc& d, const Frag* FT, int li, const float* G,
                           float* s_dpts, float* __restrict__ d_view_g, int p0, int T) {
   constexpr int MT = kTile2 / 16;
   const int k1p = d.k1p[li], w2 = d.in_dim[li] - d.w1[li];
   const int R = (d.kp[li] - k1p) / 8 - 8 * JN;
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
-  gx_mma<K, JN, kExtras>(d, FT, li, G, k1p / 8, R, acc, ext);
+  gx_mma<JN, kExtras>(d, FT, li, G, k1p / 8, R, acc, ext);
   for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
     if (k >= w2) return;
     if (d.skip[li])
@@ -744,14 +673,14 @@ __device__ void gx_seg2_j(const MLPDesc& d, const typename K::Frag* FT, int li, 
 // g_x of the feature segment: into d_pts at layer 0; otherwise masked by
 // X > 0 (the ReLU of the previous layer) into the previous layer's g_z,
 // written over G once every warp is done reading it.
-template <class K, int JN, bool kExtras>
-__device__ void gx_seg1_j(const MLPDesc& d, const typename K::Frag* FT, int li, float* G,
+template <int JN, bool kExtras>
+__device__ void gx_seg1_j(const MLPDesc& d, const Frag* FT, int li, float* G,
                           const LayerInput& X, float* s_dpts, const float* s_gd, int p0) {
   constexpr int MT = kTile2 / 16;
   const int w1 = d.w1[li], R = d.k1p[li] / 8 - 8 * JN;
   const int shift = (li == d.n_feat) ? 1 : 0;  // g_z of the last trunk layer starts with g_density
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
-  gx_mma<K, JN, kExtras>(d, FT, li, G, 0, R, acc, ext);
+  gx_mma<JN, kExtras>(d, FT, li, G, 0, R, acc, ext);
   if (li == 0) {
     for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
       if (k < w1) s_dpts[p * d.d_in + k] += v;
@@ -778,13 +707,12 @@ __device__ void gx_seg1_j(const MLPDesc& d, const typename K::Frag* FT, int li, 
 
 // One layer's g_x: the second segment first, then the features (whose
 // routing overwrites G).
-template <class K>
-__device__ __forceinline__ void gx_layer(const MLPDesc& d, const typename K::Frag* FT, int li,
+__device__ __forceinline__ void gx_layer(const MLPDesc& d, const Frag* FT, int li,
                                          float* G, const LayerInput& X, float* s_dpts,
                                          const float* s_gd, float* d_view_g, int p0, int T) {
   const int nt2 = (d.kp[li] - d.k1p[li]) / 8, nt1 = d.k1p[li] / 8;
-#define SPARF_SEG2(JN, EXTRAS) gx_seg2_j<K, JN, EXTRAS>(d, FT, li, G, s_dpts, d_view_g, p0, T)
-#define SPARF_SEG1(JN, EXTRAS) gx_seg1_j<K, JN, EXTRAS>(d, FT, li, G, X, s_dpts, s_gd, p0)
+#define SPARF_SEG2(JN, EXTRAS) gx_seg2_j<JN, EXTRAS>(d, FT, li, G, s_dpts, d_view_g, p0, T)
+#define SPARF_SEG1(JN, EXTRAS) gx_seg1_j<JN, EXTRAS>(d, FT, li, G, X, s_dpts, s_gd, p0)
   if (nt2 > 0) SPARF_DISPATCH_JN(nt2, SPARF_SEG2);
   SPARF_DISPATCH_JN(nt1, SPARF_SEG1);
 #undef SPARF_SEG2
@@ -794,10 +722,9 @@ __device__ __forceinline__ void gx_layer(const MLPDesc& d, const typename K::Fra
 // K2, pass 1: per 128-point tile, the recomputed forward (storing every
 // layer's input in xws) and the g_z chain (storing every layer's g_z in gws,
 // (x_rows, pad16(out)) per layer); d_pts and d_view.
-template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
-k2_backward(MLPDesc d, const typename K::Frag* __restrict__ F,
-            const typename K::Frag* __restrict__ FT, const float* __restrict__ pts,
+k2_backward(MLPDesc d, const Frag* __restrict__ F,
+            const Frag* __restrict__ FT, const float* __restrict__ pts,
             const float* __restrict__ view, const float* __restrict__ gout,
             float* __restrict__ d_pts, float* __restrict__ d_view_g, float* __restrict__ xws,
             float* __restrict__ gws, int T, int x_rows) {
@@ -809,7 +736,7 @@ k2_backward(MLPDesc d, const typename K::Frag* __restrict__ F,
   const int tid = threadIdx.x, p0 = blockIdx.x * kTile2;
 
   // recompute the forward, storing every layer's feature input in xws
-  forward_tile<K, kTile2 / 16>(d, F, pts, view, smem, nullptr, xws, x_rows, d.n_layers - 1, p0,
+  forward_tile<kTile2 / 16>(d, F, pts, view, smem, nullptr, xws, x_rows, d.n_layers - 1, p0,
                                T);
   for (int idx = tid; idx < kTile2 * 16; idx += kThreads) {  // g_z of the last layer
     const int p = idx >> 4, o = idx & 15;
@@ -829,7 +756,7 @@ k2_backward(MLPDesc d, const typename K::Frag* __restrict__ F,
       gdst[idx] = reinterpret_cast<const float4*>(G + p * kLdG)[c];
     }
     const LayerInput X = layer_input(d, li, xws, x_rows, pts, view, T);
-    gx_layer<K>(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
+    gx_layer(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
     __syncthreads();  // G holds the previous layer's g_z
   }
   for (int idx = tid; idx < kTile2 * d.d_in; idx += kThreads) {
@@ -843,16 +770,15 @@ k2_backward(MLPDesc d, const typename K::Frag* __restrict__ F,
 // layer) and one of kDwSplits point ranges (blockIdx.y), written plain into
 // that range's partial; db (the unrounded g_z) from the tiles of column 0.
 // The points come in stages of kDwBK through shared memory (fp32), the next
-// stage loaded into registers while this one's MMAs run; the MMA kind splits
-// (Tf32x3) or rounds (Bf16) both operands as it reads them. Warp (wm, wn) =
+// stage loaded into registers while this one's MMAs run; both operands are
+// split (3xTF32) as they are read. Warp (wm, wn) =
 // (w % 4, w / 4) owns rows wm*32 .. +32 (2 m-tiles) and columns wn*64 .. +64
 // (8 n-tiles).
-template <class K>
 __global__ void __launch_bounds__(kThreads, 1)
 k2_dw(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
       const float* __restrict__ xws, const float* __restrict__ gws, float* __restrict__ partial,
       int T, int x_rows) {
-  constexpr int ld = K::kLdDw;
+  constexpr int ld = Tf32x3::kLdDw;
   __shared__ float Gs[kDwBK * ld], Xs[kDwBK * ld];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int wm = warp & 3, wn = warp >> 2;
@@ -900,7 +826,7 @@ k2_dw(MLPDesc d, const float* __restrict__ pts, const float* __restrict__ view,
     if (col0 == 0 && tid < kDwBM)
       for (int p = 0; p < kDwBK; ++p) bias += Gs[p * ld + tid];
 #pragma unroll
-    for (int ks = 0; ks < kDwBK / K::kK; ++ks) {
+    for (int ks = 0; ks < kDwBK / Tf32x3::kK; ++ks) {
       // A[m = output][k = point] = Gs[point][output]; B[k = point][n = input] = Xs[point][input]
       const float* ga = Gs + (ks * 8 + t) * ld + wm * 32 + g;
       const float* xb = Xs + (ks * 8 + t) * ld + wn * 64 + g;
@@ -960,39 +886,32 @@ __global__ void k2_reduce(MLPDesc d, const float* __restrict__ partial, float* _
   out[j] = s;
 }
 
-template <class K>
 int launch_pack(const MLPDesc& d, void* frag, void* frag_t, cudaStream_t s) {
   const int blocks = (d.n_frag + kThreads - 1) / kThreads;
-  k_pack<K><<<dim3(blocks, frag_t != nullptr ? 2 : 1), kThreads, 0, s>>>(
-      d, static_cast<typename K::Frag*>(frag), static_cast<typename K::Frag*>(frag_t));
+  k_pack<<<dim3(blocks, frag_t != nullptr ? 2 : 1), kThreads, 0, s>>>(
+      d, static_cast<Frag*>(frag), static_cast<Frag*>(frag_t));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class K>
 int forward(const MLPDesc& d, const float* pts, const float* view, float* out, int T, void* frag,
             int packed, cudaStream_t s) {
   const int smem = k1_smem_bytes(d);
   if (smem > kMaxSmem) return -4;
   if (T <= 0) return 0;
-  void (*kernel)(MLPDesc, const typename K::Frag*, const float*, const float*, float*, int) =
-      k3_forward<K>;
+  void (*kernel)(MLPDesc, const Frag*, const float*, const float*, float*, int) =
+      k3_forward;
   if (!packed) {
-    if constexpr (std::is_same<K, Bf16>::value) {
-      return -8;  // K1 at bf16 is fused_mlp_wgmma.cu's
-    } else {
-      const int rc = launch_pack<K>(d, frag, nullptr, s);
-      if (rc != 0) return rc;
-      kernel = k1_forward<K>;
-    }
+    const int rc = launch_pack(d, frag, nullptr, s);
+    if (rc != 0) return rc;
+    kernel = k1_forward;
   }
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int blocks = (T + kTile1 - 1) / kTile1;
-  kernel<<<blocks, kThreads, smem, s>>>(d, static_cast<const typename K::Frag*>(frag), pts, view,
+  kernel<<<blocks, kThreads, smem, s>>>(d, static_cast<const Frag*>(frag), pts, view,
                                         out, T);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class K>
 int backward(const MLPDesc& d, const float* pts, const float* view, const float* gout,
              float* d_pts, float* d_view, float* d_params, void* frag, void* frag_t,
              float* partial, float* workspace, int T, cudaStream_t s) {
@@ -1000,18 +919,18 @@ int backward(const MLPDesc& d, const float* pts, const float* view, const float*
   if (smem > kMaxSmem) return -4;
   if (T <= 0) return -5;
   const int n_tiles = (T + kTile2 - 1) / kTile2, x_rows = n_tiles * kTile2;
-  int rc = launch_pack<K>(d, frag, frag_t, s);
+  int rc = launch_pack(d, frag, frag_t, s);
   if (rc != 0) return rc;
   float* xws = workspace;
   float* gws = workspace + (size_t)x_rows * d.x_total;
-  cudaFuncSetAttribute(k2_backward<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  k2_backward<K><<<n_tiles, kThreads, smem, s>>>(
-      d, static_cast<const typename K::Frag*>(frag), static_cast<const typename K::Frag*>(frag_t),
+  cudaFuncSetAttribute(k2_backward, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  k2_backward<<<n_tiles, kThreads, smem, s>>>(
+      d, static_cast<const Frag*>(frag), static_cast<const Frag*>(frag_t),
       pts, view, gout, d_pts, d_view, xws, gws, T, x_rows);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 #ifndef K2_TIME_NO_DW
-  k2_dw<K><<<dim3(d.n_dw_tiles, kDwSplits), kThreads, 0, s>>>(d, pts, view, xws, gws, partial, T,
+  k2_dw<<<dim3(d.n_dw_tiles, kDwSplits), kThreads, 0, s>>>(d, pts, view, xws, gws, partial, T,
                                                               x_rows);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
@@ -1020,26 +939,19 @@ int backward(const MLPDesc& d, const float* pts, const float* view, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-#if SPARF_KIND == 1
-using Kind = Bf16;
-#define SPARF_EXPORT(name) name##_bf16
-#else
-using Kind = Tf32x3;
-#define SPARF_EXPORT(name) name##_tf32
-#endif
-
 }  // namespace
 
 extern "C" {
 
-// [n_params, n_frag_elems, n_part, x_total, g_total, n_splits] of the chain,
-// or a negative code. n_frag_elems: elements of one fragment set, fp32
-// (Tf32x3, 4 per fragment) or bf16 (Bf16, 4 per fragment).
-int SPARF_EXPORT(sparf_fused_mlp_sizes)(const int* dims, int* sizes) {
+// [n_params, n_frag_elems, n_part, x_total, g_total, n_splits] of the chain
+// (n_frag_elems: floats of one fragment set, 4 per fragment), or a negative
+// code: also -4 where K1's or K2's activations do not fit one block.
+int sparf_fused_mlp_sizes_tf32(const int* dims, int* sizes) {
   static const void* const null_params[2 * kMaxLayers] = {};
   MLPDesc d;
-  const int rc = build_desc(dims, SPARF_KIND, null_params, &d);
+  const int rc = build_desc(dims, null_params, &d);
   if (rc < 0) return rc;
+  if (k1_smem_bytes(d) > kMaxSmem || k2_smem_bytes(d) > kMaxSmem) return -4;
   sizes[0] = d.n_params;
   sizes[1] = 4 * d.n_frag;
   sizes[2] = d.n_part;
@@ -1051,48 +963,42 @@ int SPARF_EXPORT(sparf_fused_mlp_sizes)(const int* dims, int* sizes) {
 
 // Packs params = [W (out, in), b (out), ...] into B fragments: frag for the
 // forward, frag_t (may be null) for K2's g_x; each n_frag_elems, 16-byte aligned.
-int SPARF_EXPORT(sparf_fused_mlp_pack)(const int* dims, const void* const* params, void* frag,
-                                       void* frag_t, void* stream) {
+int sparf_fused_mlp_pack_tf32(const int* dims, const void* const* params, void* frag,
+                              void* frag_t, void* stream) {
   MLPDesc d;
-  const int rc = build_desc(dims, SPARF_KIND, params, &d);
+  const int rc = build_desc(dims, params, &d);
   if (rc < 0) return rc;
-  return launch_pack<Kind>(d, frag, frag_t, static_cast<cudaStream_t>(stream));
+  return launch_pack(d, frag, frag_t, static_cast<cudaStream_t>(stream));
 }
 
-// K1 (packed = 0: packs params into frag first; 3xTF32 only, -8 at bf16)
-// and K3 (packed = 1: frag comes from sparf_fused_mlp_pack): out (T, 4) =
-// [raw_density | raw_rgb].
-int SPARF_EXPORT(sparf_fused_mlp_forward)(const float* pts, const float* view, float* out, int T,
-                                          const int* dims, const void* const* params, void* frag,
-                                          int packed, void* stream) {
+// K1 (packed = 0: packs params into frag first) and K3 (packed = 1: frag
+// comes from sparf_fused_mlp_pack_tf32): out (T, 4) = [raw_density | raw_rgb].
+int sparf_fused_mlp_forward_tf32(const float* pts, const float* view, float* out, int T,
+                                 const int* dims, const void* const* params, void* frag,
+                                 int packed, void* stream) {
   MLPDesc d;
-  const int rc = build_desc(dims, SPARF_KIND, params, &d);
+  const int rc = build_desc(dims, params, &d);
   if (rc < 0) return rc;
-  return forward<Kind>(d, pts, view, out, T, frag, packed, static_cast<cudaStream_t>(stream));
+  return forward(d, pts, view, out, T, frag, packed, static_cast<cudaStream_t>(stream));
 }
 
-#if SPARF_KIND == 0
-// K2 (3xTF32; at bf16 fused_mlp_wgmma.cu's). gout (T, 4) = [g_density |
-// g_rgb]; d_params (n_params,) in the order
+// K2. gout (T, 4) = [g_density | g_rgb]; d_params (n_params,) in the order
 // W0, b0, W1, b1, ...; frag and frag_t are scratch of n_frag_elems each,
 // partial of n_splits * n_part floats and workspace of T_pad * (x_total +
 // g_total) floats, T_pad = T rounded up to a multiple of 128.
-int SPARF_EXPORT(sparf_fused_mlp_backward)(const float* pts, const float* view,
-                                           const float* gout, float* d_pts, float* d_view,
-                                           float* d_params, void* frag, void* frag_t,
-                                           float* partial, float* workspace, int T,
-                                           const int* dims, const void* const* params,
-                                           void* stream) {
+int sparf_fused_mlp_backward_tf32(const float* pts, const float* view, const float* gout,
+                                  float* d_pts, float* d_view, float* d_params, void* frag,
+                                  void* frag_t, float* partial, float* workspace, int T,
+                                  const int* dims, const void* const* params, void* stream) {
   MLPDesc d;
-  const int rc = build_desc(dims, SPARF_KIND, params, &d);
+  const int rc = build_desc(dims, params, &d);
   if (rc < 0) return rc;
-  return backward<Kind>(d, pts, view, gout, d_pts, d_view, d_params, frag, frag_t, partial,
-                        workspace, T, static_cast<cudaStream_t>(stream));
+  return backward(d, pts, view, gout, d_pts, d_view, d_params, frag, frag_t, partial,
+                          workspace, T, static_cast<cudaStream_t>(stream));
 }
 
 const char* sparf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-#endif
 
 }  // extern "C"

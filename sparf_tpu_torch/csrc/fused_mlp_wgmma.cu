@@ -1,12 +1,15 @@
-// The bf16 fused NeRF-MLP forward (K1) and backward (K2) for Hopper (sm_90a)
-// on warpgroup MMAs (wgmma) fed by the Tensor Memory Accelerator (TMA).
+// The bf16 fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper
+// (sm_90a) on warpgroup MMAs (wgmma) fed by the Tensor Memory Accelerator
+// (TMA).
 //
 // Replaces, at compute_dtype bfloat16, the Pallas TPU kernels of
 // sparf_tpu/ops/fused_mlp_vjp.py: K1 = _fwd_kernel (:175, launched by
-// _core_forward) and K2 = _bwd_kernel (:86, the custom_vjp backward). The
-// float32 (3xTF32) variants of K1/K2/K3 and the bf16 K3 stay in fused_mlp.cu
-// (mma.sync on packed fragments); this file is compiled once, beside that
-// file's two compiles (ops/_build.py), and its entry points are
+// _core_forward) and K2 = _bwd_kernel (:86, the custom_vjp backward); and of
+// sparf_tpu/ops/fused_mlp.py: K3 = _kernel (:97), the forward on weights
+// laid out once per call (k3_wg: K1's body, forward_tile, under a symbol of
+// its own, so K3 gives K1's bits). The float32 (3xTF32) K1/K2/K3 are
+// fused_mlp.cu's (mma.sync on packed fragments); this file is compiled once,
+// beside that file (ops/_build.py), and its entry points are
 // sparf_fused_mlp_wg_*.
 //
 // The compute_dtype contract of the TPU kernels: each dot takes its two
@@ -17,8 +20,10 @@
 // What bounds them on an H100 (T = 262,144 points, the 8x256 chain with the
 // 128-wide view head: 527,872 multiply-adds per point), and what the design
 // does about it:
-//   * K1: 0.28 ms of bf16 tensor-core work; bytes < 0.05 ms. Each 128-point
-//     tile streams every weight (1.2 MB in bf16) from L2. Design: per tile
+//   * K1 and K3: 0.28 ms of bf16 tensor-core work; bytes < 0.05 ms. Each
+//     128-point tile streams every weight (1.2 MB in bf16) from L2. K3 runs
+//     K1's loop and only drops K1's layout of the weights (k_wg_layout) from
+//     each launch: pack_weights lays them out once per call. Design: per tile
 //     one block of two consumer warpgroups (64 points each) and one producer
 //     warpgroup. The tile's activations stay in shared memory as bf16, in
 //     wgmma's 128-byte-swizzled K-major layout ([points][64 columns] chunks),
@@ -65,12 +70,14 @@
 //       writes its partial, and the db partials of its tiles in order.
 //     - k2_reduce_wg sums the 64 ranges in order into the (out, in) layout:
 //       two runs give the same bits.
-//   * Weights: k_wg_layout writes every W once per call as bf16 in the two
-//     layouts the TMA maps read: forward rows = outputs (the density unit
-//     of the last trunk layer moved behind the features, so the features
-//     feed the next layer's columns 0..), columns = the padded input
-//     segments; transposed rows = the padded input, columns = the same
-//     output order; and the biases in the forward row order.
+//   * Weights: k_wg_layout writes every W as bf16 in the two layouts the
+//     TMA maps read (K1 and K2 on each launch, K1 the forward one only; for
+//     K3 pack_weights, once per call, the forward one): forward rows =
+//     outputs (the density unit of the last trunk layer moved behind the
+//     features, so the features feed the next layer's columns 0..), columns
+//     = the padded input segments; transposed rows = the padded input,
+//     columns = the same output order; and the biases in the forward row
+//     order.
 //     ops/fused_mlp.py::wgmma_layout_plain is the same map.
 //   * Registers: 384 threads, one block per SM; the producer warpgroup
 //     (one thread issues the TMA loads) gives its registers to the two
@@ -81,13 +88,15 @@
 //     (evict_last) while the workspace streams through (evict_first).
 //   * Measured on an H100 80GB HBM3 at 700 W (PERF.md, PR 10): K1 0.67 ms
 //     (from 2.11 on mma.sync) and K2 3.55 ms (from 13.66) at T = 262,144;
-//     of K2, the dW pass 0.94 ms. Building this file beside fused_mlp.cu's
-//     two compiles, in parallel, takes ~61 s in chip_smoke.py.
+//     of K2, the dW pass 0.94 ms; K3's time is beside them in PERF.md.
 //
-// Shapes the kernels take (build_wg_desc, else a negative code): pts_enc and
-// view_enc at most 64 wide, the features of every layer at most 256 and
-// padded to 64, 128 or 256 where they are a g_x product's width, the RGB
-// output 3.
+// Shapes the kernels take (build_wg_desc, else a negative code; its mirror
+// ops/fused_mlp.py::wg_layout, and a chain they refuse runs the plain chain
+// on the card): pts_enc and view_enc at most 64 wide, the features of every
+// layer at most 256 and padded to 64, 128 or 256 where they are a g_x
+// product's width, the RGB output 3. Widening them (a second pts_enc chunk
+// is 7 x 16 KB of activations beside the 3-stage ring, against the 227 KB
+// of one block) waits for a configuration that needs it.
 //
 // Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
 // K2_TIME_NO_DW and K2_TIME_NO_GX drop the recompute's MMAs, the dW pass and
@@ -819,12 +828,13 @@ __device__ __forceinline__ uint32_t aligned_base(uint8_t* raw, uint8_t** generic
   return base;
 }
 
-// K1: out (T, 4) = [raw_density | raw_rgb] per 128-point tile.
-__global__ void __launch_bounds__(kThreadsWg, 1)
-k1_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
-      const float* __restrict__ bias_f, const float* __restrict__ pts,
-      const float* __restrict__ view, float* __restrict__ out, int T) {
-  extern __shared__ uint8_t smem_raw[];
+// The forward of one 128-point tile, K1's and K3's body: out (T, 4) =
+// [raw_density | raw_rgb] on the forward weights of the maps.
+__device__ __forceinline__ void forward_tile(uint8_t* smem_raw, const Maps& maps, const WgDesc& d,
+                                             const float* __restrict__ bias_f,
+                                             const float* __restrict__ pts,
+                                             const float* __restrict__ view,
+                                             float* __restrict__ out, int T) {
   uint8_t* gen;
   const uint32_t s = aligned_base(smem_raw, &gen);
   Ring ring = make_ring(s + kRingOff, kStageBytes, kFwdStages, s + kBarOff);
@@ -842,6 +852,25 @@ k1_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
   wg_bar(L.wg);
   for (int li = 0; li < d.n_layers; ++li)
     fwd_layer_any(d, li, ring, s, bias_f, out, nullptr, p0, T, false, L);
+}
+
+// K1: the forward on the weights its launch laid out.
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k1_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+      const float* __restrict__ bias_f, const float* __restrict__ pts,
+      const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ uint8_t smem_raw[];
+  forward_tile(smem_raw, maps, d, bias_f, pts, view, out, T);
+}
+
+// K3: the same body on the weights pack_weights laid out once per call (its
+// own symbol, so that a profile tells the two apart).
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k3_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+      const float* __restrict__ bias_f, const float* __restrict__ pts,
+      const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ uint8_t smem_raw[];
+  forward_tile(smem_raw, maps, d, bias_f, pts, view, out, T);
 }
 
 // ---------------------------------------------------------------------------
@@ -1386,6 +1415,27 @@ int sparf_fused_mlp_wg_forward(const float* pts, const float* view, float* out, 
   if ((rc = launch_layout(d, wf, nullptr, bias_f, s)) != 0) return rc;
   cudaFuncSetAttribute(k1_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
   k1_wg<<<(T + kTile - 1) / kTile, kThreadsWg, kFwdSmem, s>>>(
+      maps, d, static_cast<const float*>(bias_f), pts, view, out, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 at bf16: out (T, 4) = [raw_density | raw_rgb] on the forward weights wf
+// and biases bias_f that sparf_fused_mlp_wg_layout laid out (wt null), once
+// per call.
+int sparf_fused_mlp_wg_forward_packed(const float* pts, const float* view, float* out, int T,
+                                      const int* dims, const void* wf, const void* bias_f,
+                                      void* stream) {
+  static const void* const null_params[2 * kMaxLayers] = {};
+  WgDesc d;
+  int rc = build_wg_desc(dims, null_params, &d);
+  if (rc < 0) return rc;
+  if (T <= 0) return 0;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if ((rc = weight_maps(d, wf, nullptr, &maps)) != 0) return rc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaFuncSetAttribute(k3_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  k3_wg<<<(T + kTile - 1) / kTile, kThreadsWg, kFwdSmem, s>>>(
       maps, d, static_cast<const float*>(bias_f), pts, view, out, T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Where K2's time goes: times K2 at T = 262,144 on the full 8x256 chain
-beside timing-only builds that each drop one part of its work, and K1
-beside them, for the 3xTF32 (compute_dtype float32, csrc/fused_mlp.cu) and
-the bf16 variants (csrc/fused_mlp_wgmma.cu). Needs one CUDA card and nvcc.
+beside timing-only builds that each drop one part of its work, and K1 and
+K3 (on pack_weights' layout) beside them, for the 3xTF32 (compute_dtype
+float32, csrc/fused_mlp.cu) and the bf16 variants (csrc/fused_mlp_wgmma.cu:
+k1_wg, k3_wg, k2_wg). Needs one CUDA card and nvcc.
 
 Usage (from the repository root):
     python -m sparf_tpu_torch.kernel_split [--T 262144] [--reps 10]
@@ -95,6 +96,10 @@ def main(argv=None) -> dict:
                     k1 = _median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights),
                                     args.reps)
                     times.setdefault(f"{dtype}_K1", []).append(k1)
+                    packed = fm.pack_weights(params, meta)
+                    k3 = _median_ms(lambda: fm._launch_k3(meta, pts_enc, view_enc, packed),
+                                    args.reps)
+                    times.setdefault(f"{dtype}_K3", []).append(k3)
     finally:
         _build.load_library = real_load
     result = {"card": smi, "T": T, "ms": times}

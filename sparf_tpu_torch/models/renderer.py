@@ -47,6 +47,10 @@ class RenderConfig:
     setbg_opaque: bool = False
     ndc: bool = False
     mlp_fine: Optional[MLPConfig] = None
+    # the MLP (cfg.tpu.use_pallas): "fused", ops/fused_mlp.nerf_apply_fused
+    # (the CUDA kernels on a CUDA device, their plain versions on the CPU), or
+    # "plain", nerf_mlp.nerf_apply in torch ops (the JAX package's XLA MLP)
+    mlp_impl: str = "fused"
 
     @property
     def fine_mlp(self) -> MLPConfig:
@@ -71,6 +75,7 @@ class RenderConfig:
             setbg_opaque=bool(cfg.nerf.setbg_opaque) or bool(cfg.get("mask_img", False)),
             ndc=bool(cfg.camera.ndc),
             mlp_fine=mlp_fine,
+            mlp_impl="fused" if cfg.tpu.get("use_pallas", True) else "plain",
         )
 
 
@@ -158,13 +163,22 @@ def sample_depth_diff_max_range_per_ray(batch_size: int, num_rays: int, n_sample
 # MLP dispatch and rendering
 # ---------------------------------------------------------------------------
 
+def mlp_apply(cfg: RenderConfig):
+    """The MLP that cfg.mlp_impl names, with nerf_mlp.nerf_apply's signature."""
+    if cfg.mlp_impl == "fused":
+        return fused_mlp.nerf_apply_fused
+    if cfg.mlp_impl == "plain":
+        return nerf_mlp.nerf_apply
+    raise ValueError(f"unknown mlp_impl {cfg.mlp_impl!r}")
+
+
 def forward_samples(params: Dict[str, Any], cfg: RenderConfig, center: torch.Tensor,
                     ray: torch.Tensor, depth_samples: torch.Tensor, progress: float,
                     density_noise: Optional[torch.Tensor] = None,
                     mlp_cfg: Optional[MLPConfig] = None) -> Dict[str, torch.Tensor]:
     """Points from depths -> MLP."""
     pts = camera.get_3d_points_from_depth(center, ray, depth_samples, multi_samples=True)
-    return fused_mlp.nerf_apply_fused(params, mlp_cfg or cfg.mlp, pts, ray, progress, density_noise)
+    return mlp_apply(cfg)(params, mlp_cfg or cfg.mlp, pts, ray, progress, density_noise)
 
 
 def _composite(cfg: RenderConfig, ray, pred, depth_samples):
@@ -329,8 +343,8 @@ def _coarse_depths(cfg: RenderConfig, b: RayBundle, center, draws, depth_range):
                         stratified=cfg.sample_stratified and b.stratified, n_rays=b.n_rays)
 
 
-def _merged_mlp_level(params_level, mlp_cfg: MLPConfig, bundles, geoms, depths,
-                      progress: float) -> list:
+def _merged_mlp_level(params_level, cfg: RenderConfig, mlp_cfg: MLPConfig, bundles, geoms,
+                      depths, progress: float) -> list:
     """One MLP call per gradient group over the concatenation of its bundles'
     sample points (as a (1, T, 1) batch), split back per bundle: the gradient
     group through K1 (and K2 in the backward), the no-grad group under
@@ -349,8 +363,8 @@ def _merged_mlp_level(params_level, mlp_cfg: MLPConfig, bundles, geoms, depths,
                 pts.append(p.reshape(1, B * R * S, 1, 3))
                 dirs.append(ray[..., None, :].expand(B, R, S, 3).reshape(1, B * R * S, 3))
                 shapes.append((B, R, S))
-            out = fused_mlp.nerf_apply_fused(params_level, mlp_cfg, torch.cat(pts, dim=1),
-                                             torch.cat(dirs, dim=1), progress)
+            out = mlp_apply(cfg)(params_level, mlp_cfg, torch.cat(pts, dim=1),
+                                 torch.cat(dirs, dim=1), progress)
             sizes = [B * R * S for B, R, S in shapes]
             rgb = out["rgb_samples"].reshape(-1, 3).split(sizes)
             density = out["density_samples"].reshape(-1).split(sizes)
@@ -398,7 +412,7 @@ def render_bundles(params: Dict[str, Any], cfg: RenderConfig, bundles: list,
             center, ray = _geometry(cfg, b.pose_w2c, b.intr, b.pixels)
             geoms.append((center, ray))
             depths.append(_coarse_depths(cfg, b, center, draws, depth_range))
-    preds = _merged_mlp_level(params["coarse"], cfg.mlp, bundles, geoms, depths, progress)
+    preds = _merged_mlp_level(params["coarse"], cfg, cfg.mlp, bundles, geoms, depths, progress)
     outs = []
     for b, (center, ray), d, pred in zip(bundles, geoms, depths, preds):
         with _grad_mode(b):
@@ -418,7 +432,7 @@ def render_bundles(params: Dict[str, Any], cfg: RenderConfig, bundles: list,
                                                cfg.sample_intvs, cfg.sample_intvs_fine,
                                                depth_range, det=det)
             depths_f.append(torch.sort(torch.cat([d, depth_fine], dim=2), dim=2).values.detach())
-        preds_f = _merged_mlp_level(params["fine"], cfg.fine_mlp, bundles, geoms, depths_f,
+        preds_f = _merged_mlp_level(params["fine"], cfg, cfg.fine_mlp, bundles, geoms, depths_f,
                                     progress)
         for b, (center, ray), d, pred, out in zip(bundles, geoms, depths_f, preds_f, outs):
             with _grad_mode(b):

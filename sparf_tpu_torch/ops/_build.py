@@ -4,11 +4,10 @@ The library has a plain C interface and is loaded with ctypes; it does not
 include PyTorch's headers. It is built at first use into
 `sparf_tpu_torch/build/` (listed in .gitignore), under a name that carries a
 hash of the sources, so an edited source is never served from a stale build.
-fused_mlp.cu is compiled once per MMA kind (-DSPARF_KIND=0, 3xTF32, entry
-points *_tf32; 1, bf16, *_bf16: K3 at bf16), fused_mlp_wgmma.cu once (K1 and
-K2 at bf16 on wgmma and TMA, entry points sparf_fused_mlp_wg_*); the compiles
-run in parallel, and one link makes the library. Nothing here runs at import
-time.
+Two compiles, run in parallel: fused_mlp.cu (K1, K2, K3 in 3xTF32, entry
+points sparf_fused_mlp_*_tf32) and fused_mlp_wgmma.cu (K1, K2, K3 at bf16 on
+wgmma and TMA, entry points sparf_fused_mlp_wg_*); one link makes the
+library. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -25,11 +24,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 # (source, name of the compile in the log, its own flags)
-COMPILES = (("fused_mlp.cu", "tf32", ("-DSPARF_KIND=0",)),
-            ("fused_mlp.cu", "bf16", ("-DSPARF_KIND=1",)),
+COMPILES = (("fused_mlp.cu", "tf32", ()),
             ("fused_mlp_wgmma.cu", "wg", ()))
-SOURCES = tuple(dict.fromkeys(src for src, _, _ in COMPILES))
-KINDS = ("tf32", "bf16")  # the MMA kinds of fused_mlp.cu's entry points
+SOURCES = tuple(src for src, _, _ in COMPILES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,7 +62,7 @@ def _source_hash(flags: Sequence[str]) -> str:
 
 def build(defines: Sequence[str] = ()) -> Path:
     """Compile the kernels if this version of the sources has no library yet:
-    one `nvcc -c` per entry of COMPILES, all started together, then one link.
+    one `nvcc -c` per source (COMPILES), both started together, then one link.
     `defines` (macro names) select a timing-only variant (csrc header note).
     The log holds each compile's output after a line `== <source> <kind> ==`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -108,13 +105,13 @@ def build(defines: Sequence[str] = ()) -> Path:
     return out
 
 
-def entry(lib: ctypes.CDLL, name: str, bf16: bool):
-    """The C entry point sparf_fused_mlp_<name> of the 3xTF32 or the bf16 kind."""
-    return getattr(lib, f"sparf_fused_mlp_{name}_{'bf16' if bf16 else 'tf32'}")
+def entry(lib: ctypes.CDLL, name: str):
+    """The C entry point sparf_fused_mlp_<name>_tf32 (the 3xTF32 kernels)."""
+    return getattr(lib, f"sparf_fused_mlp_{name}_tf32")
 
 
 def wg_entry(lib: ctypes.CDLL, name: str):
-    """The C entry point sparf_fused_mlp_wg_<name> (K1 and K2 at bf16)."""
+    """The C entry point sparf_fused_mlp_wg_<name> (the bf16 kernels)."""
     return getattr(lib, f"sparf_fused_mlp_wg_{name}")
 
 
@@ -125,16 +122,14 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     if key not in _LIBS:
         lib = ctypes.CDLL(str(build(key)))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for kind in KINDS:
-            for name, args in (("sizes", [p, p]), ("pack", [p, p, p, p, p]),
-                               ("forward", [p, p, p, i, p, p, p, i, p]),
-                               ("backward", [p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
-                if (name, kind) == ("backward", "bf16"):  # K2 at bf16 is a wg entry point
-                    continue
-                fn = getattr(lib, f"sparf_fused_mlp_{name}_{kind}")
-                fn.argtypes, fn.restype = args, i
+        for name, args in (("sizes", [p, p]), ("pack", [p, p, p, p, p]),
+                           ("forward", [p, p, p, i, p, p, p, i, p]),
+                           ("backward", [p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
+            fn = entry(lib, name)
+            fn.argtypes, fn.restype = args, i
         for name, args in (("sizes", [p, p]), ("layout", [p, p, p, p, p, p]),
                            ("forward", [p, p, p, i, p, p, p, p, p]),
+                           ("forward_packed", [p, p, p, i, p, p, p, p]),
                            ("backward", [p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
             fn = getattr(lib, f"sparf_fused_mlp_wg_{name}")
             fn.argtypes, fn.restype = args, i

@@ -8,9 +8,9 @@ of sparf_tpu/ops/fused_mlp.py (the `pallas` impl). The kernels live in
 sparf_tpu_torch/csrc/, whose header notes say what bounds them on an H100 and
 what their design does about it: every product runs on the tensor cores. For
 compute_dtype float32 all three run 3xTF32 `mma.sync` on weights laid out
-once per call as ready MMA B fragments (fused_mlp.cu), as does K3 for
-bfloat16; K1 and K2 for bfloat16 run `wgmma` on bf16 tiles that TMA brings
-into shared memory, with a bf16 workspace (fused_mlp_wgmma.cu).
+once per call as ready MMA B fragments (fused_mlp.cu); for bfloat16 they run
+`wgmma` on bf16 tiles that TMA brings into shared memory, K3 on K1's body
+(fused_mlp_wgmma.cu).
 
 compute_dtype is how the chain computes, not how its tensors are stored:
 inputs, weights and outputs are float32 either way. Under bfloat16 each dot
@@ -26,13 +26,11 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
   - `fused_mlp_backward_plain` is K2's algorithm in torch, not autograd:
     recompute the forward keeping each layer's input, take the ReLU masks
     from the next layer's input > 0, split the skip and view segments.
-  - `pack_fragments_plain` is the fragment layout (and `k_pack` its kernel):
-    per layer, per (k-step, n-tile), per lane, the mma.sync B operand: for
-    float32 (k-steps of 8) the float4 {hi(b0), hi(b1), lo(b0), lo(b1)}, hi =
-    TF32 round-to-nearest of the weight, lo = the exact rest; for bfloat16
-    (k-steps of 16) four bf16 {b(2t), b(2t+1), b(2t+8), b(2t+9)}; the input
-    dimension padded per segment, and the outputs, to the k-step, zeros in
-    the padding.
+  - `pack_fragments_plain` is the 3xTF32 fragment layout (and `k_pack` its
+    kernel): per layer, per (k-step of 8, n-tile), per lane, the mma.sync B
+    operand as the float4 {hi(b0), hi(b1), lo(b0), lo(b1)}, hi = TF32
+    round-to-nearest of the weight, lo = the exact rest; the input dimension
+    padded per segment, and the outputs, to 8, zeros in the padding.
   - `wg_layout` is fused_mlp_wgmma.cu's build_wg_desc in Python (layer rows,
     padded input columns, workspace columns); `wgmma_layout_plain` the
     bf16 weight layouts its TMA maps read (and `k_wg_layout` its kernel),
@@ -41,20 +39,24 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     operands of dW), the ReLU masks as each thread's bits
     (`relu_mask_words_plain`), and per 64 points (a warpgroup's rows) the
     column sums of the fp32 g_z (db's partials).
-  - `pack_weights` packs the weights for K3 once per call (`PackedWeights`,
-    in the dtype's layout); `fused_mlp_forward_packed_plain` is the eager
-    chain on them (hi + lo, or the bf16 weights).
+  - `pack_weights` lays the weights out for K3 once per call
+    (`PackedWeights`, the 3xTF32 fragments; `WgPackedWeights`, the bf16
+    forward layout); `fused_mlp_forward_packed_plain` is the eager chain on
+    them.
   - `FusedMLPFunction` launches K1 in forward (saving only the inputs and the
     weights) and K2 in backward. For a CUDA tensor it launches the kernel or
-    raises; the plain versions are taken only for CPU tensors.
+    raises (a chain past the kernels' widths raises ValueError before any
+    launch); the plain versions are taken only for CPU tensors.
   - `nerf_apply_fused` takes K1/K2 when autograd will ask for a gradient,
     K3 otherwise.
   - `K1_LAUNCHES` / `K2_LAUNCHES` / `K3_LAUNCHES` count kernel launches (not
     plain calls) of the float32 (3xTF32) variants, `PACK_LAUNCHES`
-    pack_weights' packing kernel; the `*_BF16_LAUNCHES` the bf16 variants'.
+    pack_weights' layout kernel; the `*_BF16_LAUNCHES` the bf16 variants'.
     `reset_launch_counts` / `launch_counts` set them to 0 and read them.
 
-PE, the density activation and the sigmoid stay outside, in torch.
+PE, the density activation and the sigmoid stay outside, in torch. The
+choice between this op and models/nerf_mlp.nerf_apply (torch ops,
+cfg.tpu.use_pallas=False) is the renderer's (RenderConfig.mlp_impl).
 """
 from __future__ import annotations
 
@@ -100,16 +102,14 @@ K2_TILE = 128  # points per K2 tile (csrc/fused_mlp.cu kTile2)
 
 _DESC_ERRORS = {
     -1: "between 1 and 16 layers with at least one trunk and one RGB layer",
-    -2: ("every layer at most 288 outputs and 320 inputs (each input segment padded to the "
-         "k-step, 8 or 16), with the padded outputs / 8 and inputs / 8 at most 4 past a "
-         "multiple of 8"),
+    -2: ("every layer at most 288 outputs and 320 inputs (each input segment padded to 8), "
+         "with the padded outputs / 8 and inputs / 8 at most 4 past a multiple of 8"),
     -3: "a chain whose widths match (layer 0 takes pts_enc, no skip at layer 0, 3 RGB outputs)",
     -4: "activations that fit the 227 KB of shared memory of one block",
     -5: "at least one point",
     -6: "TMA tensor maps of its operands (cuTensorMapEncodeTiled failed)",
     -7: ("at compute_dtype bfloat16 (wgmma): pts_enc and view_enc at most 64 wide, every "
          "layer's features at most 256 wide and, as a layer's input, padded to 64, 128 or 256"),
-    -8: "K1 at compute_dtype bfloat16 through sparf_fused_mlp_wg_forward",
 }
 
 
@@ -148,13 +148,11 @@ def flat_weights(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [t for W, b in list(params["feat"]) + list(params["rgb"]) for t in (W, b)]
 
 
-def _layers(dims: Sequence[int], bf16: bool = False):
+def _layers(dims: Sequence[int]):
     """Per layer (out, in, w1, w2, k1p, kp, np), as csrc/fused_mlp.cu build_desc:
-    the input segments and the outputs padded to the MMA's k-step (8 for
-    3xTF32, 16 for bf16)."""
+    the input segments and the outputs padded to the MMA's k-step of 8."""
     n_feat, n_rgb, d_in, d_view, view_dep = dims[:5]
-    ks = 16 if bf16 else 8
-    pad = lambda x: -(-x // ks) * ks  # noqa: E731
+    pad = lambda x: -(-x // 8) * 8  # noqa: E731
     for li in range(n_feat + n_rgb):
         out, n_in, skip = dims[5 + 3 * li: 8 + 3 * li]
         w2 = d_in if skip else (d_view if li == n_feat and view_dep else 0)
@@ -163,26 +161,20 @@ def _layers(dims: Sequence[int], bf16: bool = False):
 
 
 @functools.lru_cache(maxsize=16)
-def _fragment_sources(dims: Tuple[int, ...], transposed: bool,
-                      bf16: bool = False) -> List[torch.Tensor]:
+def _fragment_sources(dims: Tuple[int, ...], transposed: bool) -> List[torch.Tensor]:
     """Per layer, for every element of its fragments, the flat index into W
     (out, in) of the weight behind it, or -1 in the padding. Fragment (ks, nt)
     of the B operand, lane (g, t) = (lane // 4, lane % 4), element c holds
-    B[row, nt*8 + g] with row = ks*8 + t + 4 (c % 2) for float32 (hi for
-    c < 2, lo for c >= 2) and ks*16 + 2t + c % 2 + 8 (c // 2) for bf16; B =
-    W^T (rows over the padded input) for the forward, B = W for K2's g_x."""
+    B[ks*8 + t + 4 (c % 2), nt*8 + g] (hi for c < 2, lo for c >= 2); B = W^T
+    (rows over the padded input) for the forward, B = W for K2's g_x."""
     out = []
-    step = 16 if bf16 else 8
-    for n_out, n_in, w1, w2, k1p, kp, n_pad in _layers(dims, bf16):
-        KS, NT = (n_pad // step, kp // 8) if transposed else (kp // step, n_pad // 8)
+    for n_out, n_in, w1, w2, k1p, kp, n_pad in _layers(dims):
+        KS, NT = (n_pad // 8, kp // 8) if transposed else (kp // 8, n_pad // 8)
         ks = torch.arange(KS).view(-1, 1, 1, 1)
         nt = torch.arange(NT).view(1, -1, 1, 1)
         lane = torch.arange(32).view(1, 1, -1, 1)
         c = torch.arange(4).view(1, 1, 1, -1)
-        if step == 16:
-            row = ks * 16 + 2 * (lane % 4) + c % 2 + 8 * (c // 2)
-        else:
-            row = ks * 8 + lane % 4 + 4 * (c % 2)
+        row = ks * 8 + lane % 4 + 4 * (c % 2)
         col = nt * 8 + lane // 4
         n, kpad = (row, col) if transposed else (col, row)
         k = torch.where(kpad < k1p, torch.where(kpad < w1, kpad, -1),
@@ -199,18 +191,14 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_fragments_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
-                         transposed: bool = False, bf16: bool = False) -> torch.Tensor:
+                         transposed: bool = False) -> torch.Tensor:
     """The B fragments of every layer, one flat tensor (k_pack's plain
-    version). float32: hi = tf32_round(w) at c < 2, lo = w - hi at c >= 2
-    (exact; the tensor core reads its top 19 bits). bf16: each weight
-    rounded to bf16, to nearest even."""
+    version): hi = tf32_round(w) at c < 2, lo = w - hi at c >= 2 (exact; the
+    tensor core reads its top 19 bits)."""
     parts = []
-    for src, W in zip(_fragment_sources(tuple(dims), transposed, bf16), weights[::2]):
+    for src, W in zip(_fragment_sources(tuple(dims), transposed), weights[::2]):
         src = src.to(W.device)
         w = torch.where(src >= 0, W.detach().reshape(-1)[src.clamp(min=0)], 0.0).view(-1, 4)
-        if bf16:
-            parts.append(w.to(torch.bfloat16).reshape(-1))
-            continue
         hi = tf32_round(w)
         lo = w - hi
         parts.append(torch.cat([hi[:, :2], lo[:, 2:]], dim=1).reshape(-1))
@@ -218,19 +206,14 @@ def pack_fragments_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
 
 
 def unpack_fragments(dims: Sequence[int], frag: torch.Tensor) -> List[torch.Tensor]:
-    """Each layer's W (out, in) back from its forward fragments (their dtype
-    says the layout), float32: hi + lo (exactly W), or the bf16 weights."""
+    """Each layer's W (out, in) back from its forward fragments: hi + lo,
+    exactly W."""
     Ws, ofs = [], 0
-    bf16 = frag.dtype == torch.bfloat16
-    for src, (n_out, n_in, *_) in zip(_fragment_sources(tuple(dims), False, bf16),
-                                      _layers(dims, bf16)):
-        f4 = frag[ofs: ofs + src.numel()].view(-1, 4).float()
+    for src, (n_out, n_in, *_) in zip(_fragment_sources(tuple(dims), False), _layers(dims)):
+        f4 = frag[ofs: ofs + src.numel()].view(-1, 4)
         ofs += src.numel()
-        if bf16:
-            src2, vals = src.to(frag.device), f4.reshape(-1)
-        else:
-            src2 = src.to(frag.device).view(-1, 4)[:, :2].reshape(-1)
-            vals = (f4[:, :2] + f4[:, 2:]).reshape(-1)
+        src2 = src.to(frag.device).view(-1, 4)[:, :2].reshape(-1)
+        vals = (f4[:, :2] + f4[:, 2:]).reshape(-1)
         W = f4.new_zeros(n_out * n_in)
         W[src2[src2 >= 0]] = vals[src2 >= 0]
         Ws.append(W.view(n_out, n_in))
@@ -239,44 +222,61 @@ def unpack_fragments(dims: Sequence[int], frag: torch.Tensor) -> List[torch.Tens
 
 @dataclass
 class PackedWeights:
-    """K3's operands: the chain's dims, the forward B fragments of every
-    layer (flat, in the compute dtype's layout: float32 for 3xTF32, bf16)
-    and the biases."""
+    """K3's operands at float32: the chain's dims, the flat 3xTF32 B
+    fragments of every layer (forward) and the biases."""
 
     dims: Tuple[int, ...]
     frag: torch.Tensor
     biases: List[torch.Tensor]
 
-    @property
-    def bf16(self) -> bool:
-        return self.frag.dtype == torch.bfloat16
+
+@dataclass
+class WgPackedWeights:
+    """K3's operands at bfloat16: the chain's dims, wf (RF, KF) bf16, the
+    forward weights the bf16 K3's TMA maps read, and bias_f (RF,) float32 in
+    their row order."""
+
+    dims: Tuple[int, ...]
+    wf: torch.Tensor
+    bias_f: torch.Tensor
 
 
-def pack_weights(params: Dict[str, Any], meta: FusedMeta) -> PackedWeights:
-    """The weights laid out once for K3: on a CUDA device by the packing kernel
-    (k_pack), on the CPU by pack_fragments_plain; the same bits either way."""
+def pack_weights(params: Dict[str, Any], meta: FusedMeta):
+    """The weights laid out once for K3: at float32 as 3xTF32 fragments
+    (PackedWeights; on a CUDA device by k_pack, on the CPU by
+    pack_fragments_plain), at bfloat16 in the wgmma forward layout
+    (WgPackedWeights; k_wg_layout, or wgmma_layout_plain, which raises
+    ValueError for a chain the bf16 kernels do not take); the same bits
+    either way."""
     weights = [w.detach().contiguous() for w in flat_weights(params)]
     if len(weights) != 2 * (meta.n_feat + meta.n_rgb):
         raise ValueError(f"pack_weights: {len(weights) // 2} layers, meta says "
                          f"{meta.n_feat} + {meta.n_rgb}")
     dims = tuple(meta.dims(weights))
     dev = weights[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"pack_weights: no kernel for device {dev}")
+    if meta.bf16:
+        if dev.type == "cpu":
+            wf, _, bias_f = wgmma_layout_plain(dims, weights, transposed=False)
+        else:
+            _check_operands(weights[0], weights[1], weights)
+            wf, _, bias_f = wg_layout_kernel(dims, weights, transposed=False)
+            _counted("PACK", True)
+        return WgPackedWeights(dims, wf, bias_f)
     if dev.type == "cpu":
-        frag = pack_fragments_plain(dims, weights, bf16=meta.bf16)
-    elif dev.type == "cuda":
+        frag = pack_fragments_plain(dims, weights)
+    else:
         from sparf_tpu_torch.ops._build import entry, load_library
 
         _check_operands(weights[0], weights[1], weights)
         lib = load_library()
         c_dims = (ctypes.c_int * len(dims))(*dims)
-        frag = torch.empty(_sizes(lib, c_dims, meta.bf16, "pack_weights")[1], dtype=meta.dtype,
-                           device=dev)
-        rc = entry(lib, "pack", meta.bf16)(c_dims, _ptrs(weights), frag.data_ptr(), None,
-                                           torch.cuda.current_stream(dev).cuda_stream)
+        frag = torch.empty(_sizes(lib, c_dims, "pack_weights")[1], device=dev)
+        rc = entry(lib, "pack")(c_dims, _ptrs(weights), frag.data_ptr(), None,
+                                torch.cuda.current_stream(dev).cuda_stream)
         _raise_rc(lib, rc, "pack_weights (fragment packing)")
-        _counted("PACK", meta.bf16)
-    else:
-        raise ValueError(f"pack_weights: no kernel for device {dev}")
+        _counted("PACK", False)
     return PackedWeights(dims, frag, weights[1::2])
 
 
@@ -323,12 +323,17 @@ def fused_mlp_forward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: to
 
 
 def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
-                                   view_enc: torch.Tensor, packed: PackedWeights
+                                   view_enc: torch.Tensor, packed
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's plain version: the eager chain on pack_weights' operands (each W
-    as the hi + lo of its fragments, or its bf16 fragments)."""
-    Ws = unpack_fragments(packed.dims, packed.frag)
-    weights = [t for W, b in zip(Ws, packed.biases) for t in (W, b)]
+    as the hi + lo of its fragments, or as read back from the bf16 forward
+    layout)."""
+    if isinstance(packed, WgPackedWeights):
+        weights = [t for layer in unpack_wgmma_layout(packed.dims, packed.wf, bias_f=packed.bias_f)
+                   for t in layer]
+    else:
+        Ws = unpack_fragments(packed.dims, packed.frag)
+        weights = [t for W, b in zip(Ws, packed.biases) for t in (W, b)]
     raw_density, raw_rgb, _ = _forward_chain(meta, pts_enc, view_enc, weights)
     return raw_density, raw_rgb
 
@@ -475,24 +480,26 @@ def _wg_block(L: WgLayer, W: torch.Tensor, n_rows: int) -> torch.Tensor:
     return torch.where((u[:, None] >= 0) & (i[None, :] >= 0), block, torch.zeros_like(block))
 
 
-def wgmma_layout_plain(dims: Sequence[int], weights: Sequence[torch.Tensor]):
-    """The bf16 K1 / K2's weights (k_wg_layout's plain version): (wf (RF, KF)
+def wgmma_layout_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
+                       transposed: bool = True):
+    """The bf16 kernels' weights (k_wg_layout's plain version): (wf (RF, KF)
     bf16, the forward B operands, rows = layer rows, columns = padded inputs;
-    wt (RT, KT) bf16, g_x's, rows = padded inputs, columns = layer rows;
-    bias_f (RF,) fp32 in the forward row order); bf16 rounded to nearest
-    even, zeros in the padding."""
+    wt (RT, KT) bf16, g_x's, rows = padded inputs, columns = layer rows (None
+    without `transposed`: K1 and K3 read only wf); bias_f (RF,) fp32 in the
+    forward row order); bf16 rounded to nearest even, zeros in the padding."""
     lay = wg_layout(tuple(dims))
     dev = weights[0].device
     wf = torch.zeros((lay.RF, lay.KF), device=dev)
-    wt = torch.zeros((lay.RT, lay.KT), device=dev)
+    wt = torch.zeros((lay.RT, lay.KT), device=dev) if transposed else None
     bias = torch.zeros(lay.RF, device=dev)
     for L, W, b in zip(lay.layers, weights[::2], weights[1::2]):
         n_rows = L.nm + (8 if L.dens else 0)
         wf[L.rf: L.rf + n_rows, : L.kp] = _wg_block(L, W, n_rows)
-        wt[L.rt: L.rt + L.kp, : L.kz] = _wg_block(L, W, L.kz).t()
+        if transposed:
+            wt[L.rt: L.rt + L.kp, : L.kz] = _wg_block(L, W, L.kz).t()
         u = L.units(n_rows).to(dev)
         bias[L.rf: L.rf + n_rows] = torch.where(u >= 0, b.detach()[u.clamp(min=0)], 0.0)
-    return wf.to(torch.bfloat16), wt.to(torch.bfloat16), bias
+    return wf.to(torch.bfloat16), wt.to(torch.bfloat16) if transposed else None, bias
 
 
 def unpack_wgmma_layout(dims: Sequence[int], wf: torch.Tensor, wt: Optional[torch.Tensor] = None,
@@ -618,7 +625,9 @@ def _check_operands(pts_enc, view_enc, weights, *extra):
 
 def _raise_rc(lib, rc: int, which: str):
     if rc < 0:
-        raise ValueError(f"{which}: the kernels take {_DESC_ERRORS.get(rc, 'rc=%d' % rc)}")
+        hint = ("; cfg.tpu.use_pallas=False runs the MLP in torch ops (nerf_mlp.nerf_apply)"
+                if rc in (-2, -4, -7) else "")
+        raise ValueError(f"{which}: the kernels take {_DESC_ERRORS.get(rc, 'rc=%d' % rc)}{hint}")
     if rc > 0:
         raise RuntimeError(f"{which} launch failed: {lib.sparf_cuda_error_string(rc).decode()}")
 
@@ -632,19 +641,19 @@ def _dims(meta, weights):
     return (ctypes.c_int * len(dims))(*dims)
 
 
-def _sizes(lib, dims, bf16: bool, which: str) -> List[int]:
-    """[n_params, n_frag_elems, n_part, x_total, g_total, n_splits]
-    (csrc sparf_fused_mlp_sizes)."""
+def _sizes(lib, dims, which: str) -> List[int]:
+    """[n_params, n_frag_elems, n_part, x_total, g_total, n_splits] of the
+    3xTF32 kernels (csrc sparf_fused_mlp_sizes_tf32)."""
     sizes = (ctypes.c_int * 6)()
     from sparf_tpu_torch.ops._build import entry
 
-    _raise_rc(lib, entry(lib, "sizes", bf16)(dims, sizes), which)
+    _raise_rc(lib, entry(lib, "sizes")(dims, sizes), which)
     return list(sizes)
 
 
 def _wg_sizes(lib, dims, which: str) -> List[int]:
     """[n_params, wf elements, wt elements, RF, KX, KG, n_part, n_splits, tile]
-    of the bf16 K1 / K2 (csrc sparf_fused_mlp_wg_sizes)."""
+    of the bf16 kernels (csrc sparf_fused_mlp_wg_sizes)."""
     from sparf_tpu_torch.ops._build import wg_entry
 
     sizes = (ctypes.c_int * 9)()
@@ -652,8 +661,10 @@ def _wg_sizes(lib, dims, which: str) -> List[int]:
     return list(sizes)
 
 
-def wg_layout_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor]):
-    """k_wg_layout on the card: (wf, wt, bias_f) as wgmma_layout_plain."""
+def wg_layout_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor],
+                     transposed: bool = True):
+    """k_wg_layout on the card: (wf, wt, bias_f) as wgmma_layout_plain (wt
+    None without `transposed`)."""
     from sparf_tpu_torch.ops._build import load_library, wg_entry
 
     lib = load_library()
@@ -661,17 +672,19 @@ def wg_layout_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor]):
     sizes = _wg_sizes(lib, c_dims, "k_wg_layout")
     dev = weights[0].device
     wf = torch.empty(sizes[1], dtype=torch.bfloat16, device=dev)
-    wt = torch.empty(sizes[2], dtype=torch.bfloat16, device=dev)
+    wt = torch.empty(sizes[2], dtype=torch.bfloat16, device=dev) if transposed else None
     bias_f = torch.empty(sizes[3], dtype=torch.float32, device=dev)
-    rc = wg_entry(lib, "layout")(c_dims, _ptrs(weights), wf.data_ptr(), wt.data_ptr(),
-                                 bias_f.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    rc = wg_entry(lib, "layout")(c_dims, _ptrs(weights), wf.data_ptr(),
+                                 wt.data_ptr() if transposed else None, bias_f.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_rc(lib, rc, "k_wg_layout")
-    return wf.view(-1, sizes[1] // sizes[3]), wt.view(-1, wg_layout(tuple(dims)).KT), bias_f
+    return (wf.view(-1, sizes[1] // sizes[3]),
+            wt.view(-1, wg_layout(tuple(dims)).KT) if transposed else None, bias_f)
 
 
 def _launch_k1_wg(meta: FusedMeta, pts_enc, view_enc, weights):
     """K1 at bf16 (fused_mlp_wgmma.cu): lays out the weights (k_wg_layout),
-    then the wgmma forward."""
+    then the wgmma forward (k1_wg)."""
     from sparf_tpu_torch.ops._build import load_library, wg_entry
 
     lib = load_library()
@@ -686,6 +699,29 @@ def _launch_k1_wg(meta: FusedMeta, pts_enc, view_enc, weights):
                                   torch.cuda.current_stream(dev).cuda_stream)
     _raise_rc(lib, rc, "K1 (fused MLP forward, bf16)")
     _counted("K1", True)
+    return out[:, 0], out[:, 1:4]
+
+
+def _launch_k3_wg(meta: FusedMeta, pts_enc, view_enc, packed: WgPackedWeights):
+    """K3 at bf16 (fused_mlp_wgmma.cu k3_wg): K1's wgmma forward on the
+    forward layout that pack_weights made once per call."""
+    from sparf_tpu_torch.ops._build import load_library, wg_entry
+
+    lib = load_library()
+    dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
+    sizes = _wg_sizes(lib, dims, "K3 (fused MLP forward, packed weights, bf16)")
+    wf, bias_f = packed.wf, packed.bias_f
+    if (wf.dtype != torch.bfloat16 or wf.numel() != sizes[1] or bias_f.numel() != sizes[3]
+            or not wf.is_contiguous() or wf.device != pts_enc.device):
+        raise ValueError("K3 takes the contiguous bf16 layout of pack_weights on the points' "
+                         "device")
+    T = pts_enc.shape[0]
+    out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
+    rc = wg_entry(lib, "forward_packed")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(),
+                                         T, dims, wf.data_ptr(), bias_f.data_ptr(),
+                                         torch.cuda.current_stream(pts_enc.device).cuda_stream)
+    _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights, bf16)")
+    _counted("K3", True)
     return out[:, 0], out[:, 1:4]
 
 
@@ -736,42 +772,43 @@ def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
     lib = load_library()
     T, dev = pts_enc.shape[0], pts_enc.device
     dims = _dims(meta, weights)
-    frag = torch.empty(_sizes(lib, dims, meta.bf16, "K1 (fused MLP forward)")[1],
-                       dtype=meta.dtype, device=dev)
+    frag = torch.empty(_sizes(lib, dims, "K1 (fused MLP forward)")[1], device=dev)
     out = torch.empty((T, 4), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = entry(lib, "forward", meta.bf16)(pts_enc.data_ptr(), view_enc.data_ptr(),
-                                          out.data_ptr(), T, dims, _ptrs(weights),
-                                          frag.data_ptr(), 0, stream)
+    rc = entry(lib, "forward")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, dims,
+                               _ptrs(weights), frag.data_ptr(), 0, stream)
     _raise_rc(lib, rc, "K1 (fused MLP forward)")
-    _counted("K1", meta.bf16)
+    _counted("K1", False)
     return out[:, 0], out[:, 1:4]
 
 
 def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed: PackedWeights):
+    """K3 on pack_weights' layout: the 3xTF32 k3_forward, at bf16 k3_wg."""
     from sparf_tpu_torch.ops._build import entry, load_library
 
-    _check_operands(pts_enc, view_enc, packed.biases)
     if (list(packed.dims[:5]) != [meta.n_feat, meta.n_rgb, meta.d_in, meta.d_view,
-                                  int(meta.view_dep)] or packed.bf16 != meta.bf16):
+                                  int(meta.view_dep)]
+            or isinstance(packed, WgPackedWeights) != meta.bf16):
         raise ValueError("K3: packed weights of another chain or compute dtype")
+    if meta.bf16:
+        _check_operands(pts_enc, view_enc, [packed.bias_f])
+        return _launch_k3_wg(meta, pts_enc, view_enc, packed)
+    _check_operands(pts_enc, view_enc, packed.biases)
     if packed.frag.device != pts_enc.device or not packed.frag.is_contiguous():
         raise ValueError("K3 takes the contiguous fragments of pack_weights on the points' device")
     lib = load_library()
     dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
-    if packed.frag.numel() != _sizes(lib, dims, meta.bf16,
-                                     "K3 (fused MLP forward, packed weights)")[1]:
+    if packed.frag.numel() != _sizes(lib, dims, "K3 (fused MLP forward, packed weights)")[1]:
         raise ValueError("K3 takes the fragments of pack_weights")
     T = pts_enc.shape[0]
     out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
     stream = torch.cuda.current_stream(pts_enc.device).cuda_stream
     params = (ctypes.c_void_p * (2 * len(packed.biases)))(
         *[p for b in packed.biases for p in (None, b.data_ptr())])
-    rc = entry(lib, "forward", meta.bf16)(pts_enc.data_ptr(), view_enc.data_ptr(),
-                                          out.data_ptr(), T, dims, params,
-                                          packed.frag.data_ptr(), 1, stream)
+    rc = entry(lib, "forward")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, dims,
+                               params, packed.frag.data_ptr(), 1, stream)
     _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights)")
-    _counted("K3", meta.bf16)
+    _counted("K3", False)
     return out[:, 0], out[:, 1:4]
 
 
@@ -788,23 +825,23 @@ def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
     T = pts_enc.shape[0]
     dev = pts_enc.device
     dims = _dims(meta, weights)
-    n_params, n_frag, n_part, x_total, g_total, n_splits = _sizes(lib, dims, meta.bf16,
+    n_params, n_frag, n_part, x_total, g_total, n_splits = _sizes(lib, dims,
                                                                   "K2 (fused MLP backward)")
     x_rows = -(-T // K2_TILE) * K2_TILE
     d_pts = torch.empty_like(pts_enc)
     d_view = torch.empty_like(view_enc)
     d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
-    frag = torch.empty((2, n_frag), dtype=meta.dtype, device=dev)
+    frag = torch.empty((2, n_frag), device=dev)
     partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
     # every layer's input and g_z for the dW pass: ~17 KB per point at full width
     workspace = torch.empty(x_rows * (x_total + g_total), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = entry(lib, "backward", meta.bf16)(
+    rc = entry(lib, "backward")(
         pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
         d_view.data_ptr(), d_params.data_ptr(), frag[0].data_ptr(), frag[1].data_ptr(),
         partial.data_ptr(), workspace.data_ptr(), T, dims, _ptrs(weights), stream)
     _raise_rc(lib, rc, "K2 (fused MLP backward)")
-    _counted("K2", meta.bf16)
+    _counted("K2", False)
     return d_pts, d_view, _split_flat(d_params, weights)
 
 

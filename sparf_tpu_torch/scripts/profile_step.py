@@ -40,7 +40,8 @@ def categorize(name: str) -> str:
     n = name.lower()
     for key, cat in (("k1_forward", "K1"), ("k1_wg", "K1"), ("k2_backward", "k2_backward"),
                      ("k2_wg", "k2_backward"), ("k2_dw", "k2_dw"), ("k2_reduce", "k2_reduce"),
-                     ("k3_forward", "K3"), ("k_pack", "k_pack"), ("k_wg_layout", "k_pack")):
+                     ("k3_forward", "K3"), ("k3_wg", "K3"), ("k_pack", "k_pack"),
+                     ("k_wg_layout", "k_pack")):
         if key in n:
             return cat
     if any(k in n for k in ("nccl", "gloo", "all_reduce", "allreduce", "broadcast")):

@@ -156,11 +156,12 @@ class NerfTrainerPerScene:
 
     def build_networks(self):
         self.render_cfg = RenderConfig.from_config(self.cfg)
-        # the MLP always runs through ops.fused_mlp: the CUDA kernels on a CUDA
-        # device, their plain versions on the CPU
-        if self.device.type == "cuda" and not self.cfg.tpu.get("use_pallas", True):
-            raise NotImplementedError("the port runs the MLP through its CUDA kernels; "
-                                      "cfg.tpu.use_pallas=False has no CUDA path")
+        # cfg.tpu.use_pallas picks the MLP (RenderConfig.mlp_impl), as the JAX
+        # package's mlp_impl does: ops.fused_mlp (the CUDA kernels on a CUDA
+        # device, their plain versions on the CPU), or nerf_mlp.nerf_apply in
+        # torch ops (the JAX package's XLA MLP)
+        self.logger.info(f"MLP: {self.render_cfg.mlp_impl} "
+                         f"({self.render_cfg.mlp.compute_dtype}, {self.device})")
 
     def setup_optimizer(self):
         cfg = self.cfg

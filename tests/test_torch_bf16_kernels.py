@@ -118,9 +118,10 @@ def test_bf16_forward_and_backward_match_pallas_interpret(monkeypatch, view_dep,
 @pytest.mark.parametrize("view_dep", [True, False])
 @pytest.mark.parametrize("R", [23, 41])
 def test_bf16_packed_forward_matches_pallas_interpret(view_dep, R):
-    """K3's plain version on pack_weights' bf16 fragments against
-    sparf_tpu/ops/fused_mlp.py's kernel in interpret mode, on the encoded
-    points; the bf16 fragments hold each weight rounded to nearest even."""
+    """K3's plain version on pack_weights' bf16 layout (the forward weights
+    the wgmma K3 reads) against sparf_tpu/ops/fused_mlp.py's kernel in
+    interpret mode, on the encoded points; the layout holds each weight
+    rounded to nearest even and each bias as it is."""
     cfg_j, cfg_t, params_j, pts, ray = _inputs(view_dep, R)
     params_t = nerf_params_from_jax(to_np(params_j))
     x = t(pts).reshape(-1, 3)
@@ -134,9 +135,10 @@ def test_bf16_packed_forward_matches_pallas_interpret(view_dep, R):
                                              interpret=True)
     meta = fm.FusedMeta.from_cfg(cfg_t)
     packed = fm.pack_weights(params_t, meta)
-    assert packed.bf16 and packed.frag.dtype == torch.bfloat16
-    W0 = fm.unpack_fragments(packed.dims, packed.frag)[0]
+    assert isinstance(packed, fm.WgPackedWeights) and packed.wf.dtype == torch.bfloat16
+    W0, b0 = fm.unpack_wgmma_layout(packed.dims, packed.wf, bias_f=packed.bias_f)[0]
     assert torch.equal(W0, params_t["feat"][0][0].to(torch.bfloat16).float())
+    assert torch.equal(b0, params_t["feat"][0][1])
     view_t = view_enc if view_dep else torch.zeros((pts_enc.shape[0], 0))
     dens_t, rgb_t = fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_t, packed)
     assert_points_close(dens_t[:, None], np.asarray(dens_j)[:, None], FWD_REL, "density")

@@ -60,9 +60,11 @@ def test_profile_categories_name_the_kernels():
 
 
 def test_profile_categories_name_the_wgmma_kernels():
-    """The bf16 K1 / K2 of csrc/fused_mlp_wgmma.cu fall in K1's and K2's parts."""
+    """The bf16 K1 / K2 / K3 of csrc/fused_mlp_wgmma.cu fall in K1's, K2's and
+    K3's parts."""
     cat = profile_step.categorize
     assert cat("(anonymous namespace)::k1_wg(Maps, WgDesc, ...)") == "K1"
+    assert cat("(anonymous namespace)::k3_wg(Maps, WgDesc, ...)") == "K3"
     assert cat("(anonymous namespace)::k2_wg(Maps, WgDesc, ...)") == "k2_backward"
     assert cat("(anonymous namespace)::k2_dw_wg(Maps, WgDesc, ...)") == "k2_dw"
     assert cat("(anonymous namespace)::k2_reduce_wg(WgDesc, ...)") == "k2_reduce"
