@@ -23,7 +23,12 @@ Phases, one line each; any failure raises and the process exits non-zero:
      fp32 also at T past the merged fine level's 786,432 points); K2 run
      twice must give the same bits; median times at T = 262,144 beside each
      kernel's bound (fp32 cores, and the variant's tensor-core rate) and its
-     plain cuBLAS chain;
+     plain cuBLAS chain; then the same checks (at T = 20,001) and times on
+     the other chains of the kernels' domain (KERNEL_CHAINS: up to 512
+     features per layer, pts_enc and view_enc up to 128 wide), each with
+     its plan (128- or 64-point tiles) and K2's workspace bytes; routes: both
+     C sizes entries take every chain of a grid inside the domain and
+     refuse, with a width code, every chain just past it (route_chains);
   4. slice-check: one step of the tiny sparf config on the card against the
      same step on the CPU (plain versions, same parameters and draws), in
      both stages; accum-check: grad_acc_steps = 2, six steps, one with a NaN
@@ -36,13 +41,17 @@ Phases, one line each; any failure raises and the process exits non-zero:
      compute_dtype bfloat16, card against CPU (TRAJ_TOL_BF16), then the
      training CLI and the eval entry point at bf16 on the card;
      wide-check: the tiny config with the presets' 8x256 MLP and
-     posenc.L_3D=12 (pts_enc 75 wide, past both kernels' widths), fp32 and
-     bf16: with the kernels its step raises ValueError before any launch;
+     posenc.L_3D=12 (pts_enc 75 wide: the kernels' wide plans), fp32 and
+     bf16: the slice-check on it through the kernels (at fp32 its gradients
+     within WIDE_KERNELS_GRAD_RTOL and its updated parameters where
+     |gradient| >= WIDE_KEEP_GRAD, with a control that must miss: see
+     WIDE_KERNELS_GRAD_RTOL), then
      with cfg.tpu.use_pallas=False (nerf_mlp.nerf_apply in torch ops, no
-     kernel launch) the slice-check on it, under the same bounds but, at
-     bf16, the gradients' (BF16_WIDE_GRAD_RTOL, see WIDE), and at bf16 a
-     control that must miss them; use_pallas=False: the slice-check on the
-     tiny config's own chain with use_pallas=False;
+     kernel launch), under the same bounds but, at bf16, the gradients'
+     (BF16_WIDE_GRAD_RTOL, see WIDE), and at bf16 a control that must miss
+     them; at posenc.L_3D=21 (pts_enc 129 wide, past the domain) the step
+     raises ValueError before any launch; use_pallas=False: the slice-check
+     on the tiny config's own chain with use_pallas=False;
   5. matcher-check: with TF32 on for cuBLAS and cuDNN, the port's matchers
      on the card against the same calls on the CPU, on the 300x400 3-view
      synthetic scene: the PDC-Net forward with the bundled weights (max
@@ -76,6 +85,9 @@ Phases, one line each; any failure raises and the process exits non-zero:
      off, must equal the matcher phase's (TF32 on); bf16-slice: the same
      step shape at compute_dtype bfloat16 (GT-depth pools), 3+ steps per
      stage, its it/s beside the fp32 ones, the bf16 variants' launches;
+     wide-slice: the joint step at the full shape with posenc.L_3D=12 (the
+     kernels' wide plans) in both dtypes, its it/s beside the L_3D=10
+     steps' and its launches;
   8. eval-check: with cuDNN TF32 at PyTorch's default (on), evaluate_full of
      the tiny config with test-time pose refinement on the card against the
      same call on the CPU (same state, replayed pixel draws); a snapshot
@@ -130,8 +142,8 @@ Phases, one line each; any failure raises and the process exits non-zero:
      diag_sfm_init (32x40, zncc) and diag_sfm_oracle (150x200) on the card,
      exit 0.
 Each path from 7 on counts its kernel launches from 0; the kernels line sums
-them (the bf16 variants': the bf16-slice's; the two full-shape ranks' counts
-come back from their processes). The geometry stage runs four
+them (the bf16 variants': the bf16-slice's and the wide-slice's; the two
+full-shape ranks' counts come back from their processes). The geometry stage runs four
 times in all (two matcher routes, the slice's trainer, its refresh); each
 phase's seconds are printed. Then a JSON line with every kernel, and last
 {"ok": true, "device": {...}}.
@@ -140,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -246,9 +259,10 @@ def median_ms(fn, n: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def ptxas_summary(log: str) -> str:
-    """Registers, stack and spills of each kernel, from nvcc's -Xptxas -v output
-    (ops/_build.py's log: each kind's compile after `== <source> <kind> ==`)."""
+def ptxas_summary(log: str, names=None) -> str:
+    """Registers, stack and spills of each kernel (or of `names`: "tf32
+    k1_forward", ...), from nvcc's -Xptxas -v output (ops/_build.py's log:
+    each kind's compile after `== <source> <kind> ==`)."""
     kernels, name, kind = {}, None, ""
     for line in log.splitlines():
         h = re.match(r"== \S+ (\w+) ==", line)
@@ -261,7 +275,8 @@ def ptxas_summary(log: str) -> str:
             kernels[name] = []
         elif name and ("registers" in line or "spill" in line):
             kernels[name].append(line.split(" : ")[-1].strip())
-    return "; ".join(f"{k}: {', '.join(v)}" for k, v in kernels.items())
+    return "; ".join(f"{k}: {', '.join(v)}" for k, v in kernels.items()
+                     if names is None or k in names)
 
 
 def _last_component(mangled: str) -> str:
@@ -274,17 +289,39 @@ def _last_component(mangled: str) -> str:
     return last
 
 
-def kernel_inputs(view_dep: bool, T: int, seed: int, bf16: bool = False):
-    """Full-width MLP (as flat weights and as the parameter tree), encoded
-    inputs of T random points, output gradients; `bf16`: compute_dtype
-    bfloat16 (the bf16 variants)."""
+# launches of K1, K2 and K3 per chain of KERNEL_CHAINS at T = 262,144 held
+# bit-identical to the first (a fault in a ring's barrier schedule shows as
+# a failed or a different launch now and then, not on every launch)
+STRESS_LAUNCHES = 20
+# MLP chains of the kernels phase beside the presets' 8x256 (MLPConfig
+# widths; tests/test_torch_mlp_impl.py CHAINS): each kernel plan and layer
+# shape in the kernels' domain (every layer up to 512 features, encodings up
+# to 128 wide): pts_enc past 64 wide, features padded to 192, 75-wide and
+# 39-wide pts_enc at 8x256, 384 and 32 features, and the domain's corner
+# (8x512, pts_enc and view_enc 123 wide)
+KERNEL_CHAINS = {
+    "4x64-L3D12": dict(layers_feat=(64,) * 4, layers_rgb=(32, 3), skip=(2,), L_3D=12),
+    "3x150": dict(layers_feat=(150,) * 3, layers_rgb=(32, 3), skip=()),
+    "8x256-L3D12": dict(L_3D=12),
+    "4x384-skip2": dict(layers_feat=(384,) * 4, skip=(2,)),
+    "8x256-L3D6": dict(L_3D=6),
+    "4x32": dict(layers_feat=(32,) * 4, layers_rgb=(32, 3), skip=(2,)),
+    "8x512-L3D20-Lview20": dict(layers_feat=(512,) * 8, skip=(4,), L_3D=20, L_view=20),
+}
+
+
+def kernel_inputs(view_dep: bool, T: int, seed: int, bf16: bool = False, widths=None):
+    """An MLP (the presets' 8x256, or `widths`: MLPConfig fields) as flat
+    weights and as the parameter tree, encoded inputs of T random points,
+    output gradients; `bf16`: compute_dtype bfloat16 (the bf16 variants)."""
     import torch
 
     from sparf_tpu_torch.models import nerf_mlp
     from sparf_tpu_torch.ops import fused_mlp as fm
 
     cfg = nerf_mlp.MLPConfig(view_dep=view_dep, barf_c2f=(0.4, 0.7),
-                             compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+                             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                             **(widths or {}))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = nerf_mlp.init_nerf_params(gen, cfg, device="cuda")
     weights = fm.flat_weights(params)
@@ -420,24 +457,31 @@ def _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped, f
                           f"{FWD_RTOL})")
 
 
-def check_kernels(bf16: bool = False) -> dict:
-    """K1, K2, K3 and k_pack of one variant (3xTF32 or bf16) against their
-    plain versions at the full width, at ragged T around a timed call's and,
-    for fp32 with view_dep, past the merged fine level's 786,432 points
-    (K2's workspace then holds over 2^31 floats); median times at T =
-    262,144. Every comparison runs and prints before a miss raises."""
+def check_kernels(bf16: bool = False, chain: str = None) -> dict:
+    """K1, K2, K3 and their weight layouts of one variant (3xTF32 or bf16) on
+    the presets' chain or a chain of KERNEL_CHAINS against their plain
+    versions: the presets' at ragged T around a timed call's and, for fp32
+    with view_dep, past the merged fine level's 786,432 points (K2's
+    workspace then holds over 2^31 floats); another chain at one ragged T
+    per view_dep setting; median times at T = 262,144. Every comparison
+    runs and prints before a miss raises."""
     import torch
 
     from sparf_tpu_torch.ops import fused_mlp as fm
 
-    tag = "bf16" if bf16 else "fp32"
+    tag = ("bf16" if bf16 else "fp32") + (f" {chain}" if chain else "")
+    widths = KERNEL_CHAINS[chain] if chain else None
     worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     flipped = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     failed = []
     for view_dep in (True, False):
-        for T in (131071, 262145) + ((786433,) if view_dep and not bf16 else ()):
+        if chain:
+            Ts = (20001,)
+        else:
+            Ts = (131071, 262145) + ((786433,) if view_dep and not bf16 else ())
+        for T in Ts:
             meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(
-                view_dep, T, seed=T, bf16=bf16)
+                view_dep, T, seed=T, bf16=bf16, widths=widths)
             if bf16:
                 check_wg_layout(meta, weights, params)
             else:
@@ -468,7 +512,8 @@ def check_kernels(bf16: bool = False) -> dict:
             torch.cuda.synchronize()
             flat_k = [out_k[0], out_k[1], *out_k[2]]
             flat_k2 = [out_k2[0], out_k2[1], *out_k2[2]]
-            if not all(torch.equal(a, b) for a, b in zip(flat_k, flat_k2)):
+            k2_same_bits = all(torch.equal(a, b) for a, b in zip(flat_k, flat_k2))
+            if not k2_same_bits:
                 failed.append(f"K2 {tag} not deterministic (view_dep={view_dep}, T={T})")
             out_p = fm.fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_d, g_rgb)
             refs = [("plain", [out_p[0], out_p[1], *out_p[2]])]
@@ -525,7 +570,8 @@ def check_kernels(bf16: bool = False) -> dict:
                              + (f"; points past the tight bound: K1 {flipped['K1']:.4f}, K3 "
                                 f"{flipped['K3']:.4f}, K2 {flipped['K2']:.4f}; weight gradients "
                                 f"without them {isolated:.3g}" if bf16 else "")
-                             + f"), K2 bit-identical on rerun, K3 "
+                             + f"), K2 {'' if k2_same_bits else 'not '}bit-identical on "
+                             f"rerun, K3 "
                              f"{'' if k3_same_bits else 'not '}bit-identical to K1, "
                              + ("k_wg_layout" if bf16 else "k_pack")
                              + f" bit-identical to its plain version; "
@@ -534,33 +580,140 @@ def check_kernels(bf16: bool = False) -> dict:
                              f"{UNAMBIGUOUS_Z})")
             torch.cuda.empty_cache()
 
-    meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(True, 262144, seed=1,
-                                                                          bf16=bf16)
+    meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(
+        True, 262144, seed=1, bf16=bf16, widths=widths)
     packed = fm.pack_weights(params, meta)
+    n = 5 if chain else 10
     times = {
-        "K1": median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights)),
+        "K1": median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights), n),
         "K1_plain": median_ms(lambda: fm.fused_mlp_forward_plain(meta, pts_enc, view_enc,
-                                                                  weights)),
-        "K3": median_ms(lambda: fm._launch_k3(meta, pts_enc, view_enc, packed)),
+                                                                  weights), n),
+        "K3": median_ms(lambda: fm._launch_k3(meta, pts_enc, view_enc, packed), n),
         "K3_plain": median_ms(lambda: fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc,
-                                                                         packed)),
-        "K2": median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)),
+                                                                         packed), n),
+        "K2": median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb), n),
         "K2_plain": median_ms(lambda: fm.fused_mlp_backward_plain(meta, pts_enc, view_enc,
-                                                                   weights, g_d, g_rgb)),
+                                                                   weights, g_d, g_rgb), n),
     }
+    if chain:  # every launch at the timed T gives the first one's bits (K2 and K1, K3)
+        first = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
+        f1, f3 = (fm._launch_k1(meta, pts_enc, view_enc, weights),
+                  fm._launch_k3(meta, pts_enc, view_enc, packed))
+        same = True
+        for _ in range(STRESS_LAUNCHES):
+            again = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
+            a1, a3 = (fm._launch_k1(meta, pts_enc, view_enc, weights),
+                      fm._launch_k3(meta, pts_enc, view_enc, packed))
+            torch.cuda.synchronize()
+            same &= all(torch.equal(a, b) for a, b in zip([*again[:2], *again[2]],
+                                                          [*first[:2], *first[2]]))
+            same &= all(torch.equal(a, b) for a, b in zip([*a1, *a3], [*f1, *f3]))
+        del first, again, f1, f3, a1, a3
+        phase("kernels", f"{tag}: {STRESS_LAUNCHES} more launches of K2, K1 and K3 at T=262144, "
+                         f"{'each' if same else 'not each'} bit-identical to the first")
+        if not same:
+            failed.append(f"{tag}: a launch at T=262144 gave other bits than the first")
     bounds = kernel_bounds(meta, weights, 262144)
+    plan = kernel_plan(meta, weights)
     peak = "bf16" if bf16 else "3xTF32"
-    phase("kernels", f"{tag} median ms at T=262144 (8x256, view_dep): "
+    phase("kernels", f"{tag} median ms at T=262144 ({chain or '8x256'}, view_dep; {plan['what']}, "
+          f"K2 workspace {plan['workspace_bytes']} bytes): "
           + " ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    phase("kernels", f"{tag} registers and spills: {plan['kernels']}")
     phase("kernels", f"{tag} bounds at T=262144: " + "; ".join(
         f"{k} {peak} {b['bound_ms']:.3f} ms ({b['bound_by']}, share "
         f"{b['bound_ms'] / times[k]:.3f}),"
         f" fp32 cores {b['bound_fp32_ms']:.3f} ms (share {b['bound_fp32_ms'] / times[k]:.3f})"
         for k, b in bounds.items()))
+    del pts_enc, view_enc, g_d, g_rgb, packed
+    torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"{tag} kernels disagree with their plain versions:\n"
                              + "\n".join(failed))
-    return {"max_abs_err": worst, "flipped": flipped, "ms": times, "bounds": bounds}
+    return {"max_abs_err": worst, "flipped": flipped, "ms": times, "bounds": bounds,
+            "plan": plan}
+
+
+def route_chains():
+    """(inside, past): MLPConfig fields of chains inside the kernels' domain
+    (every layer up to 512 features, pts_enc and view_enc up to 128 wide) and
+    just past it. Inside: L_3D 0-20 and L_view 0-20 at 8x256; trunk widths
+    1-512 at 8 layers (skip 4) and head widths 1-512, with and without the
+    view head. Past: L_3D 21 (pts_enc 129 wide), L_view 21, a 513-wide trunk
+    or head, a 640-wide trunk."""
+    widths = (1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 40, 63, 64, 65, 96, 100, 104, 127, 128, 129,
+              150, 160, 192, 200, 224, 255, 256, 257, 288, 289, 300, 320, 321, 384, 448, 500,
+              511, 512)
+    inside = [dict(L_3D=L) for L in range(21)] + [dict(L_view=L) for L in range(21)]
+    for view_dep in (True, False):
+        inside += [dict(layers_feat=(w,) * 8, view_dep=view_dep) for w in widths]
+        inside += [dict(layers_rgb=(w, 3), view_dep=view_dep) for w in widths]
+    inside += [dict(layers_feat=(512,) * 8, L_3D=20, L_view=20),
+               dict(layers_feat=(512,) * 14, layers_rgb=(512, 3), skip=(2, 4, 8, 12), L_3D=20,
+                    L_view=20)]
+    past = [dict(L_3D=21), dict(L_view=21), dict(layers_feat=(513,) * 8),
+            dict(layers_rgb=(513, 3)), dict(layers_feat=(640,) * 8),
+            dict(layers_feat=(512,) * 8, L_3D=21, L_view=20)]
+    return inside, past
+
+
+def check_routes() -> dict:
+    """routes: both C sizes entries (sparf_fused_mlp_sizes_tf32 and
+    sparf_fused_mlp_wg_sizes) return 0 for every chain of route_chains'
+    inside and a width code (-2, -4 or -7, whose message names
+    use_pallas=False) for every chain past it; the plans taken, counted."""
+    from sparf_tpu_torch.models import nerf_mlp
+    from sparf_tpu_torch.ops import _build
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    lib = _build.load_library()
+    inside, past = route_chains()
+    counts, failed = {}, []
+    for kind, chains, ok in (("inside", inside, lambda rc: rc == 0),
+                             ("past", past, lambda rc: rc in (-2, -4, -7))):
+        for over in chains:
+            dims = fm.chain_dims(nerf_mlp.MLPConfig(**over))
+            c_dims = (ctypes.c_int * len(dims))(*dims)
+            for name, fn, n in (("fp32", _build.entry(lib, "sizes"), 7),
+                                ("bf16", _build.wg_entry(lib, "sizes"), 9)):
+                sizes = (ctypes.c_int * n)()
+                rc = fn(c_dims, sizes)
+                if not ok(rc):
+                    failed.append(f"{name} {over}: rc {rc}")
+                key = f"{kind} {name} " + (f"{sizes[n - 1]}-point tiles" if rc == 0 else f"rc {rc}")
+                counts[key] = counts.get(key, 0) + 1
+    phase("routes", f"{len(inside)} chains inside the domain, {len(past)} past it, each in both "
+                    f"dtypes: {counts}")
+    if failed:
+        raise AssertionError("routes: " + "; ".join(failed))
+    return counts
+
+
+def kernel_plan(meta, weights, T: int = 262144) -> dict:
+    """Which plan of its dtype's kernels a chain takes (the C sizes entries:
+    points per block) and the bytes of K2's workspace at T points: every
+    layer's input and g_z, float32 (3xTF32) or bf16."""
+    from sparf_tpu_torch.ops import _build
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    lib, dims = _build.load_library(), fm._dims(meta, weights)
+    x_rows = -(-T // 128) * 128
+    if meta.bf16:
+        sizes = fm._wg_sizes(lib, dims, "sizes")
+        per_point = 2 * (sizes[4] + sizes[5])
+    else:
+        sizes = fm._sizes(lib, dims, "sizes")
+        per_point = 4 * (sizes[3] + sizes[4])
+    tile = sizes[-1]
+    what = (f"{tile}-point tiles" + (", the warpgroups split the outputs" if meta.bf16 and tile == 64
+                                     else ""))
+    if meta.bf16:
+        names = [f"wg {k}_wg{'_n' if tile == 64 else ''}" for k in ("k1", "k2", "k3")]
+    else:
+        names = [f"tf32 {k}{'_w' if tile == 64 else ''}"
+                 for k in ("k1_forward", "k2_backward", "k3_forward")]
+    return {"tile": tile, "workspace_bytes": x_rows * per_point, "what": what,
+            "kernels": ptxas_summary(_build.BuildInfo.log, names)}
 
 
 TINY_SPARF = dict(dryrun_configs.TINY_GT, env={})
@@ -602,21 +755,46 @@ class RecordingDraws:
 BF16_KEEP_GRAD = 1e-5
 BF16 = dict(tpu=dict(compute_dtype="bfloat16"))
 # the presets' 8x256 MLP (skip at 4, 128-wide view head) with 12 point PE
-# frequencies: pts_enc 75 wide, past both dtypes' kernels (wide-check: the
-# kernels refuse it; use_pallas=False runs it, nerf_mlp.nerf_apply in torch
-# ops). At bf16 the card's step is held to the CPU's with its gradients
-# within BF16_WIDE_GRAD_RTOL of scale, not 1e-3: at 8x256 two correct sum
-# orders of the same bf16 chain (cuBLAS on the card, the CPU's BLAS) round
-# enough products to another bf16 value to move a gradient by 5.2e-3 and
-# 7.7e-3 of its scale (iterations 0 and 350 on the H100; 5.1e-3 to 6.3e-3
-# between two CPU orders, tests/bf16_sum_orders.py), where the 4x64 chain of
-# the bf16-check moves by 1.7e-5. The wide-check's control, the card's step
+# frequencies: pts_enc 75 wide, past the kernels' first plans (128-point
+# tiles), so both dtypes run it in their wide plans (64-point tiles). The
+# wide-check runs its step through the kernels and, with use_pallas=False,
+# through nerf_mlp.nerf_apply in torch ops, card against CPU. At bf16 the
+# card's step is held to the CPU's with its gradients within
+# BF16_WIDE_GRAD_RTOL of scale, not 1e-3: at 8x256 two correct sum orders of
+# the same bf16 chain (cuBLAS on the card, the CPU's BLAS) round enough
+# products to another bf16 value to move a gradient by 5.2e-3 and 7.7e-3 of
+# its scale (iterations 0 and 350 on the H100; 5.1e-3 to 6.3e-3 between two
+# CPU orders, tests/bf16_sum_orders.py), where the 4x64 chain of the
+# bf16-check moves by 1.7e-5. The wide-check's control, the card's step
 # without the bf16 rounding (compute_dtype float32) against the CPU's bf16
 # step, moves them by 9.8e-2 (H100; 7.0e-2 to 9.8e-2 on the CPU) and must
 # miss the bound, which lies between the two (PERF.md). Loss and updated
-# parameters keep the slice-check's bounds.
+# parameters keep the slice-check's bounds. PAST (posenc.L_3D=21: pts_enc
+# 129 wide) lies past the kernels' domain: they refuse it before any launch.
 WIDE = dict(arch=dict(layers_feat=[None] + [256] * 8, layers_rgb=[None, 128, 3], skip=[4],
                       posenc=dict(L_3D=12)))
+PRESETS_8X256 = dict(arch=dict(WIDE["arch"], posenc=dict(L_3D=10)))
+PAST = dict(arch=dict(WIDE["arch"], posenc=dict(L_3D=21)))
+# The wide chain's step through the kernels, against the CPU's plain
+# versions, at 8x256: 3xTF32 sums land further from the CPU's than cuBLAS's
+# full-fp32 ones (use_pallas=False: gradients within 7.7e-7 of scale), and
+# at this width that moves (a) ReLU masks whose pre-activation lies within
+# that difference of 0, so a gradient tensor by up to 2.55e-3 of its scale
+# (L_3D=12, iteration 350; the presets' own 8x256 chain, PRESETS_8X256,
+# through the unchanged 128-point kernels, 8.35e-4, where the tiny chain's
+# slice-check reads 1.9e-6), and (b) through Adam's first step
+# lr g / (|g| + eps), the update of an element whose gradient cancels to
+# |g| < 1e-5 by up to 9.5e-4 (both chains; 1e-5 is the slice-check's
+# bound). So its gradients are held to WIDE_KERNELS_GRAD_RTOL, 4x the
+# largest of those readings, and its parameters where |gradient| >=
+# WIDE_KEEP_GRAD (BF16_KEEP_GRAD's rule; there both chains stay within 3e-8);
+# loss keeps the slice-check's bound. PRESETS_8X256 runs beside it under the
+# same bounds, its readings printed. Its control, the card at compute_dtype
+# bfloat16 against the CPU's float32 step, moves a gradient by 9.7e-2 of its
+# scale and must miss (H100; PERF.md, PR 12). At bf16 the kernels' step
+# keeps BF16_WIDE_GRAD_RTOL.
+WIDE_KERNELS_GRAD_RTOL = 1e-2
+WIDE_KEEP_GRAD = 1e-5
 PLAIN_MLP = dict(tpu=dict(use_pallas=False))
 BF16_WIDE_GRAD_RTOL = 2e-2
 
@@ -632,12 +810,13 @@ class StepMismatch(AssertionError):
 
 
 def check_step_cuda_vs_cpu(over=None, what: str = "slice-check", grad_rtol: float = 1e-3,
-                           card_over=None) -> dict:
+                           card_over=None, keep_grad: float = None) -> dict:
     """One step of the tiny sparf config (with `over`) on the card (kernels)
     and on the CPU (plain versions) from the same parameters and draws, in
     both stages. Losses within rtol 1e-4, gradients (Adam's first moment /
     0.1) within grad_rtol of each tensor's largest magnitude, updated
-    parameters within 1e-5 (bf16: where |gradient| >= BF16_KEEP_GRAD);
+    parameters within 1e-5 where |gradient| >= keep_grad (bf16:
+    BF16_KEEP_GRAD; else every parameter unless keep_grad is given);
     StepMismatch otherwise. The card's step launches K1 and K2 of its dtype,
     and under use_pallas=False (nerf_mlp.nerf_apply on both devices) no
     kernel. `card_over`: options of the card's trainer alone (the
@@ -659,6 +838,8 @@ def check_step_cuda_vs_cpu(over=None, what: str = "slice-check", grad_rtol: floa
 
     cpu, gpu = trainer_on("cpu"), trainer_on("cuda", card_over)
     bf16 = cpu.render_cfg.mlp.compute_dtype == torch.bfloat16
+    card_bf16 = gpu.render_cfg.mlp.compute_dtype == torch.bfloat16
+    keep_grad = BF16_KEEP_GRAD if bf16 and keep_grad is None else keep_grad
     impl = gpu.render_cfg.mlp_impl
     if cpu.render_cfg.mlp_impl != impl:
         raise AssertionError(f"{what}: MLP {impl} on the card, {cpu.render_cfg.mlp_impl} on "
@@ -676,13 +857,13 @@ def check_step_cuda_vs_cpu(over=None, what: str = "slice-check", grad_rtol: floa
         new_c, stats_c = cpu.get_step(it)(st_c, rec)
         fm.reset_launch_counts()
         new_g, stats_g = gpu.get_step(it)(st_g, ReplayDraws(rec.recorded, "cuda"))
-        launches = (fm.launch_counts(bf16), fm.launch_counts(not bf16))
+        launches = (fm.launch_counts(card_bf16), fm.launch_counts(not card_bf16))
         if impl == "plain":
             bad = any(launches[0].values())
         else:
             bad = 0 in (launches[0]["K1"], launches[0]["K2"])
         if bad or any(launches[1].values()):
-            raise AssertionError(f"step at {it}: launches of the {'bf16' if bf16 else 'fp32'} "
+            raise AssertionError(f"step at {it}: launches of the {'bf16' if card_bf16 else 'fp32'} "
                                  f"variants {launches[0]}, of the other {launches[1]}")
         failed, worst_l = [], 0.0
         for k, v in stats_c.items():
@@ -699,19 +880,21 @@ def check_step_cuda_vs_cpu(over=None, what: str = "slice-check", grad_rtol: floa
         grads = list(new_c.opt_state_nerf.mu) + (
             list(new_c.opt_state_pose.mu) if new_c.opt_state_pose is not None
             else [None] * len(new_c.pose_params))
-        held, worst_p = 1.0, 0.0
+        held, worst_p, worst_all = 1.0, 0.0, 0.0
         for a, b, g in zip(engine.tree_leaves(new_g.nerf_params) + list(new_g.pose_params.values()),
                            engine.tree_leaves(new_c.nerf_params) + list(new_c.pose_params.values()),
                            grads):
-            keep = (g / 0.1).abs() >= BF16_KEEP_GRAD if bf16 and g is not None else None
+            keep = (g / 0.1).abs() >= keep_grad if keep_grad is not None and g is not None else None
             diff = (a.cpu() - b).abs()
+            worst_all = max(worst_all, float(diff.max()) if diff.numel() else 0.0)
             if keep is not None:
                 held = min(held, float(keep.float().mean()))
                 diff = diff[keep]
             worst_p = max(worst_p, float(diff.max()) if diff.numel() else 0.0)
         if not worst_p <= 1e-5:
             failed.append(f"updated parameters differ by {worst_p:.3g}")
-        readings[it] = dict(loss_over_bound=worst_l, grad=worst_g, params=worst_p)
+        readings[it] = dict(loss_over_bound=worst_l, grad=worst_g, params=worst_p,
+                            params_all=worst_all)
         if failed:
             raise StepMismatch(f"{what}: step at {it}: " + "; ".join(failed), readings[it])
         phase(what, f"tiny sparf step at iteration {it}: cuda "
@@ -719,15 +902,18 @@ def check_step_cuda_vs_cpu(over=None, what: str = "slice-check", grad_rtol: floa
                     f"matches cpu ({'plain versions' if impl == 'fused' else 'torch ops'}), "
                     f"loss all={float(stats_g['all']):.6g}, gradients within {worst_g:.3g} of "
                     f"scale, parameters within {worst_p:.3g}, launches "
-                    f"{launches[0]}" + (f"; parameters held where |g| >= {BF16_KEEP_GRAD} "
-                                        f"(at least {held:.3f} of each tensor)" if bf16 else ""))
+                    f"{launches[0]}" + (f"; parameters held where |g| >= {keep_grad} "
+                                        f"(at least {held:.3f} of each tensor; over all of "
+                                        f"them {worst_all:.3g}), loss {worst_l:.3g} of its "
+                                        f"bound" if keep_grad is not None else ""))
     return readings
 
 
 def check_wide_refused(over=None) -> str:
-    """The wide chain (WIDE) with the kernels (use_pallas=True) on the card:
-    its step raises ValueError naming the kernels' width limit and
-    use_pallas=False, before any launch (the C sizes entries refuse it)."""
+    """A chain past the kernels' domain (PAST) with the kernels
+    (use_pallas=True) on the card: its step raises ValueError naming the
+    kernels' width limit and use_pallas=False, before any launch (the C
+    sizes entries refuse it)."""
     import dataclasses
 
     from sparf_tpu_torch.ops import fused_mlp as fm
@@ -735,7 +921,7 @@ def check_wide_refused(over=None) -> str:
     from sparf_tpu_torch.utils.draws import Draws
 
     cfg = build_config("joint_pose_nerf_training/synthetic", "sparf",
-                       _merged(_merged(TINY_SPARF, WIDE), over or {}))
+                       _merged(_merged(TINY_SPARF, PAST), over or {}))
     gpu = define_trainer(cfg, workspace=tempfile.mkdtemp(prefix="sparf_torch_tiny_"),
                          device="cuda", save_option=False)
     fm.reset_launch_counts()
@@ -750,31 +936,48 @@ def check_wide_refused(over=None) -> str:
     raise AssertionError("the kernels ran a chain past their widths")
 
 
+def _must_miss(tag: str, over, what: str, grad_rtol: float, card_over, **kw) -> dict:
+    """A control step (check_step_cuda_vs_cpu with the card's own options)
+    that must come out not correct on its gradients; its readings."""
+    try:
+        check_step_cuda_vs_cpu(over, what, grad_rtol=grad_rtol, card_over=card_over, **kw)
+    except StepMismatch as err:
+        if not err.readings["grad"] > grad_rtol:
+            raise AssertionError(f"{what} missed, but its gradients are within {grad_rtol}: "
+                                 f"{err}") from err
+        phase(tag, f"{what} comes out not correct, as it must: {err}")
+        return err.readings
+    raise AssertionError(f"{what}: a step that must miss met the bounds")
+
+
 def check_wide(bf16: bool) -> dict:
-    """wide-check: the kernels refuse the wide chain; use_pallas=False runs
-    it, card against CPU (at bf16 the gradients within BF16_WIDE_GRAD_RTOL,
-    then the control, which must miss that bound)."""
+    """wide-check: the wide chain's step through the kernels (their wide
+    plans; fp32 with its control, which must miss: see WIDE_KERNELS_GRAD_RTOL),
+    then with use_pallas=False, card against CPU (at bf16 the gradients
+    within BF16_WIDE_GRAD_RTOL, then the control, which must miss that
+    bound); the kernels refuse a chain past their domain (PAST)."""
     dtype = BF16 if bf16 else {}
     tag = "wide-check" + (" bf16" if bf16 else "")
     refused = check_wide_refused(dtype)
-    phase(tag, f"kernels (use_pallas=True): {refused}")
+    phase(tag, f"past the domain (posenc.L_3D=21, use_pallas=True): {refused}")
     rtol = BF16_WIDE_GRAD_RTOL if bf16 else 1e-3
-    out = {"readings": check_step_cuda_vs_cpu(_merged(_merged(WIDE, PLAIN_MLP), dtype), tag,
-                                              grad_rtol=rtol)}
+    k_rtol = BF16_WIDE_GRAD_RTOL if bf16 else WIDE_KERNELS_GRAD_RTOL
+    out = {"kernels": check_step_cuda_vs_cpu(_merged(WIDE, dtype), tag + " kernels",
+                                             grad_rtol=k_rtol, keep_grad=WIDE_KEEP_GRAD)}
     if not bf16:
-        return out
-    try:
-        check_step_cuda_vs_cpu(_merged(_merged(WIDE, PLAIN_MLP), BF16), tag + " control",
-                               grad_rtol=rtol, card_over=dict(tpu=dict(compute_dtype="float32")))
-    except StepMismatch as err:
-        if not err.readings["grad"] > rtol:
-            raise AssertionError(f"the control missed, but its gradients are within {rtol}: "
-                                 f"{err}") from err
-        out["control"] = err.readings
-        phase(tag, f"control (the card without bf16 rounding) comes out not correct, as it "
-                   f"must: {err}")
-        return out
-    raise AssertionError("wide-check control: a step without bf16 rounding met the bf16 bounds")
+        # the same bounds on the presets' 8x256 chain (the unchanged 128-point kernels)
+        out["presets_8x256"] = check_step_cuda_vs_cpu(
+            PRESETS_8X256, tag + " kernels, the presets' 8x256 chain (L_3D=10)", grad_rtol=k_rtol,
+            keep_grad=WIDE_KEEP_GRAD)
+        out["kernels_control"] = _must_miss(tag, WIDE, tag + " kernels control (the card at bf16)",
+                                            k_rtol, BF16, keep_grad=WIDE_KEEP_GRAD)
+    out["readings"] = check_step_cuda_vs_cpu(_merged(_merged(WIDE, PLAIN_MLP), dtype), tag,
+                                             grad_rtol=rtol)
+    if bf16:
+        out["control"] = _must_miss(tag, _merged(_merged(WIDE, PLAIN_MLP), BF16),
+                                    tag + " control (the card without bf16 rounding)", rtol,
+                                    dict(tpu=dict(compute_dtype="float32")))
+    return out
 
 
 # Tiny config of the eval-check: 4 point and 2 view PE frequencies instead of
@@ -1666,6 +1869,32 @@ def run_bf16_slice(steps: int, fp32_rates: dict) -> dict:
     return out
 
 
+def run_wide_slice(steps: int, rates: dict) -> dict:
+    """wide-slice: the joint recipe at the full shape with the presets' MLP
+    at posenc.L_3D=12 (pts_enc 75 wide: the kernels' wide plans, 64-point
+    tiles), in float32 and bfloat16, on GT-depth correspondences: `steps`
+    timed steps of the joint coarse stage after one warm-up, their it/s
+    beside the L_3D=10 steps' of this run (`rates`: dtype -> it/s), and the
+    kernels' launches (only the dtype's own variants may launch)."""
+    out = {"launches": {}}
+    for tag, over in (("fp32", {}), ("bf16", BF16)):
+        trainer = _full_trainer("joint_pose_nerf_training/synthetic", "sparf", dict(
+            use_gt_correspondences=True, min_nbr_matches=100,
+            arch=dict(posenc=dict(L_3D=12)), **over))
+        if trainer.render_cfg.mlp.input_3d_dim != 75:
+            raise AssertionError("wide-slice: pts_enc is not 75 wide")
+        state, its, launches, losses = _timed_steps(trainer, 0, steps, f"wide-slice {tag}",
+                                                    bf16=tag == "bf16")
+        out[tag] = its
+        out["launches"][tag] = launches
+        phase("wide-slice", f"{tag} joint coarse (iteration 0), posenc.L_3D=12: {its:.3f} it/s "
+                            f"over {steps} steps after 1 warm-up (L_3D=10 in this call "
+                            f"{rates[tag]:.3f}), loss all={losses['all']:.5g}, launches of the "
+                            f"{tag} variants {launches}, of the other 0")
+        del trainer, state
+    return out
+
+
 def run_video_phase(trainer, n_frames: int = 8) -> dict:
     """generate_videos_synthesis on the full-shape trainer: n_frames of 300x400
     along the oscillation path, rgb and depth, through K3; each written file
@@ -2442,11 +2671,22 @@ def main() -> int:
     phase("build", f"{time.perf_counter() - t0:.1f} s, {_build.BuildInfo.path.name}; "
           + ptxas_summary(_build.BuildInfo.log))
 
-    # 3. kernels, the 3xTF32 and the bf16 variants
+    # 3. kernels, the 3xTF32 and the bf16 variants, on the presets' chain and
+    # on the other chains of the domain; routes: the domain's edges
     checks = check_kernels()
     checks_bf16 = check_kernels(bf16=True)
+    wide = {}
+    for chain in KERNEL_CHAINS:
+        for bf16 in (False, True):
+            r = check_kernels(bf16, chain)
+            wide[f"{'bf16' if bf16 else 'fp32'} {chain}"] = {
+                "plan": r["plan"], "max_abs_err": r["max_abs_err"], "flipped": r["flipped"],
+                "ms": r["ms"], "bound_ms": {k: b["bound_ms"] for k, b in r["bounds"].items()},
+                "share": {k: b["bound_ms"] / r["ms"][k] for k, b in r["bounds"].items()}}
+    routes = check_routes()
     if args.kernels_only:
-        print(json.dumps({"fp32": checks, "bf16": checks_bf16}))
+        print(json.dumps({"fp32": checks, "bf16": checks_bf16, "wide_chains": wide,
+                          "routes": routes}))
         return 0
 
     seconds = {}
@@ -2467,8 +2707,9 @@ def main() -> int:
     traj_bf16 = timed("bf16-trajectory-check", check_trajectory_cuda_vs_cpu, BF16, TRAJ_TOL_BF16,
                       "bf16-check")
     timed("bf16-cli", check_bf16_cli)
-    # wide-check: the kernels refuse a chain past their widths, use_pallas=False
-    # runs it; use_pallas=False at the tiny config's chain; card vs CPU
+    # wide-check: the wide chain through the kernels and with use_pallas=False,
+    # the kernels refuse a chain past their domain; use_pallas=False at the
+    # tiny config's chain; card vs CPU
     timed("wide-check", check_wide, False)
     timed("wide-check-bf16", check_wide, True)
     timed("use_pallas=False", check_step_cuda_vs_cpu, PLAIN_MLP, "use_pallas=False")
@@ -2483,6 +2724,9 @@ def main() -> int:
                matcher_pool_sizes=mp["PDCNet_geometry"]["pool_sizes"])
     # bf16 slice: the same step shape at compute_dtype bfloat16
     sb = timed("bf16-slice", run_bf16_slice, 3, sl)
+    # wide-slice: the full-shape joint step at posenc.L_3D=12 (the kernels' wide plans)
+    ws = timed("wide-slice", run_wide_slice, 3, {"fp32": sl["joint_coarse"],
+                                                 "bf16": sb["joint_coarse"]})
     # 8. eval-check: the tiny evaluation on the card against the CPU
     timed("eval-check", check_eval_cuda_vs_cpu)
     # 9. eval: the full-shape trainer's state through the eval entry point
@@ -2516,8 +2760,15 @@ def main() -> int:
     names = {"K1": "K1_fused_mlp_forward", "K2": "K2_fused_mlp_backward",
              "K3": "K3_fused_mlp_forward_packed"}
     kernels = []
-    for dtype, chk, paths in (("float32", checks, (sl, ev, fx, ds, ac, vd, ms, mu)),
-                              ("bfloat16", checks_bf16, (sb,))):
+    ws_paths = {k: {"launches": v} for k, v in ws["launches"].items()}
+    earlier = {k: sum(p["launches"][k] for p in (sl, ev, fx, ds, ac, vd, ms, mu))
+               for k in ("K1", "K2", "K3")}
+    phase("launches", f"fp32 K1/K2/K3 on the earlier paths {earlier}, on the wide-slice "
+                      f"{ws['launches']['fp32']}; bf16 on the bf16-slice {sb['launches']}, on the "
+                      f"wide-slice {ws['launches']['bf16']}")
+    for dtype, chk, paths in (("float32", checks, (sl, ev, fx, ds, ac, vd, ms, mu,
+                                                   ws_paths["fp32"])),
+                              ("bfloat16", checks_bf16, (sb, ws_paths["bf16"]))):
         for k in ("K1", "K2", "K3"):
             b = chk["bounds"][k]
             kernels.append({
@@ -2532,6 +2783,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels,
                       "it_per_sec": {k: sl[k] for k in ("joint_coarse", "fine")},
                       "bf16_it_per_sec": {k: sb[k] for k in ("joint_coarse", "fine")},
+                      "wide_slice": ws, "wide_chains": wide, "routes": routes,
                       "eval_s": {"render": ev["render_s"], "refine": ev["refine_s"]},
                       "video_s_per_frame": vd["s_per_frame"],
                       "trajectory_gaps": traj, "bf16_trajectory_gaps": traj_bf16,

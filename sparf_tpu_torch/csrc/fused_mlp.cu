@@ -59,7 +59,8 @@
 //     multiple of 8 ("extras", at most 4: the density unit of the 257-wide
 //     layer, the 3 RGB outputs) are spread over the warps one m-tile each.
 //   * K1/K3: 128-point tiles (8 m-tiles), 256 threads, one block per SM;
-//     shared memory 128 x (260 + 68 + 36) floats = 186,368 bytes.
+//     shared memory 128 x (260 + 68 + 36) floats = 186,368 bytes (the
+//     wide plan's tiles: below).
 //   * K2 in two passes. k2_backward: 128-point tiles (8 m-tiles), one block
 //     per tile; the recomputed forward (the same loop) stores each layer's
 //     input in a workspace in device memory (2,176 fp32 per point); then,
@@ -87,12 +88,33 @@
 //     output gradients, and store nothing. Padded rows and columns hold
 //     zeros, so they add nothing.
 //
-// Shapes the kernels take (build_desc and the shared-memory checks, else a
-// negative code, which sparf_fused_mlp_sizes_tf32 returns before any launch
-// and ops/fused_mlp.py raises as ValueError; cfg.tpu.use_pallas=False runs
-// such a chain in torch ops): every layer at most 288 outputs and 320
-// padded inputs, at most 4 n-tiles past a multiple of 8, activations within
-// the 227 KB of one block.
+// Shapes the kernels take, in two plans that build_desc picks per chain
+// before any launch (else a negative code, which sparf_fused_mlp_sizes_tf32
+// returns and ops/fused_mlp.py raises as ValueError; cfg.tpu.use_pallas=False
+// runs such a chain in torch ops):
+//   * 128-point tiles (the above; the presets' 8x256 chain): every layer at
+//     most 288 outputs and 320 padded inputs, at most 4 n-tiles (and k-steps
+//     of each input segment) past a multiple of 8, activations within one
+//     block. Unchanged by the wide plan: the same kernels and code.
+//   * The wide plan (k1_forward_w, k3_forward_w, k2_backward_w; every other
+//     chain of 1-16 layers with at most 512 features per layer, a 513-wide
+//     last trunk layer with its density unit, and pts_enc and view_enc at
+//     most 128 wide): 64-point tiles (4 m-tiles), so a warp's 128
+//     accumulators hold 8 n-tiles: a 520-wide product in one pass, and a
+//     layer's output still overwrites its input in place. Each product runs
+//     0, 1, 2, 4 or 8 rounds of 8 n-tiles per warp (wide_rounds: 5 bodies;
+//     one per round count 0-8 took the build from ~65 to 229 s) and up to 8
+//     n-tiles as extras (4 per warp at 4 m-tiles); where more would be left,
+//     the next count up with its last rounds reading zero fragments. Any
+//     remainder of n-tiles or k-steps works. Shared memory: K1/K3
+//     64 x (ld_act + ld_pts + ld_view) floats, at the corner (512 features,
+//     128-wide encodings: strides 516 + 132 + 132) 199,680 bytes; K2 the
+//     same buffers for its recompute, then g_z (row stride ld_g, 552 at 513
+//     outputs), d_pts and g_density over them, since the recompute's buffers
+//     are dead by then: max(199,680, 4 x 64 x (552 + 128 + 1) = 174,336).
+//     The fp32 workspace grows with the chain (x_total + g_total floats per
+//     point: 8,480 at 8x512 with a 128-wide head, 8.9 GB at T = 262,144,
+//     allocated by the caller as before).
 //
 // Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
 // K2_TIME_NO_DW and K2_TIME_NO_GX each drop one part of K2's work (the
@@ -122,9 +144,13 @@ constexpr int kLdG = 296;      // K2: row stride of the g_z buffer (= 8 mod 32)
 constexpr int kDwBM = 128, kDwBN = 128;  // k2_dw: output tile (outputs x padded inputs)
 constexpr int kDwBK = 32;      // k2_dw: points per stage
 constexpr int kDwSplits = 64;  // k2_dw: point ranges summed by k2_reduce
-constexpr int kMaxExtra = 4;   // n-tiles past a multiple of 8 per layer
+constexpr int kMaxExtra = 4;   // n-tiles past a multiple of 8 per layer (128-point tiles)
 constexpr int kMaxOut = 8 * (8 * 4 + kMaxExtra);  // 288: the forward's JN <= 4
 constexpr int kMaxSmem = 232448;
+// the wide plan (64-point tiles, 4 m-tiles, JN <= 8): every chain within these
+constexpr int kTileW = 64;
+constexpr int kMaxFeatW = 512;  // features of a layer (out, less the density unit)
+constexpr int kMaxEncW = 128;   // pts_enc, view_enc
 
 struct MLPDesc {
   int n_layers, n_feat;
@@ -150,6 +176,8 @@ struct MLPDesc {
   int t_off[kMaxLayers];  // K2: dW tiles before layer li
   const float* W[kMaxLayers];  // (out, in) row-major
   const float* b[kMaxLayers];
+  int wide;          // 1: the wide plan (64-point tiles), 0: 128-point tiles
+  int ld_g;          // K2 wide: row stride of the g_z buffer (= 8 mod 32)
 };
 
 __host__ __device__ constexpr int pad_to(int x, int m) { return (x + m - 1) / m * m; }
@@ -159,6 +187,31 @@ __host__ __device__ constexpr int ld_mod(int w, int r) { return w + ((32 + r - w
 
 // Host-side description of the chain. dims = [n_feat, n_rgb, d_in, d_view,
 // view_dep, (out, in, skip) per layer]; params = [W0, b0, W1, b1, ...].
+int k1_smem_bytes(const MLPDesc& d) {
+  return 4 * (d.wide ? kTileW : kTile1) * (d.ld_act + d.ld_pts + d.ld_view);
+}
+
+// K2 at 128-point tiles: floats of the forward's buffers or of g_z, whichever
+// is larger (aliased)
+__host__ __device__ inline int k2_main_floats(const MLPDesc& d) {
+  const int fwd = kTile2 * (d.ld_act + d.ld_pts + d.ld_view), bwd = kTile2 * kLdG;
+  return fwd > bwd ? fwd : bwd;
+}
+
+// K2 wide: the forward's buffers, or g_z, d_pts and g_density over them (the
+// forward's buffers are dead once the recompute is done)
+int k2_smem_bytes(const MLPDesc& d) {
+  if (!d.wide) return 4 * (k2_main_floats(d) + kTile2 * d.d_in + kTile2);
+  const int fwd = kTileW * (d.ld_act + d.ld_pts + d.ld_view), bwd = kTileW * (d.ld_g + d.d_in + 1);
+  return 4 * (fwd > bwd ? fwd : bwd);
+}
+
+// Host-side description of the chain. dims = [n_feat, n_rgb, d_in, d_view,
+// view_dep, (out, in, skip) per layer]; params = [W0, b0, W1, b1, ...]. The
+// chains of 128-point tiles are those of the first plan (every layer at most
+// 288 outputs and 320 padded inputs, at most 4 n-tiles past a multiple of 8,
+// the activations within one block); every other chain in the domain takes
+// the wide plan.
 int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
   d->n_feat = dims[0];
   const int n_rgb = dims[1];
@@ -168,16 +221,20 @@ int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
   d->d_view = dims[3];
   d->view_dep = dims[4];
   const int ks = 8;  // the k-step
-  int off = 0, frag = 0, part = 0, x_total = 0, g_total = 0, tiles = 0, max_w1 = 0;
+  int off = 0, frag = 0, part = 0, x_total = 0, g_total = 0, tiles = 0, max_w1 = 0, max_g = 16;
+  bool narrow = true;  // the 128-point plan takes every layer
+  bool wide = d->d_in <= kMaxEncW && d->d_view <= kMaxEncW;  // the wide plan takes every layer
   for (int li = 0; li < d->n_layers; ++li) {
     const int out = dims[5 + 3 * li], in = dims[6 + 3 * li], skip = dims[7 + 3 * li];
     const int w2 = skip ? d->d_in : ((li == d->n_feat && d->view_dep) ? d->d_view : 0);
-    const int w1 = in - w2;
+    const int w1 = in - w2, dens = li == d->n_feat - 1 ? 1 : 0;
     const int k1p = pad_to(w1, ks), kp = k1p + pad_to(w2, ks), np = pad_to(out, ks);
-    if (out < 1 || w1 < 1 || kp > kMaxPad || np > kMaxOut) return -2;
-    if ((np / 8) % 8 > kMaxExtra || (k1p / 8) % 8 > kMaxExtra || ((kp - k1p) / 8) % 8 > kMaxExtra)
-      return -2;
-    if (k1p > 8 * (8 * 4 + kMaxExtra) || kp - k1p > 8 * (8 * 4 + kMaxExtra)) return -2;
+    if (out < 1 || w1 < 1) return -2;
+    if (kp > kMaxPad || np > kMaxOut || (np / 8) % 8 > kMaxExtra || (k1p / 8) % 8 > kMaxExtra ||
+        ((kp - k1p) / 8) % 8 > kMaxExtra || k1p > kMaxOut || kp - k1p > kMaxOut)
+      narrow = false;
+    if (out - dens > kMaxFeatW || k1p > kMaxFeatW || kp - k1p > kMaxEncW) wide = false;
+    if (!narrow && !wide) return -2;
     if (li == 0 && (skip || w1 != d->d_in)) return -3;
     if (li > 0) {
       const int prev = d->out_dim[li - 1] - (li - 1 == d->n_feat - 1 ? 1 : 0);
@@ -203,6 +260,7 @@ int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
     part += pad16(out) * kp + (out + 3) / 4 * 4;
     d->z_off[li] = g_total;
     g_total += pad16(out);
+    if (pad16(out) > max_g) max_g = pad16(out);
     d->t_off[li] = tiles;
     tiles += ((pad16(out) + kDwBM - 1) / kDwBM) * ((kp + kDwBN - 1) / kDwBN);
     d->W[li] = static_cast<const float*>(params[2 * li]);
@@ -218,18 +276,13 @@ int build_desc(const int* dims, const void* const* params, MLPDesc* d) {
   d->ld_act = ld_mod(pad_to(max_w1, ks), 4);
   d->ld_pts = ld_mod(pad_to(d->d_in, ks), 4);
   d->ld_view = ld_mod(pad_to(d->d_view > 0 ? d->d_view : 1, ks), 4);
+  d->ld_g = ld_mod(max_g, 8);
+  d->wide = 0;
+  if (narrow && k1_smem_bytes(*d) <= kMaxSmem && k2_smem_bytes(*d) <= kMaxSmem) return 0;
+  if (!wide) return narrow ? 0 : -2;  // narrow: the shared-memory checks refuse it (-4)
+  d->wide = 1;
   return 0;
 }
-
-int k1_smem_bytes(const MLPDesc& d) { return 4 * kTile1 * (d.ld_act + d.ld_pts + d.ld_view); }
-
-// K2: floats of the forward's buffers or of g_z, whichever is larger (aliased)
-__host__ __device__ inline int k2_main_floats(const MLPDesc& d) {
-  const int fwd = kTile2 * (d.ld_act + d.ld_pts + d.ld_view), bwd = kTile2 * kLdG;
-  return fwd > bwd ? fwd : bwd;
-}
-
-int k2_smem_bytes(const MLPDesc& d) { return 4 * (k2_main_floats(d) + kTile2 * d.d_in + kTile2); }
 
 // ---------------------------------------------------------------------------
 // the MMA (3xTF32)
@@ -314,11 +367,15 @@ struct AOperand {
 // w; B comes as packed fragments Bf[(ks * NT + nt) * 32 + lane]. With
 // kPrefetch the next k-step's fragments are loaded while this one's MMAs run
 // (K2's g_x goes without: it has more live state, and the registers spilled).
-template <int MT, int JN, bool kPrefetch = true>
+// kPred (the wide plan): the rounds' n-tiles at or past n_on load zero
+// fragments (their sums are never read), so one body serves a range of
+// widths without a branch among the MMAs (a body of its own, so that the
+// 128-point plan compiles as it did).
+template <int MT, int JN, bool kPrefetch = true, bool kPred = false>
 __device__ __forceinline__ void mma_rows(const AOperand& A, int KS,
                                          const Frag* __restrict__ Bf, int NT,
-                                         float (&acc)[MT][JN > 0 ? JN : 1][4]) {
-  if constexpr (JN > 0) {
+                                         float (&acc)[MT][JN > 0 ? JN : 1][4], int n_on = 0) {
+  if constexpr (JN > 0 && !kPred) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
     const Frag* bp = Bf + warp * 32 + lane;
     Frag b[JN], bn[JN];
@@ -346,8 +403,61 @@ __device__ __forceinline__ void mma_rows(const AOperand& A, int KS,
           b[j] = __ldg(bp + ((size_t)(ks + 1) * NT + j * 8) * 32);
       }
     }
+  } else if constexpr (JN > 0) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+    const Frag* bp = Bf + warp * 32 + lane;
+    const Frag zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto ld = [&](int ks, int j) {
+      return warp + 8 * j < n_on ? __ldg(bp + ((size_t)ks * NT + j * 8) * 32) : zero;
+    };
+    Frag b[JN], bn[JN];
+#pragma unroll
+    for (int j = 0; j < JN; ++j) b[j] = ld(0, j);
+    for (int ks = 0; ks < KS; ++ks) {
+      if (kPrefetch && ks + 1 < KS) {
+#pragma unroll
+        for (int j = 0; j < JN; ++j) bn[j] = ld(ks + 1, j);
+      }
+      int lda;
+      const float* a = A.at<Tf32x3::kK>(ks, lda);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        AFrag af;
+        Tf32x3::load_a(a + m * 16 * lda, lda, g, t, af);
+#pragma unroll
+        for (int j = 0; j < JN; ++j) Tf32x3::mma(acc[m][j], af, b[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        if (kPrefetch)
+          b[j] = bn[j];
+        else if (ks + 1 < KS)
+          b[j] = ld(ks + 1, j);
+      }
+    }
   }
 }
+
+// The wide plan's rounds of 8 n-tiles per warp for a product over nt
+// n-tiles: 0, 1, 2, 4 or 8, the rest as extras (at 4 m-tiles up to 8
+// n-tiles); where more would be left, the next count up, its last rounds
+// predicated (mma_rows kPred).
+__host__ __device__ inline int wide_rounds(int nt) {
+  for (int jn = 8; jn >= 1; jn /= 2)
+    if (nt >= 8 * jn) return nt - 8 * jn <= 8 ? jn : 2 * jn;
+  return 0;
+}
+
+#define SPARF_WIDE_ROUNDS(n_tiles, CALL)                               \
+  do {                                                                 \
+    switch (wide_rounds(n_tiles)) {                                    \
+      case 0: CALL(0, true); break;                                    \
+      case 1: CALL(1, true); break;                                    \
+      case 2: CALL(2, true); break;                                    \
+      case 4: CALL(4, true); break;                                    \
+      default: CALL(8, true); break;                                   \
+    }                                                                  \
+  } while (0)
 
 // The extra n-tiles 8 JN + e, e < R <= kMaxExtra, over MT m-tiles: pair q =
 // warp + 8 i is (m-tile q % MT, n-tile 8 JN + q / MT).
@@ -426,29 +536,6 @@ __device__ __forceinline__ void init_acc(float (&acc)[MT][JN > 0 ? JN : 1][4],
 // forward (K1, K3, K2's recompute)
 // ---------------------------------------------------------------------------
 
-// Calls CALL(JN, kExtras) for a product over n_tiles n-tiles: JN full rounds
-// of 8 (one n-tile per warp each), the rest as extras.
-#define SPARF_DISPATCH_JN(n_tiles, CALL)                               \
-  do {                                                                 \
-    const int nt_ = (n_tiles);                                         \
-    if (nt_ % 8) {                                                     \
-      switch (nt_ / 8) {                                               \
-        case 0: CALL(0, true); break;                                  \
-        case 1: CALL(1, true); break;                                  \
-        case 2: CALL(2, true); break;                                  \
-        case 3: CALL(3, true); break;                                  \
-        default: CALL(4, true); break;                                 \
-      }                                                                \
-    } else {                                                           \
-      switch (nt_ / 8) {                                               \
-        case 1: CALL(1, false); break;                                 \
-        case 2: CALL(2, false); break;                                 \
-        case 3: CALL(3, false); break;                                 \
-        default: CALL(4, false); break;                                \
-      }                                                                \
-    }                                                                  \
-  } while (0)
-
 // One layer over a tile of MT * 16 points. X1 (stride ld1) holds the layer's
 // first input segment, X2 (ld2) the second; Y (ldy) gets the ReLU of the
 // output, over X1 when they alias. Modes: 0 = ReLU into Y; 1 = last trunk
@@ -473,7 +560,9 @@ __device__ void forward_layer_j(const MLPDesc& d, const Frag* __restrict__ F, in
   if (xs == nullptr)
 #endif
   {
-    mma_rows<MT, JN>(A, d.kp[li] / Tf32x3::kK, Bf, NT, acc);
+    // (the wide plan: every n-tile below NT, past 4 per warp without the
+    // prefetch, whose fragments would spill)
+    mma_rows<MT, JN, (JN <= 4), (MT != 8)>(A, d.kp[li] / Tf32x3::kK, Bf, NT, acc, NT);
     mma_extras<MT, kExtras>(A, d.kp[li] / Tf32x3::kK, Bf, NT, 8 * JN, R, ext);
   }
   __syncthreads();  // every warp has read the input; Y may overwrite it
@@ -503,16 +592,22 @@ __device__ __forceinline__ void forward_layer(const MLPDesc& d, const Frag* F, i
                                               float* Y, int ldy, float* out_g, float* xs, int p0,
                                               int T) {
   // one body per JN, with the extras code (an extras-free second body per JN
-  // made the register allocation spill in K1)
+  // made the register allocation spill in K1); the wide plan: wide_rounds
 #define SPARF_FWD(JN) \
   forward_layer_j<MT, JN, true>(d, F, li, X1, ld1, X2, ld2, Y, ldy, out_g, xs, p0, T)
-  switch (d.np[li] / 64) {
-    case 0: SPARF_FWD(0); break;
-    case 1: SPARF_FWD(1); break;
-    case 2: SPARF_FWD(2); break;
-    case 3: SPARF_FWD(3); break;
-    default: SPARF_FWD(4); break;
+#define SPARF_FWD2(JN, EXTRAS) SPARF_FWD(JN)
+  if constexpr (MT == 8) {
+    switch (d.np[li] / 64) {
+      case 0: SPARF_FWD(0); break;
+      case 1: SPARF_FWD(1); break;
+      case 2: SPARF_FWD(2); break;
+      case 3: SPARF_FWD(3); break;
+      default: SPARF_FWD(4); break;
+    }
+  } else {
+    SPARF_WIDE_ROUNDS(d.np[li] / 8, SPARF_FWD2);
   }
+#undef SPARF_FWD2
 #undef SPARF_FWD
 }
 
@@ -570,6 +665,24 @@ k3_forward(MLPDesc d, const Frag* __restrict__ F, const float* __restrict__ pts,
   extern __shared__ float4 smem4[];
   forward_tile<kTile1 / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
                                d.n_layers, blockIdx.x * kTile1, T);
+}
+
+// The wide plan's K1 and K3: the same loop on 64-point tiles (4 m-tiles, up
+// to 8 n-tiles per warp)
+__global__ void __launch_bounds__(kThreads, 1)
+k1_forward_w(MLPDesc d, const Frag* __restrict__ F, const float* __restrict__ pts,
+             const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ float4 smem4[];
+  forward_tile<kTileW / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+                            d.n_layers, blockIdx.x * kTileW, T);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+k3_forward_w(MLPDesc d, const Frag* __restrict__ F, const float* __restrict__ pts,
+             const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ float4 smem4[];
+  forward_tile<kTileW / 16>(d, F, pts, view, reinterpret_cast<float*>(smem4), out, nullptr, 0,
+                            d.n_layers, blockIdx.x * kTileW, T);
 }
 
 // ---------------------------------------------------------------------------
@@ -633,34 +746,64 @@ __device__ __forceinline__ LayerInput layer_input(const MLPDesc& d, int li,
                     d.in_dim[li] - w1, d.k1p[li], w1, x_rows, T};
 }
 
+// K2's g_z buffer: row stride (kLdG at 128-point tiles, the descriptor's in
+// the wide plan)
+template <int MT>
+__device__ __forceinline__ int g_stride(const MLPDesc& d) {
+  return MT == kTile2 / 16 ? kLdG : d.ld_g;
+}
+
+// Calls CALL(JN, kExtras) for a product over n_tiles n-tiles: JN full rounds
+// of 8 (one n-tile per warp each), the rest as extras (128-point tiles; the
+// wide plan calls one predicated body per segment, gx_layer).
+#define SPARF_DISPATCH_JN(n_tiles, CALL)                               \
+  do {                                                                 \
+    const int nt_ = (n_tiles);                                         \
+    if (nt_ % 8) {                                                     \
+      switch (nt_ / 8) {                                               \
+        case 0: CALL(0, true); break;                                  \
+        case 1: CALL(1, true); break;                                  \
+        case 2: CALL(2, true); break;                                  \
+        case 3: CALL(3, true); break;                                  \
+        default: CALL(4, true); break;                                 \
+      }                                                                \
+    } else {                                                           \
+      switch (nt_ / 8) {                                               \
+        case 1: CALL(1, false); break;                                 \
+        case 2: CALL(2, false); break;                                 \
+        case 3: CALL(3, false); break;                                 \
+        default: CALL(4, false); break;                                \
+      }                                                                \
+    }                                                                  \
+  } while (0)
+
 // g_x = G W over the n-tiles [nt0, nt0 + 8 JN + R) of the padded input,
-// into acc (warp w: n-tiles nt0 + w + 8 j, then the extras).
-template <int JN, bool kExtras>
+// into acc (warp w: n-tiles nt0 + w + 8 j, then the extras; the wide plan:
+// with R < 0, the rounds' n-tiles below nt0 + 8 JN + R).
+template <int MT, int JN, bool kExtras>
 __device__ __forceinline__ void gx_mma(const MLPDesc& d, const Frag* __restrict__ FT,
                                        int li, const float* G, int nt0, int R,
-                                       float (&acc)[kTile2 / 16][JN > 0 ? JN : 1][4],
+                                       float (&acc)[MT][JN > 0 ? JN : 1][4],
                                        float (&ext)[kMaxExtra][4]) {
-  constexpr int MT = kTile2 / 16;
-  const int NT = d.kp[li] / 8;
+  const int NT = d.kp[li] / 8, ldG = g_stride<MT>(d);
   init_acc<MT, JN, kExtras>(acc, ext, R, nullptr, 0);
 #ifndef K2_TIME_NO_GX
-  const AOperand A{G, kLdG, d.np[li] / Tf32x3::kK, G, kLdG};
+  const AOperand A{G, ldG, d.np[li] / Tf32x3::kK, G, ldG};
   const Frag* Bf = FT + d.f_off[li] + nt0 * 32;
-  mma_rows<MT, JN, false>(A, d.np[li] / Tf32x3::kK, Bf, NT, acc);
+  mma_rows<MT, JN, false, (MT != 8)>(A, d.np[li] / Tf32x3::kK, Bf, NT, acc, 8 * JN + R);
   mma_extras<MT, kExtras>(A, d.np[li] / Tf32x3::kK, Bf, NT, 8 * JN, R, ext);
 #endif
 }
 
 // g_x of the skip (pts_enc) or view segment: added into d_pts or written to
 // d_view. Reads G and writes nothing that another warp reads.
-template <int JN, bool kExtras>
+template <int MT, int JN, bool kExtras>
 __device__ void gx_seg2_j(const MLPDesc& d, const Frag* FT, int li, const float* G,
                           float* s_dpts, float* __restrict__ d_view_g, int p0, int T) {
-  constexpr int MT = kTile2 / 16;
   const int k1p = d.k1p[li], w2 = d.in_dim[li] - d.w1[li];
   const int R = (d.kp[li] - k1p) / 8 - 8 * JN;
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
-  gx_mma<JN, kExtras>(d, FT, li, G, k1p / 8, R, acc, ext);
+  gx_mma<MT, JN, kExtras>(d, FT, li, G, k1p / 8, R, acc, ext);
   for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
     if (k >= w2) return;
     if (d.skip[li])
@@ -673,14 +816,14 @@ __device__ void gx_seg2_j(const MLPDesc& d, const Frag* FT, int li, const float*
 // g_x of the feature segment: into d_pts at layer 0; otherwise masked by
 // X > 0 (the ReLU of the previous layer) into the previous layer's g_z,
 // written over G once every warp is done reading it.
-template <int JN, bool kExtras>
+template <int MT, int JN, bool kExtras>
 __device__ void gx_seg1_j(const MLPDesc& d, const Frag* FT, int li, float* G,
                           const LayerInput& X, float* s_dpts, const float* s_gd, int p0) {
-  constexpr int MT = kTile2 / 16;
-  const int w1 = d.w1[li], R = d.k1p[li] / 8 - 8 * JN;
+  constexpr int P = MT * 16;
+  const int w1 = d.w1[li], R = d.k1p[li] / 8 - 8 * JN, ldG = g_stride<MT>(d);
   const int shift = (li == d.n_feat) ? 1 : 0;  // g_z of the last trunk layer starts with g_density
   float acc[MT][JN > 0 ? JN : 1][4], ext[kMaxExtra][4];
-  gx_mma<JN, kExtras>(d, FT, li, G, 0, R, acc, ext);
+  gx_mma<MT, JN, kExtras>(d, FT, li, G, 0, R, acc, ext);
   if (li == 0) {
     for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
       if (k < w1) s_dpts[p * d.d_in + k] += v;
@@ -694,27 +837,33 @@ __device__ void gx_seg1_j(const MLPDesc& d, const Frag* FT, int li, float* G,
   });
   __syncthreads();  // every warp is done reading G
   for_each_acc<MT, JN, kExtras>(acc, ext, R, 0, [&](int p, int k, float v) {
-    if (k < w1) G[p * kLdG + k + shift] = v;
+    if (k < w1) G[p * ldG + k + shift] = v;
   });
   const int n_prev = w1 + shift, n_pad = pad16(n_prev) - n_prev;
-  for (int idx = threadIdx.x; idx < kTile2 * n_pad; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < P * n_pad; idx += kThreads) {
     const int p = idx / n_pad;
-    G[p * kLdG + n_prev + idx - p * n_pad] = 0.f;
+    G[p * ldG + n_prev + idx - p * n_pad] = 0.f;
   }
   if (shift)
-    for (int p = threadIdx.x; p < kTile2; p += kThreads) G[p * kLdG] = s_gd[p];
+    for (int p = threadIdx.x; p < P; p += kThreads) G[p * ldG] = s_gd[p];
 }
 
 // One layer's g_x: the second segment first, then the features (whose
 // routing overwrites G).
+template <int MT>
 __device__ __forceinline__ void gx_layer(const MLPDesc& d, const Frag* FT, int li,
                                          float* G, const LayerInput& X, float* s_dpts,
                                          const float* s_gd, float* d_view_g, int p0, int T) {
   const int nt2 = (d.kp[li] - d.k1p[li]) / 8, nt1 = d.k1p[li] / 8;
-#define SPARF_SEG2(JN, EXTRAS) gx_seg2_j<JN, EXTRAS>(d, FT, li, G, s_dpts, d_view_g, p0, T)
-#define SPARF_SEG1(JN, EXTRAS) gx_seg1_j<JN, EXTRAS>(d, FT, li, G, X, s_dpts, s_gd, p0)
-  if (nt2 > 0) SPARF_DISPATCH_JN(nt2, SPARF_SEG2);
-  SPARF_DISPATCH_JN(nt1, SPARF_SEG1);
+#define SPARF_SEG2(JN, EXTRAS) gx_seg2_j<MT, JN, EXTRAS>(d, FT, li, G, s_dpts, d_view_g, p0, T)
+#define SPARF_SEG1(JN, EXTRAS) gx_seg1_j<MT, JN, EXTRAS>(d, FT, li, G, X, s_dpts, s_gd, p0)
+  if constexpr (MT == 8) {
+    if (nt2 > 0) SPARF_DISPATCH_JN(nt2, SPARF_SEG2);
+    SPARF_DISPATCH_JN(nt1, SPARF_SEG1);
+  } else {
+    if (nt2 > 0) SPARF_WIDE_ROUNDS(nt2, SPARF_SEG2);
+    SPARF_WIDE_ROUNDS(nt1, SPARF_SEG1);
+  }
 #undef SPARF_SEG2
 #undef SPARF_SEG1
 }
@@ -756,10 +905,55 @@ k2_backward(MLPDesc d, const Frag* __restrict__ F,
       gdst[idx] = reinterpret_cast<const float4*>(G + p * kLdG)[c];
     }
     const LayerInput X = layer_input(d, li, xws, x_rows, pts, view, T);
-    gx_layer(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
+    gx_layer<kTile2 / 16>(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
     __syncthreads();  // G holds the previous layer's g_z
   }
   for (int idx = tid; idx < kTile2 * d.d_in; idx += kThreads) {
+    const int p = idx / d.d_in;
+    if (p0 + p < T) d_pts[(size_t)p0 * d.d_in + idx] = s_dpts[idx];
+  }
+}
+
+// The wide plan's pass 1: the same on 64-point tiles (k2_backward keeps a
+// body of its own, so that it compiles as it did). Shared memory: the
+// forward's buffers, then G (row stride ld_g), d_pts and g_density over them:
+// the recompute's buffers are dead by then.
+__global__ void __launch_bounds__(kThreads, 1)
+k2_backward_w(MLPDesc d, const Frag* __restrict__ F,
+              const Frag* __restrict__ FT, const float* __restrict__ pts,
+              const float* __restrict__ view, const float* __restrict__ gout,
+              float* __restrict__ d_pts, float* __restrict__ d_view_g, float* __restrict__ xws,
+              float* __restrict__ gws, int T, int x_rows) {
+  constexpr int P = kTileW;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ldG = d.ld_g;
+  float* s_dpts = smem + P * ldG;
+  float* s_gd = s_dpts + P * d.d_in;
+  float* G = smem;  // g_z of the current layer, over the recompute's buffers
+  const int tid = threadIdx.x, p0 = blockIdx.x * P;
+
+  forward_tile<P / 16>(d, F, pts, view, smem, nullptr, xws, x_rows, d.n_layers - 1, p0, T);
+  for (int idx = tid; idx < P * 16; idx += kThreads) {  // g_z of the last layer
+    const int p = idx >> 4, o = idx & 15;
+    G[p * ldG + o] = (o < 3 && p0 + p < T) ? gout[(size_t)(p0 + p) * 4 + 1 + o] : 0.f;
+  }
+  for (int p = tid; p < P; p += kThreads) s_gd[p] = (p0 + p < T) ? gout[(size_t)(p0 + p) * 4] : 0.f;
+  for (int idx = tid; idx < P * d.d_in; idx += kThreads) s_dpts[idx] = 0.f;
+  __syncthreads();
+
+  for (int li = d.n_layers - 1; li >= 0; --li) {
+    const int ldg = pad16(d.out_dim[li]) / 4;
+    float4* gdst = reinterpret_cast<float4*>(gws + (size_t)x_rows * d.z_off[li]) + (size_t)p0 * ldg;
+    for (int idx = tid; idx < P * ldg; idx += kThreads) {
+      const int p = idx / ldg, c = idx - p * ldg;
+      gdst[idx] = reinterpret_cast<const float4*>(G + p * ldG)[c];
+    }
+    const LayerInput X = layer_input(d, li, xws, x_rows, pts, view, T);
+    gx_layer<P / 16>(d, FT, li, G, X, s_dpts, s_gd, d_view_g, p0, T);
+    __syncthreads();  // G holds the previous layer's g_z
+  }
+  for (int idx = tid; idx < P * d.d_in; idx += kThreads) {
     const int p = idx / d.d_in;
     if (p0 + p < T) d_pts[(size_t)p0 * d.d_in + idx] = s_dpts[idx];
   }
@@ -899,14 +1093,14 @@ int forward(const MLPDesc& d, const float* pts, const float* view, float* out, i
   if (smem > kMaxSmem) return -4;
   if (T <= 0) return 0;
   void (*kernel)(MLPDesc, const Frag*, const float*, const float*, float*, int) =
-      k3_forward;
+      d.wide ? k3_forward_w : k3_forward;
   if (!packed) {
     const int rc = launch_pack(d, frag, nullptr, s);
     if (rc != 0) return rc;
-    kernel = k1_forward;
+    kernel = d.wide ? k1_forward_w : k1_forward;
   }
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int blocks = (T + kTile1 - 1) / kTile1;
+  const int tile = d.wide ? kTileW : kTile1, blocks = (T + tile - 1) / tile;
   kernel<<<blocks, kThreads, smem, s>>>(d, static_cast<const Frag*>(frag), pts, view,
                                         out, T);
   return static_cast<int>(cudaGetLastError());
@@ -923,8 +1117,10 @@ int backward(const MLPDesc& d, const float* pts, const float* view, const float*
   if (rc != 0) return rc;
   float* xws = workspace;
   float* gws = workspace + (size_t)x_rows * d.x_total;
-  cudaFuncSetAttribute(k2_backward, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  k2_backward<<<n_tiles, kThreads, smem, s>>>(
+  // the workspace's rows: T rounded up to 128 in either plan
+  const auto kernel = d.wide ? k2_backward_w : k2_backward;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<x_rows / (d.wide ? kTileW : kTile2), kThreads, smem, s>>>(
       d, static_cast<const Frag*>(frag), static_cast<const Frag*>(frag_t),
       pts, view, gout, d_pts, d_view, xws, gws, T, x_rows);
   rc = static_cast<int>(cudaGetLastError());
@@ -943,9 +1139,10 @@ int backward(const MLPDesc& d, const float* pts, const float* view, const float*
 
 extern "C" {
 
-// [n_params, n_frag_elems, n_part, x_total, g_total, n_splits] of the chain
-// (n_frag_elems: floats of one fragment set, 4 per fragment), or a negative
-// code: also -4 where K1's or K2's activations do not fit one block.
+// [n_params, n_frag_elems, n_part, x_total, g_total, n_splits, tile] of the
+// chain (n_frag_elems: floats of one fragment set, 4 per fragment; tile: the
+// points of one block of K1, K2 and K3, 128 or 64 in the wide plan), or a
+// negative code: also -4 where K1's or K2's activations do not fit one block.
 int sparf_fused_mlp_sizes_tf32(const int* dims, int* sizes) {
   static const void* const null_params[2 * kMaxLayers] = {};
   MLPDesc d;
@@ -958,6 +1155,7 @@ int sparf_fused_mlp_sizes_tf32(const int* dims, int* sizes) {
   sizes[3] = d.x_total;
   sizes[4] = d.g_total;
   sizes[5] = kDwSplits;
+  sizes[6] = d.wide ? kTileW : kTile1;
   return 0;
 }
 

@@ -90,13 +90,43 @@
 //     (from 2.11 on mma.sync) and K2 3.55 ms (from 13.66) at T = 262,144;
 //     of K2, the dW pass 0.94 ms; K3's time is beside them in PERF.md.
 //
-// Shapes the kernels take (build_wg_desc, else a negative code; its mirror
-// ops/fused_mlp.py::wg_layout, and a chain they refuse runs the plain chain
-// on the card): pts_enc and view_enc at most 64 wide, the features of every
-// layer at most 256 and padded to 64, 128 or 256 where they are a g_x
-// product's width, the RGB output 3. Widening them (a second pts_enc chunk
-// is 7 x 16 KB of activations beside the 3-stage ring, against the 227 KB
-// of one block) waits for a configuration that needs it.
+// Shapes the kernels take, in two plans that build_wg_desc picks per chain
+// before any launch (else -7, which sparf_fused_mlp_wg_sizes returns and
+// ops/fused_mlp.py raises as ValueError naming cfg.tpu.use_pallas=False; its
+// mirror is ops/fused_mlp.py::wg_layout):
+//   * Plan M (k1_wg, k2_wg, k3_wg; the design above, unchanged, and the
+//     presets' 8x256 chain): pts_enc and view_enc at most 64 wide, every
+//     layer's features at most 256 and, as a layer's input, padded to 64,
+//     128 or 256. At the last trunk layer the density row sits at nm >= 64,
+//     past the next layer's padded input (with 32 features or fewer it sat
+//     at 8 or 32, where that input's zeros overwrote its gradient).
+//   * Plan N (k1_wg_n, k2_wg_n, k3_wg_n; every other chain of 1-16 layers
+//     with at most 512 features per layer and pts_enc and view_enc at most
+//     128 wide): 64-point tiles, and the two consumer warpgroups split N
+//     instead of M: each takes one half of every product (the forward's
+//     nm / 2 = pad64(features) / 2, a multiple of 32, 8 at the RGB output;
+//     g_x's k1p / 2 and pad64(w2) / 2) for the tile's 64 points, so a
+//     512-wide layer is two m64n256 products, 128 accumulators per thread
+//     as in plan M, and the forward's halves are g_x's, so a thread's ReLU
+//     mask bits are its own again in the backward. Activations: chunks of
+//     [64 points][64 columns] (8 KB): the features (pad64 of the widest
+//     input), then pts_enc's and view_enc's (1 or 2 each); g_z over them.
+//     Weights: each k-chunk is two ring stages, warpgroup 0's rows then 1's
+//     (with the density rows at the last trunk layer), loaded as boxes of 32
+//     rows (8 for the RGB output and the density rows: the 128-byte swizzle
+//     repeats every 8 rows, so boxes laid end to end read as one); each
+//     warpgroup waits only for its own stages, on full barriers of its own
+//     (Ring::acquire_own: TMA fills of two slots complete in either order),
+//     and releases them (4 warps per empty barrier). Both warpgroups read every
+//     input chunk and the epilogue overwrites them in place, so a barrier of
+//     the 256 consumer threads (bar.sync 3) stands before each epilogue and
+//     after it, and one thread issues the workspace's TMA stores. Shared
+//     memory at the corner (512 features, both encodings 128 wide): 12
+//     chunks, 96 KB; the ring, 3 x 33 KB; dbuf for 576 columns (512
+//     features, the density unit) x 8 warps, 18 KB; the barriers and 1 KB of
+//     alignment: 219,208 bytes of 232,448. K2's dW pass and its reduction
+//     are plan M's (they read only the workspace, whose rows are T rounded
+//     up to 128 in both plans).
 //
 // Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
 // K2_TIME_NO_DW and K2_TIME_NO_GX drop the recompute's MMAs, the dW pass and
@@ -120,6 +150,7 @@ constexpr int kConsumers = 256;
 constexpr int kChunkBytes = kTile * 128;   // one [128 points][64 bf16] chunk
 constexpr int kRowsBytes = 64 * 128;       // one warpgroup's 64 points of a chunk
 constexpr int kActChunks = 6;              // features 0-3, pts_enc 4, view_enc 5
+constexpr int kDbufColsN = 576;            // plan N: g_z columns (512 features, the density unit)
 constexpr int kFwdStages = 3;
 constexpr int kStageBytes = (256 + 8) * 128;  // W box of up to 256 rows + the density rows
 constexpr int kDbufCols = 320;
@@ -162,6 +193,14 @@ struct WgDesc {
   int to[kMaxLayers + 1], nnt[kMaxLayers];  // dW tiles before the layer; n-tiles per m-block
   const float* W[kMaxLayers];
   const float* b[kMaxLayers];
+  int plan;        // 0: plan M (128-point tiles), 1: plan N (64-point tiles, split outputs)
+  // a warpgroup's share of each product: the forward's N (plan M nm, plan N
+  // nm / 2), g_x's N over the features (k1p, k1p / 2) and over the second
+  // segment (64, its padded width / 2); that segment's chunks
+  int nw[kMaxLayers], nx[kMaxLayers], n2w[kMaxLayers], n2c[kMaxLayers];
+  // plan N's shared memory: activation chunks, first pts_enc and view_enc
+  // chunk, offsets of the ring, dbuf and the barriers, bytes in all
+  int n_act, c_pts, c_view, nc_pts, nc_view, ring_off, dbuf_off, bar_off, smem;
 };
 
 struct Maps {
@@ -182,42 +221,64 @@ int n_tiles_of(int kp) {  // dW n-tiles over kp columns: 256 while it lasts, the
   return n;
 }
 
-// dims = [n_feat, n_rgb, d_in, d_view, view_dep, (out, in, skip) per layer];
-// params = [W0, b0, W1, b1, ...] (fp32, W (out, in)).
-int build_wg_desc(const int* dims, const void* const* params, WgDesc* d) {
+// The chain's layer rows, padded inputs, workspace columns and weight
+// offsets in plan M (split = false) or plan N; false where the plan does not
+// take the chain (a width) or its widths do not match (*bad).
+bool layout_wg_desc(const int* dims, const void* const* params, bool split, WgDesc* d, bool* bad) {
   memset(d, 0, sizeof(*d));
+  d->plan = split ? 1 : 0;
   d->n_feat = dims[0];
   const int n_rgb = dims[1];
   d->n_layers = d->n_feat + n_rgb;
-  if (d->n_feat < 1 || n_rgb < 1 || d->n_layers > kMaxLayers) return -1;
   d->d_in = dims[2];
   d->d_view = dims[3];
-  const int view_dep = dims[4];
-  if (d->d_in < 1 || d->d_in > 64 || d->d_view < 0 || d->d_view > 64) return -7;
-  int off = 0, tiles = 0;
+  const int view_dep = dims[4], max_enc = split ? 128 : 64;
+  if (d->d_in < 1 || d->d_in > max_enc || d->d_view < 0 || d->d_view > max_enc) return false;
+  d->nc_pts = pad64(d->d_in) / 64;
+  d->nc_view = pad64(d->d_view) / 64;
+  int off = 0, tiles = 0, feat_chunks = 1, max_kz = 64;
   d->KF = d->KT = 64;
   for (int li = 0; li < d->n_layers; ++li) {
     const int out = dims[5 + 3 * li], in = dims[6 + 3 * li], skip = dims[7 + 3 * li];
     const int w2 = skip ? d->d_in : ((li == d->n_feat && view_dep) ? d->d_view : 0);
-    const int w1 = in - w2, dens = li == d->n_feat - 1;
-    if (out < 1 + dens || w1 < 1) return -3;
-    if (li == 0 && (skip || w1 != d->d_in)) return -3;
-    if (li > 0 && d->out[li - 1] - d->dens[li - 1] != w1) return -3;
-    const int ncode = code_of(out - dens), k1p = pad64(w1);
-    if (ncode < 0 || (k1p != 64 && k1p != 128 && k1p != 256)) return -7;
-    const int nm = code_height(ncode), kz = pad64(dens ? nm + 8 : out);
-    if (kz > kDbufCols) return -7;
+    const int w1 = in - w2, dens = li == d->n_feat - 1, last = li == d->n_layers - 1;
+    if (out < 1 + dens || w1 < 1 || (li == 0 && (skip || w1 != d->d_in)) ||
+        (li > 0 && d->out[li - 1] - d->dens[li - 1] != w1)) {
+      *bad = true;
+      return false;
+    }
+    const int k1p = pad64(w1);
+    int nm, nw, ncode = 0;
+    if (split) {  // each warpgroup half of the outputs (the RGB output: 8 of 16 rows)
+      if (out - dens > 512 || k1p > 512) return false;
+      nw = last ? 8 : pad64(out - dens) / 2;
+      nm = 2 * nw;
+    } else {
+      // (the density row sits at nm, past the next layer's padded input: so at
+      // least 64 rows at the last trunk layer)
+      ncode = code_of(dens && out - dens < 64 ? 64 : out - dens);
+      if (ncode < 0 || (k1p != 64 && k1p != 128 && k1p != 256)) return false;
+      nm = nw = code_height(ncode);
+    }
+    const int kz = pad64(dens ? nm + 8 : out);
+    if (kz > (split ? kDbufColsN : kDbufCols)) return false;
     d->out[li] = out;
     d->in[li] = in;
     d->w1[li] = w1;
     d->w2[li] = w2;
     d->k1p[li] = k1p;
     d->kp[li] = k1p + pad64(w2);
-    d->seg2c[li] = w2 == 0 ? -1 : (skip ? 4 : 5);
+    d->seg2c[li] = w2 == 0 ? -1 : (skip ? 4 : 5);  // plan N: set below
     d->dens[li] = dens;
     d->nm[li] = nm;
     d->ncode[li] = ncode;
+    d->nw[li] = nw;
+    d->nx[li] = split ? k1p / 2 : k1p;
+    d->n2w[li] = split ? pad64(w2) / 2 : 64;
+    d->n2c[li] = pad64(w2) / 64;
     d->kz[li] = kz;
+    if (li > 0 && k1p / 64 > feat_chunks) feat_chunks = k1p / 64;
+    if (kz > max_kz) max_kz = kz;
     d->rf[li] = d->RF;
     d->RF += nm + (dens ? 8 : 0);
     d->rt[li] = d->RT;
@@ -240,11 +301,41 @@ int build_wg_desc(const int* dims, const void* const* params, WgDesc* d) {
     d->W[li] = static_cast<const float*>(params[2 * li]);
     d->b[li] = static_cast<const float*>(params[2 * li + 1]);
   }
-  if (d->out[d->n_layers - 1] != 3) return -3;
+  if (d->out[d->n_layers - 1] != 3) {
+    *bad = true;
+    return false;
+  }
   d->to[d->n_layers] = tiles;
   d->n_dw_tiles = tiles;
   d->n_params = off;
-  return 0;
+  if (split) {
+    // chunks: the features, pts_enc's, view_enc's; g_z (max_kz columns) over them
+    d->c_pts = feat_chunks;
+    d->c_view = feat_chunks + d->nc_pts;
+    d->n_act = d->c_view + d->nc_view;
+    if (max_kz / 64 > d->n_act) return false;
+    for (int li = 0; li < d->n_layers; ++li)
+      if (d->w2[li] > 0) d->seg2c[li] = li < d->n_feat ? d->c_pts : d->c_view;
+    d->ring_off = d->n_act * kRowsBytes;
+    d->dbuf_off = d->ring_off + kFwdStages * kStageBytes;
+    d->bar_off = d->dbuf_off + 8 * kDbufColsN * 4;
+    d->smem = d->bar_off + 3 * kFwdStages * 8 + 1024;  // two sets of full barriers
+    if (d->smem > kMaxSmem) return false;
+  }
+  return true;
+}
+
+// dims = [n_feat, n_rgb, d_in, d_view, view_dep, (out, in, skip) per layer];
+// params = [W0, b0, W1, b1, ...] (fp32, W (out, in)). Plan M where it takes
+// the chain (as it always has), else plan N; -7 past both.
+int build_wg_desc(const int* dims, const void* const* params, WgDesc* d) {
+  const int n_layers = dims[0] + dims[1];
+  if (dims[0] < 1 || dims[1] < 1 || n_layers > kMaxLayers) return -1;
+  bool bad = false;
+  if (layout_wg_desc(dims, params, false, d, &bad)) return 0;
+  if (bad) return -3;
+  if (layout_wg_desc(dims, params, true, d, &bad)) return 0;
+  return bad ? -3 : -7;
 }
 
 // ---------------------------------------------------------------------------
@@ -503,6 +594,114 @@ struct Wgmma<256, 0> {
   }
 };
 
+// plan N's warpgroup halves of 192-, 320-, 384- and 448-wide products
+template <>
+struct Wgmma<96, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[48], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<160, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[80], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<192, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<224, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[112], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111"
+      "}, %112, %113, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 template <>
 struct Wgmma<64, 1> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -580,9 +779,10 @@ struct Wgmma<256, 1> {
 
 // The ring of weight (or workspace) stages between the producer and the
 // consumers: full[s] completes when the stage's TMA bytes have landed,
-// empty[s] when all 8 consumer warps are done reading it. A consumer keeps
-// one chunk's MMAs in flight: it releases a stage once the MMAs of the next
-// chunk are issued and those reading it are done (wgmma.wait_group 1).
+// empty[s] when all consumer warps that read it are done (8; in plan N the
+// 4 of the warpgroup whose half it holds). A consumer keeps one chunk's
+// MMAs in flight: it releases a stage once the MMAs of the next chunk are
+// issued and those reading it are done (wgmma.wait_group 1).
 struct Ring {
   uint32_t full, empty, data, bytes;
   int n, stage, phase;
@@ -595,6 +795,19 @@ struct Ring {
       stage = 0;
       phase ^= 1;
     }
+    return s;
+  }
+  // Plan N (make_ring_split): stage 2 c + h of k-chunk c is warpgroup h's
+  // and lands on that warpgroup's own full barrier of its slot, full + 8 (h n
+  // + slot); `stage` counts the chunks. Waits for the bytes of warpgroup h's
+  // next stage and returns its slot. (One full barrier per slot for both
+  // would not do: fills of two slots complete in either order, so the other
+  // warpgroup's fill before this stage in its slot may still be pending, and
+  // a parity wait would then pass one phase early.) A slot takes warpgroup
+  // h's stages every 2 n stages, each completing one phase of its barrier.
+  __device__ int acquire_own(int h) {
+    const int j = 2 * stage++ + h, s = j % n;
+    mbar_wait(full + 8 * (h * n + s), (j / (2 * n)) & 1);
     return s;
   }
   __device__ void release(int s) const {
@@ -615,14 +828,29 @@ __device__ __forceinline__ Ring make_ring(uint32_t data, uint32_t bytes, int n, 
   return Ring{bars, bars + 8 * n, data, bytes, n, 0, 0};
 }
 
+// Plan N's ring: the full barriers of warpgroup 0, then of warpgroup 1
+// (count 1 each), then the empty barriers (count 4: the warps of the
+// warpgroup whose stage the slot holds).
+__device__ __forceinline__ Ring make_ring_split(uint32_t data, uint32_t bytes, int n,
+                                                uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * n; ++s) mbar_init(bars + 8 * s, 1);
+    for (int s = 0; s < n; ++s) mbar_init(bars + 8 * (2 * n + s), 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return Ring{bars, bars + 16 * n, data, bytes, n, 0, 0};
+}
+
 // The producer's side of the ring: one TMA issue per stage.
 struct Producer {
   Ring r;
-  // waits for the stage to be free, then loads the boxes; `bytes` in all
+  // waits for the stage to be free, then loads the boxes; `bytes` in all;
+  // owner (plan N): the warpgroup whose full barrier of the slot they land on
   template <typename F>
-  __device__ void issue(uint32_t bytes, F load) {
+  __device__ void issue(uint32_t bytes, F load, int owner = 0) {
     mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1);
-    const uint32_t fb = r.full + 8 * r.stage;
+    const uint32_t fb = r.full + 8 * (owner * r.n + r.stage);
     mbar_expect_tx(fb, bytes);
     load(r.buf(r.stage), fb);
     if (++r.stage == r.n) {
@@ -632,9 +860,9 @@ struct Producer {
   }
 };
 
-// K1 / K2's weight schedule: the forward layers' k-chunks (layers [0,
-// n_fwd)), then for K2 each layer's g_x k-chunks from the last layer down
-// (the second segment's product first).
+// Plan M's weight schedule (K1, K2): the forward layers' k-chunks (layers
+// [0, n_fwd)), then for K2 each layer's g_x k-chunks from the last layer
+// down (the second segment's product first).
 __device__ void produce_weights(const Maps& m, const WgDesc& d, Ring ring, bool k2) {
   Producer p{ring};
   const uint64_t keep = policy_keep();
@@ -663,6 +891,56 @@ __device__ void produce_weights(const Maps& m, const WgDesc& d, Ring ring, bool 
   }
 }
 
+// Plan N: `rows` rows (8, or a multiple of 32: boxes of 32) of the forward
+// (tr = 0) or transposed weights from row r0, k-chunk at column col, to dst.
+// The 128-byte swizzle repeats every 8 rows, so boxes laid end to end read
+// as one.
+__device__ __forceinline__ void load_weight_rows(const Maps& m, bool tr, uint32_t dst, uint32_t fb,
+                                                 int col, int r0, int rows, uint64_t keep) {
+  if (rows == 8) {
+    tma_load(dst, &m.wf[0], fb, col, r0, keep);
+    return;
+  }
+  for (int i = 0; i < rows / 32; ++i)
+    tma_load(dst + i * 32 * 128, tr ? &m.wt[1] : &m.wf[1], fb, col, r0 + 32 * i, keep);
+}
+
+// Plan N's weight schedule: the same order, each k-chunk as two stages, the
+// rows of warpgroup 0's half of the product, then warpgroup 1's (with the
+// density rows behind them at the last trunk layer).
+__device__ void produce_weights_n(const Maps& m, const WgDesc& d, Ring ring, bool k2) {
+  Producer p{ring};
+  const uint64_t keep = policy_keep();
+  const int n_fwd = k2 ? d.n_layers - 1 : d.n_layers;
+  for (int li = 0; li < n_fwd; ++li) {
+    const int h = d.nw[li], extra = d.dens[li] ? 8 : 0;
+    for (int kc = 0; kc < d.kp[li] / 64; ++kc)
+      for (int g = 0; g < 2; ++g)
+        p.issue((h + (g ? extra : 0)) * 128, [&](uint32_t dst, uint32_t fb) {
+          load_weight_rows(m, false, dst, fb, 64 * kc, d.rf[li] + g * h, h, keep);
+          if (g && extra) tma_load(dst + h * 128, &m.wf[0], fb, 64 * kc, d.rf[li] + d.nm[li], keep);
+        }, g);
+  }
+  if (!k2) return;
+  for (int li = d.n_layers - 1; li >= 0; --li) {
+    const int nk = d.kz[li] / 64, k1p = d.k1p[li];
+    if (d.seg2c[li] >= 0) {
+      const int h = d.n2w[li];
+      for (int kc = 0; kc < nk; ++kc)
+        for (int g = 0; g < 2; ++g)
+          p.issue(h * 128, [&](uint32_t dst, uint32_t fb) {
+            load_weight_rows(m, true, dst, fb, 64 * kc, d.rt[li] + k1p + g * h, h, keep);
+          }, g);
+    }
+    const int h = d.nx[li];
+    for (int kc = 0; kc < nk; ++kc)
+      for (int g = 0; g < 2; ++g)
+        p.issue(h * 128, [&](uint32_t dst, uint32_t fb) {
+          load_weight_rows(m, true, dst, fb, 64 * kc, d.rt[li] + g * h, h, keep);
+        }, g);
+  }
+}
+
 // Per consumer thread: warpgroup, thread in it, and the accumulator rows
 // r0, r0 + 8 (of the warpgroup's 64) and column pair 2t of each 8 columns.
 struct Lane {
@@ -677,6 +955,49 @@ struct Lane {
     r0 = 16 * (tid >> 5) + g;
     rows = wg * kRowsBytes;
   }
+};
+
+// Both consumer warpgroups (plan N: they share their points)
+__device__ __forceinline__ void consumers_bar() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+// The two tile plans (header note). Plan M: 128-point tiles, each consumer
+// warpgroup its 64 points and every product's full width. Plan N: 64-point
+// tiles, both warpgroups on the same points, each half of every product's
+// width; a chunk is then [64 points][64 columns], a layer's epilogue
+// overwrites chunks that the other warpgroup reads, and one thread issues
+// the TMA stores.
+struct PlanM {
+  static constexpr bool kSplit = false;
+  static constexpr int kTile = 128, kChunk = kChunkBytes, kDbuf = kDbufCols;
+  static __device__ __forceinline__ uint32_t rows(const Lane& L) { return L.rows; }
+  static __device__ __forceinline__ int row0(const Lane& L) { return 64 * L.wg; }
+  static __device__ __forceinline__ void sync(const Lane& L) { wg_bar(L.wg); }
+  static __device__ __forceinline__ bool storer(const Lane& L) { return L.tid == 0; }
+  static __device__ __forceinline__ int acquire(Ring& r, const Lane&) { return r.acquire(); }
+  static __device__ __forceinline__ int c_pts(const WgDesc&) { return 4; }
+  static __device__ __forceinline__ int c_view(const WgDesc&) { return 5; }
+  static __device__ __forceinline__ uint32_t ring_off(const WgDesc&) { return kRingOff; }
+  static __device__ __forceinline__ uint32_t dbuf_off(const WgDesc&) { return kDbufOff; }
+  static __device__ __forceinline__ uint32_t bar_off(const WgDesc&) { return kBarOff; }
+};
+
+struct PlanN {
+  static constexpr bool kSplit = true;
+  static constexpr int kTile = 64, kChunk = kRowsBytes, kDbuf = kDbufColsN;
+  static __device__ __forceinline__ uint32_t rows(const Lane&) { return 0; }
+  static __device__ __forceinline__ int row0(const Lane&) { return 0; }
+  static __device__ __forceinline__ void sync(const Lane&) { consumers_bar(); }
+  static __device__ __forceinline__ bool storer(const Lane&) { return threadIdx.x == 0; }
+  static __device__ __forceinline__ int acquire(Ring& r, const Lane& L) {
+    return r.acquire_own(L.wg);
+  }
+  static __device__ __forceinline__ int c_pts(const WgDesc& d) { return d.c_pts; }
+  static __device__ __forceinline__ int c_view(const WgDesc& d) { return d.c_view; }
+  static __device__ __forceinline__ uint32_t ring_off(const WgDesc& d) { return d.ring_off; }
+  static __device__ __forceinline__ uint32_t dbuf_off(const WgDesc& d) { return d.dbuf_off; }
+  static __device__ __forceinline__ uint32_t bar_off(const WgDesc& d) { return d.bar_off; }
 };
 
 // The warpgroup's 64 rows of a (T, width) fp32 input, rounded to bf16, into a
@@ -698,25 +1019,57 @@ __device__ void load_input(uint32_t chunk, const float* __restrict__ src, int wi
   }
 }
 
-// One forward layer of the tile (both warpgroups, each its 64 rows): the
-// product over the layer's k-chunks from the ring, then bias and ReLU in
-// fp32 into the feature chunks as bf16 (or, at the last layer, raw rgb into
-// out[:, 1:4]); with EXT (K1's last trunk layer) the density unit's product
-// too, into out[:, 0]. out may be null (K2). k2: the previous layer's input
-// chunks may still be being stored (TMA), the ReLU mask words go to masks
-// (slot li + 1: the next layer's input), and the recompute's MMAs may be
-// dropped (K2_TIME_NO_FWD).
-template <int N, bool EXT>
+// Plan N: the tile's 64 rows of a (T, width) fp32 input, rounded to bf16,
+// into nc chunks (zeros past T and past width), over both warpgroups.
+__device__ void load_input_n(uint32_t chunk, const float* __restrict__ src, int width, int nc,
+                             int p0, int T) {
+  for (int i = threadIdx.x; i < 64 * 32 * nc; i += kConsumers) {
+    const int q = i >> 11, r = (i >> 5) & 63, c = (i & 31) * 2, col = 64 * q + c, P = p0 + r;
+    const float v0 = (P < T && col < width) ? src[(size_t)P * width + col] : 0.f;
+    const float v1 = (P < T && col + 1 < width) ? src[(size_t)P * width + col + 1] : 0.f;
+    sts32(chunk + q * kRowsBytes + swz(r, c), bf16x2(v0, v1));
+  }
+}
+
+// The tile's pts_enc (and view_enc) chunks, read by every consumer.
+template <class P>
+__device__ __forceinline__ void load_inputs(const WgDesc& d, uint32_t s,
+                                            const float* __restrict__ pts,
+                                            const float* __restrict__ view, int p0, int T,
+                                            const Lane& L) {
+  if constexpr (P::kSplit) {
+    load_input_n(s + d.c_pts * kRowsBytes, pts, d.d_in, d.nc_pts, p0, T);
+    if (d.d_view > 0) load_input_n(s + d.c_view * kRowsBytes, view, d.d_view, d.nc_view, p0, T);
+  } else {
+    load_input(s + 4 * kChunkBytes, pts, d.d_in, p0, T, L);
+    if (d.d_view > 0) load_input(s + 5 * kChunkBytes, view, d.d_view, p0, T, L);
+  }
+  fence_async_smem();
+  P::sync(L);
+}
+
+// One forward layer of the tile: the warpgroup's product of width N over
+// the layer's k-chunks from the ring (plan M: its 64 points, all outputs;
+// plan N: the tile's 64 points, its half of the outputs), then bias and
+// ReLU in fp32 into the feature chunks as bf16 (or, at the last layer, raw
+// rgb into out[:, 1:4]); with EXT (K1's last trunk layer; in plan N
+// warpgroup 1's) the density unit's product too, into out[:, 0]. out may be
+// null (K2). k2: the previous layer's input chunks may still be being
+// stored (TMA), the ReLU mask words go to masks (slot li + 1: the next
+// layer's input), and the recompute's MMAs may be dropped (K2_TIME_NO_FWD).
+template <class P, int N, bool EXT>
 __device__ void fwd_layer(const WgDesc& d, int li, Ring& ring, uint32_t s,
                           const float* __restrict__ bias_f, float* __restrict__ out,
                           uint4* __restrict__ masks, int p0, int T, bool k2, const Lane& L) {
+  constexpr int C = P::kChunk;
   const int nk = d.kp[li] >> 6, nk1 = d.k1p[li] >> 6;
-  const uint32_t seg1 = s + (li == 0 ? 4 : 0) * kChunkBytes + L.rows;
-  const uint32_t seg2 = s + (d.seg2c[li] < 0 ? 0 : d.seg2c[li]) * kChunkBytes + L.rows;
+  const uint32_t seg1 = s + (li == 0 ? P::c_pts(d) : 0) * C + P::rows(L);
+  const uint32_t seg2 = s + (d.seg2c[li] < 0 ? 0 : d.seg2c[li]) * C + P::rows(L);
   const bool last = li == d.n_layers - 1;
+  const int col0 = P::kSplit ? L.wg * N : 0;  // the warpgroup's first output column
   // every sum starts from its row's bias (fp32; all loads in flight before
   // the first stage is waited for)
-  const float* bias = bias_f + d.rf[li];
+  const float* bias = bias_f + d.rf[li] + col0;
   float acc[N / 2], ext[4];
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
@@ -726,8 +1079,10 @@ __device__ void fwd_layer(const WgDesc& d, int li, Ring& ring, uint32_t s,
   for (int c = 0; c < 4; ++c) ext[c] = EXT ? __ldg(bias + N + 2 * L.t + (c & 1)) : 0.f;
   int prev = -1;
   for (int kc = 0; kc < nk; ++kc) {
-    const int st = ring.acquire();
-    const uint32_t a = kc < nk1 ? seg1 + kc * kChunkBytes : seg2, b = ring.buf(st);
+    const int st = P::acquire(ring, L);
+    uint32_t a = kc < nk1 ? seg1 + kc * C : seg2;
+    if constexpr (P::kSplit) a += kc < nk1 ? 0 : (kc - nk1) * C;  // (two chunks of view_enc)
+    const uint32_t b = ring.buf(st);
 #ifdef K2_TIME_NO_FWD
     if (!k2)
 #endif
@@ -751,25 +1106,30 @@ __device__ void fwd_layer(const WgDesc& d, int li, Ring& ring, uint32_t s,
   fence_regs(acc);
   fence_regs(ext);
   ring.release(prev);
-  if (k2) {  // the stores of this layer's input (TMA) are done reading the chunks
+  if constexpr (P::kSplit) {
+    // the stores of this layer's input (TMA) and both warpgroups' products
+    // are done reading the chunks the epilogue overwrites
+    if (k2 && P::storer(L)) bulk_wait_read();
+    consumers_bar();
+  } else if (k2) {  // the stores of this layer's input (TMA) are done reading the chunks
     if (L.tid == 0) bulk_wait_read();
     wg_bar(L.wg);
   }
   uint32_t mw[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const int col = 8 * j + 2 * L.t;
+    const int col = col0 + 8 * j + 2 * L.t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = L.r0 + 8 * h, P = p0 + 64 * L.wg + r;
+      const int r = L.r0 + 8 * h, P_ = p0 + P::row0(L) + r;
       const float z0 = acc[4 * j + 2 * h], z1 = acc[4 * j + 2 * h + 1];
       if (last) {
-        if (out != nullptr && P < T) {
-          if (col < 3) out[(size_t)P * 4 + 1 + col] = z0;
-          if (col + 1 < 3) out[(size_t)P * 4 + 2 + col] = z1;
+        if (out != nullptr && P_ < T) {
+          if (col < 3) out[(size_t)P_ * 4 + 1 + col] = z0;
+          if (col + 1 < 3) out[(size_t)P_ * 4 + 2 + col] = z1;
         }
       } else {
-        sts32(s + (col >> 6) * kChunkBytes + L.rows + swz(r, col & 63),
+        sts32(s + (col >> 6) * C + P::rows(L) + swz(r, col & 63),
               bf16x2(fmaxf(z0, 0.f), fmaxf(z1, 0.f)));
         mw[j >> 3] |= (z0 > 0.f ? mask_bit(j, h, 0) : 0u) | (z1 > 0.f ? mask_bit(j, h, 1) : 0u);
       }
@@ -781,55 +1141,71 @@ __device__ void fwd_layer(const WgDesc& d, int li, Ring& ring, uint32_t s,
   if (EXT && out != nullptr && L.t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int P = p0 + 64 * L.wg + L.r0 + 8 * h;
-      if (P < T) out[(size_t)P * 4] = ext[2 * h];
+      const int P_ = p0 + P::row0(L) + L.r0 + 8 * h;
+      if (P_ < T) out[(size_t)P_ * 4] = ext[2 * h];
     }
   }
-  if constexpr (N < 64) {  // zeros in the rest of the chunk: the next layer reads 64 columns
+  if constexpr (!P::kSplit && N < 64) {  // zeros in the rest of the chunk: the next layer reads 64 columns
     constexpr int per = (64 - N) / 2;
     if (!last)
       for (int i = L.tid; i < 64 * per; i += 128)
         sts32(s + L.rows + swz(i / per, N + 2 * (i % per)), 0u);
   }
   fence_async_smem();
-  wg_bar(L.wg);
+  P::sync(L);
 }
 
-template <bool EXT>
+template <class P, bool EXT>
 __device__ __forceinline__ void fwd_layer_n(const WgDesc& d, int li, Ring& ring, uint32_t s,
                                             const float* bias_f, float* out, uint4* masks,
                                             int p0, int T, bool k2, const Lane& L) {
-#define SPARF_FWD(N) fwd_layer<N, EXT>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L)
-  switch (d.ncode[li]) {
-    case 0: SPARF_FWD(8); break;
-    case 1: SPARF_FWD(32); break;
-    case 2: SPARF_FWD(64); break;
-    case 3: SPARF_FWD(128); break;
-    default: SPARF_FWD(256); break;
+#define SPARF_FWD(N) fwd_layer<P, N, EXT>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L)
+  if constexpr (P::kSplit) {
+    switch (d.nw[li]) {
+      case 8: if constexpr (!EXT) SPARF_FWD(8); break;  // the RGB output (no density unit)
+      case 32: SPARF_FWD(32); break;
+      case 64: SPARF_FWD(64); break;
+      case 96: SPARF_FWD(96); break;
+      case 128: SPARF_FWD(128); break;
+      case 160: SPARF_FWD(160); break;
+      case 192: SPARF_FWD(192); break;
+      case 224: SPARF_FWD(224); break;
+      default: SPARF_FWD(256); break;
+    }
+  } else {
+    switch (d.ncode[li]) {
+      case 0: SPARF_FWD(8); break;
+      case 1: SPARF_FWD(32); break;
+      case 2: SPARF_FWD(64); break;
+      case 3: SPARF_FWD(128); break;
+      default: SPARF_FWD(256); break;
+    }
   }
 #undef SPARF_FWD
 }
 
 // K2's recompute needs no raw density (its gradient comes from gout).
+template <class P>
 __device__ __forceinline__ void fwd_layer_any(const WgDesc& d, int li, Ring& ring, uint32_t s,
                                               const float* bias_f, float* out, uint4* masks,
                                               int p0, int T, bool k2, const Lane& L) {
-  if (!k2 && d.dens[li])
-    fwd_layer_n<true>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L);
+  if (!k2 && d.dens[li] && (!P::kSplit || L.wg == 1))
+    fwd_layer_n<P, true>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L);
   else
-    fwd_layer_n<false>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L);
+    fwd_layer_n<P, false>(d, li, ring, s, bias_f, out, masks, p0, T, k2, L);
 }
 
-// Shared memory of K1 and K2, 1024-byte aligned: the 6 activation chunks,
-// the ring, K2's db buffer, the barriers.
+// Shared memory of K1 and K2, 1024-byte aligned: the activation chunks
+// (plan M 6, plan N n_act), the ring, K2's db buffer, the barriers.
 __device__ __forceinline__ uint32_t aligned_base(uint8_t* raw, uint8_t** generic) {
   const uint32_t a = smem_u32(raw), base = (a + 1023) & ~1023u;
   *generic = raw + (base - a);
   return base;
 }
 
-// The forward of one 128-point tile, K1's and K3's body: out (T, 4) =
-// [raw_density | raw_rgb] on the forward weights of the maps.
+// The forward of one tile, K1's and K3's body: out (T, 4) = [raw_density |
+// raw_rgb] on the forward weights of the maps.
+template <class P>
 __device__ __forceinline__ void forward_tile(uint8_t* smem_raw, const Maps& maps, const WgDesc& d,
                                              const float* __restrict__ bias_f,
                                              const float* __restrict__ pts,
@@ -837,21 +1213,24 @@ __device__ __forceinline__ void forward_tile(uint8_t* smem_raw, const Maps& maps
                                              float* __restrict__ out, int T) {
   uint8_t* gen;
   const uint32_t s = aligned_base(smem_raw, &gen);
-  Ring ring = make_ring(s + kRingOff, kStageBytes, kFwdStages, s + kBarOff);
+  Ring ring = P::kSplit ? make_ring_split(s + P::ring_off(d), kStageBytes, kFwdStages, s + P::bar_off(d))
+                        : make_ring(s + P::ring_off(d), kStageBytes, kFwdStages, s + P::bar_off(d));
   if (threadIdx.x >= kConsumers) {
     setmaxnreg_dec();
-    if (threadIdx.x == kConsumers) produce_weights(maps, d, ring, false);
+    if (threadIdx.x == kConsumers) {
+      if constexpr (P::kSplit)
+        produce_weights_n(maps, d, ring, false);
+      else
+        produce_weights(maps, d, ring, false);
+    }
     return;
   }
   setmaxnreg_inc();
   const Lane L;
-  const int p0 = blockIdx.x * kTile;
-  load_input(s + 4 * kChunkBytes, pts, d.d_in, p0, T, L);
-  if (d.d_view > 0) load_input(s + 5 * kChunkBytes, view, d.d_view, p0, T, L);
-  fence_async_smem();
-  wg_bar(L.wg);
+  const int p0 = blockIdx.x * P::kTile;
+  load_inputs<P>(d, s, pts, view, p0, T, L);
   for (int li = 0; li < d.n_layers; ++li)
-    fwd_layer_any(d, li, ring, s, bias_f, out, nullptr, p0, T, false, L);
+    fwd_layer_any<P>(d, li, ring, s, bias_f, out, nullptr, p0, T, false, L);
 }
 
 // K1: the forward on the weights its launch laid out.
@@ -860,7 +1239,7 @@ k1_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
       const float* __restrict__ bias_f, const float* __restrict__ pts,
       const float* __restrict__ view, float* __restrict__ out, int T) {
   extern __shared__ uint8_t smem_raw[];
-  forward_tile(smem_raw, maps, d, bias_f, pts, view, out, T);
+  forward_tile<PlanM>(smem_raw, maps, d, bias_f, pts, view, out, T);
 }
 
 // K3: the same body on the weights pack_weights laid out once per call (its
@@ -870,24 +1249,41 @@ k3_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
       const float* __restrict__ bias_f, const float* __restrict__ pts,
       const float* __restrict__ view, float* __restrict__ out, int T) {
   extern __shared__ uint8_t smem_raw[];
-  forward_tile(smem_raw, maps, d, bias_f, pts, view, out, T);
+  forward_tile<PlanM>(smem_raw, maps, d, bias_f, pts, view, out, T);
+}
+
+// Plan N's K1 and K3 (the same pair on one body).
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k1_wg_n(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+        const float* __restrict__ bias_f, const float* __restrict__ pts,
+        const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ uint8_t smem_raw[];
+  forward_tile<PlanN>(smem_raw, maps, d, bias_f, pts, view, out, T);
+}
+
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k3_wg_n(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+        const float* __restrict__ bias_f, const float* __restrict__ pts,
+        const float* __restrict__ view, float* __restrict__ out, int T) {
+  extern __shared__ uint8_t smem_raw[];
+  forward_tile<PlanN>(smem_raw, maps, d, bias_f, pts, view, out, T);
 }
 
 // ---------------------------------------------------------------------------
 // K2, pass 1: recompute, workspace, g_x, db per tile
 // ---------------------------------------------------------------------------
 
-// g_x = g_z W over the layer's g_z chunks (K = kz) for N columns of the
-// padded input, B from the ring (the transposed weights).
-template <int N>
+// g_x = g_z W over the layer's g_z chunks (K = kz) for the warpgroup's N
+// columns of the padded input, B from the ring (the transposed weights).
+template <class P, int N>
 __device__ __forceinline__ void gx_gemm(const WgDesc& d, int li, Ring& ring, uint32_t gz,
-                                        float (&acc)[N / 2]) {
+                                        float (&acc)[N / 2], const Lane& L) {
   zero(acc);
   int prev = -1;
   for (int kc = 0; kc < d.kz[li] / 64; ++kc) {
-    const int st = ring.acquire();
+    const int st = P::acquire(ring, L);
 #ifndef K2_TIME_NO_GX
-    const uint32_t a = gz + kc * kChunkBytes, b = ring.buf(st);
+    const uint32_t a = gz + kc * P::kChunk, b = ring.buf(st);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -905,38 +1301,43 @@ __device__ __forceinline__ void gx_gemm(const WgDesc& d, int li, Ring& ring, uin
 }
 
 // g_x of an input segment read by no ReLU: added into d_pts (pts_enc, of a
-// skip layer or of layer 0) or written to d_view.
-template <int N>
+// skip layer or of layer 0) or written to d_view; the warpgroup's N columns.
+template <class P, int N>
 __device__ __forceinline__ void gx_to_inputs(const float (&acc)[N / 2], float* d_in_g, int width,
                                              bool add, int p0, int T, const Lane& L) {
+  const int col0 = P::kSplit ? L.wg * N : 0;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const int col = 8 * j + 2 * L.t;
+    const int col = col0 + 8 * j + 2 * L.t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int P = p0 + 64 * L.wg + L.r0 + 8 * h;
-      if (P >= T) continue;
+      const int P_ = p0 + P::row0(L) + L.r0 + 8 * h;
+      if (P_ >= T) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         if (col + e >= width) continue;
-        float* q = d_in_g + (size_t)P * width + col + e;
+        float* q = d_in_g + (size_t)P_ * width + col + e;
         *q = add ? *q + acc[4 * j + 2 * h + e] : acc[4 * j + 2 * h + e];
       }
     }
   }
 }
 
-// Column sums of the warpgroup's 64 rows of the fp32 g_z of layer pl into
-// its row of db_part (one per 64 points): per-warp sums in dbuf (written by
-// the caller), then the warpgroup's 4 warps in order. Each warpgroup on its
-// own, so one's epilogue can run beside the other's MMAs.
+// Column sums of the fp32 g_z of layer pl, columns [c0, c1), over the rows
+// of the warpgroup's 4 warps, into its row of db_part (one per 64 points):
+// per-warp sums in dbuf (written by the caller), then the 4 warps in order.
+// Each warpgroup on its own, so one's epilogue can run beside the other's
+// MMAs (plan M).
+template <class P>
 __device__ __forceinline__ void db_flush(const WgDesc& d, int pl, const float* dbuf,
-                                         float* __restrict__ db_part, const Lane& L) {
+                                         float* __restrict__ db_part, const Lane& L, int c0,
+                                         int c1) {
   wg_bar(L.wg);
-  for (int c = L.tid; c < d.kz[pl]; c += 128) {
+  const size_t row = P::kSplit ? blockIdx.x : 2 * blockIdx.x + L.wg;
+  for (int c = c0 + L.tid; c < c1; c += 128) {
     float sum = 0.f;
-    for (int w = 4 * L.wg; w < 4 * L.wg + 4; ++w) sum += dbuf[w * kDbufCols + c];
-    db_part[(size_t)(2 * blockIdx.x + L.wg) * d.KG + d.go[pl] + c] = sum;
+    for (int w = 4 * L.wg; w < 4 * L.wg + 4; ++w) sum += dbuf[w * P::kDbuf + c];
+    db_part[row * d.KG + d.go[pl] + c] = sum;
   }
   wg_bar(L.wg);
 }
@@ -953,36 +1354,43 @@ __device__ __forceinline__ void halve(float (&v)[R], int upper, int m) {
   }
 }
 
-// The stores of the warpgroup's g_z chunks of layer pl to the workspace.
+// The stores of the g_z chunks of layer pl to the workspace (plan M: the
+// warpgroup's rows; plan N: the tile's, by one thread).
+template <class P>
 __device__ __forceinline__ void store_gz(const Maps& maps, const WgDesc& d, int pl, uint32_t s,
                                          int p0, const Lane& L) {
   fence_async_smem();
-  wg_bar(L.wg);
-  if (L.tid == 0) {
+  P::sync(L);
+  if (P::storer(L)) {
     const uint64_t stream = policy_stream();
     for (int q = 0; q < d.kz[pl] / 64; ++q)
-      tma_store(&maps.g, s + q * kChunkBytes + L.rows, d.go[pl] + 64 * q, p0 + 64 * L.wg, stream);
+      tma_store(&maps.g, s + q * P::kChunk + P::rows(L), d.go[pl] + 64 * q, p0 + P::row0(L),
+                stream);
     bulk_commit();
   }
 }
 
-// g_x of layer li's features (li >= 1): masked by its input's ReLU mask
-// (the recompute's words), it is g_z of layer pl = li - 1 (and the density
-// gradient at row nm of the last trunk layer): into the g_z chunks as bf16,
-// to the workspace, and its column sums (unrounded) into db_part.
-template <int N>
+// g_x of layer li's features (li >= 1), the warpgroup's N columns: masked by
+// its input's ReLU mask (the recompute's words), it is g_z of layer pl =
+// li - 1 (and the density gradient at row nm of the last trunk layer): into
+// the g_z chunks as bf16, to the workspace, and its column sums
+// (unrounded) into db_part.
+template <class P, int N>
 __device__ void gx_features(const Maps& maps, const WgDesc& d, int li, float (&acc)[N / 2],
                             uint32_t s, float* dbuf, const uint4& mwords,
                             const float* __restrict__ gout, float* __restrict__ db_part, int p0,
                             int T, const Lane& L) {
+  constexpr int C = P::kChunk;
   const int pl = li - 1, w1 = d.w1[li], kzp = d.kz[pl];
+  const int col0 = P::kSplit ? L.wg * N : 0, cx = d.k1p[li];  // columns past the product: cx..
   const int wl = 4 * L.wg + (L.tid >> 5);  // warp of the tile
   const uint32_t mw[4] = {mwords.x, mwords.y, mwords.z, mwords.w};
-  if (L.tid == 0) bulk_wait_read();  // the previous g_z stores are done reading the chunks
-  wg_bar(L.wg);
+  // the previous g_z stores (and plan N: both products) are done reading the chunks
+  if (P::storer(L)) bulk_wait_read();
+  P::sync(L);
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const int col = 8 * j + 2 * L.t;
+    const int col = col0 + 8 * j + 2 * L.t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = L.r0 + 8 * h;
@@ -990,17 +1398,19 @@ __device__ void gx_features(const Maps& maps, const WgDesc& d, int li, float (&a
       float& v1 = acc[4 * j + 2 * h + 1];
       v0 = (col < w1 && (mw[j >> 3] & mask_bit(j, h, 0))) ? v0 : 0.f;
       v1 = (col + 1 < w1 && (mw[j >> 3] & mask_bit(j, h, 1))) ? v1 : 0.f;
-      sts32(s + (col >> 6) * kChunkBytes + L.rows + swz(r, col & 63), bf16x2(v0, v1));
+      sts32(s + (col >> 6) * C + P::rows(L) + swz(r, col & 63), bf16x2(v0, v1));
     }
   }
-  // the columns past this product: zeros, and the density gradient
-  const int per = (kzp - N) / 2, nd = d.dens[pl] ? d.nm[pl] : -1;
-  for (int i = L.tid; i < 64 * per; i += 128) {
-    const int r = i / per, c = N + 2 * (i % per), P = p0 + 64 * L.wg + r;
-    const float v = (c == nd && P < T) ? gout[(size_t)P * 4] : 0.f;
-    sts32(s + (c >> 6) * kChunkBytes + L.rows + swz(r, c & 63), bf16x2(v, 0.f));
+  // the columns past this product: zeros, and the density gradient (plan N:
+  // warpgroup h the rows 32 h ..)
+  const int per = (kzp - cx) / 2, nd = d.dens[pl] ? d.nm[pl] : -1;
+  const int n_rows = P::kSplit ? 32 : 64, r_first = P::kSplit ? 32 * L.wg : 0;
+  for (int i = L.tid; i < n_rows * per; i += 128) {
+    const int r = r_first + i / per, c = cx + 2 * (i % per), P_ = p0 + P::row0(L) + r;
+    const float v = (c == nd && P_ < T) ? gout[(size_t)P_ * 4] : 0.f;
+    sts32(s + (c >> 6) * C + P::rows(L) + swz(r, c & 63), bf16x2(v, 0.f));
   }
-  store_gz(maps, d, pl, s, p0, L);
+  store_gz<P>(maps, d, pl, s, p0, L);
   // db: rows g and g + 8 (value 2 j + e: column 8 j + 2 t + e), then the
   // warp's 8 row groups (lanes 4, 8, 16 apart) by a reduce-scatter: each
   // halving keeps half of the values and adds the partner's half of the
@@ -1018,24 +1428,29 @@ __device__ void gx_features(const Maps& maps, const WgDesc& d, int li, float (&a
 #pragma unroll
   for (int i = 0; i < V / 8; ++i) {
     const int idx = L.g * (V / 8) + i;
-    dbuf[wl * kDbufCols + 8 * (idx >> 1) + 2 * L.t + (idx & 1)] = v[i];
+    dbuf[wl * P::kDbuf + col0 + 8 * (idx >> 1) + 2 * L.t + (idx & 1)] = v[i];
   }
-  for (int c = N + L.lane; c < kzp; c += 32) {
-    float v = 0.f;
-    if (c == nd)
-      for (int i = 0; i < 16; ++i) {
-        const int P = p0 + 16 * wl + i;
-        v += P < T ? gout[(size_t)P * 4] : 0.f;
-      }
-    dbuf[wl * kDbufCols + c] = v;
-  }
-  db_flush(d, pl, dbuf, db_part, L);
+  // the columns past the product: each warp its 16 rows (plan N: warpgroup 1)
+  if (!P::kSplit || L.wg == 1)
+    for (int c = cx + L.lane; c < kzp; c += 32) {
+      float v = 0.f;
+      if (c == nd)
+        for (int i = 0; i < 16; ++i) {
+          const int P_ = p0 + (P::kSplit ? 16 * (L.tid >> 5) : 16 * wl) + i;
+          v += P_ < T ? gout[(size_t)P_ * 4] : 0.f;
+        }
+      dbuf[wl * P::kDbuf + c] = v;
+    }
+  if constexpr (P::kSplit)
+    db_flush<P>(d, pl, dbuf, db_part, L, col0, L.wg == 0 ? N : kzp);
+  else
+    db_flush<P>(d, pl, dbuf, db_part, L, 0, kzp);
 }
 
 // One layer of the backward: the second segment's g_x (into d_pts or
 // d_view), then the features' (into d_pts at layer 0, else the previous
-// layer's g_z).
-template <int N>
+// layer's g_z); N: the warpgroup's share of the features' product.
+template <class P, int N>
 __device__ void bwd_layer(const Maps& maps, const WgDesc& d, int li, Ring& ring, uint32_t s,
                           float* dbuf, const uint4* masks, const float* __restrict__ gout,
                           float* d_pts, float* d_view, float* __restrict__ db_part, int p0, int T,
@@ -1044,97 +1459,151 @@ __device__ void bwd_layer(const Maps& maps, const WgDesc& d, int li, Ring& ring,
   const uint4 mwords = li > 0 ? masks[((size_t)li * gridDim.x + blockIdx.x) * kConsumers +
                                       threadIdx.x]
                               : make_uint4(0u, 0u, 0u, 0u);
+  const uint32_t gz = s + P::rows(L);
   if (d.seg2c[li] >= 0) {
-    float acc2[32];
-    gx_gemm<64>(d, li, ring, s + L.rows, acc2);
-    if (d.seg2c[li] == 4)
-      gx_to_inputs<64>(acc2, d_pts, d.d_in, true, p0, T, L);
-    else
-      gx_to_inputs<64>(acc2, d_view, d.d_view, false, p0, T, L);
+    const bool pts_seg = d.seg2c[li] == P::c_pts(d);
+    float* dst = pts_seg ? d_pts : d_view;
+    const int width = pts_seg ? d.d_in : d.d_view;
+    if (!P::kSplit || d.n2w[li] == 64) {
+      float acc2[32];
+      gx_gemm<P, 64>(d, li, ring, gz, acc2, L);
+      gx_to_inputs<P, 64>(acc2, dst, width, pts_seg, p0, T, L);
+    } else {
+      float acc2[16];
+      gx_gemm<P, 32>(d, li, ring, gz, acc2, L);
+      gx_to_inputs<P, 32>(acc2, dst, width, pts_seg, p0, T, L);
+    }
   }
   float acc[N / 2];
-  gx_gemm<N>(d, li, ring, s + L.rows, acc);
+  gx_gemm<P, N>(d, li, ring, gz, acc, L);
   if (li == 0)
-    gx_to_inputs<N>(acc, d_pts, d.d_in, true, p0, T, L);
+    gx_to_inputs<P, N>(acc, d_pts, d.d_in, true, p0, T, L);
   else
-    gx_features<N>(maps, d, li, acc, s, dbuf, mwords, gout, db_part, p0, T, L);
+    gx_features<P, N>(maps, d, li, acc, s, dbuf, mwords, gout, db_part, p0, T, L);
 }
 
-// K2, pass 1, per 128-point tile: the recomputed forward stores every layer's
-// input in the X workspace (bf16); then the g_z chain stores every layer's
-// g_z in the G workspace (bf16) and its column sums in db_part; d_pts (zeroed
-// by the caller) and d_view.
+// K2, pass 1, per tile: the recomputed forward stores every layer's input in
+// the X workspace (bf16); then the g_z chain stores every layer's g_z in the
+// G workspace (bf16) and its column sums in db_part; d_pts (zeroed by the
+// caller) and d_view.
+template <class P>
+__device__ __forceinline__ void backward_tile(uint8_t* smem_raw, const Maps& maps,
+                                              const WgDesc& d, const float* __restrict__ bias_f,
+                                              const float* __restrict__ pts,
+                                              const float* __restrict__ view,
+                                              const float* __restrict__ gout, float* d_pts,
+                                              float* d_view, uint4* __restrict__ masks,
+                                              float* __restrict__ db_part, int T) {
+  constexpr int C = P::kChunk;
+  uint8_t* gen;
+  const uint32_t s = aligned_base(smem_raw, &gen);
+  float* dbuf = reinterpret_cast<float*>(gen + P::dbuf_off(d));
+  Ring ring = P::kSplit ? make_ring_split(s + P::ring_off(d), kStageBytes, kFwdStages, s + P::bar_off(d))
+                        : make_ring(s + P::ring_off(d), kStageBytes, kFwdStages, s + P::bar_off(d));
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec();
+    if (threadIdx.x == kConsumers) {
+      if constexpr (P::kSplit)
+        produce_weights_n(maps, d, ring, true);
+      else
+        produce_weights(maps, d, ring, true);
+    }
+    return;
+  }
+  setmaxnreg_inc();
+  const Lane L;
+  const int p0 = blockIdx.x * P::kTile, Lr = d.n_layers;
+  const int row = p0 + P::row0(L);
+  load_inputs<P>(d, s, pts, view, p0, T, L);
+  const uint64_t stream = policy_stream();
+  if (P::storer(L)) {  // layer 0's input: pts_enc
+    for (int q = 0; q < d.k1p[0] / 64; ++q)
+      tma_store(&maps.x, s + (P::c_pts(d) + q) * C + P::rows(L), d.xo[0] + 64 * q, row, stream);
+    bulk_commit();
+  }
+  for (int li = 0; li + 1 < Lr; ++li) {
+    fwd_layer_any<P>(d, li, ring, s, bias_f, nullptr, masks, p0, T, true, L);
+    if (P::storer(L)) {  // layer li + 1's input: the features, then the second segment
+      const int nl = li + 1;
+      for (int q = 0; q < d.k1p[nl] / 64; ++q)
+        tma_store(&maps.x, s + q * C + P::rows(L), d.xo[nl] + 64 * q, row, stream);
+      if (d.seg2c[nl] >= 0)
+        for (int q = 0; q < d.n2c[nl]; ++q)
+          tma_store(&maps.x, s + (d.seg2c[nl] + q) * C + P::rows(L),
+                    d.xo[nl] + d.k1p[nl] + 64 * q, row, stream);
+      bulk_commit();
+    }
+  }
+  if (P::storer(L)) bulk_wait_all();  // every input store has read the chunks (g_z reuses them)
+  P::sync(L);
+
+  // g_z of the last layer: the rgb gradient (plan N: over both warpgroups)
+  const int wl = 4 * L.wg + (L.tid >> 5);
+  for (int i = P::kSplit ? threadIdx.x : L.tid; i < 64 * 32; i += P::kSplit ? kConsumers : 128) {
+    const int r = i >> 5, c = (i & 31) * 2, P_ = row + r;
+    const float v0 = (c < 3 && P_ < T) ? gout[(size_t)P_ * 4 + 1 + c] : 0.f;
+    const float v1 = (c + 1 < 3 && P_ < T) ? gout[(size_t)P_ * 4 + 2 + c] : 0.f;
+    sts32(s + P::rows(L) + swz(r, c), bf16x2(v0, v1));
+  }
+  store_gz<P>(maps, d, Lr - 1, s, p0, L);
+  // its column sums: each warp its 16 rows (plan N: warpgroup 0's warps)
+  if (!P::kSplit || L.wg == 0)
+    for (int c = L.lane; c < d.kz[Lr - 1]; c += 32) {
+      float v = 0.f;
+      if (c < 3)
+        for (int i = 0; i < 16; ++i) {
+          const int P_ = p0 + (P::kSplit ? 16 * (L.tid >> 5) : 16 * wl) + i;
+          v += P_ < T ? gout[(size_t)P_ * 4 + 1 + c] : 0.f;
+        }
+      dbuf[wl * P::kDbuf + c] = v;
+    }
+  db_flush<P>(d, Lr - 1, dbuf, db_part, L, 0, (!P::kSplit || L.wg == 0) ? d.kz[Lr - 1] : 0);
+
+#define SPARF_BWD(N) \
+  bwd_layer<P, N>(maps, d, li, ring, s, dbuf, masks, gout, d_pts, d_view, db_part, p0, T, L)
+  for (int li = Lr - 1; li >= 0; --li) {
+    if constexpr (P::kSplit) {
+      switch (d.nx[li]) {
+        case 32: SPARF_BWD(32); break;
+        case 64: SPARF_BWD(64); break;
+        case 96: SPARF_BWD(96); break;
+        case 128: SPARF_BWD(128); break;
+        case 160: SPARF_BWD(160); break;
+        case 192: SPARF_BWD(192); break;
+        case 224: SPARF_BWD(224); break;
+        default: SPARF_BWD(256); break;
+      }
+    } else {
+      switch (d.k1p[li]) {
+        case 64: SPARF_BWD(64); break;
+        case 128: SPARF_BWD(128); break;
+        default: SPARF_BWD(256); break;
+      }
+    }
+  }
+#undef SPARF_BWD
+  if (P::storer(L)) bulk_wait_all();
+}
+
 __global__ void __launch_bounds__(kThreadsWg, 1)
 k2_wg(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
       const float* __restrict__ bias_f, const float* __restrict__ pts,
       const float* __restrict__ view, const float* __restrict__ gout, float* d_pts,
       float* d_view, uint4* __restrict__ masks, float* __restrict__ db_part, int T) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* gen;
-  const uint32_t s = aligned_base(smem_raw, &gen);
-  float* dbuf = reinterpret_cast<float*>(gen + kDbufOff);
-  Ring ring = make_ring(s + kRingOff, kStageBytes, kFwdStages, s + kBarOff);
-  if (threadIdx.x >= kConsumers) {
-    setmaxnreg_dec();
-    if (threadIdx.x == kConsumers) produce_weights(maps, d, ring, true);
-    return;
-  }
-  setmaxnreg_inc();
-  const Lane L;
-  const int p0 = blockIdx.x * kTile, Lr = d.n_layers;
-  const int row = p0 + 64 * L.wg;
-  load_input(s + 4 * kChunkBytes, pts, d.d_in, p0, T, L);
-  if (d.d_view > 0) load_input(s + 5 * kChunkBytes, view, d.d_view, p0, T, L);
-  fence_async_smem();
-  wg_bar(L.wg);
-  const uint64_t stream = policy_stream();
-  if (L.tid == 0) {
-    tma_store(&maps.x, s + 4 * kChunkBytes + L.rows, d.xo[0], row, stream);
-    bulk_commit();
-  }
-  for (int li = 0; li + 1 < Lr; ++li) {
-    fwd_layer_any(d, li, ring, s, bias_f, nullptr, masks, p0, T, true, L);
-    if (L.tid == 0) {  // layer li + 1's input: the features, then the second segment
-      const int nl = li + 1;
-      for (int q = 0; q < d.k1p[nl] / 64; ++q)
-        tma_store(&maps.x, s + q * kChunkBytes + L.rows, d.xo[nl] + 64 * q, row, stream);
-      if (d.seg2c[nl] >= 0)
-        tma_store(&maps.x, s + d.seg2c[nl] * kChunkBytes + L.rows, d.xo[nl] + d.k1p[nl], row,
-                  stream);
-      bulk_commit();
-    }
-  }
-  if (L.tid == 0) bulk_wait_all();  // every input store has read the chunks (g_z reuses them)
-  wg_bar(L.wg);
+  backward_tile<PlanM>(smem_raw, maps, d, bias_f, pts, view, gout, d_pts, d_view, masks, db_part,
+                       T);
+}
 
-  // g_z of the last layer: the rgb gradient
-  const int wl = 4 * L.wg + (L.tid >> 5);
-  for (int i = L.tid; i < 64 * 32; i += 128) {
-    const int r = i >> 5, c = (i & 31) * 2, P = row + r;
-    const float v0 = (c < 3 && P < T) ? gout[(size_t)P * 4 + 1 + c] : 0.f;
-    const float v1 = (c + 1 < 3 && P < T) ? gout[(size_t)P * 4 + 2 + c] : 0.f;
-    sts32(s + L.rows + swz(r, c), bf16x2(v0, v1));
-  }
-  store_gz(maps, d, Lr - 1, s, p0, L);
-  for (int c = L.lane; c < d.kz[Lr - 1]; c += 32) {
-    float v = 0.f;
-    if (c < 3)
-      for (int i = 0; i < 16; ++i) {
-        const int P = p0 + 16 * wl + i;
-        v += P < T ? gout[(size_t)P * 4 + 1 + c] : 0.f;
-      }
-    dbuf[wl * kDbufCols + c] = v;
-  }
-  db_flush(d, Lr - 1, dbuf, db_part, L);
-
-  for (int li = Lr - 1; li >= 0; --li) {
-    switch (d.k1p[li]) {
-      case 64: bwd_layer<64>(maps, d, li, ring, s, dbuf, masks, gout, d_pts, d_view, db_part, p0, T, L); break;
-      case 128: bwd_layer<128>(maps, d, li, ring, s, dbuf, masks, gout, d_pts, d_view, db_part, p0, T, L); break;
-      default: bwd_layer<256>(maps, d, li, ring, s, dbuf, masks, gout, d_pts, d_view, db_part, p0, T, L); break;
-    }
-  }
-  if (L.tid == 0) bulk_wait_all();
+// Plan N's pass 1
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k2_wg_n(const __grid_constant__ Maps maps, const __grid_constant__ WgDesc d,
+        const float* __restrict__ bias_f, const float* __restrict__ pts,
+        const float* __restrict__ view, const float* __restrict__ gout, float* d_pts,
+        float* d_view, uint4* __restrict__ masks, float* __restrict__ db_part, int T) {
+  extern __shared__ uint8_t smem_raw[];
+  backward_tile<PlanN>(smem_raw, maps, d, bias_f, pts, view, gout, d_pts, d_view, masks, db_part,
+                       T);
 }
 
 // ---------------------------------------------------------------------------
@@ -1354,11 +1823,15 @@ int make_map(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols, uint
 // each g_x product's width.
 int weight_maps(const WgDesc& d, const void* wf, const void* wt, Maps* m) {
   bool f[kCodes] = {}, t[kCodes] = {};
-  for (int li = 0; li < d.n_layers; ++li) {
-    f[d.ncode[li]] = true;
-    if (d.dens[li]) f[0] = true;
-    t[d.k1p[li] == 64 ? 2 : (d.k1p[li] == 128 ? 3 : 4)] = true;
-    if (d.seg2c[li] >= 0) t[2] = true;
+  if (d.plan) {  // plan N: boxes of 32 rows (and 8: the RGB output, the density rows)
+    f[0] = f[1] = t[1] = true;
+  } else {
+    for (int li = 0; li < d.n_layers; ++li) {
+      f[d.ncode[li]] = true;
+      if (d.dens[li]) f[0] = true;
+      t[d.k1p[li] == 64 ? 2 : (d.k1p[li] == 128 ? 3 : 4)] = true;
+      if (d.seg2c[li] >= 0) t[2] = true;
+    }
   }
   for (int c = 0; c < kCodes; ++c) {
     if (f[c] && make_map(&m->wf[c], wf, d.RF, d.KF, code_height(c)) != 0) return -6;
@@ -1379,13 +1852,16 @@ int launch_layout(const WgDesc& d, void* wf, void* wt, void* bias_f, cudaStream_
 extern "C" {
 
 // [n_params, wf elements (RF x KF), wt elements (RT x KT), RF, KX, KG,
-// n_part, n_splits, tile] of the chain, or a negative code.
+// n_part, n_splits, tile] of the chain (tile: the points of one block of K1,
+// K2's first pass and K3: 128 in plan M, 64 in plan N; the workspace's rows
+// are T rounded up to 128 either way), or a negative code.
 int sparf_fused_mlp_wg_sizes(const int* dims, int* sizes) {
   static const void* const null_params[2 * kMaxLayers] = {};
   WgDesc d;
   const int rc = build_wg_desc(dims, null_params, &d);
   if (rc < 0) return rc;
-  const int v[9] = {d.n_params, d.RF * d.KF, d.RT * d.KT, d.RF, d.KX, d.KG, d.n_part, kSplits, kTile};
+  const int v[9] = {d.n_params, d.RF * d.KF, d.RT * d.KT, d.RF, d.KX, d.KG, d.n_part, kSplits,
+                    d.plan ? PlanN::kTile : kTile};
   for (int i = 0; i < 9; ++i) sizes[i] = v[i];
   return 0;
 }
@@ -1413,6 +1889,12 @@ int sparf_fused_mlp_wg_forward(const float* pts, const float* view, float* out, 
   memset(&maps, 0, sizeof(maps));
   if ((rc = weight_maps(d, wf, nullptr, &maps)) != 0) return rc;
   if ((rc = launch_layout(d, wf, nullptr, bias_f, s)) != 0) return rc;
+  if (d.plan) {
+    cudaFuncSetAttribute(k1_wg_n, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem);
+    k1_wg_n<<<(T + PlanN::kTile - 1) / PlanN::kTile, kThreadsWg, d.smem, s>>>(
+        maps, d, static_cast<const float*>(bias_f), pts, view, out, T);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaFuncSetAttribute(k1_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
   k1_wg<<<(T + kTile - 1) / kTile, kThreadsWg, kFwdSmem, s>>>(
       maps, d, static_cast<const float*>(bias_f), pts, view, out, T);
@@ -1434,6 +1916,12 @@ int sparf_fused_mlp_wg_forward_packed(const float* pts, const float* view, float
   memset(&maps, 0, sizeof(maps));
   if ((rc = weight_maps(d, wf, nullptr, &maps)) != 0) return rc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d.plan) {
+    cudaFuncSetAttribute(k3_wg_n, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem);
+    k3_wg_n<<<(T + PlanN::kTile - 1) / PlanN::kTile, kThreadsWg, d.smem, s>>>(
+        maps, d, static_cast<const float*>(bias_f), pts, view, out, T);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaFuncSetAttribute(k3_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
   k3_wg<<<(T + kTile - 1) / kTile, kThreadsWg, kFwdSmem, s>>>(
       maps, d, static_cast<const float*>(bias_f), pts, view, out, T);
@@ -1443,9 +1931,8 @@ int sparf_fused_mlp_wg_forward_packed(const float* pts, const float* view, float
 // K2 at bf16. gout (T, 4) = [g_density | g_rgb]; d_pts zeroed by the caller;
 // d_params (n_params,) in the order W0, b0, W1, b1, ...; scratch: wf, wt,
 // bias_f (the sizes' elements), xws (T_pad x KX bf16) and gws (T_pad x KG),
-// T_pad = T rounded up to the tile, masks (n_layers x T_pad / 128 x 256
-// uint4), db_part (T_pad / 64 x KG fp32),
-// partial (n_splits x n_part fp32).
+// T_pad = T rounded up to 128, masks (n_layers x T_pad / tile x 256 uint4),
+// db_part (T_pad / 64 x KG fp32), partial (n_splits x n_part fp32).
 int sparf_fused_mlp_wg_backward(const float* pts, const float* view, const float* gout,
                                 float* d_pts, float* d_view, float* d_params, void* wf, void* wt,
                                 void* bias_f, void* xws, void* gws, void* masks, float* db_part,
@@ -1463,10 +1950,17 @@ int sparf_fused_mlp_wg_backward(const float* pts, const float* view, const float
   if (make_map(&maps.x, xws, x_rows, d.KX, 64) != 0 || make_map(&maps.g, gws, x_rows, d.KG, 64) != 0)
     return -6;
   if ((rc = launch_layout(d, wf, wt, bias_f, s)) != 0) return rc;
-  cudaFuncSetAttribute(k2_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
-  k2_wg<<<n_tiles, kThreadsWg, kFwdSmem, s>>>(maps, d, static_cast<const float*>(bias_f), pts,
-                                               view, gout, d_pts, d_view,
-                                               static_cast<uint4*>(masks), db_part, T);
+  if (d.plan) {
+    cudaFuncSetAttribute(k2_wg_n, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem);
+    k2_wg_n<<<x_rows / PlanN::kTile, kThreadsWg, d.smem, s>>>(
+        maps, d, static_cast<const float*>(bias_f), pts, view, gout, d_pts, d_view,
+        static_cast<uint4*>(masks), db_part, T);
+  } else {
+    cudaFuncSetAttribute(k2_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+    k2_wg<<<n_tiles, kThreadsWg, kFwdSmem, s>>>(maps, d, static_cast<const float*>(bias_f), pts,
+                                                 view, gout, d_pts, d_view,
+                                                 static_cast<uint4*>(masks), db_part, T);
+  }
   if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
 #ifndef K2_TIME_NO_DW
   cudaFuncSetAttribute(k2_dw_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);

@@ -12,6 +12,17 @@ once per call as ready MMA B fragments (fused_mlp.cu); for bfloat16 they run
 `wgmma` on bf16 tiles that TMA brings into shared memory, K3 on K1's body
 (fused_mlp_wgmma.cu).
 
+The kernels take every chain the Pallas kernels take within one block's
+shared memory: 1 to 16 layers of at most 512 features each (a last trunk
+layer of up to 513 outputs with its density unit), skips at any trunk layer
+after 0, pts_enc and view_enc at most 128 wide. Each dtype picks one of two
+tile plans per chain, on the host, before any launch (the csrc header
+notes): the presets' 8x256 chain and every chain of the first plan run as
+they always have (128-point tiles); the others run 64-point tiles. Past the
+domain the C sizes entries refuse the chain and the op raises ValueError
+naming cfg.tpu.use_pallas=False (_DESC_ERRORS); the C descriptors own the
+limits, and the Python mirrors below follow them bit for bit.
+
 compute_dtype is how the chain computes, not how its tensors are stored:
 inputs, weights and outputs are float32 either way. Under bfloat16 each dot
 takes its two operands rounded to bf16 (round to nearest even) and sums in
@@ -31,8 +42,8 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     operand as the float4 {hi(b0), hi(b1), lo(b0), lo(b1)}, hi = TF32
     round-to-nearest of the weight, lo = the exact rest; the input dimension
     padded per segment, and the outputs, to 8, zeros in the padding.
-  - `wg_layout` is fused_mlp_wgmma.cu's build_wg_desc in Python (layer rows,
-    padded input columns, workspace columns); `wgmma_layout_plain` the
+  - `wg_layout` is fused_mlp_wgmma.cu's build_wg_desc in Python (its plan,
+    layer rows, padded input columns, workspace columns); `wgmma_layout_plain` the
     bf16 weight layouts its TMA maps read (and `k_wg_layout` its kernel),
     `unpack_wgmma_layout` the way back; `bf16_workspace_plain` what K2's
     first pass stores at bf16: every layer's input X and g_z in bf16 (the
@@ -102,14 +113,14 @@ K2_TILE = 128  # points per K2 tile (csrc/fused_mlp.cu kTile2)
 
 _DESC_ERRORS = {
     -1: "between 1 and 16 layers with at least one trunk and one RGB layer",
-    -2: ("every layer at most 288 outputs and 320 inputs (each input segment padded to 8), "
-         "with the padded outputs / 8 and inputs / 8 at most 4 past a multiple of 8"),
+    -2: ("at compute_dtype float32 (3xTF32): every layer at most 512 features (outputs, "
+         "less the density unit) and pts_enc and view_enc at most 128 wide"),
     -3: "a chain whose widths match (layer 0 takes pts_enc, no skip at layer 0, 3 RGB outputs)",
     -4: "activations that fit the 227 KB of shared memory of one block",
     -5: "at least one point",
     -6: "TMA tensor maps of its operands (cuTensorMapEncodeTiled failed)",
-    -7: ("at compute_dtype bfloat16 (wgmma): pts_enc and view_enc at most 64 wide, every "
-         "layer's features at most 256 wide and, as a layer's input, padded to 64, 128 or 256"),
+    -7: ("at compute_dtype bfloat16 (wgmma): every layer at most 512 features (outputs, "
+         "less the density unit) and pts_enc and view_enc at most 128 wide"),
 }
 
 
@@ -141,6 +152,15 @@ class FusedMeta:
             n_out, n_in = weights[2 * li].shape
             out += [int(n_out), int(n_in), int(li < self.n_feat and li in self.skip)]
         return out
+
+
+def chain_dims(cfg: MLPConfig) -> List[int]:
+    """FusedMeta.dims of the chain that cfg describes, without its weights."""
+    feat, rgb = nerf_mlp.layer_dims(cfg)
+    out = [len(feat), len(rgb), cfg.input_3d_dim, cfg.input_view_dim, int(cfg.view_dep)]
+    for li, (n_out, n_in) in enumerate(feat + rgb):
+        out += [n_out, n_in, int(li < len(feat) and li in cfg.skip)]
+    return out
 
 
 def flat_weights(params: Dict[str, Any]) -> List[torch.Tensor]:
@@ -392,8 +412,9 @@ def fused_mlp_backward_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: t
 # the bf16 K1 / K2 layouts (csrc/fused_mlp_wgmma.cu), plain
 # ---------------------------------------------------------------------------
 
-_WG_BOX = (8, 32, 64, 128, 256)  # TMA box heights: the forward products' N
-WG_TILE = 128  # points per tile of the bf16 K1 / K2
+_WG_BOX = (8, 32, 64, 128, 256)  # plan M's TMA box heights: the forward products' N
+WG_TILE = 128  # points per tile of the bf16 K1 / K2 in plan M; the workspace's row multiple
+_WG_SMEM = 232448  # a block's shared memory on an H100
 
 
 @dataclass(frozen=True)
@@ -401,7 +422,9 @@ class WgLayer:
     """One layer as fused_mlp_wgmma.cu runs it. Its rows: the outputs, but at
     the last trunk layer (dens) the features first (rows 0 .. out-2) and the
     density unit at row nm; the padded input: segment 1 at 0 .. w1, padded
-    to k1p (64, 128 or 256), segment 2 at k1p .. k1p + w2, padded to kp."""
+    to k1p (a multiple of 64), segment 2 at k1p .. k1p + w2, padded to kp.
+    nx: a warpgroup's share of g_x over the features (plan M k1p, plan N
+    k1p / 2)."""
 
     out: int
     n_in: int
@@ -416,6 +439,7 @@ class WgLayer:
     rt: int  # first row in the transposed weights
     xo: int  # first column of X in the workspace
     go: int  # first column of g_z in the workspace
+    nx: int
 
     def units(self, n_rows: int) -> torch.Tensor:
         """The output unit of each of the first n_rows rows, -1 in padding."""
@@ -441,36 +465,77 @@ class WgLayout:
     KT: int
     KX: int  # workspace columns per point: stored inputs, g_z
     KG: int
+    tile: int = WG_TILE  # points per block: 128 (plan M) or 64 (plan N)
 
 
-@functools.lru_cache(maxsize=16)
-def wg_layout(dims: Tuple[int, ...]) -> WgLayout:
-    """csrc/fused_mlp_wgmma.cu build_wg_desc: raises ValueError for a chain
-    its kernels do not take."""
+def _wg_plan(dims: Tuple[int, ...], split: bool):
+    """csrc/fused_mlp_wgmma.cu layout_wg_desc: the layout of plan M (split
+    False: 128-point tiles, every product's full width per warpgroup) or
+    plan N (64-point tiles, each warpgroup half of every product), "width"
+    where the plan does not take the chain, "bad" where its widths do not
+    match."""
     n_feat, n_rgb, d_in, d_view, view_dep = dims[:5]
+    n_layers = n_feat + n_rgb
     pad = lambda x: -(-x // 64) * 64  # noqa: E731
-    if not (1 <= d_in <= 64 and 0 <= d_view <= 64):
-        raise ValueError(_DESC_ERRORS[-7])
+    max_enc = 128 if split else 64
+    if not (1 <= d_in <= max_enc and 0 <= d_view <= max_enc):
+        return "width"
     layers, RF, RT, KX, KG, KF, KT = [], 0, 0, 0, 0, 64, 64
+    feat_chunks, max_kz = 1, 64
     for li, (out, n_in, w1, w2, *_) in enumerate(_layers(dims)):
         dens = li == n_feat - 1
-        if li > 0 and layers[-1].out - layers[-1].dens != w1:
-            raise ValueError(_DESC_ERRORS[-3])
-        nm = next((h for h in _WG_BOX if h >= out - dens), None)
+        skip = dims[7 + 3 * li]
+        if (out < 1 + dens or w1 < 1 or (li == 0 and (skip or w1 != d_in))
+                or (li > 0 and layers[-1].out - layers[-1].dens != w1)):
+            return "bad"
         k1p = pad(w1)
-        if nm is None or k1p not in (64, 128, 256):
-            raise ValueError(_DESC_ERRORS[-7])
+        if split:
+            if out - dens > 512 or k1p > 512:
+                return "width"
+            nm = 2 * (8 if li == n_layers - 1 else pad(out - dens) // 2)
+        else:
+            # the density row at nm, past the next layer's padded input
+            nm = next((h for h in _WG_BOX if h >= max(out - dens, 64 if dens else 1)), None)
+            if nm is None or k1p not in (64, 128, 256):
+                return "width"
         kz = pad(nm + 8 if dens else out)
+        if kz > (576 if split else 320):
+            return "width"
         kp = k1p + pad(w2)
-        if kz > 320:
-            raise ValueError(_DESC_ERRORS[-7])
-        layers.append(WgLayer(out, n_in, w1, w2, k1p, kp, dens, nm, kz, RF, RT, KX, KG))
+        layers.append(WgLayer(out, n_in, w1, w2, k1p, kp, dens, nm, kz, RF, RT, KX, KG,
+                              k1p // 2 if split else k1p))
+        if li > 0:
+            feat_chunks = max(feat_chunks, k1p // 64)
+        max_kz = max(max_kz, kz)
         RF += nm + (8 if dens else 0)
         RT += kp
         KX += kp
         KG += kz
         KF, KT = max(KF, kp), max(KT, kz)
-    return WgLayout(tuple(layers), RF, KF, RT, KT, KX, KG)
+    if layers[-1].out != 3:
+        return "bad"
+    if split:
+        n_act = feat_chunks + pad(d_in) // 64 + pad(d_view) // 64
+        smem = n_act * 8192 + 3 * (256 + 8) * 128 + 8 * 576 * 4 + 3 * 3 * 8 + 1024
+        if max_kz // 64 > n_act or smem > _WG_SMEM:
+            return "width"
+    return WgLayout(tuple(layers), RF, KF, RT, KT, KX, KG, 64 if split else WG_TILE)
+
+
+@functools.lru_cache(maxsize=16)
+def wg_layout(dims: Tuple[int, ...]) -> WgLayout:
+    """csrc/fused_mlp_wgmma.cu build_wg_desc: plan M where it takes the chain,
+    else plan N; raises ValueError for a chain its kernels do not take."""
+    n_feat, n_rgb = dims[:2]
+    if n_feat < 1 or n_rgb < 1 or n_feat + n_rgb > 16:
+        raise ValueError(_DESC_ERRORS[-1])
+    for split in (False, True):
+        lay = _wg_plan(tuple(dims), split)
+        if isinstance(lay, WgLayout):
+            return lay
+        if lay == "bad":
+            raise ValueError(_DESC_ERRORS[-3])
+    raise ValueError(_DESC_ERRORS[-7])
 
 
 def _wg_block(L: WgLayer, W: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -529,42 +594,56 @@ def unpack_wgmma_layout(dims: Sequence[int], wf: torch.Tensor, wt: Optional[torc
     return outs
 
 
-def _fragment_index(n_rows: int, device=None):
-    """For the bf16 K2's mask words: per tile row and column (< 256), the
-    consumer thread that holds it in the wgmma accumulator fragment, and its
-    bit (word, position): thread = 128 wg + 32 w + 4 g + t holds rows 64 wg +
-    16 w + g + 8 h and columns 8 j + 2 t + e at bit 4 (j % 8) + 2 h + e of
-    word j // 8."""
-    r = torch.arange(n_rows, device=device)[:, None] % WG_TILE
-    c = torch.arange(256, device=device)[None, :]
-    wg, w, g, h = r // 64, (r % 64) // 16, r % 8, (r % 16) // 8
-    j, t, e = c // 8, (c % 8) // 2, c % 2
+def _fragment_index(n_rows: int, device=None, half: Optional[int] = None):
+    """For the bf16 K2's mask words: per row and column, the consumer thread
+    that holds it in the wgmma accumulator fragment, and its bit (word,
+    position). Plan M (half None; columns < 256): thread = 128 wg + 32 w + 4
+    g + t holds rows 64 wg + 16 w + g + 8 h of a 128-point tile and columns 8
+    j + 2 t + e at bit 4 (j % 8) + 2 h + e of word j // 8. Plan N (columns <
+    2 half): warpgroup wg holds columns wg half + 8 j + 2 t + e of rows 16 w
+    + g + 8 h of a 64-point tile."""
+    if half is None:
+        r = torch.arange(n_rows, device=device)[:, None] % WG_TILE
+        c = torch.arange(256, device=device)[None, :]
+        wg, cl = r // 64, c
+    else:
+        r = torch.arange(n_rows, device=device)[:, None] % 64
+        c = torch.arange(2 * half, device=device)[None, :]
+        wg, cl = c // half, c % half
+    w, g, h = (r % 64) // 16, r % 8, (r % 16) // 8
+    j, t, e = cl // 8, (cl % 8) // 2, cl % 2
     thread = 128 * wg + 32 * w + 4 * g + t
     return thread, j // 8, 4 * (j % 8) + 2 * h + e
 
 
-def relu_mask_words_plain(x: torch.Tensor) -> torch.Tensor:
+def relu_mask_words_plain(x: torch.Tensor, half: Optional[int] = None) -> torch.Tensor:
     """The bf16 K2's ReLU mask words of one layer's input features x (T,
-    width <= 256, the float32 ReLU outputs): (T_pad / 128, 256, 4) int32, bit
-    set where x > 0 (csrc fused_mlp_wgmma.cu mask_bit)."""
+    width, the float32 ReLU outputs): (T_pad / tile, 256, 4) int32, bit set
+    where x > 0 (csrc fused_mlp_wgmma.cu mask_bit); plan M (width <= 256,
+    128-point tiles), or plan N with each warpgroup `half` of the columns
+    (64-point tiles)."""
     T, width = x.shape
-    n_tiles = -(-T // WG_TILE)
-    m = torch.zeros((n_tiles * WG_TILE, 256), dtype=torch.int64, device=x.device)
+    tile = WG_TILE if half is None else 64
+    n_cols = 256 if half is None else 2 * half
+    n_tiles = -(-T // tile)
+    m = torch.zeros((n_tiles * tile, n_cols), dtype=torch.int64, device=x.device)
     m[:T, :width] = (x > 0).long()
-    thread, word, bit = _fragment_index(n_tiles * WG_TILE, x.device)
-    tile = torch.arange(n_tiles * WG_TILE, device=x.device)[:, None] // WG_TILE
-    flat = ((tile * 256 + thread) * 4 + word).expand(-1, 256).reshape(-1)
+    thread, word, bit = _fragment_index(n_tiles * tile, x.device, half)
+    block = torch.arange(n_tiles * tile, device=x.device)[:, None] // tile
+    flat = ((block * 256 + thread) * 4 + word).expand(-1, n_cols).reshape(-1)
     words = torch.zeros(n_tiles * 256 * 4, dtype=torch.int64, device=x.device)
     words.index_add_(0, flat, (m << bit).reshape(-1))
     return (words - (words >= 2 ** 31).long() * 2 ** 32).to(torch.int32).view(n_tiles, 256, 4)
 
 
-def relu_mask_from_words(words: torch.Tensor, T: int, width: int) -> torch.Tensor:
+def relu_mask_from_words(words: torch.Tensor, T: int, width: int,
+                         half: Optional[int] = None) -> torch.Tensor:
     """relu_mask_words_plain's way back: the (T, width) bool mask."""
+    tile = WG_TILE if half is None else 64
     n_tiles = words.shape[0]
-    thread, word, bit = _fragment_index(n_tiles * WG_TILE, words.device)
-    tile = torch.arange(n_tiles * WG_TILE, device=words.device)[:, None] // WG_TILE
-    w = words.long().view(-1)[(tile * 256 + thread) * 4 + word] & 0xFFFFFFFF
+    thread, word, bit = _fragment_index(n_tiles * tile, words.device, half)
+    block = torch.arange(n_tiles * tile, device=words.device)[:, None] // tile
+    w = words.long().view(-1)[(block * 256 + thread) * 4 + word] & 0xFFFFFFFF
     return ((w >> bit) & 1).bool()[:T, :width]
 
 
@@ -574,17 +653,18 @@ def bf16_workspace_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch
     """What the bf16 K2's first pass (k2_wg) stores, plain: (X (T_pad, KX)
     bf16: every layer's input, its segments at the layer's padded columns;
     G (T_pad, KG) bf16: every layer's g_z at its rows (WgLayer); masks
-    (n_layers, T_pad / 128, 256, 4) int32: per layer the ReLU mask words of
+    (n_layers, T_pad / tile, 256, 4) int32: per layer the ReLU mask words of
     its input features (relu_mask_words_plain; layer 0's, pts_enc, unused
     and 0); db_part (T_pad / 64, KG) fp32: per 64 points the column sums of
-    the unrounded g_z). T_pad = T rounded up to the tile of 128; the padded
-    points hold zeros here (the kernel's X holds their activations, whose
-    g_z is 0)."""
+    the unrounded g_z). T_pad = T rounded up to 128 (either plan); the
+    padded points hold zeros here (the kernel's X and masks hold their
+    activations, whose g_z is 0)."""
     dims = meta.dims(weights)
     lay = wg_layout(tuple(dims))
     T = pts_enc.shape[0]
     n_tiles = -(-T // WG_TILE)
     x_rows = n_tiles * WG_TILE
+    split = lay.tile != WG_TILE
     g_zs: List[torch.Tensor] = []
     with torch.no_grad():
         _, _, xs = _forward_chain(meta, pts_enc, view_enc, weights)
@@ -593,12 +673,14 @@ def bf16_workspace_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch
     X = torch.zeros((x_rows, lay.KX), dtype=torch.bfloat16, device=dev)
     G = torch.zeros((x_rows, lay.KG), dtype=torch.bfloat16, device=dev)
     db = torch.zeros((x_rows, lay.KG), device=dev)
-    masks = torch.zeros((len(lay.layers), n_tiles, 256, 4), dtype=torch.int32, device=dev)
+    masks = torch.zeros((len(lay.layers), x_rows // lay.tile, 256, 4), dtype=torch.int32,
+                        device=dev)
     for li, (L, x, g) in enumerate(zip(lay.layers, xs, g_zs)):
         X[:T, L.xo: L.xo + L.w1] = x[:, : L.w1].to(torch.bfloat16)
         X[:T, L.xo + L.k1p: L.xo + L.k1p + L.w2] = x[:, L.w1:].to(torch.bfloat16)
         if li > 0:
-            masks[li] = relu_mask_words_plain(x[:, : L.w1])
+            words = relu_mask_words_plain(x[:, : L.w1], L.nx if split else None)
+            masks[li, : words.shape[0]] = words
         u = L.units(L.kz).to(dev)
         cols = L.go + torch.nonzero(u >= 0).reshape(-1)
         G[:T, cols] = g[:, u[u >= 0]].to(torch.bfloat16)
@@ -642,9 +724,10 @@ def _dims(meta, weights):
 
 
 def _sizes(lib, dims, which: str) -> List[int]:
-    """[n_params, n_frag_elems, n_part, x_total, g_total, n_splits] of the
-    3xTF32 kernels (csrc sparf_fused_mlp_sizes_tf32)."""
-    sizes = (ctypes.c_int * 6)()
+    """[n_params, n_frag_elems, n_part, x_total, g_total, n_splits, tile] of
+    the 3xTF32 kernels (csrc sparf_fused_mlp_sizes_tf32; tile: the points of
+    one block, 64 in the wide plan)."""
+    sizes = (ctypes.c_int * 7)()
     from sparf_tpu_torch.ops._build import entry
 
     _raise_rc(lib, entry(lib, "sizes")(dims, sizes), which)
@@ -735,8 +818,8 @@ def _launch_k2_wg(meta: FusedMeta, pts_enc, view_enc, weights, gout):
     dims = _dims(meta, weights)
     n_params, n_wf, n_wt, RF, KX, KG, n_part, n_splits, tile = _wg_sizes(
         lib, dims, "K2 (fused MLP backward, bf16)")
-    n_tiles = -(-T // tile)
-    x_rows = n_tiles * tile
+    x_rows = -(-T // WG_TILE) * WG_TILE  # the workspace's rows; blocks of `tile` points
+    n_blocks = x_rows // tile
     d_pts = torch.zeros_like(pts_enc)
     d_view = torch.empty_like(view_enc)
     d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
@@ -746,9 +829,9 @@ def _launch_k2_wg(meta: FusedMeta, pts_enc, view_enc, weights, gout):
     # every layer's input and g_z in bf16 for the dW pass: ~9 KB per point at full width
     xws, gws = torch.empty((x_rows, KX), **bf), torch.empty((x_rows, KG), **bf)
     # the recompute's ReLU mask words: per layer, tile and consumer thread 4 x 32 bits
-    masks = torch.empty((meta.n_feat + meta.n_rgb, n_tiles, 256, 4), dtype=torch.int32,
+    masks = torch.empty((meta.n_feat + meta.n_rgb, n_blocks, 256, 4), dtype=torch.int32,
                         device=dev)
-    db_part = torch.empty((2 * n_tiles, KG), dtype=torch.float32, device=dev)
+    db_part = torch.empty((x_rows // 64, KG), dtype=torch.float32, device=dev)
     partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
     rc = wg_entry(lib, "backward")(
         pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
@@ -825,8 +908,8 @@ def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
     T = pts_enc.shape[0]
     dev = pts_enc.device
     dims = _dims(meta, weights)
-    n_params, n_frag, n_part, x_total, g_total, n_splits = _sizes(lib, dims,
-                                                                  "K2 (fused MLP backward)")
+    n_params, n_frag, n_part, x_total, g_total, n_splits, _ = _sizes(lib, dims,
+                                                                     "K2 (fused MLP backward)")
     x_rows = -(-T // K2_TILE) * K2_TILE
     d_pts = torch.empty_like(pts_enc)
     d_view = torch.empty_like(view_enc)

@@ -1,6 +1,9 @@
 """The data layouts of the bf16 K1 / K2 on wgmma (csrc/fused_mlp_wgmma.cu),
 through their plain versions in ops/fused_mlp.py, on numpy-made weights and
-inputs at small widths and at the full 8x256 chain.
+inputs at small widths, at the full 8x256 chain (plan M, 128-point tiles)
+and at chains of plan N (64-point tiles, each warpgroup half of every
+product): pts_enc and view_enc in two chunks, features padded to 192, 384
+and 512.
 
 - `wgmma_layout_plain` (the weights in the layouts the TMA maps read; the
   kernel `k_wg_layout` is held to it bit for bit on the card by
@@ -27,6 +30,16 @@ from sparf_tpu_torch.ops import fused_mlp as fm
 
 SMALL = dict(layers_feat=(64,) * 5, layers_rgb=(32, 3), skip=(2,), L_3D=6, L_view=2)
 FULL = dict()  # the 8x256 chain with the 128-wide view head
+# plan N: pts_enc and view_enc 75 wide (two chunks each); 150 features
+# (padded to 192); 384; 512 with both encodings 123 wide
+ENC2 = dict(layers_feat=(64,) * 4, layers_rgb=(32, 3), skip=(2,), L_3D=12, L_view=12)
+W192 = dict(layers_feat=(150,) * 3, layers_rgb=(32, 3), skip=())
+W384 = dict(layers_feat=(384,) * 4, layers_rgb=(64, 3), skip=(2,), L_3D=4, L_view=2)
+W512 = dict(layers_feat=(512,) * 3, layers_rgb=(128, 3), skip=(1,), L_3D=20, L_view=20)
+CASES = [(SMALL, True), (SMALL, False), (FULL, True), (ENC2, True), (ENC2, False),
+         (W192, True), (W384, True), (W512, True)]
+IDS = ["small-view", "small", "full-view", "enc2-view", "enc2", "w192-view", "w384-view",
+       "w512-view"]
 SUM_REL = 1e-5  # float32 summation order, of the largest magnitude
 
 
@@ -52,13 +65,13 @@ def _chain(widths, view_dep, T=300, seed=0):
     return meta, weights, pts, view, g_d, g_rgb
 
 
-@pytest.mark.parametrize("widths,view_dep", [(SMALL, True), (SMALL, False), (FULL, True)],
-                         ids=["small-view", "small", "full-view"])
+@pytest.mark.parametrize("widths,view_dep", CASES, ids=IDS)
 def test_wgmma_layout_round_trips_to_w(widths, view_dep):
     meta, weights, *_ = _chain(widths, view_dep)
     dims = meta.dims(weights)
     wf, wt, bias_f = fm.wgmma_layout_plain(dims, weights)
     lay = fm.wg_layout(tuple(dims))
+    assert lay.tile == (128 if widths in (SMALL, FULL) else 64)
     assert wf.shape == (lay.RF, lay.KF) and wt.shape == (lay.RT, lay.KT)
     assert wf.dtype == wt.dtype == torch.bfloat16
     n_nonzero = 0
@@ -77,8 +90,7 @@ def test_wgmma_layout_round_trips_to_w(widths, view_dep):
                                   weights[2 * meta.n_feat - 2][0].to(torch.bfloat16).float())
 
 
-@pytest.mark.parametrize("widths,view_dep", [(SMALL, True), (SMALL, False), (FULL, True)],
-                         ids=["small-view", "small", "full-view"])
+@pytest.mark.parametrize("widths,view_dep", CASES, ids=IDS)
 def test_bf16_workspace_holds_the_operands_of_dw(widths, view_dep):
     meta, weights, pts, view, g_d, g_rgb = _chain(widths, view_dep, T=300 if widths else 200)
     T = pts.shape[0]
@@ -88,6 +100,7 @@ def test_bf16_workspace_holds_the_operands_of_dw(widths, view_dep):
     _, _, xs = fm._forward_chain(meta, pts, view, weights)
     lay = fm.wg_layout(tuple(meta.dims(weights)))
     assert X.shape == (384 if T == 300 else 256, lay.KX) and G.shape[1] == lay.KG
+    assert masks.shape == (len(lay.layers), X.shape[0] // lay.tile, 256, 4)
     assert not X[T:].float().abs().sum() and not G[T:].float().abs().sum()
     for li, (L, x, g) in enumerate(zip(lay.layers, xs, g_zs)):
         Xl = X[:T, L.xo: L.xo + L.kp].float()
@@ -97,7 +110,9 @@ def test_bf16_workspace_holds_the_operands_of_dw(widths, view_dep):
         assert not Xl[:, i < 0].abs().sum()
         # the ReLU masks: the float32 x > 0 of the input features, not bf16(x) != 0
         if li > 0:
-            assert torch.equal(fm.relu_mask_from_words(masks[li], T, L.w1), x[:, : L.w1] > 0)
+            half = L.nx if lay.tile == 64 else None
+            assert torch.equal(fm.relu_mask_from_words(masks[li], T, L.w1, half),
+                               x[:, : L.w1] > 0)
         u = L.units(L.kz)
         Gl = G[:T, L.go: L.go + L.kz].float()
         assert torch.equal(Gl[:, u >= 0], g[:, u[u >= 0]].to(torch.bfloat16).float())
@@ -135,13 +150,31 @@ def test_relu_mask_words_hold_the_float32_mask():
 
 
 @pytest.mark.parametrize("widths,why", [
+    (dict(layers_feat=(640,) * 2, layers_rgb=(32, 3), skip=()), "a 640-wide layer"),
+    (dict(layers_feat=(64,) * 3, layers_rgb=(32, 3), skip=(), L_3D=21), "pts_enc 129 wide"),
+    (dict(layers_feat=(64,) * 3, layers_rgb=(32, 3), skip=(), L_view=21), "view_enc 129 wide"),
+])
+def test_wg_layout_refuses_chains_the_kernels_do_not_take(widths, why):
+    """Past the kernels' domain (every layer up to 512 features, pts_enc and
+    view_enc up to 128 wide) wg_layout raises, as build_wg_desc returns -7."""
+    cfg = tmlp.MLPConfig(view_dep=True, compute_dtype=torch.bfloat16, **widths)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fm.wg_layout(tuple(fm.chain_dims(cfg)))
+
+
+@pytest.mark.parametrize("widths,why", [
     (dict(layers_feat=(150,) * 3, layers_rgb=(32, 3), skip=()), "features padded to 192"),
     (dict(layers_feat=(64,) * 3, layers_rgb=(32, 3), skip=(), L_3D=12), "pts_enc 75 wide"),
     (dict(layers_feat=(300,) * 2, layers_rgb=(32, 3), skip=()), "300 features"),
 ])
-def test_wg_layout_refuses_chains_the_kernels_do_not_take(widths, why):
+def test_wg_layout_takes_in_plan_n_what_plan_m_refuses(widths, why):
+    """The chains plan M (128-point tiles) does not take run in plan N: each
+    warpgroup's half of a product is a multiple of 32 (8 at the RGB output),
+    its rows twice that, and every layer's input chunks are its product's."""
     cfg = tmlp.MLPConfig(view_dep=True, compute_dtype=torch.bfloat16, **widths)
-    meta = fm.FusedMeta.from_cfg(cfg)
-    params = tmlp.init_nerf_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match="bfloat16"):
-        fm.wg_layout(tuple(meta.dims(fm.flat_weights(params))))
+    lay = fm.wg_layout(tuple(fm.chain_dims(cfg)))
+    assert lay.tile == 64
+    for L, nxt in zip(lay.layers, lay.layers[1:] + (None,)):
+        half = L.nm // 2
+        assert half == (8 if nxt is None else nxt.k1p // 2) and half % 8 == 0
+        assert L.nx == L.k1p // 2 and L.kz == -(-((L.nm + 8) if L.dens else L.out) // 64) * 64

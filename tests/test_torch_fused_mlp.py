@@ -147,6 +147,34 @@ def test_pack_weights_round_trips(view_dep):
     assert frag4[32, 0, 0, 0] == fm.tf32_round(w)
 
 
+@pytest.mark.parametrize("widths", [
+    dict(layers_feat=(104,) * 4, layers_rgb=(32, 3), skip=(2,), L_3D=8),
+    dict(layers_feat=(48,) * 4, layers_rgb=(40, 3), skip=(2,), L_view=8),
+    dict(layers_feat=(200,) * 3, layers_rgb=(56, 3), skip=(1,), L_3D=7),
+    dict(layers_feat=(512,) * 3, layers_rgb=(128, 3), skip=(1,), L_3D=20, L_view=20),
+], ids=["w104-L3D8", "w48-Lview8", "w200-L3D7", "w512"])
+def test_pack_fragments_round_trip_past_four_extra_n_tiles(widths):
+    """Chains whose padded widths run 5-7 n-tiles (or k-steps) past a
+    multiple of 8 (pts_enc 51 wide padded to 56, 104 features to 13
+    n-tiles, 48 to 6, a 201-wide density layer to 26, view_enc 51 wide), and
+    the wide plan's corner (512 features, both encodings 123 wide): hi + lo
+    of the forward fragments gives W back exactly, and the transposed set
+    holds the same values."""
+    cfg = tmlp.MLPConfig(**widths)
+    meta = fm.FusedMeta.from_cfg(cfg)
+    params = tmlp.init_nerf_params(torch.Generator().manual_seed(2), cfg)
+    weights = fm.flat_weights(params)
+    packed = fm.pack_weights(params, meta)
+    layers = list(fm._layers(packed.dims))
+    past4 = [x // 8 % 8 for *_, k1p, kp, n_pad in layers for x in (k1p, kp - k1p, n_pad)]
+    assert max(past4) >= 5 or max(n_pad for *_, n_pad in layers) == 520
+    assert packed.frag.numel() == 4 * sum(kp // 8 * n_pad // 8 * 32 for *_, kp, n_pad in layers)
+    for W, Wu in zip(weights[::2], fm.unpack_fragments(packed.dims, packed.frag)):
+        assert torch.equal(Wu, W)
+    ft = fm.pack_fragments_plain(packed.dims, weights, transposed=True)
+    assert torch.equal(torch.sort(ft).values, torch.sort(packed.frag).values)
+
+
 def test_tf32_round_is_nearest_ties_away():
     x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -11 + 2 ** -20, -(1.0 + 2 ** -11),
                       1.0 + 2 ** -12, 3.14159265])

@@ -1,27 +1,31 @@
 """The MLP implementation the renderer picks (RenderConfig.mlp_impl, from
-cfg.tpu.use_pallas), and MLP chains past the CUDA kernels' widths.
+cfg.tpu.use_pallas), and MLP chains across the CUDA kernels' domain.
 
 cfg.tpu.use_pallas=False runs the MLP as models/nerf_mlp.nerf_apply in torch
 ops, on any device and at any width: the port's counterpart of the JAX
 package's XLA MLP (sparf_tpu/training/trainer.py, mlp_impl="xla"). With
 use_pallas=True (the default) the MLP runs through ops/fused_mlp: on a CUDA
-device the kernels, which raise ValueError for a chain past their widths
-(chip_smoke.py wide-check), on the CPU their plain versions. Here, on the
-CPU:
+device the kernels, which take every chain of up to 512 features per layer
+and pts_enc and view_enc up to 128 wide and raise ValueError past that
+(chip_smoke.py kernels, wide-check and routes), on the CPU their plain
+versions. Here, on the CPU:
 
 - the renderer calls the implementation that use_pallas names, and nothing
   else;
-- nerf_apply on the presets' chain and on chains past the kernels' widths
-  (4x64 with L_3D=12, three 150-wide layers, 8x256 with L_3D=12, four
-  384-wide layers) against the JAX package's nerf_apply, in both compute
-  dtypes;
+- nerf_apply on the presets' chain and on other chains of the domain (4x64
+  with L_3D=12, three 150-wide layers, 8x256 with L_3D=12 and with L_3D=6,
+  four 384-wide layers, four 32-wide layers, and its corner: 8x512 with
+  L_3D=20 and L_view=20) against the JAX package's nerf_apply, in both
+  compute dtypes;
 - one use_pallas=False trainer step, joint and fine stage, against the JAX
   trainer's step (the XLA MLP, the JAX trainer's choice on the CPU);
-- the plain versions of K1/K2/K3 on two of those chains against the JAX
+- the plain versions of K1/K2/K3 on each of those chains against the JAX
   package's Pallas K1/K2 and K3 in interpret mode, at the tolerances of
   test_torch_fused_mlp.py (float32) and test_torch_bf16_kernels.py
-  (bfloat16); at bfloat16 K3's weight layout (the wgmma kernels') refuses
-  the chains the bf16 kernels refuse, as k_wg_layout does on the card.
+  (bfloat16; K3 on the bf16 kernels' weight layout, WgPackedWeights);
+- K3's weight layout at bfloat16 (the wgmma kernels') takes every chain of
+  the domain and refuses the chains past it, as k_wg_layout does on the
+  card.
 """
 import jax
 import jax.numpy as jnp
@@ -46,13 +50,56 @@ from sparf_tpu_torch.training.joint_trainer import PoseAndNerfTrainerPerScene as
 
 D_PTS_REL = 4e-6  # float32 point gradients, of their largest magnitude
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
-# widths, and whether the bf16 kernels' layout (wg_layout) takes the chain
+# widths, and whether the bf16 kernels' layout (wg_layout) takes the chain:
+# every chain of the kernels' domain (chip_smoke.py KERNEL_CHAINS)
 CHAINS = {
     "presets-8x256": (dict(), True),
-    "4x64-L3D12": (dict(layers_feat=(64,) * 4, layers_rgb=(32, 3), skip=(2,), L_3D=12), False),
-    "3x150": (dict(layers_feat=(150,) * 3, layers_rgb=(32, 3), skip=()), False),
-    "8x256-L3D12": (dict(L_3D=12), False),
-    "4x384-skip2": (dict(layers_feat=(384,) * 4, skip=(2,)), False),
+    "4x64-L3D12": (dict(layers_feat=(64,) * 4, layers_rgb=(32, 3), skip=(2,), L_3D=12), True),
+    "3x150": (dict(layers_feat=(150,) * 3, layers_rgb=(32, 3), skip=()), True),
+    "8x256-L3D12": (dict(L_3D=12), True),
+    "4x384-skip2": (dict(layers_feat=(384,) * 4, skip=(2,)), True),
+    "8x256-L3D6": (dict(L_3D=6), True),
+    "4x32": (dict(layers_feat=(32,) * 4, layers_rgb=(32, 3), skip=(2,)), True),
+    "8x512-L3D20-Lview20": (dict(layers_feat=(512,) * 8, skip=(4,), L_3D=20, L_view=20), True),
+}
+WIDE = [c for c in CHAINS if c != "presets-8x256"]
+# bf16 on chains of 256 features or more that no earlier version of these
+# tests held (a point there rounds thousands of values: ~2,300 at 8x256,
+# ~4,500 at 8x512, where test_torch_bf16_kernels.py's 64-wide chain rounds
+# ~400): two correct float32 sum orders flip 6.8% to 9.1% of the points here
+# (measured on 44 and 76 points), past that file's 3%, and one point's d_pts
+# by 2.5e-2 of scale. These cases are held to the bounds chip_smoke.py states
+# for the same comparison at the full width (BF16_FLIPPED, BF16_LOOSE,
+# BF16_WEIGHT_RTOL; on the H100 the kernels flip 3.2% at 8x256 and 12% at
+# 8x512, PERF.md): each point within FWD_REL / BWD_REL but FULL_FLIPPED of
+# them, every point within FULL_LOOSE, each weight gradient within
+# FULL_WEIGHT_REL.
+FULL_WIDTH_NEW = {
+    "plain": ("8x256-L3D6", "8x512-L3D20-Lview20"),
+    "interpret": ("8x256-L3D12", "4x384-skip2", "8x256-L3D6", "8x512-L3D20-Lview20"),
+}
+FULL_FLIPPED = 0.15
+FULL_LOOSE = (5e-2, 0.3)  # forward outputs, point gradients
+FULL_WEIGHT_REL = 5e-2
+
+
+def _points_close(actual, expected, rel, what, full):
+    """assert_points_close, or at the full width (FULL_WIDTH_NEW) its bounds
+    there."""
+    if not full:
+        assert_points_close(actual, expected, rel, what)
+        return
+    a, b = (np.asarray(to_np(x), np.float64) for x in (actual, expected))
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    err = np.abs(a - b).max(axis=1) / max(float(np.abs(b).max()), 1e-12)
+    flipped, loose = float((err > rel).mean()), FULL_LOOSE[0 if rel == FWD_REL else 1]
+    assert err.max() <= loose and flipped <= FULL_FLIPPED, (
+        f"{what}: {flipped:.3f} of the points past {rel}, worst {err.max():.3g} of scale")
+# past the kernels' domain: a 640-wide layer, pts_enc 129 wide, view_enc 129 wide
+PAST = {
+    "640-wide": dict(layers_feat=(640,) * 4, layers_rgb=(32, 3), skip=(2,)),
+    "L3D21": dict(L_3D=21),
+    "Lview21": dict(L_view=21),
 }
 
 
@@ -123,6 +170,7 @@ def test_plain_mlp_matches_the_jax_xla_mlp(chain, dtype):
     3.0e-2 (measured here), past test_torch_bf16_kernels.py's bounds, as two
     correct sum orders do on the card (chip_smoke.py wide-check)."""
     bf16 = dtype == "bfloat16"
+    full = chain in FULL_WIDTH_NEW["plain"]
     cfg_j, cfg_t, params_j, pts, ray = _cases(chain, dtype, R=11)
 
     def loss_j(p, x):
@@ -140,8 +188,8 @@ def test_plain_mlp_matches_the_jax_xla_mlp(chain, dtype):
     l_t.backward()
     if bf16:
         for k in ("rgb_samples", "density_samples"):
-            assert_points_close(out_t[k].reshape(-1, *out_t[k].shape[3:]),
-                                np.reshape(out_j[k], (-1, *out_j[k].shape[3:])), FWD_REL, k)
+            _points_close(out_t[k].reshape(-1, *out_t[k].shape[3:]),
+                          np.reshape(out_j[k], (-1, *out_j[k].shape[3:])), FWD_REL, k, full)
         assert_close_scaled(l_t, l_j, LOSS_REL, what="loss")
         if chain in ("4x64-L3D12", "3x150"):
             assert_points_close(x.grad.reshape(-1, 3), np.reshape(g_xj, (-1, 3)), BWD_REL,
@@ -182,13 +230,15 @@ def test_use_pallas_false_step_matches_the_jax_xla_step(tmp_path, monkeypatch, i
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("chain", ["4x64-L3D12", "3x150"])
+@pytest.mark.parametrize("chain", WIDE)
 def test_wide_chains_plain_kernels_match_pallas_interpret(monkeypatch, chain, dtype):
     """K1 + K2 (FusedMLPFunction's plain versions on CPU tensors) and K3's
-    plain version on chains that the bf16 kernels refuse, against the
-    fused-VJP and the forward Pallas kernels in interpret mode; at bfloat16
-    pack_weights refuses them (the bf16 kernels' layout)."""
+    plain version (on pack_weights' layout of the dtype: the 3xTF32
+    fragments, or the bf16 kernels' forward layout) on the chains of the
+    kernels' domain beside the presets', against the fused-VJP and the
+    forward Pallas kernels in interpret mode."""
     bf16 = dtype == "bfloat16"
+    full = chain in FULL_WIDTH_NEW["interpret"]
     fv = interpret_pallas(monkeypatch)
     R = 19
     cfg_j, cfg_t, params_j, pts, ray = _cases(chain, dtype, R)
@@ -208,12 +258,13 @@ def test_wide_chains_plain_kernels_match_pallas_interpret(monkeypatch, chain, dt
     g_leaves = [g for layer in g_pj["feat"] + g_pj["rgb"] for g in layer]
     if bf16:
         for k in ("rgb_samples", "density_samples"):
-            assert_points_close(out_t[k].reshape(-1, *out_t[k].shape[3:]),
-                                np.reshape(out_j[k], (-1, *out_j[k].shape[3:])), FWD_REL, k)
+            _points_close(out_t[k].reshape(-1, *out_t[k].shape[3:]),
+                          np.reshape(out_j[k], (-1, *out_j[k].shape[3:])), FWD_REL, k, full)
         assert_close_scaled(l_t, l_j, LOSS_REL, what="loss")
-        assert_points_close(x.grad.reshape(-1, 3), np.reshape(g_xj, (-1, 3)), BWD_REL, "d_pts")
+        _points_close(x.grad.reshape(-1, 3), np.reshape(g_xj, (-1, 3)), BWD_REL, "d_pts", full)
         for i, (w, g) in enumerate(zip(weights, g_leaves)):
-            assert_close_scaled(w.grad, g, WEIGHT_REL, what=f"{'Wb'[i % 2]}{i // 2}")
+            assert_close_scaled(w.grad, g, FULL_WEIGHT_REL if full else WEIGHT_REL,
+                                what=f"{'Wb'[i % 2]}{i // 2}")
     else:
         assert_close(out_t["rgb_samples"], out_j["rgb_samples"], atol=1e-5)
         assert_close(out_t["density_samples"], out_j["density_samples"], atol=1e-5)
@@ -225,10 +276,6 @@ def test_wide_chains_plain_kernels_match_pallas_interpret(monkeypatch, chain, dt
             assert_close(w.grad, g, atol=1e-4)
 
     meta = fm.FusedMeta.from_cfg(cfg_t)
-    if bf16:
-        with pytest.raises(ValueError, match="at most 64 wide"):
-            fm.pack_weights(params_t, meta)
-        return
     # K3: the forward Pallas kernel on the encoded points
     xs = t(pts).reshape(-1, 3)
     pts_enc = tmlp.encode_points(cfg_t, xs, 0.8)
@@ -239,18 +286,22 @@ def test_wide_chains_plain_kernels_match_pallas_interpret(monkeypatch, chain, dt
     with torch.no_grad():
         packed = fm.pack_weights(params_t, meta)
         dens_t, rgb_t = fm.fused_mlp_forward_packed(meta, pts_enc, view_enc, packed)
-    assert isinstance(packed, fm.PackedWeights)
-    assert_close(dens_t, dens_j, atol=1e-5)
-    assert_close(rgb_t, rgb_j, atol=1e-5)
+    assert isinstance(packed, fm.WgPackedWeights if bf16 else fm.PackedWeights)
+    if bf16:
+        _points_close(dens_t[:, None], np.asarray(dens_j)[:, None], FWD_REL, "K3 density", full)
+        _points_close(rgb_t, rgb_j, FWD_REL, "K3 rgb", full)
+    else:
+        assert_close(dens_t, dens_j, atol=1e-5)
+        assert_close(rgb_t, rgb_j, atol=1e-5)
 
 
-@pytest.mark.parametrize("chain", list(CHAINS))
+@pytest.mark.parametrize("chain", list(CHAINS) + list(PAST))
 def test_bf16_k3_layout_takes_what_the_bf16_kernels_take(chain):
-    """pack_weights at bfloat16 lays out the chains wg_layout takes and
-    raises ValueError for the others, on the CPU as k_wg_layout does on the
-    card; at float32 the CPU packs every chain (the 3xTF32 kernels' own
-    limits are the C side's, chip_smoke.py wide-check)."""
-    widths, takes = CHAINS[chain]
+    """pack_weights at bfloat16 lays out every chain of the kernels' domain
+    (wg_layout) and raises ValueError for the chains past it, on the CPU as
+    k_wg_layout does on the card; at float32 the CPU packs every chain (the
+    3xTF32 kernels' own limits are the C side's, chip_smoke.py routes)."""
+    widths, takes = CHAINS[chain] if chain in CHAINS else (PAST[chain], False)
     for dtype in (torch.float32, torch.bfloat16):
         cfg = tmlp.MLPConfig(compute_dtype=dtype, **widths)
         params = tmlp.init_nerf_params(torch.Generator().manual_seed(0), cfg)
