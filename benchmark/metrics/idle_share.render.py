@@ -1,0 +1,10 @@
+"""idle_share.render: the share (%) of the traced window in which no operation
+ran on the device: 1 - (union of every device operation's interval) over
+the window."""
+
+
+def read(rec):
+    tr = rec.get("trace")
+    if rec["kind"] != "render" or tr is None:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
