@@ -1508,7 +1508,7 @@ def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
         state = dataclasses.replace(trainer.state, iteration=it0, iteration_nerf=it0)
         step = trainer.get_step(it0)
         poses_before = trainer.current_poses_w2c(state).clone()
-        before = (fm.K1_LAUNCHES, fm.K2_LAUNCHES, fm.K3_LAUNCHES, fm.PACK_LAUNCHES)
+        before = fm.launch_counts()
         state, stats = step(state, trainer.draws)  # warm-up (allocator, first launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1516,8 +1516,7 @@ def run_slice(steps: int, matcher_pool_sizes=None) -> dict:
             state, stats = step(state, trainer.draws)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / steps
-        launches = {"K1": fm.K1_LAUNCHES - before[0], "K2": fm.K2_LAUNCHES - before[1],
-                    "K3": fm.K3_LAUNCHES - before[2], "pack": fm.PACK_LAUNCHES - before[3]}
+        launches = {k: v - before[k] for k, v in fm.launch_counts().items()}
         losses = {k: float(v) for k, v in stats.items() if v.numel() == 1}
         bad = [k for k, v in losses.items() if v != v or abs(v) == float("inf")]
         if bad:
@@ -1576,11 +1575,12 @@ def run_eval_phase(trainer) -> dict:
     def timed(fn, log):
         def call(*a, **kw):
             torch.cuda.synchronize()
-            before, t0 = (fm.K1_LAUNCHES, fm.K2_LAUNCHES, fm.K3_LAUNCHES), time.perf_counter()
+            before, t0 = fm.launch_counts(), time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            log.append((time.perf_counter() - t0, fm.K1_LAUNCHES - before[0],
-                        fm.K2_LAUNCHES - before[1], fm.K3_LAUNCHES - before[2]))
+            after = fm.launch_counts()
+            log.append((time.perf_counter() - t0, *(after[k] - before[k]
+                                                    for k in ("K1", "K2", "K3"))))
             return out
         return call
 
@@ -1971,7 +1971,7 @@ def run_fixed_pose_phase(steps: int) -> dict:
     t0 = time.perf_counter()
     res = trainer.evaluate_full(out_dir=trainer.workspace, with_test_optim=True)
     torch.cuda.synchronize()
-    launches = {"K1": fm.K1_LAUNCHES, "K2": fm.K2_LAUNCHES, "K3": fm.K3_LAUNCHES}
+    launches = {k: v for k, v in fm.launch_counts().items() if k != "pack"}
     m = res["per_image"][0]
     if 0 in launches.values() or not all(math.isfinite(v) for v in m.values()
                                          if isinstance(v, float)):

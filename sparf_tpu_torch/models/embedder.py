@@ -13,6 +13,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from sparf_tpu_torch.utils import tracing
+
 
 def frequency_bands(L: int, include_pi: bool = True, log_sampling: bool = True,
                     device=None) -> torch.Tensor:
@@ -41,8 +43,10 @@ def c2f_weights(progress: float, L: int, c2f: Optional[Sequence[float]],
     if c2f is None:
         return None
     start, end = c2f
-    alpha = torch.as_tensor((progress - start) / (end - start) * L, dtype=torch.float32,
-                            device=device)
+    # a host number onto the device: a copy the device has to finish first
+    with tracing.wait("embedder.c2f_alpha"):
+        alpha = torch.as_tensor((progress - start) / (end - start) * L, dtype=torch.float32,
+                                device=device)
     k = torch.arange(L, dtype=torch.float32, device=device)
     return (1 - torch.cos(torch.clamp(alpha - k, 0.0, 1.0) * math.pi)) / 2
 

@@ -18,6 +18,11 @@ Under ray sharding (sparf_tpu_torch.parallel) a training step's bundles
 hold only this rank's rays, sharded where the losses sample them, so the
 renderer sees local rays; `render_image_chunked` splits each chunk's rays
 across ranks itself and gathers the results.
+
+Spans (utils/tracing.py): `render.bundles` per render_bundles call,
+`render.coarse` (geometry, depth samples and the coarse MLP), `render.fine`
+(the PDF's samples, the sort and the fine MLP) and `render.composite` per
+level, `render.chunk` per chunk of a full image.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from sparf_tpu_torch.models import nerf_mlp
 from sparf_tpu_torch.models.nerf_mlp import MLPConfig
 from sparf_tpu_torch.ops import fused_mlp
 from sparf_tpu_torch.parallel import mesh as mesh_mod
-from sparf_tpu_torch.utils import camera
+from sparf_tpu_torch.utils import camera, tracing
 
 
 @dataclass(frozen=True)
@@ -83,8 +88,9 @@ def render_depth_range(cfg, scene) -> torch.Tensor:
     """Sampling range: the config range for the inverse parametrization, the
     dataset near/far otherwise."""
     if cfg.nerf.depth.param == "inverse":
-        return torch.as_tensor(cfg.nerf.depth.range, dtype=torch.float32,
-                               device=scene["depth_range"].device)
+        with tracing.wait("renderer.depth_range"):
+            return torch.as_tensor(cfg.nerf.depth.range, dtype=torch.float32,
+                                   device=scene["depth_range"].device)
     return scene["depth_range"][0]
 
 
@@ -198,29 +204,36 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig, center: torch.Tensor,
     `n_rays`: see RayBundle.
     """
     B, R = ray.shape[0], ray.shape[1]
-    depth_samples = sample_depth(draws, B, R, cfg.sample_intvs, depth_range, cfg.depth_param,
-                                 stratified=cfg.sample_stratified and stratified, n_rays=n_rays)
-    noise = None
-    if draws is not None and stratified and cfg.mlp.density_noise_reg:
-        noise = mesh_mod.rank_draws(draws).normal((B, R, cfg.sample_intvs))
-    pred = forward_samples(params["coarse"], cfg, center, ray, depth_samples, progress,
-                           density_noise=noise)
-    out = _composite(cfg, ray, pred, depth_samples)
+    with tracing.span("render.coarse"):
+        depth_samples = sample_depth(draws, B, R, cfg.sample_intvs, depth_range,
+                                     cfg.depth_param,
+                                     stratified=cfg.sample_stratified and stratified,
+                                     n_rays=n_rays)
+        noise = None
+        if draws is not None and stratified and cfg.mlp.density_noise_reg:
+            noise = mesh_mod.rank_draws(draws).normal((B, R, cfg.sample_intvs))
+        pred = forward_samples(params["coarse"], cfg, center, ray, depth_samples, progress,
+                               density_noise=noise)
+    with tracing.span("render.composite"):
+        out = _composite(cfg, ray, pred, depth_samples)
     out["origins"] = center
     out["viewdirs"] = ray
 
     if cfg.fine_sampling and fine_enabled:
-        det = not (cfg.sample_stratified and stratified)
-        depth_fine = sample_depth_from_pdf(draws, out["weights"][..., 0].detach(),
-                                           cfg.sample_intvs, cfg.sample_intvs_fine,
-                                           depth_range, det=det)
-        # the merged depths carry no gradient (coarse depths are random draws,
-        # fine depths resample detached weights)
-        depth_all = torch.sort(torch.cat([depth_samples, depth_fine], dim=2), dim=2).values
-        depth_all = depth_all.detach()
-        pred_f = forward_samples(params["fine"], cfg, center, ray, depth_all, progress,
-                                 mlp_cfg=cfg.fine_mlp)
-        out.update({k + "_fine": v for k, v in _composite(cfg, ray, pred_f, depth_all).items()})
+        with tracing.span("render.fine"):
+            det = not (cfg.sample_stratified and stratified)
+            depth_fine = sample_depth_from_pdf(draws, out["weights"][..., 0].detach(),
+                                               cfg.sample_intvs, cfg.sample_intvs_fine,
+                                               depth_range, det=det)
+            # the merged depths carry no gradient (coarse depths are random draws,
+            # fine depths resample detached weights)
+            depth_all = torch.sort(torch.cat([depth_samples, depth_fine], dim=2), dim=2).values
+            depth_all = depth_all.detach()
+            pred_f = forward_samples(params["fine"], cfg, center, ray, depth_all, progress,
+                                     mlp_cfg=cfg.fine_mlp)
+        with tracing.span("render.composite"):
+            out.update({k + "_fine": v
+                        for k, v in _composite(cfg, ray, pred_f, depth_all).items()})
     return out
 
 
@@ -268,13 +281,14 @@ def render_image_chunked(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: to
     parts: Dict[str, list] = {}
     with torch.no_grad():
         for c in range(n_chunks):
-            px = mesh_mod.shard_padded(pixels[c * chunk: (c + 1) * chunk], mesh)
-            out = render_at_pixels(params, cfg, pose_w2c, intr, px, depth_range, progress,
-                                   draws=None, stratified=False, fine_enabled=fine_enabled)
-            for k in keep:
-                if k in out:
-                    parts.setdefault(k, []).append(mesh_mod.gather_rays(out[k], mesh, chunk,
-                                                                        axis=1))
+            with tracing.span("render.chunk"):
+                px = mesh_mod.shard_padded(pixels[c * chunk: (c + 1) * chunk], mesh)
+                out = render_at_pixels(params, cfg, pose_w2c, intr, px, depth_range, progress,
+                                       draws=None, stratified=False, fine_enabled=fine_enabled)
+                for k in keep:
+                    if k in out:
+                        parts.setdefault(k, []).append(
+                            mesh_mod.gather_rays(out[k], mesh, chunk, axis=1))
     return {k: torch.cat(v, dim=1)[:, :HW] for k, v in parts.items()}
 
 
@@ -286,17 +300,21 @@ def render_to_max(params: Dict[str, Any], cfg: RenderConfig, pose_w2c: torch.Ten
     probability that a ray reaches depth_max unoccluded. Metric depth only."""
     center, ray = _geometry(cfg, pose_w2c, intr, pixels)
     B, R = ray.shape[0], ray.shape[1]
-    depth_samples = sample_depth_diff_max_range_per_ray(B, R, cfg.sample_intvs, depth_min,
-                                                        depth_max)
     out_all: Dict[str, torch.Tensor] = {"origins": center, "viewdirs": ray}
-    pred = forward_samples(params["coarse"], cfg, center, ray, depth_samples, progress)
-    out_all.update(_composite(cfg, ray, pred, depth_samples))
+    with tracing.span("render.coarse"):
+        depth_samples = sample_depth_diff_max_range_per_ray(B, R, cfg.sample_intvs, depth_min,
+                                                            depth_max)
+        pred = forward_samples(params["coarse"], cfg, center, ray, depth_samples, progress)
+    with tracing.span("render.composite"):
+        out_all.update(_composite(cfg, ray, pred, depth_samples))
     if cfg.fine_sampling and fine_enabled:
         # the same samples through the fine MLP
-        pred_f = forward_samples(params["fine"], cfg, center, ray, depth_samples, progress,
-                                 mlp_cfg=cfg.fine_mlp)
-        out_all.update({k + "_fine": v
-                        for k, v in _composite(cfg, ray, pred_f, depth_samples).items()})
+        with tracing.span("render.fine"):
+            pred_f = forward_samples(params["fine"], cfg, center, ray, depth_samples, progress,
+                                     mlp_cfg=cfg.fine_mlp)
+        with tracing.span("render.composite"):
+            out_all.update({k + "_fine": v
+                            for k, v in _composite(cfg, ray, pred_f, depth_samples).items()})
     return out_all
 
 
@@ -374,6 +392,7 @@ def _merged_mlp_level(params_level, cfg: RenderConfig, mlp_cfg: MLPConfig, bundl
     return preds
 
 
+@tracing.traced("render.bundles")
 def render_bundles(params: Dict[str, Any], cfg: RenderConfig, bundles: list,
                    depth_range: torch.Tensor, progress: float, draws=None,
                    fine_enabled: bool = False, merge: bool = True) -> list:
@@ -407,34 +426,41 @@ def render_bundles(params: Dict[str, Any], cfg: RenderConfig, bundles: list,
         return outs
 
     geoms, depths = [], []
-    for b in bundles:
-        with _grad_mode(b):
-            center, ray = _geometry(cfg, b.pose_w2c, b.intr, b.pixels)
-            geoms.append((center, ray))
-            depths.append(_coarse_depths(cfg, b, center, draws, depth_range))
-    preds = _merged_mlp_level(params["coarse"], cfg, cfg.mlp, bundles, geoms, depths, progress)
+    with tracing.span("render.coarse"):
+        for b in bundles:
+            with _grad_mode(b):
+                center, ray = _geometry(cfg, b.pose_w2c, b.intr, b.pixels)
+                geoms.append((center, ray))
+                depths.append(_coarse_depths(cfg, b, center, draws, depth_range))
+        preds = _merged_mlp_level(params["coarse"], cfg, cfg.mlp, bundles, geoms, depths,
+                                  progress)
     outs = []
-    for b, (center, ray), d, pred in zip(bundles, geoms, depths, preds):
-        with _grad_mode(b):
-            out = _composite(cfg, ray, pred, d)
-        out["origins"] = center
-        out["viewdirs"] = ray
-        outs.append(out)
+    with tracing.span("render.composite"):
+        for b, (center, ray), d, pred in zip(bundles, geoms, depths, preds):
+            with _grad_mode(b):
+                out = _composite(cfg, ray, pred, d)
+            out["origins"] = center
+            out["viewdirs"] = ray
+            outs.append(out)
 
     if cfg.fine_sampling and fine_enabled:
         depths_f = []
-        for b, d, out in zip(bundles, depths, outs):
-            if b.kind == "tomax":
-                depths_f.append(d)  # the same samples through the fine MLP
-                continue
-            det = not (cfg.sample_stratified and b.stratified)
-            depth_fine = sample_depth_from_pdf(draws, out["weights"][..., 0].detach(),
-                                               cfg.sample_intvs, cfg.sample_intvs_fine,
-                                               depth_range, det=det)
-            depths_f.append(torch.sort(torch.cat([d, depth_fine], dim=2), dim=2).values.detach())
-        preds_f = _merged_mlp_level(params["fine"], cfg, cfg.fine_mlp, bundles, geoms, depths_f,
-                                    progress)
-        for b, (center, ray), d, pred, out in zip(bundles, geoms, depths_f, preds_f, outs):
-            with _grad_mode(b):
-                out.update({k + "_fine": v for k, v in _composite(cfg, ray, pred, d).items()})
+        with tracing.span("render.fine"):
+            for b, d, out in zip(bundles, depths, outs):
+                if b.kind == "tomax":
+                    depths_f.append(d)  # the same samples through the fine MLP
+                    continue
+                det = not (cfg.sample_stratified and b.stratified)
+                depth_fine = sample_depth_from_pdf(draws, out["weights"][..., 0].detach(),
+                                                   cfg.sample_intvs, cfg.sample_intvs_fine,
+                                                   depth_range, det=det)
+                depths_f.append(torch.sort(torch.cat([d, depth_fine], dim=2),
+                                           dim=2).values.detach())
+            preds_f = _merged_mlp_level(params["fine"], cfg, cfg.fine_mlp, bundles, geoms,
+                                        depths_f, progress)
+        with tracing.span("render.composite"):
+            for b, (center, ray), d, pred, out in zip(bundles, geoms, depths_f, preds_f, outs):
+                with _grad_mode(b):
+                    out.update({k + "_fine": v
+                                for k, v in _composite(cfg, ray, pred, d).items()})
     return outs

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
+from sparf_tpu_torch.utils import tracing
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -120,7 +122,8 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     (one per set of timing-only `defines`; the port uses the default)."""
     key = tuple(defines)
     if key not in _LIBS:
-        lib = ctypes.CDLL(str(build(key)))
+        with tracing.span("setup.kernels"):
+            lib = ctypes.CDLL(str(build(key)))
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, args in (("sizes", [p, p]), ("pack", [p, p, p, p, p]),
                            ("forward", [p, p, p, i, p, p, p, i, p]),

@@ -60,10 +60,14 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     launch); the plain versions are taken only for CPU tensors.
   - `nerf_apply_fused` takes K1/K2 when autograd will ask for a gradient,
     K3 otherwise.
-  - `K1_LAUNCHES` / `K2_LAUNCHES` / `K3_LAUNCHES` count kernel launches (not
-    plain calls) of the float32 (3xTF32) variants, `PACK_LAUNCHES`
-    pack_weights' layout kernel; the `*_BF16_LAUNCHES` the bf16 variants'.
+  - The tracer's counters `launch.K1` / `launch.K2` / `launch.K3` count kernel
+    launches (not plain calls) of the float32 (3xTF32) variants, `launch.pack`
+    pack_weights' layout kernel; `launch.<kernel>.bf16` the bf16 variants'.
     `reset_launch_counts` / `launch_counts` set them to 0 and read them.
+  - Spans (utils/tracing.py): `mlp.forward` over nerf_apply_fused and
+    `mlp.backward` over FusedMLPFunction.backward, with `mlp.encode` (the
+    encodings), `mlp.pack` (pack_weights) and `mlp.launch` (the kernels'
+    host side) inside.
 
 PE, the density activation and the sigmoid stay outside, in torch. The
 choice between this op and models/nerf_mlp.nerf_apply (torch ops,
@@ -81,33 +85,28 @@ import torch.nn.functional as F
 
 from sparf_tpu_torch.models import nerf_mlp
 from sparf_tpu_torch.models.nerf_mlp import MLPConfig
+from sparf_tpu_torch.utils import tracing
 
-K1_LAUNCHES = 0
-K2_LAUNCHES = 0
-K3_LAUNCHES = 0
-PACK_LAUNCHES = 0
-K1_BF16_LAUNCHES = 0
-K2_BF16_LAUNCHES = 0
-K3_BF16_LAUNCHES = 0
-PACK_BF16_LAUNCHES = 0
-_KERNELS = ("K1", "K2", "K3", "PACK")
+_KERNELS = ("K1", "K2", "K3", "pack")
+
+
+def _counter(kernel: str, bf16: bool) -> str:
+    return f"launch.{kernel}{'.bf16' if bf16 else ''}"
 
 
 def _counted(kernel: str, bf16: bool) -> None:
     """One launch of `kernel`'s float32 or bf16 variant."""
-    name = f"{kernel}{'_BF16' if bf16 else ''}_LAUNCHES"
-    globals()[name] += 1
+    tracing.count(_counter(kernel, bf16))
 
 
 def reset_launch_counts() -> None:
-    for k in _KERNELS:
-        globals()[f"{k}_LAUNCHES"] = globals()[f"{k}_BF16_LAUNCHES"] = 0
+    tracing.reset_counts("launch.")
 
 
 def launch_counts(bf16: bool = False) -> Dict[str, int]:
     """{"K1", "K2", "K3", "pack"}: the launches of the float32 or the bf16 variants."""
-    return {("pack" if k == "PACK" else k): globals()[f"{k}{'_BF16' if bf16 else ''}_LAUNCHES"]
-            for k in _KERNELS}
+    counted = tracing.counts()
+    return {k: counted.get(_counter(k, bf16), 0) for k in _KERNELS}
 
 K2_TILE = 128  # points per K2 tile (csrc/fused_mlp.cu kTile2)
 
@@ -282,7 +281,7 @@ def pack_weights(params: Dict[str, Any], meta: FusedMeta):
         else:
             _check_operands(weights[0], weights[1], weights)
             wf, _, bias_f = wg_layout_kernel(dims, weights, transposed=False)
-            _counted("PACK", True)
+            _counted("pack", True)
         return WgPackedWeights(dims, wf, bias_f)
     if dev.type == "cpu":
         frag = pack_fragments_plain(dims, weights)
@@ -296,7 +295,7 @@ def pack_weights(params: Dict[str, Any], meta: FusedMeta):
         rc = entry(lib, "pack")(c_dims, _ptrs(weights), frag.data_ptr(), None,
                                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_rc(lib, rc, "pack_weights (fragment packing)")
-        _counted("PACK", False)
+        _counted("pack", False)
     return PackedWeights(dims, frag, weights[1::2])
 
 
@@ -976,17 +975,21 @@ class FusedMLPFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_density, g_rgb):
-        pts_enc, view_enc, *weights = ctx.saved_tensors
-        T = pts_enc.shape[0]
-        if g_density is None:
-            g_density = pts_enc.new_zeros(T)
-        if g_rgb is None:
-            g_rgb = pts_enc.new_zeros((T, 3))
-        d_pts, d_view, grads = fused_mlp_backward(
-            ctx.meta, pts_enc, view_enc, weights, g_density.contiguous(), g_rgb.contiguous())
-        return (None, d_pts, d_view, *grads)
+        with tracing.span("mlp.backward"):
+            pts_enc, view_enc, *weights = ctx.saved_tensors
+            T = pts_enc.shape[0]
+            if g_density is None:
+                g_density = pts_enc.new_zeros(T)
+            if g_rgb is None:
+                g_rgb = pts_enc.new_zeros((T, 3))
+            with tracing.span("mlp.launch"):
+                d_pts, d_view, grads = fused_mlp_backward(
+                    ctx.meta, pts_enc, view_enc, weights, g_density.contiguous(),
+                    g_rgb.contiguous())
+            return (None, d_pts, d_view, *grads)
 
 
+@tracing.traced("mlp.forward")
 def nerf_apply_fused(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor,
                      ray: torch.Tensor, progress: float,
                      density_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -995,19 +998,23 @@ def nerf_apply_fused(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor,
     points, the views or the weights; K3 on packed weights otherwise."""
     B, R, S, _ = pts.shape
     T = B * R * S
-    pts_enc = nerf_mlp.encode_points(cfg, pts, progress).reshape(T, -1)
-    if cfg.view_dep:
-        view = nerf_mlp.encode_views(cfg, nerf_mlp.unit_rays(ray), progress)
-        view_enc = view[:, :, None, :].expand(B, R, S, view.shape[-1]).reshape(T, -1)
-    else:
-        view_enc = pts_enc.new_zeros((T, 0))
+    with tracing.span("mlp.encode"):
+        pts_enc = nerf_mlp.encode_points(cfg, pts, progress).reshape(T, -1)
+        if cfg.view_dep:
+            view = nerf_mlp.encode_views(cfg, nerf_mlp.unit_rays(ray), progress)
+            view_enc = view[:, :, None, :].expand(B, R, S, view.shape[-1]).reshape(T, -1)
+        else:
+            view_enc = pts_enc.new_zeros((T, 0))
+        pts_enc, view_enc = pts_enc.contiguous(), view_enc.contiguous()
     meta, weights = FusedMeta.from_cfg(cfg), flat_weights(params)
-    pts_enc, view_enc = pts_enc.contiguous(), view_enc.contiguous()
     if torch.is_grad_enabled() and any(x.requires_grad for x in (pts_enc, view_enc, *weights)):
-        raw_density, raw_rgb = FusedMLPFunction.apply(meta, pts_enc, view_enc, *weights)
+        with tracing.span("mlp.launch"):
+            raw_density, raw_rgb = FusedMLPFunction.apply(meta, pts_enc, view_enc, *weights)
     else:
-        raw_density, raw_rgb = fused_mlp_forward_packed(meta, pts_enc, view_enc,
-                                                        pack_weights(params, meta))
+        with tracing.span("mlp.pack"):
+            packed = pack_weights(params, meta)
+        with tracing.span("mlp.launch"):
+            raw_density, raw_rgb = fused_mlp_forward_packed(meta, pts_enc, view_enc, packed)
     if density_noise is not None and cfg.density_noise_reg:
         raw_density = raw_density + density_noise.reshape(T) * cfg.density_noise_reg
     density = nerf_mlp.density_activation(raw_density, cfg.density_activ)

@@ -142,7 +142,7 @@ def _rank_main(rank: int, n: int, backend: str, device: str, rdzv: str, out_dir:
                 pose=[t.detach().cpu() for t in engine.tree_leaves(new.pose_params)],
                 mu=[t.detach().cpu() for t in engine.tree_leaves(
                     getattr(new.opt_state_nerf, "mu", []))],
-                collective_bytes=dict(mesh_mod.COLLECTIVE_BYTES),
+                collective_bytes=mesh_mod.collective_bytes(),
                 launches=fused_mlp.launch_counts(), it_per_sec=its))
         trainer.writer.close()
         torch.save(dict(rank=rank, world=n, backend=mesh_mod.make_mesh().backend,

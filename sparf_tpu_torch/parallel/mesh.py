@@ -27,7 +27,8 @@ rays across ranks (`shard_padded`) and gathers the results (`gather_rays`).
 
 The backend is the caller's explicit choice (`init_process_group`): NCCL for
 CUDA devices, gloo for the CPU. Each collective goes through a wrapper here
-that adds its payload to `COLLECTIVE_BYTES`.
+that adds its payload to the tracer's counter `collective_bytes.<kind>`
+(utils/tracing.py; `collective_bytes` reads them).
 """
 from __future__ import annotations
 
@@ -40,13 +41,23 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import torch
 import torch.distributed as dist
 
-# payload bytes sent through each kind of collective, per process
-COLLECTIVE_BYTES: Dict[str, int] = {"all_reduce": 0, "broadcast": 0, "gather": 0}
+from sparf_tpu_torch.utils import tracing
+
+COLLECTIVES = ("all_reduce", "broadcast", "gather")
+
+
+def _sent(kind: str, n_bytes: int) -> None:
+    tracing.count(f"collective_bytes.{kind}", n_bytes)
+
+
+def collective_bytes() -> Dict[str, int]:
+    """Payload bytes sent through each kind of collective by this process."""
+    counted = tracing.counts("collective_bytes.")
+    return {k: counted.get(k, 0) for k in COLLECTIVES}
 
 
 def reset_collective_bytes() -> None:
-    for k in COLLECTIVE_BYTES:
-        COLLECTIVE_BYTES[k] = 0
+    tracing.reset_counts("collective_bytes.")
 
 
 @dataclass(frozen=True)
@@ -158,7 +169,7 @@ def pad_to_multiple(n: int, mesh: Optional[Mesh] = None) -> int:
 
 
 def _all_reduce(x: torch.Tensor) -> torch.Tensor:
-    COLLECTIVE_BYTES["all_reduce"] += x.numel() * x.element_size()
+    _sent("all_reduce", x.numel() * x.element_size())
     dist.all_reduce(x)
     return x
 
@@ -239,7 +250,7 @@ def replicate_tree(tree, mesh: Optional[Mesh] = None):
 
     with torch.no_grad():
         for leaf in tree_leaves(tree):
-            COLLECTIVE_BYTES["broadcast"] += leaf.numel() * leaf.element_size()
+            _sent("broadcast", leaf.numel() * leaf.element_size())
             dist.broadcast(leaf, src=0)
     return tree
 
@@ -265,7 +276,7 @@ def on_rank0(fn: Callable[[], Any], mesh: Optional[Mesh]) -> Any:
     dist.broadcast(size, src=0)
     buf = (torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(device) if mesh.rank == 0
            else torch.empty(int(size), dtype=torch.uint8, device=device))
-    COLLECTIVE_BYTES["broadcast"] += 8 + buf.numel()
+    _sent("broadcast", 8 + buf.numel())
     dist.broadcast(buf, src=0)
     if failure is not None:
         raise failure
@@ -303,6 +314,6 @@ def gather_rays(x: torch.Tensor, mesh: Optional[Mesh], n: int, axis: int = 0) ->
     shape[axis] = per * mesh.world_size
     full = x.new_zeros(shape)
     full.narrow(axis, mesh.rank * per, per).copy_(x.detach())
-    COLLECTIVE_BYTES["gather"] += full.numel() * full.element_size()
+    _sent("gather", full.numel() * full.element_size())
     dist.all_reduce(full)
     return full.narrow(axis, 0, n)

@@ -12,6 +12,10 @@ advance its step). With grad_acc_steps = k > 1 the NeRF optimizer is wrapped
 as optax.MultiSteps wraps the chain (`MultiSteps`): the running mean of k
 mini-step gradients goes through the chain on every k-th finite step, and
 the other steps update nothing.
+
+The step is the tracer's unit `step` (utils/tracing.py), with the spans
+`step.poses`, `step.losses`, `step.backward`, `step.reduce` (with a mesh)
+and `step.update`.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from sparf_tpu_torch.models.renderer import RenderConfig
 from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training.losses import base as loss_base
 from sparf_tpu_torch.training.losses import photometric as photo_mod
+from sparf_tpu_torch.utils import tracing
 
 # ---------------------------------------------------------------------------
 # parameter trees (dicts / lists / tuples of tensors)
@@ -74,8 +79,9 @@ def exponential_lr(lr_init: float, lr_end: Optional[float], max_iter: int) -> Ca
 
     def lr(step):
         step = torch.as_tensor(step, dtype=torch.float32)
-        return lr_init * torch.pow(torch.tensor(gamma, dtype=torch.float32, device=step.device),
-                                   step)
+        with tracing.wait("lr.gamma"):
+            base = torch.tensor(gamma, dtype=torch.float32, device=step.device)
+        return lr_init * torch.pow(base, step)
 
     return lr
 
@@ -127,8 +133,11 @@ class Adam:
         nu = [(1 - self.b2) * (g * g) + self.b2 * v for g, v in zip(grads, state.nu)]
         count_inc = state.count + 1
         c = count_inc.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(self.b1, device=c.device), c)
-        bc2 = 1 - torch.pow(torch.tensor(self.b2, device=c.device), c)
+        with tracing.wait("adam.betas"):
+            b1 = torch.tensor(self.b1, device=c.device)
+            b2 = torch.tensor(self.b2, device=c.device)
+        bc1 = 1 - torch.pow(b1, c)
+        bc2 = 1 - torch.pow(b2, c)
         lr = self.lr_fn(state.count.to(torch.float32))
         updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)) for m, v in zip(mu, nu)]
         return updates, AdamState(count_inc, mu, nu)
@@ -280,39 +289,46 @@ def make_train_step(cfg, loss_builder, tx_nerf, tx_pose: Optional[Adam] = None,
     skip_large = cfg.get("skip_large_gradients")
 
     def step(state: TrainState, draws) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with mesh_mod.active(mesh):
+        with tracing.span("step"), mesh_mod.active(mesh):
             return sharded_step(state, draws)
 
     def sharded_step(state: TrainState, draws) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        progress = state.iteration_nerf / max_iter if apply_c2f else 1.0
-        nerf_leaves = [t.detach().requires_grad_(True) for t in tree_leaves(state.nerf_params)]
-        pose_leaves = [t.detach().requires_grad_(True) for t in tree_leaves(state.pose_params)]
-        nerf_params = tree_unflatten(state.nerf_params, nerf_leaves)
-        if pose_cfg is not None:
-            poses_w2c = pose_mod.get_w2c_poses(
-                pose_cfg, tree_unflatten(state.pose_params, pose_leaves), pose_constants)
-        else:
-            poses_w2c = scene["pose"]
-        if not optimize_poses:
-            poses_w2c = poses_w2c.detach()
+        with tracing.span("step.poses"):
+            progress = state.iteration_nerf / max_iter if apply_c2f else 1.0
+            nerf_leaves = [t.detach().requires_grad_(True)
+                           for t in tree_leaves(state.nerf_params)]
+            pose_leaves = [t.detach().requires_grad_(True)
+                           for t in tree_leaves(state.pose_params)]
+            nerf_params = tree_unflatten(state.nerf_params, nerf_leaves)
+            if pose_cfg is not None:
+                poses_w2c = pose_mod.get_w2c_poses(
+                    pose_cfg, tree_unflatten(state.pose_params, pose_leaves), pose_constants)
+            else:
+                poses_w2c = scene["pose"]
+            if not optimize_poses:
+                poses_w2c = poses_w2c.detach()
 
-        loss_dict, stats = loss_builder(nerf_params, poses_w2c, draws, float(state.iteration),
-                                        progress)
-        if cfg.loss_weight.get("equalize_losses"):
-            summed = loss_base.summarize_loss_w_equal_weights(loss_dict, cfg.loss_weight)
-        else:
-            summed = loss_base.summarize_loss_w_predefined_weights(
-                loss_dict, cfg.loss_weight,
-                parametrization=cfg.loss_weight.get("parametrization", "exp"))
+        with tracing.span("step.losses"):
+            loss_dict, stats = loss_builder(nerf_params, poses_w2c, draws,
+                                            float(state.iteration), progress)
+            if cfg.loss_weight.get("equalize_losses"):
+                summed = loss_base.summarize_loss_w_equal_weights(loss_dict, cfg.loss_weight)
+            else:
+                summed = loss_base.summarize_loss_w_predefined_weights(
+                    loss_dict, cfg.loss_weight,
+                    parametrization=cfg.loss_weight.get("parametrization", "exp"))
         leaves = nerf_leaves + pose_leaves
-        grads = torch.autograd.grad(summed["all"], leaves, allow_unused=True)
-        grads = [torch.zeros_like(l) if g is None else g for g, l in zip(grads, leaves)]
-        # the frozen poses' zero gradients stay out of the all-reduce
-        n_reduced = len(grads) if optimize_poses else len(nerf_leaves)
-        grads = mesh_mod.all_reduce_grads(grads[:n_reduced]) + grads[n_reduced:]
+        with tracing.span("step.backward"):
+            grads = torch.autograd.grad(summed["all"], leaves, allow_unused=True)
+            grads = [torch.zeros_like(l) if g is None else g for g, l in zip(grads, leaves)]
+        if mesh is not None:
+            # the frozen poses' zero gradients stay out of the all-reduce
+            n_reduced = len(grads) if optimize_poses else len(nerf_leaves)
+            with tracing.span("step.reduce"):
+                grads = mesh_mod.all_reduce_grads(grads[:n_reduced]) + grads[n_reduced:]
         g_nerf, g_pose = grads[: len(nerf_leaves)], grads[len(nerf_leaves):]
 
-        with torch.no_grad():
+        with tracing.span("step.update"), torch.no_grad():
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             if skip_large:
                 finite = finite & (global_norm(g_nerf) <= float(skip_large))

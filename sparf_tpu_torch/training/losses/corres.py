@@ -22,6 +22,7 @@ import torch
 from sparf_tpu_torch.models import flow_net as flow_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.parallel import mesh as mesh_mod
+from sparf_tpu_torch.utils import tracing
 from sparf_tpu_torch.training.losses import base as L
 from sparf_tpu_torch.utils import camera, geometry, imgproc
 
@@ -263,12 +264,16 @@ def make_corres_loss_builder(trainer):
     def make(fine_enabled: bool):
         def builder(nerf_params, poses_w2c, draws, iteration, progress):
             p = draws.randint((), 0, n_pairs)
+            # the drawn pair and its two views, read on the host once: indexing
+            # by a device scalar would read it at every index
+            with tracing.wait("corres.pair_index"):
+                p = int(p)
+                id_self, id_other = pools["pair_ids"][p].tolist()
             count = pools["pool_count"][p]
             idx = mesh_mod.shard_rays(draws.randint((N,), 0, 2**31 - 1) % count)
             pix_self = pools["pool_pix_self"][p][idx]      # (N,2)
             pix_other = pools["pool_pix_other"][p][idx]
             conf = pools["pool_conf"][p][idx]              # (N,)
-            id_self, id_other = pools["pair_ids"][p, 0], pools["pair_ids"][p, 1]
             pose_self = poses_w2c[id_self][None]           # (1,3,4)
             pose_other = poses_w2c[id_other][None]
             intr_self = scene["intr"][id_self][None]

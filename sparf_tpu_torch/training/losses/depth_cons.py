@@ -18,11 +18,12 @@ import torch
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training.losses import base as L
-from sparf_tpu_torch.utils import camera, geometry
+from sparf_tpu_torch.utils import camera, geometry, tracing
 
 
-def nearest_pose_id_by_angle(poses_c2w: torch.Tensor, id_self: torch.Tensor) -> torch.Tensor:
-    """Angular distance between camera-position vectors, excluding id_self; argmin."""
+def nearest_pose_id_by_angle(poses_c2w: torch.Tensor, id_self) -> torch.Tensor:
+    """Angular distance between camera-position vectors, excluding id_self (an
+    int, or a scalar tensor); argmin."""
     centers = poses_c2w[:, :3, 3]
     tar = centers[id_self]
     tar_u = tar / (torch.linalg.norm(tar) + 1e-12)
@@ -55,6 +56,10 @@ def make_depth_cons_loss_builder(trainer):
     def make(fine_enabled: bool):
         def builder(nerf_params, poses_w2c, draws, iteration, progress):
             id_self = draws.randint((), 0, B)
+            # the drawn view, read on the host once: indexing by a device scalar
+            # would read it at every index
+            with tracing.wait("depth_cons.view_index"):
+                id_self = int(id_self)
             n_center = int(N * frac_center)
             xs = draws.randint((N,), 0, W).to(torch.float32)
             ys = draws.randint((N,), 0, H).to(torch.float32)
@@ -89,6 +94,8 @@ def make_depth_cons_loss_builder(trainer):
             # virtual pose: linear interpolation of the c2w matrices
             id_other = nearest_pose_id_by_angle(poses_c2w_4, id_self)
             w = draws.uniform(())
+            with tracing.wait("depth_cons.view_index"):
+                id_other = int(id_other)
             c2w_unseen = w * pose_c2w_ref4 + (1 - w) * poses_c2w_4[id_other]
             w2c_unseen = camera.pose_inverse_4x4(c2w_unseen)[:3][None]  # (1,3,4)
             pts_cam = camera.world2cam(pts3d_w[None], w2c_unseen)
@@ -99,8 +106,11 @@ def make_depth_cons_loss_builder(trainer):
                      & (pts2d[:, 1] <= H - 1) & (pseudo_depth >= near))
             pts2d_safe = torch.stack([torch.clamp(pts2d[:, 0], 0, W - 1),
                                       torch.clamp(pts2d[:, 1], 0, H - 1)], -1)
-            vis_depth_min = (torch.as_tensor(inv_depth_min, device=near.device)
-                             if inverse_param else near)
+            if inverse_param:
+                with tracing.wait("depth_cons.near"):
+                    vis_depth_min = torch.as_tensor(inv_depth_min, device=near.device)
+            else:
+                vis_depth_min = near
             depth_max_safe = torch.maximum(pseudo_depth, vis_depth_min + 1e-3)
 
             ret_vis, ret_unseen = yield [

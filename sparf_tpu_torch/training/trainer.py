@@ -35,7 +35,7 @@ from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training import checkpointing, engine
 from sparf_tpu_torch.training import metrics as metrics_mod
 from sparf_tpu_torch.training.sampling import make_ray_sampler
-from sparf_tpu_torch.utils import imgproc, vis
+from sparf_tpu_torch.utils import imgproc, tracing, vis
 from sparf_tpu_torch.utils.draws import Draws
 
 
@@ -124,16 +124,20 @@ class NerfTrainerPerScene:
         self.init_generator = torch.Generator(device=self.device).manual_seed(2 * seed)
         self.draws = Draws(2 * seed + 1, self.device)
 
-        self.load_dataset()
-        self.build_networks()
-        self.setup_optimizer()
-        self.state, self.pose_constants = engine.init_train_state(
-            self.init_generator, self.render_cfg, self.tx_nerf, self.device,
-            pose_cfg=getattr(self, "pose_cfg", None),
-            initial_poses_w2c=getattr(self, "initial_poses_w2c", None),
-            tx_pose=getattr(self, "tx_pose", None))
-        mesh_mod.replicate_tree([self.state.nerf_params, self.state.pose_params], self.mesh)
-        self.define_loss_module()
+        with tracing.span("setup.scene"):
+            self.load_dataset()
+        with tracing.span("setup.networks"):
+            self.build_networks()
+        with tracing.span("setup.optimizer"):
+            self.setup_optimizer()
+            self.state, self.pose_constants = engine.init_train_state(
+                self.init_generator, self.render_cfg, self.tx_nerf, self.device,
+                pose_cfg=getattr(self, "pose_cfg", None),
+                initial_poses_w2c=getattr(self, "initial_poses_w2c", None),
+                tx_pose=getattr(self, "tx_pose", None))
+            mesh_mod.replicate_tree([self.state.nerf_params, self.state.pose_params], self.mesh)
+        with tracing.span("setup.pools"):
+            self.define_loss_module()
         self.best_val = float("inf")
         self.epoch_of_best_val = 0
         self._step_cache: Dict[Tuple, Any] = {}
@@ -206,6 +210,10 @@ class NerfTrainerPerScene:
         base = engine.default_photometric_loss_builder(cfg, self.train_scene, self.sampler,
                                                        sample_in_center=sample_in_center)
         builders = [base] + [mk(fine_enabled) for mk in self.extra_loss_builders]
+        # a builder's span, by the module that defines it: loss.photometric,
+        # loss.corres, loss.depth_cons, loss.colmap_depth
+        spans = ["loss.photometric"] + ["loss." + mk.__module__.rsplit(".", 1)[-1]
+                                        for mk in self.extra_loss_builders]
         render_cfg, scene = self.render_cfg, self.train_scene
         merge = merged_render(cfg)
 
@@ -216,7 +224,8 @@ class NerfTrainerPerScene:
             pending: Dict[int, Any] = {}
             for i, g in enumerate(gens):
                 try:
-                    pending[i] = g.send(None)
+                    with tracing.span(spans[i]):
+                        pending[i] = g.send(None)
                 except StopIteration as e:
                     results[i] = e.value
             while pending:
@@ -229,7 +238,8 @@ class NerfTrainerPerScene:
                 for i in order:
                     n_i = len(pending[i])
                     try:
-                        nxt[i] = gens[i].send(outs[ofs: ofs + n_i])
+                        with tracing.span(spans[i]):
+                            nxt[i] = gens[i].send(outs[ofs: ofs + n_i])
                     except StopIteration as e:
                         results[i] = e.value
                     ofs += n_i
@@ -379,10 +389,11 @@ class NerfTrainerPerScene:
     def render_full_image(self, scene: Dict[str, Any], idx: int, pose: torch.Tensor,
                           fine_enabled: bool) -> Dict[str, torch.Tensor]:
         H, W = scene["image"].shape[-2:]
-        return renderer_mod.render_image_chunked(
-            self.state.nerf_params, self.render_cfg, pose, scene["intr"][idx: idx + 1], H, W,
-            renderer_mod.render_depth_range(self.cfg, scene), self.progress(),
-            fine_enabled=fine_enabled, chunk=self.cfg.nerf.rand_rays, mesh=self.mesh)
+        with tracing.span("frame"):
+            return renderer_mod.render_image_chunked(
+                self.state.nerf_params, self.render_cfg, pose, scene["intr"][idx: idx + 1], H,
+                W, renderer_mod.render_depth_range(self.cfg, scene), self.progress(),
+                fine_enabled=fine_enabled, chunk=self.cfg.nerf.rand_rays, mesh=self.mesh)
 
     def val_pose_and_scale(self, idx: int) -> Tuple[torch.Tensor, float]:
         """w2c pose used to render val image idx, and the depth scaling factor."""

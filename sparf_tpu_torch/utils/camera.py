@@ -20,6 +20,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sparf_tpu_torch.utils import tracing
+
 
 def to_hom(x: torch.Tensor) -> torch.Tensor:
     """Append a 1 to the last dim: (..., K) -> (..., K+1)."""
@@ -73,7 +75,9 @@ def pose_compose(pose_list: Sequence[torch.Tensor]) -> torch.Tensor:
 def pose_to_4x4(pose: torch.Tensor) -> torch.Tensor:
     """(...,3,4) -> (...,4,4) homogeneous."""
     bottom = torch.zeros((*pose.shape[:-2], 1, 4), dtype=pose.dtype, device=pose.device)
-    bottom[..., 0, 3] = 1.0
+    # a host number into a device tensor: a copy the device has to finish first
+    with tracing.wait("camera.pose_to_4x4"):
+        bottom[..., 0, 3] = 1.0
     return torch.cat([pose, bottom], dim=-2)
 
 
@@ -106,7 +110,14 @@ def cam2img(x: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
 
 def img2cam(x: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
     """(..., N, 3) homogeneous pixels -> camera coords via K^-1."""
-    return x @ torch.linalg.inv(intr).transpose(-1, -2)
+    return x @ intr_inverse(intr).transpose(-1, -2)
+
+
+def intr_inverse(intr: torch.Tensor) -> torch.Tensor:
+    """K^-1 (...,3,3). The inverse checks its result on the host: a wait on a
+    CUDA device."""
+    with tracing.wait("camera.intr_inverse"):
+        return torch.linalg.inv(intr)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ def batch_backproject_to_3d(kpi: torch.Tensor, di: torch.Tensor, Ki: torch.Tenso
     kpi (B,N,2) pixels; di (B,N) depths; Ki (B,3,3); T_itoj (B,4,4).
     Returns (B,N,3).
     """
-    pts3d_i = to_homogeneous(kpi) @ torch.linalg.inv(Ki).transpose(-1, -2)
+    pts3d_i = to_homogeneous(kpi) @ camera.intr_inverse(Ki).transpose(-1, -2)
     pts3d_i = pts3d_i * di[..., None]
     return from_homogeneous(to_homogeneous(pts3d_i) @ T_itoj.transpose(-1, -2))
 
@@ -46,7 +46,7 @@ def batch_project_to_other_img(kpi: torch.Tensor, di: torch.Tensor, Ki: torch.Te
     kpi (B,N,2), di (B,N), Ki/Kj (B,3,3), T_itoj (B,4,4).
     Returns kpi_j (B,N,2) [, di_j (B,N), the depth in frame j].
     """
-    kpi_3d_i = to_homogeneous(kpi) @ torch.linalg.inv(Ki).transpose(-1, -2)
+    kpi_3d_i = to_homogeneous(kpi) @ camera.intr_inverse(Ki).transpose(-1, -2)
     kpi_3d_i = kpi_3d_i * di[..., None]
     kpi_3d_j = from_homogeneous(to_homogeneous(kpi_3d_i) @ T_itoj.transpose(-1, -2))
     kpi_j = from_homogeneous(kpi_3d_j @ Kj.transpose(-1, -2))
