@@ -384,8 +384,10 @@ def kernel_bounds(meta, weights, T: int) -> dict:
 
 
 def check_packing(meta, weights, params) -> None:
-    """The 3xTF32 weight layout: k_pack's two fragment sets and pack_weights'
-    fragments against pack_fragments_plain, bit for bit."""
+    """The 3xTF32 weight layouts: k_pack's two fragment sets and pack_weights'
+    fragments against pack_fragments_plain, and where the float32 K2 on
+    wgmma takes the chain, k_tf_layout against tf32wg_weights_plain, bit for
+    bit (and the C sizes against its Python mirror, tf32wg_layout)."""
     import torch
 
     from sparf_tpu_torch.ops import _build
@@ -405,6 +407,24 @@ def check_packing(meta, weights, params) -> None:
                        ("pack_weights", packed, plain[0])):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"k_pack {name} fragments differ from the plain packing in "
+                                 f"{int((a != b).sum())} of {a.numel()} floats")
+    dims = meta.dims(weights)
+    lay = fm.tf32wg_layout(tuple(dims))
+    if lay is None:
+        return
+    sizes = (ctypes.c_int * 9)()
+    fm._raise_rc(lib, _build.tf32wg_entry(lib, "sizes")(fm._dims(meta, weights), sizes), "sizes")
+    want = [sum(int(w.numel()) for w in weights), 2 * lay.RF * lay.KF, 2 * lay.RT * lay.KT,
+            lay.RF, lay.NX, lay.NG]
+    if list(sizes)[:6] != want:
+        raise AssertionError(f"sparf_fused_mlp_tf32wg_sizes {list(sizes)[:6]} != "
+                             f"tf32wg_layout's {want}")
+    got = fm.tf32wg_weights_kernel(dims, weights)
+    plain = fm.tf32wg_weights_plain(dims, weights)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("forward", "transposed", "bias"), got, plain):
+        if not torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32)):
+            raise AssertionError(f"k_tf_layout {name} differs from tf32wg_weights_plain in "
                                  f"{int((a != b).sum())} of {a.numel()} floats")
 
 
@@ -468,6 +488,7 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
     import torch
 
     from sparf_tpu_torch.ops import fused_mlp as fm
+    from sparf_tpu_torch.utils import tracing
 
     tag = ("bf16" if bf16 else "fp32") + (f" {chain}" if chain else "")
     widths = KERNEL_CHAINS[chain] if chain else None
@@ -507,9 +528,15 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
             keep = (min_abs_preactivation(meta, pts_enc, view_enc, weights)
                     >= UNAMBIGUOUS_Z).float()
             g_d, g_rgb = g_d * keep, g_rgb * keep[:, None]
+            fm.reset_launch_counts()
             out_k = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
             out_k2 = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
             torch.cuda.synchronize()
+            counted = tracing.counts()
+            k2_wg = (counted.get(fm.K2_TF32WG, 0), counted.get("launch.K2", 0))
+            if not bf16 and chain is None and k2_wg[0] != k2_wg[1]:
+                failed.append(f"K2 {tag}: launch.K2.tf32wg {k2_wg[0]} != launch.K2 {k2_wg[1]} "
+                              f"on the presets' chain")
             flat_k = [out_k[0], out_k[1], *out_k[2]]
             flat_k2 = [out_k2[0], out_k2[1], *out_k2[2]]
             k2_same_bits = all(torch.equal(a, b) for a, b in zip(flat_k, flat_k2))
@@ -574,7 +601,10 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
                              f"rerun, K3 "
                              f"{'' if k3_same_bits else 'not '}bit-identical to K1, "
                              + ("k_wg_layout" if bf16 else "k_pack")
-                             + f" bit-identical to its plain version; "
+                             + ("" if bf16 or fm.tf32wg_layout(tuple(meta.dims(weights))) is None
+                                else " and k_tf_layout")
+                             + f" bit-identical to its plain version; launch.K2.tf32wg / "
+                             f"launch.K2 {k2_wg[0]} / {k2_wg[1]}; "
                              f"{1 - float(keep.mean()):.4f} "
                              f"of the points held out of the backward check (|z| < "
                              f"{UNAMBIGUOUS_Z})")
@@ -661,7 +691,10 @@ def check_routes() -> dict:
     """routes: both C sizes entries (sparf_fused_mlp_sizes_tf32 and
     sparf_fused_mlp_wg_sizes) return 0 for every chain of route_chains'
     inside and a width code (-2, -4 or -7, whose message names
-    use_pallas=False) for every chain past it; the plans taken, counted."""
+    use_pallas=False) for every chain past it; the float32 K2 on wgmma
+    (sparf_fused_mlp_tf32wg_sizes) takes the chains its mirror
+    (fused_mlp.tf32wg_layout) takes and answers -7 to the rest; the plans
+    taken, counted."""
     from sparf_tpu_torch.models import nerf_mlp
     from sparf_tpu_torch.ops import _build
     from sparf_tpu_torch.ops import fused_mlp as fm
@@ -682,6 +715,14 @@ def check_routes() -> dict:
                     failed.append(f"{name} {over}: rc {rc}")
                 key = f"{kind} {name} " + (f"{sizes[n - 1]}-point tiles" if rc == 0 else f"rc {rc}")
                 counts[key] = counts.get(key, 0) + 1
+            # the float32 K2 on wgmma: its C descriptor and its mirror pick the same chains
+            sizes = (ctypes.c_int * 9)()
+            rc = _build.tf32wg_entry(lib, "sizes")(c_dims, sizes)
+            if rc not in (0, -7) or (rc == 0) != (fm.tf32wg_layout(tuple(dims)) is not None):
+                failed.append(f"fp32 K2 on wgmma {over}: rc {rc}, tf32wg_layout "
+                              f"{fm.tf32wg_layout(tuple(dims)) is not None}")
+            key = f"{kind} fp32 K2 " + ("on wgmma" if rc == 0 else "on mma.sync")
+            counts[key] = counts.get(key, 0) + 1
     phase("routes", f"{len(inside)} chains inside the domain, {len(past)} past it, each in both "
                     f"dtypes: {counts}")
     if failed:
@@ -691,27 +732,34 @@ def check_routes() -> dict:
 
 def kernel_plan(meta, weights, T: int = 262144) -> dict:
     """Which plan of its dtype's kernels a chain takes (the C sizes entries:
-    points per block) and the bytes of K2's workspace at T points: every
-    layer's input and g_z, float32 (3xTF32) or bf16."""
+    points per block; at float32 whether K2 runs on wgmma) and the bytes of
+    K2's workspace at T points: every layer's input and g_z, float32
+    (3xTF32) or bf16; each kernel's registers and spills (ptxas)."""
     from sparf_tpu_torch.ops import _build
     from sparf_tpu_torch.ops import fused_mlp as fm
 
     lib, dims = _build.load_library(), fm._dims(meta, weights)
     x_rows = -(-T // 128) * 128
+    tf32wg = not meta.bf16 and fm.tf32wg_layout(tuple(meta.dims(weights))) is not None
     if meta.bf16:
         sizes = fm._wg_sizes(lib, dims, "sizes")
         per_point = 2 * (sizes[4] + sizes[5])
     else:
         sizes = fm._sizes(lib, dims, "sizes")
         per_point = 4 * (sizes[3] + sizes[4])
+        if tf32wg:  # X and G, point-contiguous
+            lay = fm.tf32wg_layout(tuple(meta.dims(weights)))
+            per_point = 4 * (lay.NX + lay.NG)
     tile = sizes[-1]
     what = (f"{tile}-point tiles" + (", the warpgroups split the outputs" if meta.bf16 and tile == 64
-                                     else ""))
+                                     else "") + (", K2 on wgmma" if tf32wg else ""))
     if meta.bf16:
         names = [f"wg {k}_wg{'_n' if tile == 64 else ''}" for k in ("k1", "k2", "k3")]
     else:
         names = [f"tf32 {k}{'_w' if tile == 64 else ''}"
                  for k in ("k1_forward", "k2_backward", "k3_forward")]
+        if tf32wg:
+            names[1:2] = ["wg k2_tf", "wg k2_dw_tf"]
     return {"tile": tile, "workspace_bytes": x_rows * per_point, "what": what,
             "kernels": ptxas_summary(_build.BuildInfo.log, names)}
 

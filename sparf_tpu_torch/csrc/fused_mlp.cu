@@ -3,7 +3,12 @@
 // accuracy). The bf16 K1, K2 and K3 run wgmma on TMA-fed bf16 tiles
 // (fused_mlp_wgmma.cu, its own header note); they replaced bf16 variants of
 // this file's mma.sync loops, which bounded them: K2 bf16 at 13.7 ms of a
-// 0.84-ms bound, K1 bf16 at 2.1 ms and K3 bf16 at 2.0 ms of 0.28.
+// 0.84-ms bound, K1 bf16 at 2.1 ms and K3 bf16 at 2.0 ms of 0.28. The float32
+// K2 of every chain the bf16 plan M takes (the presets' among them) runs
+// 3xTF32 wgmma there too (fused_mlp_wgmma.cu, "The float32 K2"); this
+// file's K2 (k2_backward, k2_backward_w, k2_dw, k2_reduce) runs the other
+// chains of the domain (ops/fused_mlp.py picks the kernels from the chain's
+// dims before any launch).
 //
 // Replaces the Pallas TPU kernels of sparf_tpu/ops/fused_mlp_vjp.py:
 //   K1 = _fwd_kernel (launched by _core_forward), K2 = _bwd_kernel (launched

@@ -1,16 +1,18 @@
-// The bf16 fused NeRF-MLP forward (K1, K3) and backward (K2) for Hopper
-// (sm_90a) on warpgroup MMAs (wgmma) fed by the Tensor Memory Accelerator
-// (TMA).
+// The bf16 fused NeRF-MLP forward (K1, K3) and backward (K2), and the
+// float32 (3xTF32) backward, for Hopper (sm_90a) on warpgroup MMAs (wgmma)
+// fed by the Tensor Memory Accelerator (TMA). The float32 K2 has its own
+// note below ("The float32 K2").
 //
 // Replaces, at compute_dtype bfloat16, the Pallas TPU kernels of
 // sparf_tpu/ops/fused_mlp_vjp.py: K1 = _fwd_kernel (:175, launched by
 // _core_forward) and K2 = _bwd_kernel (:86, the custom_vjp backward); and of
 // sparf_tpu/ops/fused_mlp.py: K3 = _kernel (:97), the forward on weights
 // laid out once per call (k3_wg: K1's body, forward_tile, under a symbol of
-// its own, so K3 gives K1's bits). The float32 (3xTF32) K1/K2/K3 are
-// fused_mlp.cu's (mma.sync on packed fragments); this file is compiled once,
-// beside that file (ops/_build.py), and its entry points are
-// sparf_fused_mlp_wg_*.
+// its own, so K3 gives K1's bits). The float32 (3xTF32) K1 and K3, and K2
+// of the chains the float32 K2 below does not take, are fused_mlp.cu's
+// (mma.sync on packed fragments); this file is compiled once, beside that
+// file (ops/_build.py), and its entry points are sparf_fused_mlp_wg_* (bf16)
+// and sparf_fused_mlp_tf32wg_* (the float32 K2).
 //
 // The compute_dtype contract of the TPU kernels: each dot takes its two
 // operands rounded to bf16 (round to nearest even) and sums in fp32; bias,
@@ -128,9 +130,66 @@
 //     are plan M's (they read only the workspace, whose rows are T rounded
 //     up to 128 in both plans).
 //
+// The float32 K2 (k_tf_layout, k2_tf, k2_dw_tf, k2_reduce_tf) replaces, at
+// compute_dtype float32, sparf_tpu/ops/fused_mlp_vjp.py::_bwd_kernel (:86)
+// for every chain plan M takes (build_tf_desc, mirrored by
+// ops/fused_mlp.py::tf32wg_layout; the presets' 8x256 chain among them);
+// fused_mlp.cu's mma.sync K2 runs the other chains. Its arithmetic is
+// fused_mlp.cu's 3xTF32: each operand x is split into hi = TF32 of x (round
+// to nearest, ties away, by integer add and mask: fused_mlp.cu's split) and
+// lo = x - hi, and each product is lo(A) hi(B) + hi(A) lo(B) + hi(A) hi(B),
+// summed in fp32 (wgmma m64nNk8 .tf32, which truncates each operand word
+// to TF32: hi is exact in it, and lo loses only what 3xTF32 drops). The
+// weights' hi and lo are laid out once per launch by k_tf_layout
+// (ops/fused_mlp.py::tf32wg_weights_plain); activations and g_z are split
+// as they are read.
+//   * Bound on an H100 (T = 262,144, the presets' chain): three TF32
+//     products for each of the recompute's, g_x's and dW's ~527,872
+//     multiply-adds per point, 5.03 ms at 495 TFLOP/s (the benchmark's
+//     count, one product per multiply-add and no recompute: 1.12 ms); its
+//     workspace, every layer's input and g_z in fp32 (17.8 KB per point,
+//     written once and read once, 9.3 GB), >= 2.8 ms at 3.35 TB/s.
+//   * TF32 wgmma reads shared-memory operands only K-major (the transposed
+//     mode is for 16-bit types). The layer products put the points on M:
+//     A (the activations, g_z) comes from registers, split as loaded, and B
+//     (the weights' hi or lo) is a TMA-fed K-major box. dW = g_z^T X puts
+//     the points on K: the workspace stores every column point-contiguous
+//     ([column][point] rows), so that both of dW's operands are K-major
+//     boxes that TMA loads as they lie: g_z feeds A from registers, X is B.
+//   * Pass 1 (k2_tf; plan M's tile and roles): 128-point tiles, two consumer
+//     warpgroups of 64 points that take every product's full N (up to 256:
+//     128 accumulators a thread), one producer thread that issues a TMA box
+//     of one 32-column k-chunk of the hi or the lo weights per ring stage
+//     (32 KB, three stages), setmaxnreg 56/224. Each product runs every
+//     k-chunk against its hi stages (lo(A) hi(B) + hi(A) hi(B)), then
+//     against its lo stages (hi(A) lo(B)). The tile's activations, then its
+//     g_z, sit in shared memory in fp32 (128 x 256, columns XOR-swizzled by
+//     row so that the A fragments' loads hit 32 banks; 128 KB), where each
+//     warp reads and writes only its own 16 rows, so the consumers wait on
+//     nothing but the ring. The recompute keeps the ReLU masks as each
+//     thread's bits (plan M's words); the density unit's g_x column comes
+//     from gout. A layer's input (and g_z) goes to the workspace while the
+//     next product's MMAs run, a slice per k-chunk, not in the epilogue.
+//   * Pass 2 (k2_dw_tf): dW tiles of 128 (or 64) rows of g_z x one input
+//     segment (N = 256, 128, 64 or 32) over 64 point ranges; per stage of
+//     32 points the g_z box and the X box (raw fp32, three stages of 48 KB),
+//     the X box split by the 256 consumers into hi (in place) and lo (one of
+//     two 32-KB buffers), the next stage's while this one's MMAs run; db
+//     from the A fragments' rows; k2_reduce_tf sums the 64 partials in
+//     order: no atomics, two runs give the same bits.
+//   * Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 10.71 ms at T
+//     = 262,144, beside 23.03 ms of fused_mlp.cu's k2_backward + k2_dw +
+//     k2_reduce on the same card; by part (timing-only builds): recompute
+//     MMAs 2.85 ms, g_x MMAs 1.99, dW pass 3.36, the rest of pass 1 ~2.7.
+//     ptxas serializes both passes' MMAs (their register-fed A beside up to
+//     128 accumulators; C7512 in the build log). A dW pass with both
+//     operands in shared memory (the g_z box split too, in two 96-KB
+//     stages) ran unserialized, and 0.7-0.9 ms slower.
+//
 // Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
 // K2_TIME_NO_DW and K2_TIME_NO_GX drop the recompute's MMAs, the dW pass and
-// the g_x MMAs; their outputs are wrong and only their times are read.
+// the g_x MMAs (of both K2s of this file); their outputs are wrong and only
+// their times are read.
 //
 // Interface: plain C, loaded with ctypes; every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() (> 0), a
@@ -1969,6 +2028,967 @@ int sparf_fused_mlp_wg_backward(const float* pts, const float* view, const float
   if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
 #endif
   k2_reduce_wg<<<(d.n_params + 255) / 256, 256, 0, s>>>(d, partial, d_params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// K2 at float32: 3xTF32 on wgmma (k_tf_layout, k2_tf, k2_dw_tf, k2_reduce_tf;
+// the design is in the header note, "The float32 K2")
+// ===========================================================================
+
+namespace {
+
+constexpr int kTfStages = 3;
+constexpr int kTfStageBytes = 256 * 128;  // a box of up to 256 rows x 32 fp32 (hi or lo)
+constexpr int kTfActOff = kTfStages * kTfStageBytes;
+constexpr int kTfActCols = 256;           // the tile's activations / g_z: 128 x 256 fp32
+constexpr int kTfBarOff = kTfActOff + kTile * kTfActCols * 4;
+constexpr int kTfSmem = kTfBarOff + 2 * kTfStages * 8 + 1024;
+constexpr int kTfDwStages = 3;
+constexpr int kTfDwXOff = 128 * 128;      // a stage: the g_z box (up to 128 rows), then X's
+constexpr int kTfDwStageBytes = kTfDwXOff + kTfStageBytes;  // (up to 256 rows; split in place)
+constexpr int kTfDwLoOff = kTfDwStages * kTfDwStageBytes;   // then two buffers of X's lo
+constexpr int kTfDwBarOff = kTfDwLoOff + 2 * kTfStageBytes;
+constexpr int kTfDwSmem = kTfDwBarOff + 2 * kTfDwStages * 8 + 1024;
+static_assert(kTfSmem <= kMaxSmem && kTfDwSmem <= kMaxSmem, "shared memory of one block");
+
+__host__ __device__ constexpr int pad32(int x) { return (x + 31) / 32 * 32; }
+// TMA box heights of the fp32 maps: 32, 64, 128, 256 rows
+__host__ __device__ constexpr int tf_code(int rows) {
+  return rows <= 32 ? 0 : (rows <= 64 ? 1 : (rows <= 128 ? 2 : 3));
+}
+
+// The chain as the float32 K2 runs it. Forward weights: 2 RF rows (hi, then
+// lo) x KF columns; per recomputed layer nm rows, the features (at the last
+// trunk layer units 1 .., the density unit is not recomputed), columns the
+// padded input [segment 1 | pad to 64 | segment 2 | pad to 32]. Transposed
+// weights: 2 RT rows x KT columns; per layer kp rows (the padded input),
+// columns g_z's: the features, and at the last trunk layer the density unit
+// at column nm. Workspace ([row][point], fp32): X, NX rows: pts_enc (rows 0
+// .. d_in), view_enc (d_in ..), then each layer's feature input; G, NG
+// rows: each layer's g_z, its outputs in order but the density unit last.
+struct TfDesc {
+  int n_layers, n_feat, d_in, d_view;
+  int n_params, n_part, n_dw_tiles;
+  int RF, KF, RT, KT, NX, NG;
+  int out[kMaxLayers], in[kMaxLayers], w1[kMaxLayers], w2[kMaxLayers];
+  int k1p[kMaxLayers], c2[kMaxLayers], kp[kMaxLayers];  // segment 1 padded to 64, 2 to 32
+  int dens[kMaxLayers];   // 1 at the last trunk layer
+  int nm[kMaxLayers];     // the forward product's N: the features padded to 64 (0: last layer)
+  int kz[kMaxLayers];     // g_x's K: g_z columns padded to 32 (+ 32: the density chunk)
+  int mz[kMaxLayers];     // dW rows: the outputs padded to 64
+  int rf[kMaxLayers], rt[kMaxLayers];  // first row in the forward / transposed weights (hi)
+  int x1[kMaxLayers], x2[kMaxLayers];  // workspace rows of X's segments (x2 -1: none)
+  int go[kMaxLayers];     // workspace row of g_z
+  int po[kMaxLayers];     // the layer's dW (mz x kp) and db (mz) in a partial
+  int wo[kMaxLayers], bo[kMaxLayers];  // flat gradient offsets, (out, in) layout
+  int to[kMaxLayers + 1]; // dW tiles before the layer: m-tiles of 128 rows x 1 or 2 n-tiles
+  const float* W[kMaxLayers];
+  const float* b[kMaxLayers];
+};
+
+// dims = [n_feat, n_rgb, d_in, d_view, view_dep, (out, in, skip) per layer].
+// 0 where the float32 wgmma K2 takes the chain: pts_enc and view_enc at most
+// 64 wide, every layer's first input segment padded to 64, 128 or 256 (the
+// chains of the bf16 plan M); -7 where it does not (fused_mlp.cu's K2 runs
+// them); -1 / -3 as build_wg_desc.
+int build_tf_desc(const int* dims, const void* const* params, TfDesc* d) {
+  memset(d, 0, sizeof(*d));
+  d->n_feat = dims[0];
+  const int n_rgb = dims[1];
+  d->n_layers = d->n_feat + n_rgb;
+  if (d->n_feat < 1 || n_rgb < 1 || d->n_layers > kMaxLayers) return -1;
+  d->d_in = dims[2];
+  d->d_view = dims[3];
+  const int view_dep = dims[4];
+  bool take = d->d_in >= 1 && d->d_in <= 64 && d->d_view >= 0 && d->d_view <= 64;
+  int off = 0, tiles = 0, xf = d->d_in + d->d_view;
+  d->KF = d->KT = 32;
+  for (int li = 0; li < d->n_layers; ++li) {
+    const int out = dims[5 + 3 * li], in = dims[6 + 3 * li], skip = dims[7 + 3 * li];
+    const int w2 = skip ? d->d_in : ((li == d->n_feat && view_dep) ? d->d_view : 0);
+    const int w1 = in - w2, dens = li == d->n_feat - 1, last = li == d->n_layers - 1;
+    if (out < 1 + dens || w1 < 1 || (li == 0 && (skip || w1 != d->d_in)) ||
+        (li > 0 && d->out[li - 1] - d->dens[li - 1] != w1))
+      return -3;
+    const int k1p = pad64(w1);
+    if (k1p != 64 && k1p != 128 && k1p != 256) take = false;
+    d->out[li] = out;
+    d->in[li] = in;
+    d->w1[li] = w1;
+    d->w2[li] = w2;
+    d->k1p[li] = k1p;
+    d->c2[li] = pad32(w2);
+    d->kp[li] = k1p + d->c2[li];
+    d->dens[li] = dens;
+    d->nm[li] = last ? 0 : pad64(out - dens);
+    d->kz[li] = last ? pad32(out) : d->nm[li] + (dens ? 32 : 0);
+    d->mz[li] = pad64(out);
+    d->rf[li] = d->RF;
+    d->RF += d->nm[li];
+    d->rt[li] = d->RT;
+    d->RT += d->kp[li];
+    if (!last && d->kp[li] > d->KF) d->KF = d->kp[li];
+    if (d->kz[li] > d->KT) d->KT = d->kz[li];
+    d->x1[li] = li == 0 ? 0 : xf;
+    if (li > 0) xf += w1;
+    d->x2[li] = w2 == 0 ? -1 : (skip ? 0 : d->d_in);
+    d->go[li] = d->NG;
+    d->NG += out;
+    d->po[li] = d->n_part;
+    d->n_part += d->mz[li] * d->kp[li] + d->mz[li];
+    d->wo[li] = off;
+    off += out * in;
+    d->bo[li] = off;
+    off += out;
+    d->to[li] = tiles;
+    tiles += (d->mz[li] + 127) / 128 * (w2 > 0 ? 2 : 1);
+    d->W[li] = static_cast<const float*>(params[2 * li]);
+    d->b[li] = static_cast<const float*>(params[2 * li + 1]);
+  }
+  if (d->out[d->n_layers - 1] != 3) return -3;
+  d->to[d->n_layers] = tiles;
+  d->n_dw_tiles = tiles;
+  d->n_params = off;
+  d->NX = xf;
+  return take ? 0 : -7;
+}
+
+// x = hi + lo as fused_mlp.cu's split: hi the nearest TF32 value (ties away
+// from zero), lo the exact fp32 rest, whose top 19 bits the tensor core reads
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+__device__ __forceinline__ void split_tf(const float (&x)[4][4], uint32_t (&hi)[4][4],
+                                         uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float h = tf32_hi(x[ks][i]);
+      hi[ks][i] = __float_as_uint(h);
+      lo[ks][i] = __float_as_uint(x[ks][i] - h);
+    }
+}
+
+// keeps the A fragments' registers unchanged while the async MMAs that read
+// them are in flight, as register-fed wgmma requires: they stay live from
+// before the wgmma fence to after the wait
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[ks][i])::"memory");
+}
+
+// D (64 x N, fp32, in registers) += A (64 x 8, tf32, in registers: a0 (g,
+// t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of the warp's 16 rows)
+// B (8 x N, tf32, K-major in 128-byte-swizzled shared memory)
+template <int N>
+struct WgmmaTf;
+
+template <>
+struct WgmmaTf<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// The weight maps (boxes of 32, 64, 128, 256 rows x 32 columns) of pass 1,
+// the workspace maps (X: 32 .. 256 rows; G: 64, 128 rows x 32 points) of the
+// dW pass.
+struct TfWMaps {
+  CUtensorMap wf[4], wt[4];
+};
+struct TfXMaps {
+  CUtensorMap x[4], g[2];
+};
+
+// Pass 1's weight schedule, one ring stage per (product, hi / lo, k-chunk of
+// 32): the forward layers [0, n_layers - 1), every k-chunk of the hi
+// weights, then of the lo; then from the last layer down g_x of the second
+// segment (if any) and of the features, the same way.
+__device__ void produce_tf(const TfWMaps& m, const TfDesc& d, Ring ring) {
+  Producer p{ring};
+  const uint64_t keep = policy_keep();
+  for (int li = 0; li + 1 < d.n_layers; ++li) {
+    const int h = d.nm[li];
+    for (int half = 0; half < 2; ++half)
+      for (int kc = 0; kc < d.kp[li] / 32; ++kc)
+        p.issue(h * 128, [&](uint32_t dst, uint32_t fb) {
+          tma_load(dst, &m.wf[tf_code(h)], fb, 32 * kc, half * d.RF + d.rf[li], keep);
+        });
+  }
+  for (int li = d.n_layers - 1; li >= 0; --li) {
+    for (int seg = d.c2[li] > 0 ? 2 : 1; seg >= 1; --seg) {
+      const int h = seg == 2 ? d.c2[li] : d.k1p[li], r0 = d.rt[li] + (seg == 2 ? d.k1p[li] : 0);
+      for (int half = 0; half < 2; ++half)
+        for (int kc = 0; kc < d.kz[li] / 32; ++kc)
+          p.issue(h * 128, [&](uint32_t dst, uint32_t fb) {
+            tma_load(dst, &m.wt[tf_code(h)], fb, 32 * kc, half * d.RT + r0, keep);
+          });
+    }
+  }
+}
+
+// The tile's activations (the recompute) or g_z (the backward): 128 rows x
+// 256 fp32, column c of row r at c ^ 4 (r % 8), so that the A fragments'
+// loads (rows g, g + 8, columns t, t + 4) hit 32 banks; byte offsets.
+__device__ __forceinline__ uint32_t act_at(int r, int c) {
+  return 4u * (r * kTfActCols + (c ^ ((r & 7) << 2)));
+}
+// shared memory by 32-bit address (the A fragments' loads keep no 64-bit
+// pointers live beside the accumulators)
+__device__ __forceinline__ float lds32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts64(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// One k-chunk (4 k-steps) of a product against the ring's next stage, which
+// holds B's hi (kHi: lo(A) hi(B) + hi(A) hi(B)) or lo (hi(A) lo(B)); side()
+// runs while the chunk's MMAs do.
+template <int N, bool kHi, typename F>
+__device__ __forceinline__ void tf_chunk(float (&acc)[N / 2], const float (&a)[4][4], Ring& ring,
+                                         bool run, F&& side) {
+  const int st = ring.acquire();
+  if (run) {
+    const uint32_t b = ring.buf(st);
+    uint32_t ah[4][4], al[4][4];
+    split_tf(a, ah, al);
+    fence_frags(ah);
+    if constexpr (kHi) fence_frags(al);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if constexpr (kHi) WgmmaTf<N>::mma(acc, al[ks], sdesc(b + 32 * ks, 0));
+      WgmmaTf<N>::mma(acc, ah[ks], sdesc(b + 32 * ks, 0));
+    }
+    wgmma_commit();
+    side();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(ah);
+    if constexpr (kHi) fence_frags(al);
+  } else {
+    side();
+  }
+  ring.release(st);
+}
+
+// Step q of Q of storing the tile's buffer's columns [0, w) (the warp's own
+// rows) to the workspace rows at dst (a row per column, point-contiguous
+// from the tile's first point): the column blocks of 8 j = q, q + Q, ...,
+// 8 consecutive points a column per warp store.
+__device__ __forceinline__ void store_cols(uint32_t act, float* __restrict__ dst, int w, int q,
+                                           int Q, int x_rows, const Lane& L) {
+  for (int j = q; 8 * j < w; j += Q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 64 * L.wg + L.r0 + 8 * h, col = 8 * j + 2 * L.t + e;
+        if (col < w) dst[col * x_rows + r] = lds32(act + act_at(r, col));
+      }
+}
+
+// The A fragments of k-chunk kc of a layer's input, raw: the features from
+// the tile's buffer (li > 0, columns < k1p), else pts_enc (layer 0, or a
+// skip's second segment) or view_enc from device memory (zeros past T and
+// past the width).
+__device__ __forceinline__ void fwd_a(const TfDesc& d, int li, int kc, uint32_t act,
+                                      const float* __restrict__ pts,
+                                      const float* __restrict__ view, int p0, int T,
+                                      const Lane& L, float (&a)[4][4]) {
+  const int c0 = 32 * kc;
+  if (li > 0 && c0 < d.k1p[li]) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 64 * L.wg + L.r0 + 8 * (i & 1), c = c0 + 8 * ks + L.t + 4 * (i >> 1);
+        a[ks][i] = lds32(act + act_at(r, c));
+      }
+    return;
+  }
+  const bool pts_seg = li == 0 || d.x2[li] == 0;
+  const float* src = pts_seg ? pts : view;
+  const int width = pts_seg ? d.d_in : d.d_view, cb = li == 0 ? c0 : c0 - d.k1p[li];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int P = p0 + 64 * L.wg + L.r0 + 8 * (i & 1), c = cb + 8 * ks + L.t + 4 * (i >> 1);
+      a[ks][i] = (P < T && c < width) ? __ldg(src + (size_t)P * width + c) : 0.f;
+    }
+}
+
+// One recomputed layer li (N = nm): the warpgroup's 64 points x N features
+// from their biases, every k-chunk against the hi weights, then the lo,
+// while the layer's input features (the tile's buffer) go to X; ReLU into
+// the tile's buffer, the ReLU mask words of the next layer's input.
+template <int N>
+__device__ void tf_fwd_layer(const TfDesc& d, int li, Ring& ring, uint32_t act,
+                             const float* __restrict__ bias_f, const float* __restrict__ pts,
+                             const float* __restrict__ view, float* __restrict__ ws,
+                             uint4* __restrict__ masks, int p0, int T, int x_rows,
+                             const Lane& L) {
+  float acc[N / 2];
+  const float* bias = bias_f + d.rf[li];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[4 * j + c] = __ldg(bias + 8 * j + 2 * L.t + (c & 1));
+#ifdef K2_TIME_NO_FWD
+  constexpr bool run = false;
+#else
+  constexpr bool run = true;
+#endif
+  const int nk = d.kp[li] / 32, w_in = li > 0 ? d.w1[li] : 0;
+  float* xs = ws + (size_t)d.x1[li] * x_rows + p0;  // (column, point) at column * x_rows + point
+  int q = 0;
+  auto side = [&]() { store_cols(act, xs, w_in, q++, 2 * nk, x_rows, L); };
+  float a[4][4];
+#pragma unroll 1
+  for (int kc = 0; kc < nk; ++kc) {
+    fwd_a(d, li, kc, act, pts, view, p0, T, L, a);
+    tf_chunk<N, true>(acc, a, ring, run, side);
+  }
+#pragma unroll 1
+  for (int kc = 0; kc < nk; ++kc) {
+    fwd_a(d, li, kc, act, pts, view, p0, T, L, a);
+    tf_chunk<N, false>(acc, a, ring, run, side);
+  }
+  __syncwarp();  // the warp's loads of its rows are done: its rows take the output
+  uint32_t mw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * L.wg + L.r0 + 8 * h, col = 8 * j + 2 * L.t;
+      float y[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float z = acc[4 * j + 2 * h + e];
+        y[e] = fmaxf(z, 0.f);
+        mw[j >> 3] |= z > 0.f ? mask_bit(j, h, e) : 0u;
+      }
+      sts64(act + act_at(r, col), y[0], y[1]);
+    }
+  }
+  masks[((size_t)(li + 1) * gridDim.x + blockIdx.x) * kConsumers + threadIdx.x] =
+      make_uint4(mw[0], mw[1], mw[2], mw[3]);
+  __syncwarp();
+}
+
+// g_x = g_z W of layer li over its kz g_z columns, N columns of the padded
+// input from the ring (the transposed weights): A from the tile's buffer,
+// but the density chunk (column nm of the last trunk layer) from gout.
+// With g: meanwhile the layer's g_z features (the tile's buffer) go to G.
+template <int N>
+__device__ void tf_gx(const TfDesc& d, int li, Ring& ring, uint32_t act,
+                      const float* __restrict__ gout, int p0, int T, const Lane& L,
+                      float (&acc)[N / 2], float* __restrict__ g = nullptr, int x_rows = 0) {
+  zero(acc);
+#ifdef K2_TIME_NO_GX
+  constexpr bool run = false;
+#else
+  constexpr bool run = true;
+#endif
+  const int nk = d.kz[li] / 32, kd = d.dens[li] ? d.nm[li] / 32 : -1;
+  const int w_g = g != nullptr ? d.out[li] - d.dens[li] : 0;
+  int q = 0;
+  auto side = [&]() { store_cols(act, g, w_g, q++, 2 * nk, x_rows, L); };
+  float a[4][4];
+  auto load = [&](int kc) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 64 * L.wg + L.r0 + 8 * (i & 1);
+        if (kc == kd) {  // the density gradient at the chunk's column 0
+          const int P = p0 + r;
+          a[ks][i] = (ks == 0 && i < 2 && L.t == 0 && P < T) ? __ldg(gout + (size_t)P * 4) : 0.f;
+        } else {
+          a[ks][i] = lds32(act + act_at(r, 32 * kc + 8 * ks + L.t + 4 * (i >> 1)));
+        }
+      }
+  };
+#pragma unroll 1
+  for (int kc = 0; kc < nk; ++kc) {
+    load(kc);
+    tf_chunk<N, true>(acc, a, ring, run, side);
+  }
+#pragma unroll 1
+  for (int kc = 0; kc < nk; ++kc) {
+    load(kc);
+    tf_chunk<N, false>(acc, a, ring, run, side);
+  }
+}
+
+// g_x of a second segment (N = c2): pts_enc's share of a skip layer added
+// into d_pts, view_enc's written to d_view (points < T, columns < w2).
+template <int N>
+__device__ void tf_gx_seg2(const TfDesc& d, int li, Ring& ring, uint32_t act,
+                           const float* __restrict__ gout, float* d_pts,
+                           float* __restrict__ d_view, int p0, int T, const Lane& L) {
+  float acc[N / 2];
+  tf_gx<N>(d, li, ring, act, gout, p0, T, L, acc);
+  const bool pts_seg = d.x2[li] == 0;
+  float* dst = pts_seg ? d_pts : d_view;
+  const int width = d.w2[li];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int P = p0 + 64 * L.wg + L.r0 + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * L.t + e;
+        if (P >= T || col >= width) continue;
+        float* q = dst + (size_t)P * width + col;
+        *q = pts_seg ? *q + acc[4 * j + 2 * h + e] : acc[4 * j + 2 * h + e];
+      }
+    }
+}
+
+// g_x of layer li's features (N = k1p), while g_z of layer li (the tile's
+// buffer; the last layer's is in G already) goes to G: into d_pts at layer
+// 0; else masked by its input's ReLU mask words, g_z of layer li - 1 (its
+// features), into the tile's buffer (over g_z of layer li: each warp its
+// own rows).
+template <int N>
+__device__ void tf_gx_feat(const TfDesc& d, int li, Ring& ring, uint32_t act,
+                           const float* __restrict__ gout, float* d_pts, float* __restrict__ ws,
+                           const uint4* __restrict__ masks, int p0, int T, int x_rows,
+                           const Lane& L) {
+  const uint4 mwords = li > 0 ? masks[((size_t)li * gridDim.x + blockIdx.x) * kConsumers +
+                                      threadIdx.x]
+                              : make_uint4(0u, 0u, 0u, 0u);
+  float acc[N / 2];
+  float* g = li + 1 < d.n_layers ? ws + (size_t)(d.NX + d.go[li]) * x_rows + p0 : nullptr;
+  tf_gx<N>(d, li, ring, act, gout, p0, T, L, acc, g, x_rows);
+  const int w1 = d.w1[li];
+  if (li == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int P = p0 + 64 * L.wg + L.r0 + 8 * h;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * L.t + e;
+          if (P < T && col < w1) d_pts[(size_t)P * w1 + col] += acc[4 * j + 2 * h + e];
+        }
+      }
+    return;
+  }
+  const uint32_t mw[4] = {mwords.x, mwords.y, mwords.z, mwords.w};
+  __syncwarp();  // the warp's loads of its rows are done: its rows take g_z of layer li - 1
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * L.wg + L.r0 + 8 * h, col = 8 * j + 2 * L.t;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v[e] = (col + e < w1 && (mw[j >> 3] & mask_bit(j, h, e))) ? acc[4 * j + 2 * h + e] : 0.f;
+      }
+      sts64(act + act_at(r, col), v[0], v[1]);
+    }
+  __syncwarp();
+}
+
+// K2 at float32, pass 1, per 128-point tile: pts_enc and view_enc into X;
+// the recompute (every layer's input into X as hi and lo, the ReLU mask
+// words); the output gradients into G (and the tile's buffer: g_z of the
+// last layer); then from the last layer down g_x (into d_pts, d_view and g_z
+// of the layer before, into G). d_pts zeroed by the caller.
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k2_tf(const __grid_constant__ TfWMaps maps, const __grid_constant__ TfDesc d,
+      const float* __restrict__ bias_f, const float* __restrict__ pts,
+      const float* __restrict__ view, const float* __restrict__ gout, float* d_pts,
+      float* __restrict__ d_view, float* __restrict__ ws, uint4* __restrict__ masks, int T,
+      int x_rows) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gen;
+  const uint32_t s = aligned_base(smem_raw, &gen);
+  const uint32_t act = s + kTfActOff;
+  Ring ring = make_ring(s, kTfStageBytes, kTfStages, s + kTfBarOff);
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec();
+    if (threadIdx.x == kConsumers) produce_tf(maps, d, ring);
+    return;
+  }
+  setmaxnreg_inc();
+  const Lane L;
+  const int p0 = blockIdx.x * kTile, Lr = d.n_layers;
+  // pts_enc and view_enc into X (rows 0 .. d_in + d_view)
+  for (int i = threadIdx.x; i < (d.d_in + d.d_view) * kTile; i += kConsumers) {
+    const int c = i / kTile, P = p0 + i % kTile;
+    ws[(size_t)c * x_rows + P] = P >= T ? 0.f
+                                        : (c < d.d_in ? __ldg(pts + (size_t)P * d.d_in + c)
+                                                      : __ldg(view + (size_t)P * d.d_view + c - d.d_in));
+  }
+  for (int li = 0; li + 1 < Lr; ++li) {
+    switch (d.nm[li]) {
+      case 64: tf_fwd_layer<64>(d, li, ring, act, bias_f, pts, view, ws, masks, p0, T, x_rows, L); break;
+      case 128: tf_fwd_layer<128>(d, li, ring, act, bias_f, pts, view, ws, masks, p0, T, x_rows, L); break;
+      default: tf_fwd_layer<256>(d, li, ring, act, bias_f, pts, view, ws, masks, p0, T, x_rows, L); break;
+    }
+  }
+  // the last layer's input (the last recomputed layer's output) into X
+  __syncwarp();
+  store_cols(act, ws + (size_t)d.x1[Lr - 1] * x_rows + p0, d.w1[Lr - 1], 0, 1, x_rows, L);
+  __syncwarp();
+  // the output gradients: into G (the last layer's rows, the density unit's
+  // row of the last trunk layer) and, for each warp its rows, the rgb
+  // gradient into the tile's buffer's first 32 columns
+  float* G = ws + (size_t)d.NX * x_rows;
+  if (threadIdx.x < kTile) {
+    const int P = p0 + threadIdx.x;
+    const bool in = P < T;
+    for (int c = 0; c < 3; ++c)
+      G[(size_t)(d.go[Lr - 1] + c) * x_rows + P] = in ? __ldg(gout + (size_t)P * 4 + 1 + c) : 0.f;
+    const int lf = d.n_feat - 1;
+    G[(size_t)(d.go[lf] + d.out[lf] - 1) * x_rows + P] = in ? __ldg(gout + (size_t)P * 4) : 0.f;
+  }
+  for (int i = L.lane; i < 16 * 32; i += 32) {
+    const int r = 64 * L.wg + 16 * (L.tid >> 5) + (i >> 5), c = i & 31, P = p0 + r;
+    const float v = (c < 3 && P < T) ? __ldg(gout + (size_t)P * 4 + 1 + c) : 0.f;
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(act + act_at(r, c)), "f"(v) : "memory");
+  }
+  __syncwarp();
+  for (int li = Lr - 1; li >= 0; --li) {
+    if (d.c2[li] == 64)
+      tf_gx_seg2<64>(d, li, ring, act, gout, d_pts, d_view, p0, T, L);
+    else if (d.c2[li] == 32)
+      tf_gx_seg2<32>(d, li, ring, act, gout, d_pts, d_view, p0, T, L);
+    switch (d.k1p[li]) {
+      case 64: tf_gx_feat<64>(d, li, ring, act, gout, d_pts, ws, masks, p0, T, x_rows, L); break;
+      case 128: tf_gx_feat<128>(d, li, ring, act, gout, d_pts, ws, masks, p0, T, x_rows, L); break;
+      default: tf_gx_feat<256>(d, li, ring, act, gout, d_pts, ws, masks, p0, T, x_rows, L); break;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the float32 K2, pass 2: dW = g_z^T X over the points
+// ---------------------------------------------------------------------------
+
+// dW tile b: layer li, rows m0 .. m0 + 128 of its g_z, n-tile ni (0: the
+// first input segment, N = k1p, at column 0; 1: the second, N = c2, at
+// column k1p).
+__device__ __forceinline__ void tf_dw_tile(const TfDesc& d, int b, int& li, int& m0, int& ni) {
+  li = 0;
+  while (li + 1 < d.n_layers && b >= d.to[li + 1]) ++li;
+  const int local = b - d.to[li], nn = d.c2[li] > 0 ? 2 : 1;
+  m0 = 128 * (local / nn);
+  ni = local % nn;
+}
+
+// X's box of a stage, raw fp32 as TMA brought it, split for the MMAs: hi
+// over it in place, lo into the buffer at lo (the same layout: elementwise,
+// 16 bytes a step), by the 256 consumers; then the fence that shows those
+// generic writes to wgmma's reads.
+template <int N>
+__device__ __forceinline__ void tf_split_x(uint32_t x, uint32_t lo) {
+#pragma unroll
+  for (int k = 0; k < N / 32; ++k) {
+    const uint32_t i = 16 * (k * kConsumers + threadIdx.x);
+    float v[4], h[4];
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(x + i) : "memory");
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = tf32_hi(v[e]);
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(x + i), "f"(h[0]),
+                 "f"(h[1]), "f"(h[2]), "f"(h[3]) : "memory");
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo + i), "f"(v[0] - h[0]),
+                 "f"(v[1] - h[1]), "f"(v[2] - h[2]), "f"(v[3] - h[3]) : "memory");
+  }
+  fence_async_smem();
+}
+
+// The consumers of one dW tile over a point range: per stage of 32 points
+// A = g_z^T from the g_z box (point-contiguous rows, read into registers
+// and split), B = X from the X box, split in shared memory (hi in place, lo
+// in one of two buffers), the next stage's while this one's MMAs run; the
+// warpgroup's 64 rows (a warpgroup past mz has none: it splits, runs its
+// MMAs on what the stage holds and writes nothing, since a branch around
+// wgmma serializes them); the partial of this range and, on the first
+// n-tile, the row sums of g_z (db).
+template <int N>
+__device__ void tf_dw_consume(const TfDesc& d, int li, int m0, int ni, int n_chunks, Ring& ring,
+                              uint32_t lo0, float* __restrict__ dst) {
+  const Lane L;
+  float acc[N / 2];
+  zero(acc);
+  float s0 = 0.f, s1 = 0.f;  // db of rows r0 and r0 + 8
+  int st = 0;
+  if (n_chunks > 0) {
+    st = ring.acquire();
+    tf_split_x<N>(ring.buf(st) + kTfDwXOff, lo0);
+    consumers_bar();
+  }
+#pragma unroll 1
+  for (int c = 0; c < n_chunks; ++c) {
+    const uint32_t ga = ring.buf(st) + L.wg * 64 * 128;
+    float a[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = L.r0 + 8 * (i & 1), p = 8 * ks + L.t + 4 * (i >> 1);
+        a[ks][i] = lds32(ga + r * 128 + ((((p >> 2) ^ r) & 7) << 4) + (p & 3) * 4);
+      }
+    if (ni == 0)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        s0 += a[ks][0] + a[ks][2];
+        s1 += a[ks][1] + a[ks][3];
+      }
+    uint32_t ah[4][4], al[4][4];
+    split_tf(a, ah, al);
+    const uint32_t bh = ring.buf(st) + kTfDwXOff, bl = lo0 + (c & 1) * kTfStageBytes;
+    fence_frags(ah);
+    fence_frags(al);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      WgmmaTf<N>::mma(acc, al[ks], sdesc(bh + 32 * ks, 0));
+      WgmmaTf<N>::mma(acc, ah[ks], sdesc(bl + 32 * ks, 0));
+      WgmmaTf<N>::mma(acc, ah[ks], sdesc(bh + 32 * ks, 0));
+    }
+    wgmma_commit();
+    const int cur = st;
+    if (c + 1 < n_chunks) {  // the next stage's X, split while this stage's MMAs run
+      st = ring.acquire();
+      tf_split_x<N>(ring.buf(st) + kTfDwXOff, lo0 + ((c + 1) & 1) * kTfStageBytes);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(ah);
+    fence_frags(al);
+    ring.release(cur);
+    consumers_bar();  // the next stage is split; this one's lo buffer is free
+  }
+  if (m0 + 64 * L.wg >= d.mz[li]) return;
+  const int kp = d.kp[li], col0 = ni == 0 ? 0 : d.k1p[li];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + 64 * L.wg + L.r0 + 8 * h, col = col0 + 8 * j + 2 * L.t;
+      *reinterpret_cast<float2*>(dst + (size_t)r * kp + col) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  if (ni == 0) {  // the row sums of the warp's four lanes t, in a fixed order
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (L.t == 0) {
+      const int r = m0 + 64 * L.wg + L.r0;
+      dst[(size_t)d.mz[li] * kp + r] = s0;
+      dst[(size_t)d.mz[li] * kp + r + 8] = s1;
+    }
+  }
+}
+
+// Pass 2: one dW tile (blockIdx.x) over one of kSplits point ranges
+// (blockIdx.y), its partial written plain; stages of 32 points: the g_z box
+// (128 or 64 rows) and X's box (N rows).
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k2_dw_tf(const __grid_constant__ TfXMaps maps, const __grid_constant__ TfDesc d,
+         float* __restrict__ partial, int n_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gen;
+  const uint32_t s = aligned_base(smem_raw, &gen);
+  Ring ring = make_ring(s, kTfDwStageBytes, kTfDwStages, s + kTfDwBarOff);
+  int li, m0, ni;
+  tf_dw_tile(d, blockIdx.x, li, m0, ni);
+  const int N = ni == 0 ? d.k1p[li] : d.c2[li];
+  const int per = (n_tiles + kSplits - 1) / kSplits;
+  const int t0 = min(n_tiles, (int)blockIdx.y * per), t1 = min(n_tiles, t0 + per);
+  const int n_chunks = (t1 - t0) * kTile / 32;
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec();
+    if (threadIdx.x != kConsumers) return;
+    Producer p{ring};
+    const uint64_t stream = policy_stream();
+    const int rows = d.mz[li] - m0 >= 128 ? 128 : 64;
+    const int xr = ni == 0 ? d.x1[li] : d.x2[li];
+    for (int c = 0; c < n_chunks; ++c) {
+      const int P0 = t0 * kTile + 32 * c;
+      p.issue((rows + N) * 128, [&](uint32_t dst, uint32_t fb) {
+        tma_load(dst, &maps.g[rows == 128 ? 1 : 0], fb, P0, d.go[li] + m0, stream);
+        tma_load(dst + kTfDwXOff, &maps.x[tf_code(N)], fb, P0, xr, stream);
+      });
+    }
+    return;
+  }
+  setmaxnreg_inc();
+  float* dst = partial + (size_t)blockIdx.y * d.n_part + d.po[li];
+  switch (N) {
+    case 32: tf_dw_consume<32>(d, li, m0, ni, n_chunks, ring, s + kTfDwLoOff, dst); break;
+    case 64: tf_dw_consume<64>(d, li, m0, ni, n_chunks, ring, s + kTfDwLoOff, dst); break;
+    case 128: tf_dw_consume<128>(d, li, m0, ni, n_chunks, ring, s + kTfDwLoOff, dst); break;
+    default: tf_dw_consume<256>(d, li, m0, ni, n_chunks, ring, s + kTfDwLoOff, dst); break;
+  }
+}
+
+// dW row of output unit n (the density unit last) and input column of input
+// k (the padded input)
+__device__ __forceinline__ int tf_row_of(const TfDesc& d, int li, int n) {
+  return d.dens[li] ? (n == 0 ? d.out[li] - 1 : n - 1) : n;
+}
+
+// Sums the kSplits partials in order (deterministic) into the (out, in)
+// layout of the flat gradient.
+__global__ void k2_reduce_tf(const __grid_constant__ TfDesc d, const float* __restrict__ partial,
+                             float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d.n_params) return;
+  int li = 0;
+  while (li + 1 < d.n_layers && j >= d.wo[li + 1]) ++li;
+  const int kp = d.kp[li];
+  int pos;
+  if (j < d.bo[li]) {
+    const int q = j - d.wo[li], n = q / d.in[li], k = q - n * d.in[li];
+    pos = d.po[li] + tf_row_of(d, li, n) * kp + (k < d.w1[li] ? k : d.k1p[li] + k - d.w1[li]);
+  } else {
+    pos = d.po[li] + d.mz[li] * kp + tf_row_of(d, li, j - d.bo[li]);
+  }
+  float sum = 0.f;
+  for (int s = 0; s < kSplits; ++s) sum += partial[(size_t)s * d.n_part + pos];
+  out[j] = sum;
+}
+
+// The weights in the TMA maps' layouts (ops/fused_mlp.py::tf32wg_weights_plain):
+// wf (2 RF x KF) rows of hi then of lo, W[feature of the row][input of the
+// column]; wt (2 RT x KT) the same over (padded input, g_z column); bias_f
+// (RF) b of the forward rows; zeros in the padding.
+__global__ void k_tf_layout(const __grid_constant__ TfDesc d, float* __restrict__ wf,
+                            float* __restrict__ wt, float* __restrict__ bias_f) {
+  const int nf = d.RF * d.KF, nt = d.RT * d.KT;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < nf + nt + d.RF;
+       idx += gridDim.x * blockDim.x) {
+    int li = 0, n = -1, k = -1;
+    if (idx >= nf + nt) {
+      const int R = idx - nf - nt;
+      while (li + 1 < d.n_layers && R >= d.rf[li + 1]) ++li;
+      n = R - d.rf[li] < d.out[li] - d.dens[li] ? R - d.rf[li] + d.dens[li] : -1;
+      bias_f[R] = n >= 0 ? d.b[li][n] : 0.f;
+      continue;
+    }
+    const bool tr = idx >= nf;
+    const int e = tr ? idx - nf : idx, K = tr ? d.KT : d.KF, R = e / K, C = e - R * K;
+    if (tr) {
+      while (li + 1 < d.n_layers && R >= d.rt[li + 1]) ++li;
+      k = R - d.rt[li];
+      const int nf_ = d.out[li] - d.dens[li];  // the features, then (dens) the unit at nm
+      n = C < nf_ ? C + d.dens[li] : (d.dens[li] && C == d.nm[li] ? 0 : -1);
+    } else {
+      while (li + 1 < d.n_layers && R >= d.rf[li + 1]) ++li;
+      n = R - d.rf[li] < d.out[li] - d.dens[li] ? R - d.rf[li] + d.dens[li] : -1;
+      k = C;
+    }
+    const int i = k >= d.kp[li] ? -1
+                  : k < d.k1p[li] ? (k < d.w1[li] ? k : -1)
+                                  : (k - d.k1p[li] < d.w2[li] ? d.w1[li] + k - d.k1p[li] : -1);
+    const float v = (n >= 0 && i >= 0) ? d.W[li][(size_t)n * d.in[li] + i] : 0.f;
+    const float hi = tf32_hi(v);
+    float* dst = tr ? wt + e : wf + e;
+    dst[0] = hi;
+    dst[tr ? nt : nf] = v - hi;
+  }
+}
+
+// a 2D fp32 map over rows x cols (row-major), box {32 columns, box_rows},
+// 128-byte swizzle
+int make_map_f32(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -6;
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {cols * 4};
+  const cuuint32_t box[2] = {32, box_rows}, es[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
+                        strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -6;
+}
+
+int launch_tf_layout(const TfDesc& d, void* wf, void* wt, void* bias_f, cudaStream_t s) {
+  k_tf_layout<<<264, 256, 0, s>>>(d, static_cast<float*>(wf), static_cast<float*>(wt),
+                                  static_cast<float*>(bias_f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// [n_params, wf elements (2 RF x KF), wt elements (2 RT x KT), RF, NX, NG,
+// n_part, n_splits, n_dw_tiles] of the float32 wgmma K2, or a negative code:
+// -7 where it does not take the chain (fused_mlp.cu's K2 runs it).
+int sparf_fused_mlp_tf32wg_sizes(const int* dims, int* sizes) {
+  static const void* const null_params[2 * kMaxLayers] = {};
+  TfDesc d;
+  const int rc = build_tf_desc(dims, null_params, &d);
+  if (rc < 0) return rc;
+  const int v[9] = {d.n_params, 2 * d.RF * d.KF, 2 * d.RT * d.KT, d.RF, d.NX, d.NG, d.n_part,
+                    kSplits, d.n_dw_tiles};
+  for (int i = 0; i < 9; ++i) sizes[i] = v[i];
+  return 0;
+}
+
+// The weights in the float32 K2's layouts: the layout check.
+int sparf_fused_mlp_tf32wg_layout(const int* dims, const void* const* params, void* wf, void* wt,
+                              void* bias_f, void* stream) {
+  TfDesc d;
+  const int rc = build_tf_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  return launch_tf_layout(d, wf, wt, bias_f, static_cast<cudaStream_t>(stream));
+}
+
+// K2 at float32 on wgmma. gout (T, 4) = [g_density | g_rgb]; d_pts zeroed by
+// the caller; d_params (n_params,) in the order W0, b0, W1, b1, ...;
+// scratch: wf, wt, bias_f (the sizes' elements), ws ((NX + NG) x T_pad
+// fp32: X, then G, each row T_pad points), T_pad = T rounded up to 128,
+// masks (n_layers x T_pad / 128 x 256 uint4), partial (n_splits x n_part).
+int sparf_fused_mlp_tf32wg_backward(const float* pts, const float* view, const float* gout,
+                                float* d_pts, float* d_view, float* d_params, void* wf, void* wt,
+                                void* bias_f, float* ws, void* masks, float* partial, int T,
+                                const int* dims, const void* const* params, void* stream) {
+  TfDesc d;
+  int rc = build_tf_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  if (T <= 0) return -5;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (T + kTile - 1) / kTile, x_rows = n_tiles * kTile;
+  TfWMaps wm;
+  TfXMaps xm;
+  memset(&wm, 0, sizeof(wm));
+  memset(&xm, 0, sizeof(xm));
+  bool f[4] = {}, t[4] = {}, g[2] = {};  // the box heights in use
+  for (int li = 0; li < d.n_layers; ++li) {
+    if (d.nm[li] > 0) f[tf_code(d.nm[li])] = true;
+    t[tf_code(d.k1p[li])] = true;
+    if (d.c2[li] > 0) t[tf_code(d.c2[li])] = true;
+    g[d.mz[li] % 128 != 0 ? 0 : 1] = true;
+    if (d.mz[li] >= 128) g[1] = true;
+  }
+  float* G = ws + (size_t)d.NX * x_rows;
+  for (int c = 0; c < 4; ++c) {
+    const int h = 32 << c;
+    if ((f[c] && make_map_f32(&wm.wf[c], wf, 2 * d.RF, d.KF, h) != 0) ||
+        (t[c] && make_map_f32(&wm.wt[c], wt, 2 * d.RT, d.KT, h) != 0) ||
+        (t[c] && make_map_f32(&xm.x[c], ws, d.NX, x_rows, h) != 0) ||
+        (c < 2 && g[c] && make_map_f32(&xm.g[c], G, d.NG, x_rows, 64 << c) != 0))
+      return -6;
+  }
+  if ((rc = launch_tf_layout(d, wf, wt, bias_f, s)) != 0) return rc;
+  cudaFuncSetAttribute(k2_tf, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmem);
+  k2_tf<<<n_tiles, kThreadsWg, kTfSmem, s>>>(wm, d, static_cast<const float*>(bias_f), pts, view,
+                                             gout, d_pts, d_view, ws, static_cast<uint4*>(masks),
+                                             T, x_rows);
+  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+#ifndef K2_TIME_NO_DW
+  cudaFuncSetAttribute(k2_dw_tf, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfDwSmem);
+  k2_dw_tf<<<dim3(d.n_dw_tiles, kSplits), kThreadsWg, kTfDwSmem, s>>>(xm, d, partial, n_tiles);
+  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+#endif
+  k2_reduce_tf<<<(d.n_params + 255) / 256, 256, 0, s>>>(d, partial, d_params);
   return static_cast<int>(cudaGetLastError());
 }
 

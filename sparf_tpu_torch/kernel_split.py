@@ -1,17 +1,20 @@
 #!/usr/bin/env python
 """Where K2's time goes: times K2 at T = 262,144 on the full 8x256 chain
 beside timing-only builds that each drop one part of its work, and K1 and
-K3 (on pack_weights' layout) beside them, for the 3xTF32 (compute_dtype
-float32, csrc/fused_mlp.cu) and the bf16 variants (csrc/fused_mlp_wgmma.cu:
-k1_wg, k3_wg, k2_wg). Needs one CUDA card and nvcc.
+K3 (on pack_weights' layout) beside them, for the 3xTF32 variants
+(compute_dtype float32: K1 and K3 in csrc/fused_mlp.cu, K2 on wgmma in
+csrc/fused_mlp_wgmma.cu, k2_tf and k2_dw_tf) and the bf16 ones
+(csrc/fused_mlp_wgmma.cu: k1_wg, k3_wg, k2_wg). Needs one CUDA card and
+nvcc.
 
 Usage (from the repository root):
     python -m sparf_tpu_torch.kernel_split [--T 262144] [--reps 10]
 
 Variants (macros of the csrc header notes; their outputs are wrong, only
 their times are read): no_fwd drops the recompute's MMAs, no_dw the dW pass
-(k2_dw, k2_dw_wg), no_gx the g_x MMAs. The builds run in parallel; the
-timings run in turns, full first and last.
+(k2_dw_tf, k2_dw_wg; k2_dw where fused_mlp.cu's K2 runs), no_gx the g_x
+MMAs. The builds run in parallel; the timings run in turns, full first and
+last.
 """
 from __future__ import annotations
 

@@ -4,10 +4,11 @@ The library has a plain C interface and is loaded with ctypes; it does not
 include PyTorch's headers. It is built at first use into
 `sparf_tpu_torch/build/` (listed in .gitignore), under a name that carries a
 hash of the sources, so an edited source is never served from a stale build.
-Two compiles, run in parallel: fused_mlp.cu (K1, K2, K3 in 3xTF32, entry
-points sparf_fused_mlp_*_tf32) and fused_mlp_wgmma.cu (K1, K2, K3 at bf16 on
-wgmma and TMA, entry points sparf_fused_mlp_wg_*); one link makes the
-library. Nothing here runs at import time.
+Two compiles, run in parallel: fused_mlp.cu (K1, K2, K3 in 3xTF32 on
+mma.sync, entry points sparf_fused_mlp_*_tf32) and fused_mlp_wgmma.cu (K1,
+K2, K3 at bf16 on wgmma and TMA, entry points sparf_fused_mlp_wg_*; K2 in
+3xTF32 on wgmma, sparf_fused_mlp_tf32wg_*); one link makes the library.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -117,6 +118,11 @@ def wg_entry(lib: ctypes.CDLL, name: str):
     return getattr(lib, f"sparf_fused_mlp_wg_{name}")
 
 
+def tf32wg_entry(lib: ctypes.CDLL, name: str):
+    """The C entry point sparf_fused_mlp_tf32wg_<name> (the float32 K2 on wgmma)."""
+    return getattr(lib, f"sparf_fused_mlp_tf32wg_{name}")
+
+
 def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The kernel library, built on first call and then cached for the process
     (one per set of timing-only `defines`; the port uses the default)."""
@@ -135,6 +141,10 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
                            ("forward_packed", [p, p, p, i, p, p, p, p]),
                            ("backward", [p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
             fn = getattr(lib, f"sparf_fused_mlp_wg_{name}")
+            fn.argtypes, fn.restype = args, i
+        for name, args in (("sizes", [p, p]), ("layout", [p, p, p, p, p, p]),
+                           ("backward", [p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
+            fn = tf32wg_entry(lib, name)
             fn.argtypes, fn.restype = args, i
         lib.sparf_cuda_error_string.argtypes = [i]
         lib.sparf_cuda_error_string.restype = ctypes.c_char_p

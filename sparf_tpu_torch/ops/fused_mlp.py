@@ -7,9 +7,12 @@ sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl); K3 replaces `_kernel`
 of sparf_tpu/ops/fused_mlp.py (the `pallas` impl). The kernels live in
 sparf_tpu_torch/csrc/, whose header notes say what bounds them on an H100 and
 what their design does about it: every product runs on the tensor cores. For
-compute_dtype float32 all three run 3xTF32 `mma.sync` on weights laid out
-once per call as ready MMA B fragments (fused_mlp.cu); for bfloat16 they run
-`wgmma` on bf16 tiles that TMA brings into shared memory, K3 on K1's body
+compute_dtype float32 K1 and K3 run 3xTF32 `mma.sync` on weights laid out
+once per call as ready MMA B fragments (fused_mlp.cu), and K2 runs 3xTF32
+`wgmma` on TMA-fed tiles of the weights' TF32 hi and lo where it takes the
+chain (the bf16 plan M's chains, the presets' among them), else
+fused_mlp.cu's `mma.sync` K2; for bfloat16 all three run `wgmma` on bf16
+tiles that TMA brings into shared memory, K3 on K1's body
 (fused_mlp_wgmma.cu).
 
 The kernels take every chain the Pallas kernels take within one block's
@@ -50,6 +53,12 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     operands of dW), the ReLU masks as each thread's bits
     (`relu_mask_words_plain`), and per 64 points (a warpgroup's rows) the
     column sums of the fp32 g_z (db's partials).
+  - `tf32wg_layout` is fused_mlp_wgmma.cu's build_tf_desc in Python (None
+    where the float32 wgmma K2 does not take the chain); `tf32wg_weights_plain`
+    the weights' hi / lo layouts its TMA maps read (`k_tf_layout` its kernel);
+    `tf32wg_workspace_plain` what its first pass stores for the dW pass:
+    every layer's input and every g_z as rows, each row point-contiguous,
+    and the ReLU mask words.
   - `pack_weights` lays the weights out for K3 once per call
     (`PackedWeights`, the 3xTF32 fragments; `WgPackedWeights`, the bf16
     forward layout); `fused_mlp_forward_packed_plain` is the eager chain on
@@ -62,7 +71,9 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     K3 otherwise.
   - The tracer's counters `launch.K1` / `launch.K2` / `launch.K3` count kernel
     launches (not plain calls) of the float32 (3xTF32) variants, `launch.pack`
-    pack_weights' layout kernel; `launch.<kernel>.bf16` the bf16 variants'.
+    pack_weights' layout kernel; `launch.<kernel>.bf16` the bf16 variants';
+    `launch.K2.tf32wg` the float32 K2's launches on wgmma (also in
+    `launch.K2`).
     `reset_launch_counts` / `launch_counts` set them to 0 and read them.
   - Spans (utils/tracing.py): `mlp.forward` over nerf_apply_fused and
     `mlp.backward` over FusedMLPFunction.backward, with `mlp.encode` (the
@@ -449,10 +460,15 @@ class WgLayer:
         return torch.where(r < self.out, r, -1)
 
     def inputs(self) -> torch.Tensor:
-        """The input index of each padded input column, -1 in padding."""
-        k = torch.arange(self.kp)
-        return torch.where(k < self.k1p, torch.where(k < self.w1, k, -1),
-                           torch.where(k - self.k1p < self.w2, self.w1 + k - self.k1p, -1))
+        return _padded_inputs(self.kp, self.k1p, self.w1, self.w2)
+
+
+def _padded_inputs(kp: int, k1p: int, w1: int, w2: int) -> torch.Tensor:
+    """The input index of each of kp padded input columns ([segment 1 | pad
+    to k1p | segment 2 | pad]), -1 in padding."""
+    k = torch.arange(kp)
+    return torch.where(k < k1p, torch.where(k < w1, k, -1),
+                       torch.where(k - k1p < w2, w1 + k - k1p, -1))
 
 
 @dataclass(frozen=True)
@@ -537,11 +553,17 @@ def wg_layout(dims: Tuple[int, ...]) -> WgLayout:
     raise ValueError(_DESC_ERRORS[-7])
 
 
-def _wg_block(L: WgLayer, W: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """W (out, in) at (layer row, padded input column), zeros in padding."""
-    u, i = L.units(n_rows).to(W.device), L.inputs().to(W.device)
+def _block(W: torch.Tensor, units: torch.Tensor, inputs: torch.Tensor) -> torch.Tensor:
+    """W (out, in) at (row, column): W[unit of the row][input of the column],
+    zeros where either is -1."""
+    u, i = units.to(W.device), inputs.to(W.device)
     block = W.detach()[u.clamp(min=0)][:, i.clamp(min=0)]
     return torch.where((u[:, None] >= 0) & (i[None, :] >= 0), block, torch.zeros_like(block))
+
+
+def _wg_block(L: WgLayer, W: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """W (out, in) at (layer row, padded input column), zeros in padding."""
+    return _block(W, L.units(n_rows), L.inputs())
 
 
 def wgmma_layout_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
@@ -685,6 +707,180 @@ def bf16_workspace_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch
         G[:T, cols] = g[:, u[u >= 0]].to(torch.bfloat16)
         db[:T, cols] = g[:, u[u >= 0]]
     return X, G, masks, db.view(2 * n_tiles, WG_TILE // 2, lay.KG).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the float32 K2 on wgmma (csrc/fused_mlp_wgmma.cu k2_tf, k2_dw_tf), plain
+# ---------------------------------------------------------------------------
+
+K2_TF32WG = "launch.K2.tf32wg"  # counted once per launch of the float32 K2 on wgmma
+
+
+@dataclass(frozen=True)
+class TfLayer:
+    """One layer as the float32 wgmma K2 runs it. Its padded input: segment 1
+    at 0 .. w1, padded to k1p (64, 128 or 256), segment 2 at k1p .. k1p +
+    w2, padded to 32 (c2). nm: the forward product's N, the features (the
+    outputs, less the density unit) padded to 64 (0 at the last layer,
+    which the recompute skips); kz: g_x's K, g_z's columns: the features,
+    and at the last trunk layer (dens) the density unit at column nm, padded
+    to 32; mz: dW's rows, the outputs padded to 64. rf / rt: first row in the
+    forward / transposed weights; x1 / x2: the workspace rows of X's
+    segments (x2 -1: none); go: of g_z, the outputs in order but the density
+    unit last."""
+
+    out: int
+    n_in: int
+    w1: int
+    w2: int
+    k1p: int
+    c2: int
+    kp: int
+    dens: bool
+    nm: int
+    kz: int
+    mz: int
+    rf: int
+    rt: int
+    x1: int
+    x2: int
+    go: int
+
+    def inputs(self) -> torch.Tensor:
+        return _padded_inputs(self.kp, self.k1p, self.w1, self.w2)
+
+    def forward_units(self) -> torch.Tensor:
+        """The output unit of each forward row (nm of them), -1 in padding."""
+        r = torch.arange(self.nm)
+        return torch.where(r < self.out - self.dens, r + int(self.dens), -1)
+
+    def gz_units(self) -> torch.Tensor:
+        """The output unit of each g_z column (kz of them), -1 in padding."""
+        c = torch.arange(self.kz)
+        feat = torch.where(c < self.out - self.dens, c + int(self.dens), -1)
+        return torch.where((c == self.nm) & self.dens, 0, feat)
+
+    def dw_units(self) -> torch.Tensor:
+        """The output unit of each dW row (mz) and G row: the density unit last."""
+        r = torch.arange(self.mz)
+        if self.dens:
+            return torch.where(r < self.out - 1, r + 1, torch.where(r == self.out - 1, 0, -1))
+        return torch.where(r < self.out, r, -1)
+
+
+@dataclass(frozen=True)
+class TfLayout:
+    layers: Tuple[TfLayer, ...]
+    RF: int  # forward weights: 2 RF rows (hi, then lo) x KF
+    KF: int
+    RT: int  # transposed weights: 2 RT rows x KT
+    KT: int
+    NX: int  # workspace rows: X NX, G NG; each row T_pad points
+    NG: int
+
+
+@functools.lru_cache(maxsize=16)
+def tf32wg_layout(dims: Tuple[int, ...]) -> Optional[TfLayout]:
+    """csrc/fused_mlp_wgmma.cu build_tf_desc: the float32 wgmma K2's layout
+    where it takes the chain (pts_enc and view_enc at most 64 wide, every
+    layer's first input segment padded to 64, 128 or 256: the bf16 plan M's
+    chains), None where fused_mlp.cu's K2 runs it; ValueError for a chain
+    whose widths do not match."""
+    n_feat, n_rgb, d_in, d_view, view_dep = dims[:5]
+    n_layers = n_feat + n_rgb
+    if n_feat < 1 or n_rgb < 1 or n_layers > 16:
+        raise ValueError(_DESC_ERRORS[-1])
+    pad64 = lambda x: -(-x // 64) * 64  # noqa: E731
+    pad32 = lambda x: -(-x // 32) * 32  # noqa: E731
+    take = 1 <= d_in <= 64 and 0 <= d_view <= 64
+    layers: List[TfLayer] = []
+    RF = RT = NG = 0
+    KF = KT = 32
+    xf = d_in + d_view
+    for li, (out, n_in, w1, w2, *_) in enumerate(_layers(dims)):
+        dens, last, skip = li == n_feat - 1, li == n_layers - 1, dims[7 + 3 * li]
+        if (out < 1 + dens or w1 < 1 or (li == 0 and (skip or w1 != d_in))
+                or (li > 0 and layers[-1].out - layers[-1].dens != w1)):
+            raise ValueError(_DESC_ERRORS[-3])
+        k1p = pad64(w1)
+        take = take and k1p in (64, 128, 256)
+        c2 = pad32(w2)
+        nm = 0 if last else pad64(out - dens)
+        kz = pad32(out) if last else nm + (32 if dens else 0)
+        layers.append(TfLayer(out, n_in, w1, w2, k1p, c2, k1p + c2, dens, nm, kz, pad64(out), RF,
+                              RT, 0 if li == 0 else xf, -1 if w2 == 0 else (0 if skip else d_in),
+                              NG))
+        xf += w1 if li > 0 else 0
+        RF, RT, NG = RF + nm, RT + k1p + c2, NG + out
+        KF = KF if last else max(KF, k1p + c2)
+        KT = max(KT, kz)
+    if layers[-1].out != 3:
+        raise ValueError(_DESC_ERRORS[-3])
+    return TfLayout(tuple(layers), RF, KF, RT, KT, xf, NG) if take else None
+
+
+def _hi_lo(x: torch.Tensor) -> torch.Tensor:
+    """[hi; lo] along the rows: hi = tf32_round(x), lo = x - hi (exact)."""
+    hi = tf32_round(x)
+    return torch.cat([hi, x - hi])
+
+
+def tf32wg_weights_plain(dims: Sequence[int], weights: Sequence[torch.Tensor]):
+    """The float32 wgmma K2's weights (k_tf_layout's plain version): (wf (2
+    RF, KF): the forward B operands, rows the layers' features, columns the
+    padded inputs; wt (2 RT, KT): g_x's, rows the padded inputs, columns
+    g_z's; each the TF32 hi rows, then the lo rows; bias_f (RF,) in the
+    forward row order); zeros in the padding."""
+    lay = tf32wg_layout(tuple(dims))
+    if lay is None:
+        raise ValueError("the float32 wgmma K2 does not take this chain")
+    dev = weights[0].device
+    wf = torch.zeros((lay.RF, lay.KF), device=dev)
+    wt = torch.zeros((lay.RT, lay.KT), device=dev)
+    bias = torch.zeros(lay.RF, device=dev)
+    for L, W, b in zip(lay.layers, weights[::2], weights[1::2]):
+        if L.nm:
+            u = L.forward_units()
+            wf[L.rf: L.rf + L.nm, : L.kp] = _block(W, u, L.inputs())
+            bias[L.rf: L.rf + L.nm] = torch.where(u.to(dev) >= 0, b.detach()[u.clamp(min=0)], 0.0)
+        wt[L.rt: L.rt + L.kp, : L.kz] = _block(W, L.gz_units(), L.inputs()).t()
+    return _hi_lo(wf), _hi_lo(wt), bias
+
+
+def tf32wg_workspace_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch.Tensor,
+                           weights: Sequence[torch.Tensor], g_density: torch.Tensor,
+                           g_rgb: torch.Tensor):
+    """What the float32 wgmma K2's first pass (k2_tf) stores, plain: (X (NX,
+    T_pad): every layer's input, a row per input column and point-contiguous
+    (pts_enc's and view_enc's rows once, then each layer's features): the dW
+    pass's B operand, which it splits into TF32 hi and lo; G (NG, T_pad):
+    every layer's g_z, a row per output (the density unit last): its A
+    operand; masks (n_layers, T_pad / 128, 256, 4) int32: per layer the ReLU
+    mask words of its input features (relu_mask_words_plain; layer 0's
+    unused, 0)). T_pad = T rounded up to 128; the padded points hold zeros
+    here (the kernel's X and masks hold their activations, whose g_z is 0)."""
+    lay = tf32wg_layout(tuple(meta.dims(weights)))
+    if lay is None:
+        raise ValueError("the float32 wgmma K2 does not take this chain")
+    T, dev = pts_enc.shape[0], pts_enc.device
+    x_rows = -(-T // WG_TILE) * WG_TILE
+    g_zs: List[torch.Tensor] = []
+    with torch.no_grad():
+        _, _, xs = _forward_chain(meta, pts_enc, view_enc, weights)
+        fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_density, g_rgb, g_zs=g_zs)
+    X = torch.zeros((lay.NX, x_rows), device=dev)
+    G = torch.zeros((lay.NG, x_rows), device=dev)
+    masks = torch.zeros((len(lay.layers), x_rows // WG_TILE, 256, 4), dtype=torch.int32,
+                        device=dev)
+    X[: meta.d_in, :T] = pts_enc.t()
+    X[meta.d_in: meta.d_in + meta.d_view, :T] = view_enc.t()
+    for li, (L, x, g) in enumerate(zip(lay.layers, xs, g_zs)):
+        if li > 0:
+            X[L.x1: L.x1 + L.w1, :T] = x[:, : L.w1].t()
+            masks[li] = relu_mask_words_plain(x[:, : L.w1])
+        u = L.dw_units()[: L.out].to(dev)
+        G[L.go: L.go + L.out, :T] = g[:, u].t()
+    return X, G, masks
 
 
 # ---------------------------------------------------------------------------
@@ -839,8 +1035,61 @@ def _launch_k2_wg(meta: FusedMeta, pts_enc, view_enc, weights, gout):
         T, dims,
         _ptrs(weights), torch.cuda.current_stream(dev).cuda_stream)
     _raise_rc(lib, rc, "K2 (fused MLP backward, bf16)")
-    _counted("K2", True)
     return d_pts, d_view, d_params
+
+
+def _launch_k2_tf32wg(meta: FusedMeta, pts_enc, view_enc, weights, gout):
+    """K2 at float32 on wgmma (fused_mlp_wgmma.cu): k_tf_layout, k2_tf,
+    k2_dw_tf, k2_reduce_tf; None where it does not take the chain (C sizes
+    -7: fused_mlp.cu's K2 runs it)."""
+    from sparf_tpu_torch.ops._build import load_library, tf32wg_entry
+
+    lib = load_library()
+    T, dev = pts_enc.shape[0], pts_enc.device
+    dims = _dims(meta, weights)
+    sizes = (ctypes.c_int * 9)()
+    rc = tf32wg_entry(lib, "sizes")(dims, sizes)
+    if rc == -7:
+        return None
+    _raise_rc(lib, rc, "K2 (fused MLP backward)")
+    n_params, n_wf, n_wt, RF, NX, NG, n_part, n_splits, _ = sizes
+    x_rows = -(-T // WG_TILE) * WG_TILE
+    d_pts = torch.zeros_like(pts_enc)
+    d_view = torch.empty_like(view_enc)
+    d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
+    wf, wt = torch.empty(n_wf, device=dev), torch.empty(n_wt, device=dev)
+    bias_f = torch.empty(RF, dtype=torch.float32, device=dev)
+    # every layer's input and g_z, point-contiguous, for the dW pass: ~18 KB
+    # per point on the presets' chain
+    ws = torch.empty((NX + NG) * x_rows, dtype=torch.float32, device=dev)
+    masks = torch.empty((meta.n_feat + meta.n_rgb, x_rows // WG_TILE, 256, 4), dtype=torch.int32,
+                        device=dev)
+    partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
+    rc = tf32wg_entry(lib, "backward")(
+        pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
+        d_view.data_ptr(), d_params.data_ptr(), wf.data_ptr(), wt.data_ptr(), bias_f.data_ptr(),
+        ws.data_ptr(), masks.data_ptr(), partial.data_ptr(), T, dims, _ptrs(weights),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc(lib, rc, "K2 (fused MLP backward)")
+    tracing.count(K2_TF32WG)
+    return d_pts, d_view, d_params
+
+
+def tf32wg_weights_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor]):
+    """k_tf_layout on the card: (wf, wt, bias_f) as tf32wg_weights_plain."""
+    from sparf_tpu_torch.ops._build import load_library, tf32wg_entry
+
+    lay = tf32wg_layout(tuple(dims))
+    lib = load_library()
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    dev = weights[0].device
+    wf = torch.empty((2 * lay.RF, lay.KF), device=dev)
+    wt = torch.empty((2 * lay.RT, lay.KT), device=dev)
+    bias_f = torch.empty(lay.RF, device=dev)
+    rc = tf32wg_entry(lib, "layout")(c_dims, _ptrs(weights), wf.data_ptr(), wt.data_ptr(),
+                                     bias_f.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc(lib, rc, "k_tf_layout")
+    return wf, wt, bias_f
 
 
 def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
@@ -895,14 +1144,17 @@ def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed: PackedWeights):
 
 
 def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
-    """K2: the 3xTF32 kernels, or at bf16 the wgmma ones."""
+    """K2: at float32 the 3xTF32 wgmma kernels where they take the chain,
+    else the 3xTF32 mma.sync ones; at bf16 the wgmma ones."""
     from sparf_tpu_torch.ops._build import entry, load_library
 
     gout = torch.cat([g_density[:, None], g_rgb], dim=-1).contiguous()
     _check_operands(pts_enc, view_enc, weights, gout)
-    if meta.bf16:
-        d_pts, d_view, d_params = _launch_k2_wg(meta, pts_enc, view_enc, weights, gout)
-        return d_pts, d_view, _split_flat(d_params, weights)
+    out = (_launch_k2_wg if meta.bf16 else _launch_k2_tf32wg)(meta, pts_enc, view_enc, weights,
+                                                              gout)
+    if out is not None:
+        _counted("K2", meta.bf16)
+        return out[0], out[1], _split_flat(out[2], weights)
     lib = load_library()
     T = pts_enc.shape[0]
     dev = pts_enc.device
