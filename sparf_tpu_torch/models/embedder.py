@@ -13,8 +13,6 @@ from typing import Optional, Sequence
 
 import torch
 
-from sparf_tpu_torch.utils import tracing
-
 
 def frequency_bands(L: int, include_pi: bool = True, log_sampling: bool = True,
                     device=None) -> torch.Tensor:
@@ -43,10 +41,8 @@ def c2f_weights(progress: float, L: int, c2f: Optional[Sequence[float]],
     if c2f is None:
         return None
     start, end = c2f
-    # a host number onto the device: a copy the device has to finish first
-    with tracing.wait("embedder.c2f_alpha"):
-        alpha = torch.as_tensor((progress - start) / (end - start) * L, dtype=torch.float32,
-                                device=device)
+    # alpha stays a host number: the float32 op rounds it to float32, with no copy to the device
+    alpha = (progress - start) / (end - start) * L
     k = torch.arange(L, dtype=torch.float32, device=device)
     return (1 - torch.cos(torch.clamp(alpha - k, 0.0, 1.0) * math.pi)) / 2
 

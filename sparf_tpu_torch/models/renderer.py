@@ -88,9 +88,8 @@ def render_depth_range(cfg, scene) -> torch.Tensor:
     """Sampling range: the config range for the inverse parametrization, the
     dataset near/far otherwise."""
     if cfg.nerf.depth.param == "inverse":
-        with tracing.wait("renderer.depth_range"):
-            return torch.as_tensor(cfg.nerf.depth.range, dtype=torch.float32,
-                                   device=scene["depth_range"].device)
+        return torch.as_tensor(cfg.nerf.depth.range, dtype=torch.float32,
+                               device=scene["depth_range"].device)
     return scene["depth_range"][0]
 
 

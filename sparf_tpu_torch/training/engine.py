@@ -78,10 +78,7 @@ def exponential_lr(lr_init: float, lr_end: Optional[float], max_iter: int) -> Ca
     gamma = (lr_end / lr_init) ** (1.0 / max_iter)
 
     def lr(step):
-        step = torch.as_tensor(step, dtype=torch.float32)
-        with tracing.wait("lr.gamma"):
-            base = torch.tensor(gamma, dtype=torch.float32, device=step.device)
-        return lr_init * torch.pow(base, step)
+        return lr_init * torch.pow(gamma, torch.as_tensor(step, dtype=torch.float32))
 
     return lr
 
@@ -133,11 +130,8 @@ class Adam:
         nu = [(1 - self.b2) * (g * g) + self.b2 * v for g, v in zip(grads, state.nu)]
         count_inc = state.count + 1
         c = count_inc.to(torch.float32)
-        with tracing.wait("adam.betas"):
-            b1 = torch.tensor(self.b1, device=c.device)
-            b2 = torch.tensor(self.b2, device=c.device)
-        bc1 = 1 - torch.pow(b1, c)
-        bc2 = 1 - torch.pow(b2, c)
+        bc1 = 1 - torch.pow(self.b1, c)
+        bc2 = 1 - torch.pow(self.b2, c)
         lr = self.lr_fn(state.count.to(torch.float32))
         updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)) for m, v in zip(mu, nu)]
         return updates, AdamState(count_inc, mu, nu)

@@ -22,7 +22,6 @@ import torch
 from sparf_tpu_torch.models import flow_net as flow_mod
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.parallel import mesh as mesh_mod
-from sparf_tpu_torch.utils import tracing
 from sparf_tpu_torch.training.losses import base as L
 from sparf_tpu_torch.utils import camera, geometry, imgproc
 
@@ -263,21 +262,19 @@ def make_corres_loss_builder(trainer):
 
     def make(fine_enabled: bool):
         def builder(nerf_params, poses_w2c, draws, iteration, progress):
-            p = draws.randint((), 0, n_pairs)
-            # the drawn pair and its two views, read on the host once: indexing
-            # by a device scalar would read it at every index
-            with tracing.wait("corres.pair_index"):
-                p = int(p)
-                id_self, id_other = pools["pair_ids"][p].tolist()
-            count = pools["pool_count"][p]
+            # the drawn pair and its two views stay on the device: each selection
+            # by them is a gather
+            p = draws.randint((), 0, n_pairs).reshape(1)
+            id_self, id_other = pools["pair_ids"].index_select(0, p)[0].split(1)   # (1,) each
+            count = pools["pool_count"].index_select(0, p)[0]
             idx = mesh_mod.shard_rays(draws.randint((N,), 0, 2**31 - 1) % count)
-            pix_self = pools["pool_pix_self"][p][idx]      # (N,2)
-            pix_other = pools["pool_pix_other"][p][idx]
-            conf = pools["pool_conf"][p][idx]              # (N,)
-            pose_self = poses_w2c[id_self][None]           # (1,3,4)
-            pose_other = poses_w2c[id_other][None]
-            intr_self = scene["intr"][id_self][None]
-            intr_other = scene["intr"][id_other][None]
+            pix_self = pools["pool_pix_self"][p, idx]      # (N,2)
+            pix_other = pools["pool_pix_other"][p, idx]
+            conf = pools["pool_conf"][p, idx]              # (N,)
+            pose_self = poses_w2c.index_select(0, id_self)   # (1,3,4)
+            pose_other = poses_w2c.index_select(0, id_other)
+            intr_self = scene["intr"].index_select(0, id_self)
+            intr_other = scene["intr"].index_select(0, id_other)
 
             ret_self, ret_other = yield [
                 renderer_mod.RayBundle(pixels=pix_self[None], pose_w2c=pose_self,
@@ -299,8 +296,8 @@ def make_corres_loss_builder(trainer):
                             T_o2s, conf))
 
             if use_gt_depth:
-                loss_corres = both_directions(depth_gt_flat[id_self][flat_index(pix_self)],
-                                              depth_gt_flat[id_other][flat_index(pix_other)]) / 2.0
+                loss_corres = both_directions(depth_gt_flat[id_self, flat_index(pix_self)],
+                                              depth_gt_flat[id_other, flat_index(pix_other)]) / 2.0
             else:
                 loss_corres = both_directions(ret_self["depth"][0, :, 0],
                                               ret_other["depth"][0, :, 0])
@@ -322,7 +319,7 @@ def make_corres_loss_builder(trainer):
                 images_flat = scene["image"].reshape(scene["image"].shape[0], 3, -1)
 
                 def photo(ret, pix, idx_img):
-                    gt = images_flat[idx_img][:, flat_index(pix)].t()  # (N,3)
+                    gt = images_flat.index_select(0, idx_img)[0][:, flat_index(pix)].t()  # (N,3)
                     loss = L.mse_loss(ret["rgb"][0], gt)
                     if "rgb_fine" in ret:
                         loss = loss + L.mse_loss(ret["rgb_fine"][0], gt)

@@ -18,14 +18,15 @@ import torch
 from sparf_tpu_torch.models import renderer as renderer_mod
 from sparf_tpu_torch.parallel import mesh as mesh_mod
 from sparf_tpu_torch.training.losses import base as L
-from sparf_tpu_torch.utils import camera, geometry, tracing
+from sparf_tpu_torch.utils import camera, geometry
 
 
 def nearest_pose_id_by_angle(poses_c2w: torch.Tensor, id_self) -> torch.Tensor:
     """Angular distance between camera-position vectors, excluding id_self (an
-    int, or a scalar tensor); argmin."""
+    int, or a scalar tensor, gathered on its device); argmin."""
     centers = poses_c2w[:, :3, 3]
-    tar = centers[id_self]
+    tar = (centers.index_select(0, id_self.reshape(1))[0] if torch.is_tensor(id_self)
+           else centers[id_self])
     tar_u = tar / (torch.linalg.norm(tar) + 1e-12)
     ref_u = centers / (torch.linalg.norm(centers, dim=-1, keepdim=True) + 1e-12)
     dists = torch.arccos(torch.clamp(ref_u @ tar_u, -1, 1))
@@ -51,15 +52,15 @@ def make_depth_cons_loss_builder(trainer):
     decay = bool(cfg.get("gradually_decrease_depth_cons_loss"))
     reduct_every = float(cfg.get("depth_cons_loss_reduct_at_x_iter", 10000))
     inverse_param = cfg.nerf.depth.param == "inverse"
-    inv_depth_min = float(cfg.nerf.depth.range[0]) if inverse_param else None
+    # made on the device once, not copied from the host at every step
+    inv_depth_min = (torch.tensor(float(cfg.nerf.depth.range[0]),
+                                  device=scene["depth_range"].device) if inverse_param else None)
 
     def make(fine_enabled: bool):
         def builder(nerf_params, poses_w2c, draws, iteration, progress):
+            # the drawn view stays on the device: each selection by it is a gather
             id_self = draws.randint((), 0, B)
-            # the drawn view, read on the host once: indexing by a device scalar
-            # would read it at every index
-            with tracing.wait("depth_cons.view_index"):
-                id_self = int(id_self)
+            view_self = id_self.reshape(1)
             n_center = int(N * frac_center)
             xs = draws.randint((N,), 0, W).to(torch.float32)
             ys = draws.randint((N,), 0, H).to(torch.float32)
@@ -73,9 +74,9 @@ def make_depth_cons_loss_builder(trainer):
 
             poses_det = poses_w2c.detach()
             poses_c2w_4 = camera.pose_inverse_4x4(geometry.pose_to_T4x4(poses_det))
-            pose_ref = poses_det[id_self][None]          # (1,3,4)
-            pose_c2w_ref4 = poses_c2w_4[id_self]
-            intr_ref = scene["intr"][id_self][None]      # (1,3,3)
+            pose_ref = poses_det.index_select(0, view_self)          # (1,3,4)
+            pose_c2w_ref4 = poses_c2w_4.index_select(0, view_self)[0]
+            intr_ref = scene["intr"].index_select(0, view_self)      # (1,3,3)
             near = scene["depth_range"][0, 0]
 
             # the reference view, with gradient to the NeRF (poses detached)
@@ -94,9 +95,8 @@ def make_depth_cons_loss_builder(trainer):
             # virtual pose: linear interpolation of the c2w matrices
             id_other = nearest_pose_id_by_angle(poses_c2w_4, id_self)
             w = draws.uniform(())
-            with tracing.wait("depth_cons.view_index"):
-                id_other = int(id_other)
-            c2w_unseen = w * pose_c2w_ref4 + (1 - w) * poses_c2w_4[id_other]
+            c2w_unseen = (w * pose_c2w_ref4
+                          + (1 - w) * poses_c2w_4.index_select(0, id_other.reshape(1))[0])
             w2c_unseen = camera.pose_inverse_4x4(c2w_unseen)[:3][None]  # (1,3,4)
             pts_cam = camera.world2cam(pts3d_w[None], w2c_unseen)
             pseudo_depth = pts_cam[0, :, 2]
@@ -106,11 +106,7 @@ def make_depth_cons_loss_builder(trainer):
                      & (pts2d[:, 1] <= H - 1) & (pseudo_depth >= near))
             pts2d_safe = torch.stack([torch.clamp(pts2d[:, 0], 0, W - 1),
                                       torch.clamp(pts2d[:, 1], 0, H - 1)], -1)
-            if inverse_param:
-                with tracing.wait("depth_cons.near"):
-                    vis_depth_min = torch.as_tensor(inv_depth_min, device=near.device)
-            else:
-                vis_depth_min = near
+            vis_depth_min = inv_depth_min if inverse_param else near
             depth_max_safe = torch.maximum(pseudo_depth, vis_depth_min + 1e-3)
 
             ret_vis, ret_unseen = yield [

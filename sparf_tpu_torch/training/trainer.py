@@ -160,6 +160,10 @@ class NerfTrainerPerScene:
 
     def build_networks(self):
         self.render_cfg = RenderConfig.from_config(self.cfg)
+        # the inverse parametrization's sampling range, made on the device once: a
+        # copy from the host at every step or frame would wait for the device's queue
+        self.inverse_depth_range = (renderer_mod.render_depth_range(self.cfg, self.train_scene)
+                                    if self.cfg.nerf.depth.param == "inverse" else None)
         # cfg.tpu.use_pallas picks the MLP (RenderConfig.mlp_impl), as the JAX
         # package's mlp_impl does: ops.fused_mlp (the CUDA kernels on a CUDA
         # device, their plain versions on the CPU), or nerf_mlp.nerf_apply in
@@ -216,9 +220,9 @@ class NerfTrainerPerScene:
                                         for mk in self.extra_loss_builders]
         render_cfg, scene = self.render_cfg, self.train_scene
         merge = merged_render(cfg)
+        depth_range = self.depth_range(scene)
 
         def combined(nerf_params, poses_w2c, draws, iteration, progress):
-            depth_range = renderer_mod.render_depth_range(cfg, scene)
             gens = [b(nerf_params, poses_w2c, draws, iteration, progress) for b in builders]
             results: Dict[int, Any] = {}
             pending: Dict[int, Any] = {}
@@ -386,13 +390,19 @@ class NerfTrainerPerScene:
             return 1.0
         return min(1.0, int(self.state.iteration_nerf) / self.cfg.max_iter)
 
+    def depth_range(self, scene: Dict[str, Any]) -> torch.Tensor:
+        """renderer.render_depth_range of `scene`, with no copy from the host."""
+        if self.inverse_depth_range is not None:
+            return self.inverse_depth_range
+        return renderer_mod.render_depth_range(self.cfg, scene)
+
     def render_full_image(self, scene: Dict[str, Any], idx: int, pose: torch.Tensor,
                           fine_enabled: bool) -> Dict[str, torch.Tensor]:
         H, W = scene["image"].shape[-2:]
         with tracing.span("frame"):
             return renderer_mod.render_image_chunked(
                 self.state.nerf_params, self.render_cfg, pose, scene["intr"][idx: idx + 1], H,
-                W, renderer_mod.render_depth_range(self.cfg, scene), self.progress(),
+                W, self.depth_range(scene), self.progress(),
                 fine_enabled=fine_enabled, chunk=self.cfg.nerf.rand_rays, mesh=self.mesh)
 
     def val_pose_and_scale(self, idx: int) -> Tuple[torch.Tensor, float]:

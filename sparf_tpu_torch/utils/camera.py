@@ -20,8 +20,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sparf_tpu_torch.utils import tracing
-
 
 def to_hom(x: torch.Tensor) -> torch.Tensor:
     """Append a 1 to the last dim: (..., K) -> (..., K+1)."""
@@ -75,9 +73,8 @@ def pose_compose(pose_list: Sequence[torch.Tensor]) -> torch.Tensor:
 def pose_to_4x4(pose: torch.Tensor) -> torch.Tensor:
     """(...,3,4) -> (...,4,4) homogeneous."""
     bottom = torch.zeros((*pose.shape[:-2], 1, 4), dtype=pose.dtype, device=pose.device)
-    # a host number into a device tensor: a copy the device has to finish first
-    with tracing.wait("camera.pose_to_4x4"):
-        bottom[..., 0, 3] = 1.0
+    # fill_ hands the 1 to the kernel; a setitem of a host number copies it to the device
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([pose, bottom], dim=-2)
 
 
@@ -114,10 +111,9 @@ def img2cam(x: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
 
 
 def intr_inverse(intr: torch.Tensor) -> torch.Tensor:
-    """K^-1 (...,3,3). The inverse checks its result on the host: a wait on a
-    CUDA device."""
-    with tracing.wait("camera.intr_inverse"):
-        return torch.linalg.inv(intr)
+    """K^-1 (...,3,3): torch.linalg.inv's LU without its check of the result,
+    which would read the device's status on the host."""
+    return torch.linalg.inv_ex(intr).inverse
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,8 @@ it resumes; training/trainer.py); `frame` and `render.chunk`
 (training/trainer.py, models/renderer.py); `render.bundles`,
 `render.coarse`, `render.fine`, `render.composite` (models/renderer.py);
 `mlp.forward`, `mlp.backward`, `mlp.encode`, `mlp.pack`, `mlp.launch`
-(ops/fused_mlp.py); `wait`, wherever the host blocks in a step or a frame;
+(ops/fused_mlp.py); `wait`, wherever the host blocks on the device (a step
+and a frame have none; scripts/profile_step.py's `profile_step.sync` is one);
 `setup.scene`, `setup.networks`, `setup.optimizer`, `setup.pools`
 (training/trainer.py), `setup.kernels` (ops/_build.py), `setup.config`
 (scripts/profile_step.py). No name starts with "cu", which the benchmark's

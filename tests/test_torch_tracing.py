@@ -245,8 +245,8 @@ def test_profile_step_reports_the_set_up_and_the_spans(capsys):
     spans = res["spans"]
     assert spans["step"]["calls_per_step"] == spans["step.backward"]["calls_per_step"] == 1.0
     assert spans["mlp.backward"]["calls_per_step"] > 0
-    # waits by their site: the positional encoding's coarse-to-fine weight, Adam's betas
-    assert {"wait[embedder.c2f_alpha]", "wait[adam.betas]"} <= set(spans)
+    # the host blocks nowhere in a step: no wait by any site
+    assert not [name for name in spans if name.startswith("wait")]
     assert all(row["idle_ms_per_step"] is None and row["self_ms_per_step"] >= 0
                for row in spans.values())
     # the steps' self times add up to no more than the traced window
