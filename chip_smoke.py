@@ -28,7 +28,9 @@ Phases, one line each; any failure raises and the process exits non-zero:
      features per layer, pts_enc and view_enc up to 128 wide), each with
      its plan (128- or 64-point tiles) and K2's workspace bytes; routes: both
      C sizes entries take every chain of a grid inside the domain and
-     refuse, with a width code, every chain just past it (route_chains);
+     refuse, with a width code, every chain just past it (route_chains),
+     and the op's route (fused_mlp.route) picks K2 as the Python mirror
+     says and refuses the chains past the domain;
   4. slice-check: one step of the tiny sparf config on the card against the
      same step on the CPU (plain versions, same parameters and draws), in
      both stages; accum-check: grad_acc_steps = 2, six steps, one with a NaN
@@ -125,7 +127,8 @@ Phases, one line each; any failure raises and the process exits non-zero:
      bit for bit; a one-rank NCCL group runs the tiny step too, then two
      ranks train the full shape in the joint stage (it/s per rank);
  15. profile: sparf_tpu_torch/scripts/profile_step.py, 10 fine-stage steps at
-     fp32 at the full shape, device time by category and the idle share;
+     fp32 at the full shape, the idle share and the top kernels by device
+     time (K1, k1_forward, among them);
      fused-adam: the optimizer update's kernel pair (ops/fused_adam.py): the
      card tests of tests/test_torch_fused_adam.py (at the presets' leaves:
      the norms within 1e-6 relative of the plain update's, given the
@@ -401,17 +404,11 @@ def check_packing(meta, weights, params) -> None:
     bit (and the C sizes against its Python mirror, tf32wg_layout)."""
     import torch
 
-    from sparf_tpu_torch.ops import _build
     from sparf_tpu_torch.ops import fused_mlp as fm
 
-    lib = _build.load_library()
-    dims = fm._dims(meta, weights)
-    frag = torch.empty((2, fm._sizes(lib, dims, "pack")[1]), device="cuda")
-    rc = _build.entry(lib, "pack")(dims, fm._ptrs(weights), frag[0].data_ptr(),
-                                   frag[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
-    fm._raise_rc(lib, rc, "k_pack")
-    plain = [fm.pack_fragments_plain(meta.dims(weights), weights, transposed=t)
-             for t in (False, True)]
+    dims = meta.dims(weights)
+    frag = fm.pack_fragments_kernel(dims, weights)
+    plain = [fm.pack_fragments_plain(dims, weights, transposed=t) for t in (False, True)]
     packed = fm.pack_weights(params, meta).frag
     torch.cuda.synchronize()
     for name, a, b in (("forward", frag[0], plain[0]), ("transposed", frag[1], plain[1]),
@@ -419,16 +416,16 @@ def check_packing(meta, weights, params) -> None:
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"k_pack {name} fragments differ from the plain packing in "
                                  f"{int((a != b).sum())} of {a.numel()} floats")
-    dims = meta.dims(weights)
     lay = fm.tf32wg_layout(tuple(dims))
+    route = meta.route(weights)
+    if (lay is None) != (route.k2 == "tf32"):
+        raise AssertionError(f"the route's K2 {route.k2}, tf32wg_layout {lay is not None}")
     if lay is None:
         return
-    sizes = (ctypes.c_int * 9)()
-    fm._raise_rc(lib, _build.tf32wg_entry(lib, "sizes")(fm._dims(meta, weights), sizes), "sizes")
     want = [sum(int(w.numel()) for w in weights), 2 * lay.RF * lay.KF, 2 * lay.RT * lay.KT,
             lay.RF, lay.NX, lay.NG]
-    if list(sizes)[:6] != want:
-        raise AssertionError(f"sparf_fused_mlp_tf32wg_sizes {list(sizes)[:6]} != "
+    if list(route.k2_sizes[:6]) != want:
+        raise AssertionError(f"sparf_fused_mlp_tf32wg_sizes {list(route.k2_sizes[:6])} != "
                              f"tf32wg_layout's {want}")
     got = fm.tf32wg_weights_kernel(dims, weights)
     plain = fm.tf32wg_weights_plain(dims, weights)
@@ -446,12 +443,11 @@ def check_wg_layout(meta, weights, params) -> None:
     (wg_layout)."""
     import torch
 
-    from sparf_tpu_torch.ops import _build
     from sparf_tpu_torch.ops import fused_mlp as fm
 
     dims = meta.dims(weights)
     lay = fm.wg_layout(tuple(dims))
-    sizes = fm._wg_sizes(_build.load_library(), fm._dims(meta, weights), "k_wg_layout")
+    sizes = list(meta.route(weights).sizes)
     want = [sum(int(w.numel()) for w in weights), lay.RF * lay.KF, lay.RT * lay.KT, lay.RF,
             lay.KX, lay.KG]
     if sizes[:6] != want:
@@ -518,9 +514,9 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
                 check_wg_layout(meta, weights, params)
             else:
                 check_packing(meta, weights, params)
-            packed = fm.pack_weights(params, meta)
-            dens_k, rgb_k = fm._launch_k1(meta, pts_enc, view_enc, weights)
-            dens_3, rgb_3 = fm._launch_k3(meta, pts_enc, view_enc, packed)
+            packed, route = fm.pack_weights(params, meta), meta.route(weights)
+            dens_k, rgb_k = fm.launch_k1(route, pts_enc, view_enc, weights)
+            dens_3, rgb_3 = fm.launch_k3(route, pts_enc, view_enc, packed)
             dens_p, rgb_p = fm.fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
             dens_pp, rgb_pp = fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
             torch.cuda.synchronize()
@@ -540,8 +536,8 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
                     >= UNAMBIGUOUS_Z).float()
             g_d, g_rgb = g_d * keep, g_rgb * keep[:, None]
             fm.reset_launch_counts()
-            out_k = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
-            out_k2 = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
+            out_k = fm.launch_k2(route, pts_enc, view_enc, weights, g_d, g_rgb)
+            out_k2 = fm.launch_k2(route, pts_enc, view_enc, weights, g_d, g_rgb)
             torch.cuda.synchronize()
             counted = tracing.counts()
             k2_wg = (counted.get(fm.K2_TF32WG, 0), counted.get("launch.K2", 0))
@@ -589,8 +585,8 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
                 past = (fwd_past | (row_errors(out_k[0], out_p[0]) > BWD_RTOL)
                         | (row_errors(out_k[1], out_p[1]) > BWD_RTOL))
                 clean = (~past).float()
-                out_k = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d * clean,
-                                      g_rgb * clean[:, None])
+                out_k = fm.launch_k2(route, pts_enc, view_enc, weights, g_d * clean,
+                                     g_rgb * clean[:, None])
                 out_p = fm.fused_mlp_backward_plain(meta, pts_enc, view_enc, weights,
                                                     g_d * clean, g_rgb * clean[:, None])
                 for name, a, b in zip(names[2:], out_k[2], out_p[2]):
@@ -623,28 +619,28 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
 
     meta, pts_enc, view_enc, weights, g_d, g_rgb, params = kernel_inputs(
         True, 262144, seed=1, bf16=bf16, widths=widths)
-    packed = fm.pack_weights(params, meta)
+    packed, route = fm.pack_weights(params, meta), meta.route(weights)
     n = 5 if chain else 10
     times = {
-        "K1": median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights), n),
+        "K1": median_ms(lambda: fm.launch_k1(route, pts_enc, view_enc, weights), n),
         "K1_plain": median_ms(lambda: fm.fused_mlp_forward_plain(meta, pts_enc, view_enc,
                                                                   weights), n),
-        "K3": median_ms(lambda: fm._launch_k3(meta, pts_enc, view_enc, packed), n),
+        "K3": median_ms(lambda: fm.launch_k3(route, pts_enc, view_enc, packed), n),
         "K3_plain": median_ms(lambda: fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc,
                                                                          packed), n),
-        "K2": median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb), n),
+        "K2": median_ms(lambda: fm.launch_k2(route, pts_enc, view_enc, weights, g_d, g_rgb), n),
         "K2_plain": median_ms(lambda: fm.fused_mlp_backward_plain(meta, pts_enc, view_enc,
                                                                    weights, g_d, g_rgb), n),
     }
     if chain:  # every launch at the timed T gives the first one's bits (K2 and K1, K3)
-        first = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
-        f1, f3 = (fm._launch_k1(meta, pts_enc, view_enc, weights),
-                  fm._launch_k3(meta, pts_enc, view_enc, packed))
+        first = fm.launch_k2(route, pts_enc, view_enc, weights, g_d, g_rgb)
+        f1, f3 = (fm.launch_k1(route, pts_enc, view_enc, weights),
+                  fm.launch_k3(route, pts_enc, view_enc, packed))
         same = True
         for _ in range(STRESS_LAUNCHES):
-            again = fm._launch_k2(meta, pts_enc, view_enc, weights, g_d, g_rgb)
-            a1, a3 = (fm._launch_k1(meta, pts_enc, view_enc, weights),
-                      fm._launch_k3(meta, pts_enc, view_enc, packed))
+            again = fm.launch_k2(route, pts_enc, view_enc, weights, g_d, g_rgb)
+            a1, a3 = (fm.launch_k1(route, pts_enc, view_enc, weights),
+                      fm.launch_k3(route, pts_enc, view_enc, packed))
             torch.cuda.synchronize()
             same &= all(torch.equal(a, b) for a, b in zip([*again[:2], *again[2]],
                                                           [*first[:2], *first[2]]))
@@ -704,8 +700,11 @@ def check_routes() -> dict:
     inside and a width code (-2, -4 or -7, whose message names
     use_pallas=False) for every chain past it; the float32 K2 on wgmma
     (sparf_fused_mlp_tf32wg_sizes) takes the chains its mirror
-    (fused_mlp.tf32wg_layout) takes and answers -7 to the rest; the plans
-    taken, counted."""
+    (fused_mlp.tf32wg_layout) takes and answers -7 to the rest; the op's
+    route (fused_mlp.route) runs K2 on wgmma at float32 exactly where the
+    mirror takes the chain, and on every chain past the domain raises
+    ValueError naming use_pallas=False in both dtypes; the plans taken,
+    counted."""
     from sparf_tpu_torch.models import nerf_mlp
     from sparf_tpu_torch.ops import _build
     from sparf_tpu_torch.ops import fused_mlp as fm
@@ -734,6 +733,16 @@ def check_routes() -> dict:
                               f"{fm.tf32wg_layout(tuple(dims)) is not None}")
             key = f"{kind} fp32 K2 " + ("on wgmma" if rc == 0 else "on mma.sync")
             counts[key] = counts.get(key, 0) + 1
+            # the route the op launches on: K2's choice, or the refusal before any launch
+            for bf16 in (False, True):
+                try:
+                    k2 = fm.route(tuple(dims), bf16).k2
+                except ValueError as err:
+                    k2 = "refused" if "use_pallas=False" in str(err) else f"raised {err}"
+                want = ("refused" if kind == "past" else "wg" if bf16
+                        else "tf32" if fm.tf32wg_layout(tuple(dims)) is None else "tf32wg")
+                if k2 != want:
+                    failed.append(f"route {over} bf16={bf16}: {k2}, not {want}")
     phase("routes", f"{len(inside)} chains inside the domain, {len(past)} past it, each in both "
                     f"dtypes: {counts}")
     if failed:
@@ -747,20 +756,16 @@ def kernel_plan(meta, weights, T: int = 262144) -> dict:
     K2's workspace at T points: every layer's input and g_z, float32
     (3xTF32) or bf16; each kernel's registers and spills (ptxas)."""
     from sparf_tpu_torch.ops import _build
-    from sparf_tpu_torch.ops import fused_mlp as fm
 
-    lib, dims = _build.load_library(), fm._dims(meta, weights)
+    route = meta.route(weights)
     x_rows = -(-T // 128) * 128
-    tf32wg = not meta.bf16 and fm.tf32wg_layout(tuple(meta.dims(weights))) is not None
+    sizes, tf32wg = route.sizes, route.k2 == "tf32wg"
     if meta.bf16:
-        sizes = fm._wg_sizes(lib, dims, "sizes")
         per_point = 2 * (sizes[4] + sizes[5])
+    elif tf32wg:  # X and G, point-contiguous
+        per_point = 4 * (route.k2_sizes[4] + route.k2_sizes[5])
     else:
-        sizes = fm._sizes(lib, dims, "sizes")
         per_point = 4 * (sizes[3] + sizes[4])
-        if tf32wg:  # X and G, point-contiguous
-            lay = fm.tf32wg_layout(tuple(meta.dims(weights)))
-            per_point = 4 * (lay.NX + lay.NG)
     tile = sizes[-1]
     what = (f"{tile}-point tiles" + (", the warpgroups split the outputs" if meta.bf16 and tile == 64
                                      else "") + (", K2 on wgmma" if tf32wg else ""))
@@ -2353,11 +2358,13 @@ def run_profile_phase() -> dict:
     from sparf_tpu_torch.scripts import profile_step
 
     res = profile_step.main(["--stage", "fine", "--steps", "10"])
-    if res["platform"] != "cuda" or res["ms_per_step"]["K1"] <= 0:
-        raise AssertionError(f"profile: no device time for K1: {res['ms_per_step']}")
+    k1_ms = sum(k["ms_per_step"] for k in res["kernels"] if "k1_forward" in k["name"])
+    if res["platform"] != "cuda" or k1_ms <= 0:
+        raise AssertionError(f"profile: no device time for K1 (k1_forward): {res['kernels']}")
     phase("profile", f"fine stage, fp32, {res['window_ms_per_step']:.3f} ms per step, idle share "
-                     f"{res['idle_share']:.3f}; ms per step by category "
-                     + json.dumps({k: round(v, 3) for k, v in res["ms_per_step"].items()}))
+                     f"{res['idle_share']:.3f}; top kernels, ms per step: "
+                     + "; ".join(f"{k['name'][:60]} {k['ms_per_step']:.3f}"
+                                 for k in res["kernels"][:10]))
     return {k: v for k, v in res.items() if k != "kernels"}
 
 

@@ -86,21 +86,24 @@ def main(argv=None) -> dict:
     g_d = torch.randn(T, generator=gen, device="cuda")
     g_rgb = torch.randn((T, 3), generator=gen, device="cuda")
 
+    # the routes are built on the full library; each variant launches on them
+    routes = {dtype: meta.route(weights) for dtype, meta in metas.items()}
     real_load = _build.load_library
     times = {}
     try:
         for dtype, meta in metas.items():
+            route = routes[dtype]
             for name in (*VARIANTS, "full"):
                 _build.load_library = lambda defines=(), lib=libs[name]: lib
-                k2 = _median_ms(lambda: fm._launch_k2(meta, pts_enc, view_enc, weights, g_d,
-                                                      g_rgb), args.reps)
+                k2 = _median_ms(lambda: fm.launch_k2(route, pts_enc, view_enc, weights, g_d,
+                                                     g_rgb), args.reps)
                 times.setdefault(f"{dtype}_K2_{name}", []).append(k2)
                 if name == "full":
-                    k1 = _median_ms(lambda: fm._launch_k1(meta, pts_enc, view_enc, weights),
+                    k1 = _median_ms(lambda: fm.launch_k1(route, pts_enc, view_enc, weights),
                                     args.reps)
                     times.setdefault(f"{dtype}_K1", []).append(k1)
                     packed = fm.pack_weights(params, meta)
-                    k3 = _median_ms(lambda: fm._launch_k3(meta, pts_enc, view_enc, packed),
+                    k3 = _median_ms(lambda: fm.launch_k3(route, pts_enc, view_enc, packed),
                                     args.reps)
                     times.setdefault(f"{dtype}_K3", []).append(k3)
     finally:

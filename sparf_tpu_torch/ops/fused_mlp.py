@@ -63,12 +63,20 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     (`PackedWeights`, the 3xTF32 fragments; `WgPackedWeights`, the bf16
     forward layout); `fused_mlp_forward_packed_plain` is the eager chain on
     them.
-  - `FusedMLPFunction` launches K1 in forward (saving only the inputs and the
-    weights) and K2 in backward. For a CUDA tensor it launches the kernel or
-    raises (a chain past the kernels' widths raises ValueError before any
-    launch); the plain versions are taken only for CPU tensors.
-  - `nerf_apply_fused` takes K1/K2 when autograd will ask for a gradient,
-    K3 otherwise.
+  - `route(dims, bf16)` (`FusedMeta.route`) is built once per chain and
+    compute dtype, the first time a launch needs it: which implementation
+    serves K1 / K3 and K2, the dims as the C entries take them, and the
+    sizes their C sizes entries give (a chain past the kernels' widths
+    raises ValueError there, before any launch). `launch_k1`, `launch_k3`
+    and `launch_k2` launch one role each on a route; `pack_fragments_kernel`,
+    `wg_layout_kernel` and `tf32wg_weights_kernel` launch the layout kernels
+    alone, as their plain twins.
+  - `FusedMLPFunction` runs K1 in forward (saving only the inputs and the
+    weights) and K2 in backward on the route it is given, the plain
+    versions where that is None.
+  - `nerf_apply_fused` takes the route on a CUDA device and the plain
+    versions on the CPU (any other device raises), then K1/K2 when autograd
+    will ask for a gradient, K3 otherwise.
   - The tracer's counters `launch.K1` / `launch.K2` / `launch.K3` count kernel
     launches (not plain calls) of the float32 (3xTF32) variants, `launch.pack`
     pack_weights' layout kernel; `launch.<kernel>.bf16` the bf16 variants';
@@ -89,7 +97,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, ClassVar, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -162,6 +170,10 @@ class FusedMeta:
             n_out, n_in = weights[2 * li].shape
             out += [int(n_out), int(n_in), int(li < self.n_feat and li in self.skip)]
         return out
+
+    def route(self, weights: Sequence[torch.Tensor]) -> "Route":
+        """The kernels' route for this chain on these weights (route())."""
+        return route(tuple(self.dims(weights)), self.bf16)
 
 
 def chain_dims(cfg: MLPConfig) -> List[int]:
@@ -258,6 +270,7 @@ class PackedWeights:
     dims: Tuple[int, ...]
     frag: torch.Tensor
     biases: List[torch.Tensor]
+    bf16: ClassVar[bool] = False
 
 
 @dataclass
@@ -269,6 +282,7 @@ class WgPackedWeights:
     dims: Tuple[int, ...]
     wf: torch.Tensor
     bias_f: torch.Tensor
+    bf16: ClassVar[bool] = True
 
 
 def pack_weights(params: Dict[str, Any], meta: FusedMeta):
@@ -283,31 +297,20 @@ def pack_weights(params: Dict[str, Any], meta: FusedMeta):
         raise ValueError(f"pack_weights: {len(weights) // 2} layers, meta says "
                          f"{meta.n_feat} + {meta.n_rgb}")
     dims = tuple(meta.dims(weights))
-    dev = weights[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"pack_weights: no kernel for device {dev}")
-    if meta.bf16:
-        if dev.type == "cpu":
-            wf, _, bias_f = wgmma_layout_plain(dims, weights, transposed=False)
-        else:
-            _check_operands(weights[0], weights[1], weights)
-            wf, _, bias_f = wg_layout_kernel(dims, weights, transposed=False)
-            _counted("pack", True)
-        return WgPackedWeights(dims, wf, bias_f)
-    if dev.type == "cpu":
-        frag = pack_fragments_plain(dims, weights)
-    else:
-        from sparf_tpu_torch.ops._build import entry, load_library
-
+    card = _on_card(weights[0])
+    if card:
         _check_operands(weights[0], weights[1], weights)
-        lib = load_library()
-        c_dims = (ctypes.c_int * len(dims))(*dims)
-        frag = torch.empty(_sizes(lib, c_dims, "pack_weights")[1], device=dev)
-        rc = entry(lib, "pack")(c_dims, _ptrs(weights), frag.data_ptr(), None,
-                                torch.cuda.current_stream(dev).cuda_stream)
-        _raise_rc(lib, rc, "pack_weights (fragment packing)")
-        _counted("pack", False)
-    return PackedWeights(dims, frag, weights[1::2])
+    if meta.bf16:
+        layout = wg_layout_kernel if card else wgmma_layout_plain
+        wf, _, bias_f = layout(dims, weights, transposed=False)
+        packed = WgPackedWeights(dims, wf, bias_f)
+    else:
+        frag = (pack_fragments_kernel(dims, weights, transposed=False)[0] if card
+                else pack_fragments_plain(dims, weights))
+        packed = PackedWeights(dims, frag, weights[1::2])
+    if card:
+        _counted("pack", meta.bf16)
+    return packed
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +361,7 @@ def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
     """K3's plain version: the eager chain on pack_weights' operands (each W
     as the hi + lo of its fragments, or as read back from the bf16 forward
     layout)."""
-    if isinstance(packed, WgPackedWeights):
+    if packed.bf16:
         weights = [t for layer in unpack_wgmma_layout(packed.dims, packed.wf, bias_f=packed.bias_f)
                    for t in layer]
     else:
@@ -913,30 +916,76 @@ def _ptrs(weights):
     return (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
 
 
-def _dims(meta, weights):
-    dims = meta.dims(weights)
-    return (ctypes.c_int * len(dims))(*dims)
+def _on_card(t: torch.Tensor) -> bool:
+    """True on a CUDA device (the kernels), False on the CPU (the plain versions)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused MLP: no kernel for device {t.device}")
+    return t.device.type == "cuda"
 
 
-def _sizes(lib, dims, which: str) -> List[int]:
-    """[n_params, n_frag_elems, n_part, x_total, g_total, n_splits, tile] of
-    the 3xTF32 kernels (csrc sparf_fused_mlp_sizes_tf32; tile: the points of
-    one block, 64 in the wide plan)."""
-    sizes = (ctypes.c_int * 7)()
-    from sparf_tpu_torch.ops._build import entry
+@dataclass(frozen=True, eq=False)
+class Route:
+    """How the kernels run one chain at one compute dtype: its dims as the C
+    entries take them (`c_dims`), which implementation serves each role, and
+    the sizes their C sizes entries give for it.
 
-    _raise_rc(lib, entry(lib, "sizes")(dims, sizes), which)
-    return list(sizes)
+    K1, K3 and the weight layouts run fused_mlp.cu's 3xTF32 kernels at
+    float32 (`sizes` from sparf_fused_mlp_sizes_tf32: [n_params,
+    n_frag_elems, n_part, x_total, g_total, n_splits, tile]) and
+    fused_mlp_wgmma.cu's bf16 ones at bfloat16 (sparf_fused_mlp_wg_sizes:
+    [n_params, wf elements, wt elements, RF, KX, KG, n_part, n_splits,
+    tile]). K2 runs `k2`: "tf32wg", fused_mlp_wgmma.cu's float32 K2, on the
+    chains sparf_fused_mlp_tf32wg_sizes takes (`k2_sizes`: [n_params, wf
+    elements, wt elements, RF, NX, NG, n_part, n_splits, tile]); "tf32",
+    fused_mlp.cu's K2, on the other float32 chains; "wg", the bf16 K2
+    (k2_sizes is sizes for both)."""
+
+    dims: Tuple[int, ...]
+    bf16: bool
+    k2: str
+    c_dims: Any
+    sizes: Tuple[int, ...]
+    k2_sizes: Tuple[int, ...]
 
 
-def _wg_sizes(lib, dims, which: str) -> List[int]:
-    """[n_params, wf elements, wt elements, RF, KX, KG, n_part, n_splits, tile]
-    of the bf16 kernels (csrc sparf_fused_mlp_wg_sizes)."""
-    from sparf_tpu_torch.ops._build import wg_entry
+@functools.lru_cache(maxsize=64)
+def route(dims: Tuple[int, ...], bf16: bool) -> Route:
+    """The chain's route, from the C sizes entries once per chain and compute
+    dtype; ValueError, before any launch, for a chain the kernels do not
+    take (naming cfg.tpu.use_pallas=False past their widths)."""
+    from sparf_tpu_torch.ops._build import entry, load_library, tf32wg_entry, wg_entry
 
-    sizes = (ctypes.c_int * 9)()
-    _raise_rc(lib, wg_entry(lib, "sizes")(dims, sizes), which)
-    return list(sizes)
+    lib = load_library()
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+
+    def ask(fn, n: int):
+        sizes = (ctypes.c_int * n)()
+        return fn(c_dims, sizes), tuple(sizes)
+
+    rc, sizes = ask(wg_entry(lib, "sizes"), 9) if bf16 else ask(entry(lib, "sizes"), 7)
+    _raise_rc(lib, rc, f"fused MLP ({'bf16' if bf16 else '3xTF32'})")
+    if bf16:
+        return Route(dims, True, "wg", c_dims, sizes, sizes)
+    rc, k2_sizes = ask(tf32wg_entry(lib, "sizes"), 9)
+    if rc not in (0, -7):  # -7: not one of its chains
+        _raise_rc(lib, rc, "K2 (fused MLP backward, on wgmma)")
+    return (Route(dims, False, "tf32wg", c_dims, sizes, k2_sizes) if rc == 0
+            else Route(dims, False, "tf32", c_dims, sizes, sizes))
+
+
+def pack_fragments_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor],
+                          transposed: bool = True):
+    """k_pack on the card: (the forward fragments, the transposed ones or
+    None without `transposed`) as pack_fragments_plain."""
+    from sparf_tpu_torch.ops._build import entry, load_library
+
+    r, lib, dev = route(tuple(dims), False), load_library(), weights[0].device
+    frag = torch.empty((2 if transposed else 1, r.sizes[1]), device=dev)
+    rc = entry(lib, "pack")(r.c_dims, _ptrs(weights), frag[0].data_ptr(),
+                            frag[1].data_ptr() if transposed else None,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc(lib, rc, "k_pack")
+    return frag[0], frag[1] if transposed else None
 
 
 def wg_layout_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor],
@@ -945,237 +994,144 @@ def wg_layout_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor],
     None without `transposed`)."""
     from sparf_tpu_torch.ops._build import load_library, wg_entry
 
-    lib = load_library()
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    sizes = _wg_sizes(lib, c_dims, "k_wg_layout")
-    dev = weights[0].device
-    wf = torch.empty(sizes[1], dtype=torch.bfloat16, device=dev)
-    wt = torch.empty(sizes[2], dtype=torch.bfloat16, device=dev) if transposed else None
-    bias_f = torch.empty(sizes[3], dtype=torch.float32, device=dev)
-    rc = wg_entry(lib, "layout")(c_dims, _ptrs(weights), wf.data_ptr(),
+    r, lib, dev = route(tuple(dims), True), load_library(), weights[0].device
+    _, n_wf, n_wt, RF = r.sizes[:4]
+    wf = torch.empty(n_wf, dtype=torch.bfloat16, device=dev)
+    wt = torch.empty(n_wt, dtype=torch.bfloat16, device=dev) if transposed else None
+    bias_f = torch.empty(RF, dtype=torch.float32, device=dev)
+    rc = wg_entry(lib, "layout")(r.c_dims, _ptrs(weights), wf.data_ptr(),
                                  wt.data_ptr() if transposed else None, bias_f.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)
     _raise_rc(lib, rc, "k_wg_layout")
-    return (wf.view(-1, sizes[1] // sizes[3]),
-            wt.view(-1, wg_layout(tuple(dims)).KT) if transposed else None, bias_f)
-
-
-def _launch_k1_wg(meta: FusedMeta, pts_enc, view_enc, weights):
-    """K1 at bf16 (fused_mlp_wgmma.cu): lays out the weights (k_wg_layout),
-    then the wgmma forward (k1_wg)."""
-    from sparf_tpu_torch.ops._build import load_library, wg_entry
-
-    lib = load_library()
-    T, dev = pts_enc.shape[0], pts_enc.device
-    dims = _dims(meta, weights)
-    sizes = _wg_sizes(lib, dims, "K1 (fused MLP forward, bf16)")
-    wf = torch.empty(sizes[1], dtype=torch.bfloat16, device=dev)
-    bias_f = torch.empty(sizes[3], dtype=torch.float32, device=dev)
-    out = torch.empty((T, 4), dtype=torch.float32, device=dev)
-    rc = wg_entry(lib, "forward")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T,
-                                  dims, _ptrs(weights), wf.data_ptr(), bias_f.data_ptr(),
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    _raise_rc(lib, rc, "K1 (fused MLP forward, bf16)")
-    _counted("K1", True)
-    return out[:, 0], out[:, 1:4]
-
-
-def _launch_k3_wg(meta: FusedMeta, pts_enc, view_enc, packed: WgPackedWeights):
-    """K3 at bf16 (fused_mlp_wgmma.cu k3_wg): K1's wgmma forward on the
-    forward layout that pack_weights made once per call."""
-    from sparf_tpu_torch.ops._build import load_library, wg_entry
-
-    lib = load_library()
-    dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
-    sizes = _wg_sizes(lib, dims, "K3 (fused MLP forward, packed weights, bf16)")
-    wf, bias_f = packed.wf, packed.bias_f
-    if (wf.dtype != torch.bfloat16 or wf.numel() != sizes[1] or bias_f.numel() != sizes[3]
-            or not wf.is_contiguous() or wf.device != pts_enc.device):
-        raise ValueError("K3 takes the contiguous bf16 layout of pack_weights on the points' "
-                         "device")
-    T = pts_enc.shape[0]
-    out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
-    rc = wg_entry(lib, "forward_packed")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(),
-                                         T, dims, wf.data_ptr(), bias_f.data_ptr(),
-                                         torch.cuda.current_stream(pts_enc.device).cuda_stream)
-    _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights, bf16)")
-    _counted("K3", True)
-    return out[:, 0], out[:, 1:4]
-
-
-def _launch_k2_wg(meta: FusedMeta, pts_enc, view_enc, weights, gout):
-    """K2 at bf16 (fused_mlp_wgmma.cu): k_wg_layout, k2_wg, k2_dw_wg,
-    k2_reduce_wg."""
-    from sparf_tpu_torch.ops._build import load_library, wg_entry
-
-    lib = load_library()
-    T, dev = pts_enc.shape[0], pts_enc.device
-    dims = _dims(meta, weights)
-    n_params, n_wf, n_wt, RF, KX, KG, n_part, n_splits, tile = _wg_sizes(
-        lib, dims, "K2 (fused MLP backward, bf16)")
-    x_rows = -(-T // WG_TILE) * WG_TILE  # the workspace's rows; blocks of `tile` points
-    n_blocks = x_rows // tile
-    d_pts = torch.zeros_like(pts_enc)
-    d_view = torch.empty_like(view_enc)
-    d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    wf, wt = torch.empty(n_wf, **bf), torch.empty(n_wt, **bf)
-    bias_f = torch.empty(RF, dtype=torch.float32, device=dev)
-    # every layer's input and g_z in bf16 for the dW pass: ~9 KB per point at full width
-    xws, gws = torch.empty((x_rows, KX), **bf), torch.empty((x_rows, KG), **bf)
-    # the recompute's ReLU mask words: per layer, tile and consumer thread 4 x 32 bits
-    masks = torch.empty((meta.n_feat + meta.n_rgb, n_blocks, 256, 4), dtype=torch.int32,
-                        device=dev)
-    db_part = torch.empty((x_rows // 64, KG), dtype=torch.float32, device=dev)
-    partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
-    rc = wg_entry(lib, "backward")(
-        pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
-        d_view.data_ptr(), d_params.data_ptr(), wf.data_ptr(), wt.data_ptr(), bias_f.data_ptr(),
-        xws.data_ptr(), gws.data_ptr(), masks.data_ptr(), db_part.data_ptr(), partial.data_ptr(),
-        T, dims,
-        _ptrs(weights), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_rc(lib, rc, "K2 (fused MLP backward, bf16)")
-    return d_pts, d_view, d_params
-
-
-def _launch_k2_tf32wg(meta: FusedMeta, pts_enc, view_enc, weights, gout):
-    """K2 at float32 on wgmma (fused_mlp_wgmma.cu): k_tf_layout, k2_tf,
-    k2_dw_tf, k2_reduce_tf; None where it does not take the chain (C sizes
-    -7: fused_mlp.cu's K2 runs it)."""
-    from sparf_tpu_torch.ops._build import load_library, tf32wg_entry
-
-    lib = load_library()
-    T, dev = pts_enc.shape[0], pts_enc.device
-    dims = _dims(meta, weights)
-    sizes = (ctypes.c_int * 9)()
-    rc = tf32wg_entry(lib, "sizes")(dims, sizes)
-    if rc == -7:
-        return None
-    _raise_rc(lib, rc, "K2 (fused MLP backward)")
-    n_params, n_wf, n_wt, RF, NX, NG, n_part, n_splits, _ = sizes
-    x_rows = -(-T // WG_TILE) * WG_TILE
-    d_pts = torch.zeros_like(pts_enc)
-    d_view = torch.empty_like(view_enc)
-    d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
-    wf, wt = torch.empty(n_wf, device=dev), torch.empty(n_wt, device=dev)
-    bias_f = torch.empty(RF, dtype=torch.float32, device=dev)
-    # every layer's input and g_z, point-contiguous, for the dW pass: ~18 KB
-    # per point on the presets' chain
-    ws = torch.empty((NX + NG) * x_rows, dtype=torch.float32, device=dev)
-    masks = torch.empty((meta.n_feat + meta.n_rgb, x_rows // WG_TILE, 256, 4), dtype=torch.int32,
-                        device=dev)
-    partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
-    rc = tf32wg_entry(lib, "backward")(
-        pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
-        d_view.data_ptr(), d_params.data_ptr(), wf.data_ptr(), wt.data_ptr(), bias_f.data_ptr(),
-        ws.data_ptr(), masks.data_ptr(), partial.data_ptr(), T, dims, _ptrs(weights),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_rc(lib, rc, "K2 (fused MLP backward)")
-    tracing.count(K2_TF32WG)
-    return d_pts, d_view, d_params
+    return (wf.view(-1, n_wf // RF), wt.view(-1, wg_layout(r.dims).KT) if transposed else None,
+            bias_f)
 
 
 def tf32wg_weights_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor]):
     """k_tf_layout on the card: (wf, wt, bias_f) as tf32wg_weights_plain."""
     from sparf_tpu_torch.ops._build import load_library, tf32wg_entry
 
-    lay = tf32wg_layout(tuple(dims))
-    lib = load_library()
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    dev = weights[0].device
+    r, lib, dev = route(tuple(dims), False), load_library(), weights[0].device
+    lay = tf32wg_layout(r.dims)
     wf = torch.empty((2 * lay.RF, lay.KF), device=dev)
     wt = torch.empty((2 * lay.RT, lay.KT), device=dev)
     bias_f = torch.empty(lay.RF, device=dev)
-    rc = tf32wg_entry(lib, "layout")(c_dims, _ptrs(weights), wf.data_ptr(), wt.data_ptr(),
+    rc = tf32wg_entry(lib, "layout")(r.c_dims, _ptrs(weights), wf.data_ptr(), wt.data_ptr(),
                                      bias_f.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_rc(lib, rc, "k_tf_layout")
     return wf, wt, bias_f
 
 
-def _launch_k1(meta: FusedMeta, pts_enc, view_enc, weights):
-    """Packs the weights into fragments (k_pack) and launches K1 on them; at
-    bf16 the wgmma K1."""
-    from sparf_tpu_torch.ops._build import entry, load_library
+def launch_k1(r: Route, pts_enc, view_enc, weights):
+    """K1 on the route: the weights laid out (k_pack, at bf16 k_wg_layout),
+    then the forward on them (k1_forward, at bf16 k1_wg)."""
+    from sparf_tpu_torch.ops._build import entry, load_library, wg_entry
 
     _check_operands(pts_enc, view_enc, weights)
-    if meta.bf16:
-        return _launch_k1_wg(meta, pts_enc, view_enc, weights)
     lib = load_library()
     T, dev = pts_enc.shape[0], pts_enc.device
-    dims = _dims(meta, weights)
-    frag = torch.empty(_sizes(lib, dims, "K1 (fused MLP forward)")[1], device=dev)
     out = torch.empty((T, 4), dtype=torch.float32, device=dev)
+    io = (pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, r.c_dims, _ptrs(weights))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = entry(lib, "forward")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, dims,
-                               _ptrs(weights), frag.data_ptr(), 0, stream)
+    if r.bf16:
+        wf = torch.empty(r.sizes[1], dtype=torch.bfloat16, device=dev)
+        bias_f = torch.empty(r.sizes[3], dtype=torch.float32, device=dev)
+        rc = wg_entry(lib, "forward")(*io, wf.data_ptr(), bias_f.data_ptr(), stream)
+    else:
+        frag = torch.empty(r.sizes[1], device=dev)
+        rc = entry(lib, "forward")(*io, frag.data_ptr(), 0, stream)
     _raise_rc(lib, rc, "K1 (fused MLP forward)")
-    _counted("K1", False)
+    _counted("K1", r.bf16)
     return out[:, 0], out[:, 1:4]
 
 
-def _launch_k3(meta: FusedMeta, pts_enc, view_enc, packed: PackedWeights):
-    """K3 on pack_weights' layout: the 3xTF32 k3_forward, at bf16 k3_wg."""
-    from sparf_tpu_torch.ops._build import entry, load_library
+def launch_k3(r: Route, pts_enc, view_enc, packed):
+    """K3 on the route and pack_weights' layout: k3_forward on the 3xTF32
+    fragments, at bf16 k3_wg (K1's wgmma forward) on the forward layout."""
+    from sparf_tpu_torch.ops._build import entry, load_library, wg_entry
 
-    if (list(packed.dims[:5]) != [meta.n_feat, meta.n_rgb, meta.d_in, meta.d_view,
-                                  int(meta.view_dep)]
-            or isinstance(packed, WgPackedWeights) != meta.bf16):
+    if packed.dims != r.dims or packed.bf16 != r.bf16:
         raise ValueError("K3: packed weights of another chain or compute dtype")
-    if meta.bf16:
-        _check_operands(pts_enc, view_enc, [packed.bias_f])
-        return _launch_k3_wg(meta, pts_enc, view_enc, packed)
-    _check_operands(pts_enc, view_enc, packed.biases)
-    if packed.frag.device != pts_enc.device or not packed.frag.is_contiguous():
-        raise ValueError("K3 takes the contiguous fragments of pack_weights on the points' device")
+    layout, biases = (packed.wf, [packed.bias_f]) if r.bf16 else (packed.frag, packed.biases)
+    _check_operands(pts_enc, view_enc, biases)
+    if (layout.dtype != (torch.bfloat16 if r.bf16 else torch.float32)
+            or layout.numel() != r.sizes[1] or not layout.is_contiguous()
+            or layout.device != pts_enc.device or (r.bf16 and biases[0].numel() != r.sizes[3])):
+        raise ValueError("K3 takes the contiguous layout of pack_weights on the points' device")
     lib = load_library()
-    dims = (ctypes.c_int * len(packed.dims))(*packed.dims)
-    if packed.frag.numel() != _sizes(lib, dims, "K3 (fused MLP forward, packed weights)")[1]:
-        raise ValueError("K3 takes the fragments of pack_weights")
-    T = pts_enc.shape[0]
-    out = torch.empty((T, 4), dtype=torch.float32, device=pts_enc.device)
-    stream = torch.cuda.current_stream(pts_enc.device).cuda_stream
-    params = (ctypes.c_void_p * (2 * len(packed.biases)))(
-        *[p for b in packed.biases for p in (None, b.data_ptr())])
-    rc = entry(lib, "forward")(pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, dims,
-                               params, packed.frag.data_ptr(), 1, stream)
+    T, dev = pts_enc.shape[0], pts_enc.device
+    out = torch.empty((T, 4), dtype=torch.float32, device=dev)
+    io = (pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, r.c_dims)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if r.bf16:
+        rc = wg_entry(lib, "forward_packed")(*io, layout.data_ptr(), biases[0].data_ptr(), stream)
+    else:
+        params = (ctypes.c_void_p * (2 * len(biases)))(
+            *[p for b in biases for p in (None, b.data_ptr())])
+        rc = entry(lib, "forward")(*io, params, layout.data_ptr(), 1, stream)
     _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights)")
-    _counted("K3", False)
+    _counted("K3", r.bf16)
     return out[:, 0], out[:, 1:4]
 
 
-def _launch_k2(meta: FusedMeta, pts_enc, view_enc, weights, g_density, g_rgb):
-    """K2: at float32 the 3xTF32 wgmma kernels where they take the chain,
-    else the 3xTF32 mma.sync ones; at bf16 the wgmma ones."""
-    from sparf_tpu_torch.ops._build import entry, load_library
+def launch_k2(r: Route, pts_enc, view_enc, weights, g_density, g_rgb):
+    """K2 on the route: (d_pts, d_view, [dW0, db0, ...]) from fused_mlp.cu's
+    k_pack, k2_backward, k2_dw, k2_reduce ("tf32"), or fused_mlp_wgmma.cu's
+    k_tf_layout, k2_tf, k2_dw_tf, k2_reduce_tf ("tf32wg") or k_wg_layout,
+    k2_wg, k2_dw_wg, k2_reduce_wg ("wg")."""
+    from sparf_tpu_torch.ops._build import entry, load_library, tf32wg_entry, wg_entry
 
     gout = torch.cat([g_density[:, None], g_rgb], dim=-1).contiguous()
     _check_operands(pts_enc, view_enc, weights, gout)
-    out = (_launch_k2_wg if meta.bf16 else _launch_k2_tf32wg)(meta, pts_enc, view_enc, weights,
-                                                              gout)
-    if out is not None:
-        _counted("K2", meta.bf16)
-        return out[0], out[1], _split_flat(out[2], weights)
     lib = load_library()
-    T = pts_enc.shape[0]
-    dev = pts_enc.device
-    dims = _dims(meta, weights)
-    n_params, n_frag, n_part, x_total, g_total, n_splits, _ = _sizes(lib, dims,
-                                                                     "K2 (fused MLP backward)")
-    x_rows = -(-T // K2_TILE) * K2_TILE
-    d_pts = torch.empty_like(pts_enc)
+    T, dev = pts_enc.shape[0], pts_enc.device
+    f32, bf = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bfloat16, device=dev)
+    d_pts = torch.empty_like(pts_enc) if r.k2 == "tf32" else torch.zeros_like(pts_enc)
     d_view = torch.empty_like(view_enc)
-    d_params = torch.empty(n_params, dtype=torch.float32, device=dev)
-    frag = torch.empty((2, n_frag), device=dev)
-    partial = torch.empty(n_splits * n_part, dtype=torch.float32, device=dev)
-    # every layer's input and g_z for the dW pass: ~17 KB per point at full width
-    workspace = torch.empty(x_rows * (x_total + g_total), dtype=torch.float32, device=dev)
+    d_params = torch.empty(r.k2_sizes[0], **f32)
+    io = (pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
+          d_view.data_ptr(), d_params.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = entry(lib, "backward")(
-        pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
-        d_view.data_ptr(), d_params.data_ptr(), frag[0].data_ptr(), frag[1].data_ptr(),
-        partial.data_ptr(), workspace.data_ptr(), T, dims, _ptrs(weights), stream)
+    if r.k2 == "tf32":
+        _, n_frag, n_part, x_total, g_total, n_splits, _ = r.k2_sizes
+        x_rows = -(-T // K2_TILE) * K2_TILE
+        frag = torch.empty((2, n_frag), **f32)
+        partial = torch.empty(n_splits * n_part, **f32)
+        # every layer's input and g_z for the dW pass: ~17 KB per point at full width
+        workspace = torch.empty(x_rows * (x_total + g_total), **f32)
+        rc = entry(lib, "backward")(*io, frag[0].data_ptr(), frag[1].data_ptr(),
+                                    partial.data_ptr(), workspace.data_ptr(), T, r.c_dims,
+                                    _ptrs(weights), stream)
+    else:
+        # X and G: bf16 columns per point (KX, KG), or float32 rows of points (NX, NG)
+        _, n_wf, n_wt, RF, n_x, n_g, n_part, n_splits, tile = r.k2_sizes
+        x_rows = -(-T // WG_TILE) * WG_TILE  # the workspace's rows
+        bias_f = torch.empty(RF, **f32)
+        # the recompute's ReLU mask words: per layer, block and consumer thread 4 x 32 bits
+        masks = torch.empty((r.dims[0] + r.dims[1], x_rows // (tile if r.bf16 else WG_TILE),
+                             256, 4), dtype=torch.int32, device=dev)
+        partial = torch.empty(n_splits * n_part, **f32)
+        if r.bf16:
+            wf, wt = torch.empty(n_wf, **bf), torch.empty(n_wt, **bf)
+            # every layer's input and g_z in bf16 for the dW pass: ~9 KB per point at full width
+            xws, gws = torch.empty((x_rows, n_x), **bf), torch.empty((x_rows, n_g), **bf)
+            db_part = torch.empty((x_rows // 64, n_g), **f32)
+            rc = wg_entry(lib, "backward")(
+                *io, wf.data_ptr(), wt.data_ptr(), bias_f.data_ptr(), xws.data_ptr(),
+                gws.data_ptr(), masks.data_ptr(), db_part.data_ptr(), partial.data_ptr(), T,
+                r.c_dims, _ptrs(weights), stream)
+        else:
+            wf, wt = torch.empty(n_wf, **f32), torch.empty(n_wt, **f32)
+            # every layer's input and g_z, point-contiguous, for the dW pass: ~18 KB
+            # per point on the presets' chain
+            ws = torch.empty((n_x + n_g) * x_rows, **f32)
+            rc = tf32wg_entry(lib, "backward")(
+                *io, wf.data_ptr(), wt.data_ptr(), bias_f.data_ptr(), ws.data_ptr(),
+                masks.data_ptr(), partial.data_ptr(), T, r.c_dims, _ptrs(weights), stream)
     _raise_rc(lib, rc, "K2 (fused MLP backward)")
-    _counted("K2", False)
+    _counted("K2", r.bf16)
+    if r.k2 == "tf32wg":
+        tracing.count(K2_TF32WG)
     return d_pts, d_view, _split_flat(d_params, weights)
 
 
@@ -1188,40 +1144,18 @@ def _split_flat(d_params, weights) -> List[torch.Tensor]:
     return grads
 
 
-def fused_mlp_forward(meta, pts_enc, view_enc, weights):
-    """K1 on a CUDA tensor, the plain chain on a CPU tensor."""
-    if pts_enc.device.type == "cuda":
-        return _launch_k1(meta, pts_enc, view_enc, weights)
-    if pts_enc.device.type == "cpu":
-        return fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
-    raise ValueError(f"fused MLP: no kernel for device {pts_enc.device}")
-
-
-def fused_mlp_forward_packed(meta, pts_enc, view_enc, packed):
-    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
-    if pts_enc.device.type == "cuda":
-        return _launch_k3(meta, pts_enc, view_enc, packed)
-    if pts_enc.device.type == "cpu":
-        return fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
-    raise ValueError(f"fused MLP: no kernel for device {pts_enc.device}")
-
-
-def fused_mlp_backward(meta, pts_enc, view_enc, weights, g_density, g_rgb):
-    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
-    if pts_enc.device.type == "cuda":
-        return _launch_k2(meta, pts_enc, view_enc, weights, g_density, g_rgb)
-    if pts_enc.device.type == "cpu":
-        return fused_mlp_backward_plain(meta, pts_enc, view_enc, weights, g_density, g_rgb)
-    raise ValueError(f"fused MLP: no kernel for device {pts_enc.device}")
-
-
 class FusedMLPFunction(torch.autograd.Function):
-    """(raw_density (T,), raw_rgb (T,3)) = MLP(pts_enc (T,d_in), view_enc (T,d_view))."""
+    """(raw_density (T,), raw_rgb (T,3)) = MLP(pts_enc (T,d_in), view_enc (T,d_view)):
+    K1 and K2 on the chain's route, or the plain versions where the route is
+    None (CPU tensors)."""
 
     @staticmethod
-    def forward(ctx, meta: FusedMeta, pts_enc, view_enc, *weights):
-        raw_density, raw_rgb = fused_mlp_forward(meta, pts_enc, view_enc, weights)
-        ctx.meta = meta
+    def forward(ctx, meta: FusedMeta, r: Optional[Route], pts_enc, view_enc, *weights):
+        if r is None:
+            raw_density, raw_rgb = fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
+        else:
+            raw_density, raw_rgb = launch_k1(r, pts_enc, view_enc, weights)
+        ctx.meta, ctx.route = meta, r
         ctx.save_for_backward(pts_enc, view_enc, *weights)
         return raw_density, raw_rgb
 
@@ -1230,15 +1164,16 @@ class FusedMLPFunction(torch.autograd.Function):
         with tracing.span("mlp.backward"):
             pts_enc, view_enc, *weights = ctx.saved_tensors
             T = pts_enc.shape[0]
-            if g_density is None:
-                g_density = pts_enc.new_zeros(T)
-            if g_rgb is None:
-                g_rgb = pts_enc.new_zeros((T, 3))
+            g_density = pts_enc.new_zeros(T) if g_density is None else g_density.contiguous()
+            g_rgb = pts_enc.new_zeros((T, 3)) if g_rgb is None else g_rgb.contiguous()
             with tracing.span("mlp.launch"):
-                d_pts, d_view, grads = fused_mlp_backward(
-                    ctx.meta, pts_enc, view_enc, weights, g_density.contiguous(),
-                    g_rgb.contiguous())
-            return (None, d_pts, d_view, *grads)
+                if ctx.route is None:
+                    d_pts, d_view, grads = fused_mlp_backward_plain(
+                        ctx.meta, pts_enc, view_enc, weights, g_density, g_rgb)
+                else:
+                    d_pts, d_view, grads = launch_k2(ctx.route, pts_enc, view_enc, weights,
+                                                     g_density, g_rgb)
+            return (None, None, d_pts, d_view, *grads)
 
 
 @tracing.traced("mlp.forward")
@@ -1247,7 +1182,8 @@ def nerf_apply_fused(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor,
                      density_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """nerf_mlp.nerf_apply with the MLP chain through the fused kernels:
     FusedMLPFunction (K1, K2) when autograd will ask for a gradient of the
-    points, the views or the weights; K3 on packed weights otherwise."""
+    points, the views or the weights; K3 on packed weights otherwise. The
+    kernels on a CUDA device, the plain versions on the CPU."""
     B, R, S, _ = pts.shape
     T = B * R * S
     with tracing.span("mlp.encode"):
@@ -1259,14 +1195,17 @@ def nerf_apply_fused(params: Dict[str, Any], cfg: MLPConfig, pts: torch.Tensor,
             view_enc = pts_enc.new_zeros((T, 0))
         pts_enc, view_enc = pts_enc.contiguous(), view_enc.contiguous()
     meta, weights = FusedMeta.from_cfg(cfg), flat_weights(params)
+    r = meta.route(weights) if _on_card(pts_enc) else None
     if torch.is_grad_enabled() and any(x.requires_grad for x in (pts_enc, view_enc, *weights)):
         with tracing.span("mlp.launch"):
-            raw_density, raw_rgb = FusedMLPFunction.apply(meta, pts_enc, view_enc, *weights)
+            raw_density, raw_rgb = FusedMLPFunction.apply(meta, r, pts_enc, view_enc, *weights)
     else:
         with tracing.span("mlp.pack"):
             packed = pack_weights(params, meta)
         with tracing.span("mlp.launch"):
-            raw_density, raw_rgb = fused_mlp_forward_packed(meta, pts_enc, view_enc, packed)
+            raw_density, raw_rgb = (
+                fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed) if r is None
+                else launch_k3(r, pts_enc, view_enc, packed))
     if density_noise is not None and cfg.density_noise_reg:
         raw_density = raw_density + density_noise.reshape(T) * cfg.density_noise_reg
     density = nerf_mlp.density_activation(raw_density, cfg.density_activ)

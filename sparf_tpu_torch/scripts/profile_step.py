@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Profile the SPARF training step of the port: a torch.profiler trace of N
-steps at one stage, device time by category, the busy and idle share of
-the traced window, and the port's own spans (utils/tracing.py) over the
+steps at one stage, the device's kernels by time, the busy and idle share
+of the traced window, and the port's own spans (utils/tracing.py) over the
 set-up and the traced steps (the counterpart of scripts/profile_step.py).
 
     python -m sparf_tpu_torch.scripts.profile_step [--stage fine|coarse] [--steps 10]
@@ -10,12 +10,10 @@ set-up and the traced steps (the counterpart of scripts/profile_step.py).
 The step is the bench.py full shape (300x400 synthetic scene, 1024
 photometric, 2x512 correspondence and 3x1024 depth-consistency rays, 128 +
 128 samples, the 8x256 MLP, GT-depth correspondences) unless --tiny. It
-prints a table of the device kernels by time, the set-up by span, a table of
-the spans of the traced steps, then one JSON line: ms per step by category
-(K1, K2's three parts, K3 and the weight layouts (k_pack, and k_wg_layout of
-the bf16 K1 / K2) by kernel name, then GEMM, elementwise, reduction, sort,
-memcpy, collective, other), the traced window per step and the share of it
-in which the device ran a kernel; `setup_ms`, the set-up's spans
+prints a table of the 30 longest device kernels by name (ms per step,
+calls), the set-up by span, a table of the spans of the traced steps, then
+one JSON line: the traced window per step and the shares of it in which the
+device did and did not run work; `setup_ms`, the set-up's spans
 (`setup.config`, `setup.scene`, `setup.networks` with the initial poses,
 `setup.optimizer`, `setup.pools`, `setup.kernels`: the kernel library's
 build or load, in the first step) in ms; `spans`, per span name of the
@@ -25,13 +23,16 @@ device's idle ms per step while it was the innermost open span and the
 kernel launches per step it held innermost (the CUDA runtime's and driver's
 launch records; both null on the CPU); and `syncs_outside_wait_per_step`, the CUDA runtime's synchronisations
 per traced step that no `wait` span holds (0 when every place where the host
-blocks is named; null on the CPU).
+blocks is named; null on the CPU). The kernel table is under `kernels` in
+what `profile` and `main` return.
 
-On a CUDA device the categories sum device kernel events (DeviceType.CUDA);
-the window is the host clock between the synchronisations before and after
-the traced steps, so the idle share includes the host's gaps. On the CPU
-(--device cpu, for the tests) there is no device trace: the categories sum
-the self time of the CPU operators and the busy and idle shares are null.
+On a CUDA device the kernel table sums device events (DeviceType.CUDA). The
+window runs on the spans' clock from before the traced steps to after the
+synchronisation that ends them, and `idle_intervals` gives the device's
+idle intervals in it, which both the shares and the span table read: the
+idle share includes the host's gaps. On the CPU (--device cpu, for the
+tests) there is no device trace: the table sums the self time of the CPU
+operators and the shares are null.
 """
 from __future__ import annotations
 
@@ -46,42 +47,12 @@ from typing import Dict, List, Optional, Tuple
 
 from sparf_tpu_torch.utils import tracing
 
-CATEGORIES = ("K1", "k2_backward", "k2_dw", "k2_reduce", "K3", "k_pack", "gemm", "elementwise",
-              "reduction", "sort", "memcpy", "collective", "other")
-
 # the CUDA runtime's and driver's records of a kernel launch
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 # the CUDA runtime's records of a host that blocks on the device
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy",
          "cudaMemcpy2D")
-
-
-def categorize(name: str) -> str:
-    """The category of a kernel (or, on the CPU, operator) name."""
-    n = name.lower()
-    for key, cat in (("k1_forward", "K1"), ("k1_wg", "K1"), ("k2_backward", "k2_backward"),
-                     ("k2_wg", "k2_backward"), ("k2_dw", "k2_dw"), ("k2_reduce", "k2_reduce"),
-                     ("k3_forward", "K3"), ("k3_wg", "K3"), ("k_pack", "k_pack"),
-                     ("k_wg_layout", "k_pack")):
-        if key in n:
-            return cat
-    if any(k in n for k in ("nccl", "gloo", "all_reduce", "allreduce", "broadcast")):
-        return "collective"
-    if any(k in n for k in ("memcpy", "memset", "aten::copy_", "aten::to", "aten::clone")):
-        return "memcpy"
-    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "matmul", "aten::mm", "aten::bmm",
-                            "aten::addmm", "aten::linear", "dot_kernel")):
-        return "gemm"
-    if "sort" in n:
-        return "sort"
-    if any(k in n for k in ("reduce", "aten::sum", "aten::mean", "aten::amax", "aten::amin",
-                            "aten::max", "aten::min", "cumsum", "scan", "aten::norm",
-                            "aten::linalg_vector_norm", "aten::all", "aten::any")):
-        return "reduction"
-    if any(k in n for k in ("elementwise", "vectorized", "unrolled", "aten::")):
-        return "elementwise"
-    return "other"
 
 
 def build_trainer(tiny: bool, dtype: str, merged: bool, device: str):
@@ -101,15 +72,19 @@ def stage_iteration(trainer, stage: str) -> int:
     return 0 if stage == "coarse" else int(trainer.cfg.max_iter * (ratio + 0.05))
 
 
-def _busy_us(intervals: List[Tuple[float, float]]) -> float:
-    """Length of the union of [start, end) intervals."""
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        busy += e - max(s, end)
-        end = e
-    return busy
+def idle_intervals(device_events, start: int, end: int) -> List[Tuple[int, int]]:
+    """The device's idle intervals in [start, end): the gaps between the
+    (name, start, end) of `device_events`, less the profiler's
+    synchronisation records (" Sync", "Stream Wait Event"), which are no
+    device work."""
+    busy = sorted((s, e) for name, s, e in device_events
+                  if not name.endswith(" Sync") and name != "Stream Wait Event")
+    idle, prev = [], start
+    for s, e in busy + [(end, end)]:
+        if min(s, end) > prev:
+            idle.append((prev, min(s, end)))
+        prev = max(prev, e)
+    return idle
 
 
 def _row(r) -> str:
@@ -199,26 +174,16 @@ def profile(trainer, stage: str, steps: int, warmup: int = 2) -> Dict:
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with tprofile(activities=activities) as prof:
         traced_from = time.time_ns()
-        t0 = time.perf_counter()
         for _ in range(steps):
             state, stats = step(state, trainer.draws)
         sync()
-        window_us = (time.perf_counter() - t0) * 1e6
         traced_to = time.time_ns()
-    by_cat: Dict[str, float] = dict.fromkeys(CATEGORIES, 0.0)
     by_name: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
-    intervals = []
     for e in prof.events():
-        on_device = e.device_type == torch.autograd.DeviceType.CUDA
-        if cuda != on_device:
+        if cuda != (e.device_type == torch.autograd.DeviceType.CUDA):
             continue
-        us = e.time_range.elapsed_us() if cuda else e.self_cpu_time_total
-        if cuda:
-            intervals.append((e.time_range.start, e.time_range.end))
-        by_cat[categorize(e.name)] += us
-        by_name[e.name][0] += us
+        by_name[e.name][0] += e.time_range.elapsed_us() if cuda else e.self_cpu_time_total
         by_name[e.name][1] += 1
-    busy = _busy_us(intervals) if cuda else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:30]
     rep = tracing.report()
     setup_ms: Dict[str, float] = defaultdict(float)
@@ -230,16 +195,10 @@ def profile(trainer, stage: str, steps: int, warmup: int = 2) -> Dict:
     idle = unwaited = launch_ns = None
     if cuda:
         raw = prof.profiler.kineto_results.events()
-        # the device's idle intervals inside the window, on the clock of the spans (the
-        # profiler's synchronisation records are no device work)
-        busy_ns = sorted((e.start_ns(), e.end_ns()) for e in raw
-                         if e.device_type() == torch.autograd.DeviceType.CUDA
-                         and not e.name().endswith(" Sync") and e.name() != "Stream Wait Event")
-        idle, prev = [], traced_from
-        for s, e in busy_ns + [(traced_to, traced_to)]:
-            if s > prev:
-                idle.append((prev, min(s, traced_to)))
-            prev = max(prev, e)
+        # the device's idle intervals inside the window, on the clock of the spans
+        idle = idle_intervals([(e.name(), e.start_ns(), e.end_ns()) for e in raw
+                               if e.device_type() == torch.autograd.DeviceType.CUDA],
+                              traced_from, traced_to)
         # host synchronisations of the traced steps that no `wait` span holds
         cpu = [e for e in raw if e.device_type() == torch.autograd.DeviceType.CPU]
         launch_ns = [e.start_ns() for e in cpu if e.name() in LAUNCHES]
@@ -251,16 +210,16 @@ def profile(trainer, stage: str, steps: int, warmup: int = 2) -> Dict:
 
         unwaited = sum(1 for e in cpu if e.name() in SYNCS
                        and traced_from <= e.start_ns() <= traced_to and not held(e)) / steps
+    window_ns = traced_to - traced_from
+    idle_share = None if idle is None else sum(e - s for s, e in idle) / window_ns
     return dict(
         device=torch.cuda.get_device_name(trainer.device) if cuda else "cpu",
         platform="cuda" if cuda else "cpu", stage=stage, iteration=it, steps=steps,
         dtype=str(trainer.cfg.tpu.get("compute_dtype", "float32")),
         merged_render=bool(trainer.cfg.tpu.get("merged_render")),
         loss=float(stats["all"]),
-        ms_per_step={k: v / 1e3 / steps for k, v in by_cat.items()},
-        window_ms_per_step=window_us / 1e3 / steps,
-        busy_share=None if busy is None else busy / window_us,
-        idle_share=None if busy is None else 1.0 - busy / window_us,
+        window_ms_per_step=window_ns / 1e6 / steps,
+        busy_share=None if idle_share is None else 1.0 - idle_share, idle_share=idle_share,
         setup_ms=dict(setup_ms), spans=span_table(traced, steps, idle, launch_ns),
         syncs_outside_wait_per_step=unwaited,
         kernels=[dict(name=n[:120], ms_per_step=v[0] / 1e3 / steps, calls=v[1]) for n, v in top])

@@ -59,9 +59,8 @@ def test_render_image_chunked_matches_jax(monkeypatch, fine):
                                       jnp.asarray(1.0), fine_enabled=fine, chunk=chunk,
                                       impl="xla")
     k3_calls = []
-    real = fm.fused_mlp_forward_packed
-    monkeypatch.setattr(fm, "fused_mlp_forward_packed",
-                        lambda *a: k3_calls.append(1) or real(*a))
+    real = fm.pack_weights
+    monkeypatch.setattr(fm, "pack_weights", lambda *a: k3_calls.append(1) or real(*a))
     params_t = nerf_params_from_jax(to_np(params_j))
     for W_, _ in params_t["coarse"]["feat"]:
         W_.requires_grad_(True)  # no_grad inside: still the forward-only kernel

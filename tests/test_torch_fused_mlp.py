@@ -101,9 +101,10 @@ def test_meta_dims_and_cuda_only_dispatch():
     assert per_layer[4].tolist() == [256, 319, 1]   # skip layer: [feat | pts_enc]
     assert per_layer[7].tolist() == [257, 256, 0]   # density unit + 256 features
     assert per_layer[8].tolist() == [128, 283, 0]   # [feat | view_enc]
-    with pytest.raises(ValueError):
-        fm.fused_mlp_forward(meta, torch.zeros(4, 63, device="meta"),
-                             torch.zeros(4, 27, device="meta"), weights)
+    params = tmlp.init_nerf_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fm.nerf_apply_fused(params, cfg, torch.zeros(1, 2, 2, 3, device="meta"),
+                            torch.zeros(1, 2, 3, device="meta"), 1.0)
 
 
 
@@ -208,9 +209,7 @@ def test_packed_plain_matches_pallas_k3(view_dep, arch):
     meta = fm.FusedMeta.from_cfg(cfg_t)
     packed = fm.pack_weights(nerf_params_from_jax(to_np(params_j)), meta)
     view_t = t(view_enc) if view_dep else torch.zeros((B * R * S, 0))
-    launches = fm.launch_counts()
-    dens_t, rgb_t = fm.fused_mlp_forward_packed(meta, t(pts_enc), view_t, packed)
-    assert fm.launch_counts() == launches  # CPU tensors take the plain version
+    dens_t, rgb_t = fm.fused_mlp_forward_packed_plain(meta, t(pts_enc), view_t, packed)
     assert_close(dens_t, dens_j, atol=1e-5)
     assert_close(rgb_t, rgb_j, atol=1e-5)
 
@@ -221,11 +220,10 @@ def test_nerf_apply_takes_k3_exactly_when_nothing_requires_grad(monkeypatch):
     gen = torch.Generator().manual_seed(3)
     pts, ray = torch.randn(1, 5, 4, 3, generator=gen), torch.randn(1, 5, 3, generator=gen)
     taken = []
-    real_fn, real_k3 = fm.FusedMLPFunction.apply, fm.fused_mlp_forward_packed
+    real_fn, real_pack = fm.FusedMLPFunction.apply, fm.pack_weights
     monkeypatch.setattr(fm.FusedMLPFunction, "apply",
                         lambda *a: taken.append("K1/K2") or real_fn(*a))
-    monkeypatch.setattr(fm, "fused_mlp_forward_packed",
-                        lambda *a: taken.append("K3") or real_k3(*a))
+    monkeypatch.setattr(fm, "pack_weights", lambda *a: taken.append("K3") or real_pack(*a))
 
     def path(weights_grad, pts_grad, grad_mode):
         taken.clear()
@@ -236,6 +234,7 @@ def test_nerf_apply_takes_k3_exactly_when_nothing_requires_grad(monkeypatch):
         (which,) = taken
         return which, out
 
+    launches = fm.launch_counts()
     which, ref = path(False, False, True)
     assert which == "K3"
     assert path(False, False, False)[0] == "K3"
@@ -246,6 +245,7 @@ def test_nerf_apply_takes_k3_exactly_when_nothing_requires_grad(monkeypatch):
         assert which == "K1/K2"
         assert_close(out["rgb_samples"], ref["rgb_samples"], atol=1e-6)
         assert_close(out["density_samples"], ref["density_samples"], atol=1e-6)
+    assert fm.launch_counts() == launches  # CPU tensors take the plain versions
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,13 @@ versions. Here, on the CPU:
   (bfloat16; K3 on the bf16 kernels' weight layout, WgPackedWeights);
 - K3's weight layout at bfloat16 (the wgmma kernels') takes every chain of
   the domain and refuses the chains past it, as k_wg_layout does on the
-  card.
+  card;
+- the kernels' route (fused_mlp.route) on a stand-in for the library's C
+  sizes entries: its K2 choice and sizes, one question per entry, chain
+  and dtype, and the width refusals, which name use_pallas=False.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -285,7 +290,7 @@ def test_wide_chains_plain_kernels_match_pallas_interpret(monkeypatch, chain, dt
                                              interpret=True)
     with torch.no_grad():
         packed = fm.pack_weights(params_t, meta)
-        dens_t, rgb_t = fm.fused_mlp_forward_packed(meta, pts_enc, view_enc, packed)
+        dens_t, rgb_t = fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
     assert isinstance(packed, fm.WgPackedWeights if bf16 else fm.PackedWeights)
     if bf16:
         _points_close(dens_t[:, None], np.asarray(dens_j)[:, None], FWD_REL, "K3 density", full)
@@ -315,12 +320,64 @@ def test_bf16_k3_layout_takes_what_the_bf16_kernels_take(chain):
                           else fm.PackedWeights)
 
 
+class _SizesLibrary:
+    """The kernel library's three C sizes entries as `answers` (entry ->
+    (rc, sizes)) give them, each call counted; no kernel behind them."""
+
+    def __init__(self, answers):
+        self.answers, self.asked = answers, []
+        for name in answers:
+            setattr(self, f"sparf_fused_mlp_{name}", self._entry(name))
+
+    def _entry(self, name):
+        def sizes_entry(c_dims, sizes):
+            self.asked.append(name)
+            rc, values = self.answers[name]
+            sizes[:len(values)] = values
+            return rc
+        return sizes_entry
+
+
+def _route_on(monkeypatch, answers):
+    """fm.route on a _SizesLibrary of `answers`, with a cache of its own."""
+    from sparf_tpu_torch.ops import _build
+
+    lib = _SizesLibrary(answers)
+    monkeypatch.setattr(_build, "load_library", lambda defines=(): lib)
+    monkeypatch.setattr(fm, "route", functools.lru_cache(maxsize=64)(fm.route.__wrapped__))
+    return lib
+
+
 @pytest.mark.parametrize("rc", [-2, -4, -7])
-def test_width_refusals_name_use_pallas_false(rc):
-    """A chain past the kernels' widths raises ValueError naming the limit
-    and the way to run it (use_pallas=False); other refusals name no way."""
-    with pytest.raises(ValueError, match=r"the kernels take .*use_pallas=False"):
-        fm._raise_rc(None, rc, "K1 (fused MLP forward)")
-    with pytest.raises(ValueError) as err:
-        fm._raise_rc(None, -3, "K1 (fused MLP forward)")
-    assert "use_pallas" not in str(err.value)
+def test_width_refusals_name_use_pallas_false(monkeypatch, rc):
+    """A chain past the kernels' widths raises ValueError from its route,
+    before any launch, naming the limit and the way to run it
+    (use_pallas=False); other refusals name no way. -2 and -4 are the
+    float32 sizes entry's width codes, -7 the bf16 one's."""
+    dims, bf16 = tuple(fm.chain_dims(tmlp.MLPConfig())), rc == -7
+    for refusal in (rc, -3):
+        _route_on(monkeypatch, {"sizes_tf32": (refusal, ()), "wg_sizes": (refusal, ()),
+                                "tf32wg_sizes": (0, ())})
+        with pytest.raises(ValueError, match=r"the kernels take ") as err:
+            fm.route(dims, bf16)
+        assert ("cfg.tpu.use_pallas=False" in str(err.value)) == (refusal != -3)
+
+
+def test_route_asks_each_sizes_entry_once_and_picks_k2(monkeypatch):
+    """The route takes the float32 K2 on wgmma where its sizes entry takes
+    the chain, fused_mlp.cu's K2 where it answers -7, the bf16 K2 at
+    bfloat16, with the sizes of the entries that serve each role; a chain's
+    route asks each entry once."""
+    dims = tuple(fm.chain_dims(tmlp.MLPConfig()))
+    fp32, tfwg, wg = tuple(range(1, 8)), tuple(range(11, 20)), tuple(range(21, 30))
+    for tf32wg_rc, k2 in ((0, "tf32wg"), (-7, "tf32")):
+        lib = _route_on(monkeypatch, {"sizes_tf32": (0, fp32), "wg_sizes": (0, wg),
+                                      "tf32wg_sizes": (tf32wg_rc, tfwg)})
+        r = fm.route(dims, False)
+        assert (r.dims, r.bf16, r.k2, r.sizes) == (dims, False, k2, fp32)
+        assert r.k2_sizes == (tfwg if k2 == "tf32wg" else fp32)
+        assert list(r.c_dims) == list(dims)
+        r_bf16 = fm.route(dims, True)
+        assert (r_bf16.k2, r_bf16.sizes, r_bf16.k2_sizes) == ("wg", wg, wg)
+        assert fm.route(dims, False) is r and fm.route(dims, True) is r_bf16
+        assert sorted(lib.asked) == ["sizes_tf32", "tf32wg_sizes", "wg_sizes"]
