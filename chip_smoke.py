@@ -9,28 +9,33 @@ Usage (from the repository root, on a machine with a CUDA card and nvcc):
 Phases, one line each; any failure raises and the process exits non-zero:
   1. device: name, power limit, TF32 off for matmuls and cuDNN;
   2. build: nvcc builds the kernels of sparf_tpu_torch/csrc for sm_90a in
-     two compiles run in parallel, fused_mlp.cu (K1, K2, K3 in 3xTF32) and
-     fused_mlp_wgmma.cu (K1, K2, K3 at bf16); registers and spills per
-     kernel;
+     compiles run in parallel, fused_mlp.cu (K1, K2, K3 in 3xTF32 on
+     mma.sync) and fused_mlp_wgmma.cu (K1, K2, K3 at bf16, and in 3xTF32 on
+     the plan M chains); registers and spills per kernel;
   3. kernels: for each variant, 3xTF32 (compute_dtype float32) and bf16
      (compute_dtype bfloat16): the weight layouts bit for bit against their
-     plain versions (k_pack's fragments at fp32; at bf16 k_wg_layout, and
-     pack_weights' forward layout for K3); K1 (fused MLP forward), K2
-     (backward) and K3 (forward on packed weights) at the full 8x256 width,
-     ragged T, both view_dep settings and an active coarse-to-fine mask,
-     against their plain torch versions (K3 also against K1's, and at bf16
-     bit-identical to K1: the same body; bf16 per point, see BF16_FLIPPED;
-     fp32 also at T past the merged fine level's 786,432 points); K2 run
-     twice must give the same bits; median times at T = 262,144 beside each
-     kernel's bound (fp32 cores, and the variant's tensor-core rate) and its
-     plain cuBLAS chain; then the same checks (at T = 20,001) and times on
+     plain versions (k_pack's fragments and k_tf_layout at fp32; at bf16
+     k_wg_layout; pack_weights' forward layout for K3); K1 (fused MLP
+     forward), K2 (backward) and K3 (forward on packed weights) at the full
+     8x256 width, ragged T, both view_dep settings and an active
+     coarse-to-fine mask, against their plain torch versions (K3 also
+     against K1's, and bit-identical to K1 where both run one body: bf16,
+     and fp32 on wgmma; bf16 per point, see BF16_FLIPPED; fp32 also at T
+     past the merged fine level's 786,432 points); the fp32 forward on
+     wgmma also against fused_mlp.cu's k1_forward / k3_forward, and counted
+     as launch.K1.tf32wg / launch.K3.tf32wg on every launch of the presets'
+     chain, never on a chain outside plan M; K2 run twice must give the
+     same bits; median times at T = 262,144 beside each kernel's bound (fp32
+     cores, and the variant's tensor-core rate) and its plain cuBLAS chain
+     (fp32 on wgmma: fused_mlp.cu's K1 / K3 beside it, "K1_mma_sync",
+     "K3_mma_sync"); then the same checks (at T = 20,001) and times on
      the other chains of the kernels' domain (KERNEL_CHAINS: up to 512
      features per layer, pts_enc and view_enc up to 128 wide), each with
      its plan (128- or 64-point tiles) and K2's workspace bytes; routes: both
      C sizes entries take every chain of a grid inside the domain and
      refuse, with a width code, every chain just past it (route_chains),
-     and the op's route (fused_mlp.route) picks K2 as the Python mirror
-     says and refuses the chains past the domain;
+     and the op's route (fused_mlp.route) picks K1/K3 and K2 as the Python
+     mirror says and refuses the chains past the domain;
   4. slice-check: one step of the tiny sparf config on the card against the
      same step on the CPU (plain versions, same parameters and draws), in
      both stages; accum-check: grad_acc_steps = 2, six steps, one with a NaN
@@ -128,7 +133,8 @@ Phases, one line each; any failure raises and the process exits non-zero:
      ranks train the full shape in the joint stage (it/s per rank);
  15. profile: sparf_tpu_torch/scripts/profile_step.py, 10 fine-stage steps at
      fp32 at the full shape, the idle share and the top kernels by device
-     time (K1, k1_forward, among them);
+     time (K1 among them: k1_tf on the presets' chain, which the float32
+     kernels on wgmma take, else k1_forward);
      fused-adam: the optimizer update's kernel pair (ops/fused_adam.py): the
      card tests of tests/test_torch_fused_adam.py (at the presets' leaves:
      the norms within 1e-6 relative of the plain update's, given the
@@ -398,10 +404,11 @@ def kernel_bounds(meta, weights, T: int) -> dict:
 
 
 def check_packing(meta, weights, params) -> None:
-    """The 3xTF32 weight layouts: k_pack's two fragment sets and pack_weights'
-    fragments against pack_fragments_plain, and where the float32 K2 on
-    wgmma takes the chain, k_tf_layout against tf32wg_weights_plain, bit for
-    bit (and the C sizes against its Python mirror, tf32wg_layout)."""
+    """The 3xTF32 weight layouts: k_pack's two fragment sets against
+    pack_fragments_plain, and where the float32 kernels on wgmma take the
+    chain, k_tf_layout against tf32wg_weights_plain, bit for bit (and the C
+    sizes against its Python mirror, tf32wg_layout); pack_weights' layout
+    for K3 against its plain version (the fragments, or the forward half)."""
     import torch
 
     from sparf_tpu_torch.ops import fused_mlp as fm
@@ -409,28 +416,33 @@ def check_packing(meta, weights, params) -> None:
     dims = meta.dims(weights)
     frag = fm.pack_fragments_kernel(dims, weights)
     plain = [fm.pack_fragments_plain(dims, weights, transposed=t) for t in (False, True)]
-    packed = fm.pack_weights(params, meta).frag
+    packed = fm.pack_weights(params, meta)
     torch.cuda.synchronize()
+    lay = fm.tf32wg_layout(tuple(dims))
+    route = meta.route(weights)
+    if (lay is None) != (route.impl == "tf32"):
+        raise AssertionError(f"the route's kernels {route.impl}, tf32wg_layout {lay is not None}")
+    if isinstance(packed, fm.WgPackedWeights) != (lay is not None):
+        raise AssertionError(f"pack_weights gave {type(packed).__name__}, tf32wg_layout "
+                             f"{lay is not None}")
     for name, a, b in (("forward", frag[0], plain[0]), ("transposed", frag[1], plain[1]),
-                       ("pack_weights", packed, plain[0])):
+                       *((("pack_weights", packed.frag, plain[0]),) if lay is None else ())):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"k_pack {name} fragments differ from the plain packing in "
                                  f"{int((a != b).sum())} of {a.numel()} floats")
-    lay = fm.tf32wg_layout(tuple(dims))
-    route = meta.route(weights)
-    if (lay is None) != (route.k2 == "tf32"):
-        raise AssertionError(f"the route's K2 {route.k2}, tf32wg_layout {lay is not None}")
     if lay is None:
         return
     want = [sum(int(w.numel()) for w in weights), 2 * lay.RF * lay.KF, 2 * lay.RT * lay.KT,
             lay.RF, lay.NX, lay.NG]
-    if list(route.k2_sizes[:6]) != want:
-        raise AssertionError(f"sparf_fused_mlp_tf32wg_sizes {list(route.k2_sizes[:6])} != "
+    if list(route.sizes[:6]) != want:
+        raise AssertionError(f"sparf_fused_mlp_tf32wg_sizes {list(route.sizes[:6])} != "
                              f"tf32wg_layout's {want}")
     got = fm.tf32wg_weights_kernel(dims, weights)
     plain = fm.tf32wg_weights_plain(dims, weights)
     torch.cuda.synchronize()
-    for name, a, b in zip(("forward", "transposed", "bias"), got, plain):
+    for name, a, b in zip(("forward", "transposed", "bias", "pack_weights forward",
+                           "pack_weights bias"),
+                          (*got, packed.wf, packed.bias_f), (*plain, plain[0], plain[2])):
         if not torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32)):
             raise AssertionError(f"k_tf_layout {name} differs from tf32wg_weights_plain in "
                                  f"{int((a != b).sum())} of {a.numel()} floats")
@@ -484,6 +496,14 @@ def _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped, f
                           f"{FWD_RTOL})")
 
 
+def mma_sync_route(route):
+    """The route of a chain the float32 kernels on wgmma take, with K1 / K3 and
+    K2 on fused_mlp.cu's mma.sync kernels instead (the yardstick)."""
+    from sparf_tpu_torch.ops import fused_mlp as fm
+
+    return fm.Route(route.dims, False, "tf32", route.c_dims, route.tf32_sizes, route.tf32_sizes)
+
+
 def check_kernels(bf16: bool = False, chain: str = None) -> dict:
     """K1, K2, K3 and their weight layouts of one variant (3xTF32 or bf16) on
     the presets' chain or a chain of KERNEL_CHAINS against their plain
@@ -514,21 +534,35 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
                 check_wg_layout(meta, weights, params)
             else:
                 check_packing(meta, weights, params)
+            fm.reset_launch_counts()
             packed, route = fm.pack_weights(params, meta), meta.route(weights)
             dens_k, rgb_k = fm.launch_k1(route, pts_enc, view_enc, weights)
             dens_3, rgb_3 = fm.launch_k3(route, pts_enc, view_enc, packed)
             dens_p, rgb_p = fm.fused_mlp_forward_plain(meta, pts_enc, view_enc, weights)
             dens_pp, rgb_pp = fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
+            pairs = [("K1", "K1 plain", (dens_k, rgb_k), (dens_p, rgb_p)),
+                     ("K3", "K3 plain", (dens_3, rgb_3), (dens_pp, rgb_pp)),
+                     ("K3", "K1 plain", (dens_3, rgb_3), (dens_p, rgb_p))]
+            counted = tracing.counts()
+            fwd_wg = tuple(counted.get(k, 0) for k in (fm.K1_TF32WG, "launch.K1", fm.K3_TF32WG,
+                                                       "launch.K3"))
+            if route.impl == "tf32wg":
+                # the forward on wgmma beside fused_mlp.cu's (both 3xTF32)
+                dens_o, rgb_o = fm.launch_k1(mma_sync_route(route), pts_enc, view_enc, weights)
+                pairs.append(("K1", "k1_forward", (dens_k, rgb_k), (dens_o, rgb_o)))
+                if fwd_wg != (1, 1, 1, 1):
+                    failed.append(f"{tag}: launch.K1.tf32wg / K1 / K3.tf32wg / K3 {fwd_wg}, not "
+                                  f"one each (view_dep={view_dep}, T={T})")
+            elif not bf16 and fwd_wg[0] + fwd_wg[2]:
+                failed.append(f"{tag}: a chain outside plan M counted launch.K1.tf32wg / "
+                              f"launch.K3.tf32wg {fwd_wg[0]} / {fwd_wg[2]}")
             torch.cuda.synchronize()
-            for kname, ref_name, a, b in (
-                    ("K1", "K1 plain", (dens_k, rgb_k), (dens_p, rgb_p)),
-                    ("K3", "K3 plain", (dens_3, rgb_3), (dens_pp, rgb_pp)),
-                    ("K3", "K1 plain", (dens_3, rgb_3), (dens_p, rgb_p))):
+            for kname, ref_name, a, b in pairs:
                 _compare_forward(kname, ref_name, a, b, bf16, view_dep, T, worst, flipped,
                                  failed)
             k3_same_bits = torch.equal(dens_3, dens_k) and torch.equal(rgb_3, rgb_k)
-            if bf16 and not k3_same_bits:  # k3_wg runs k1_wg's body on the same layout
-                failed.append(f"K3 bf16 not bit-identical to K1 (view_dep={view_dep}, T={T})")
+            if route.impl != "tf32" and not k3_same_bits:  # K1's body on one layout
+                failed.append(f"K3 {tag} not bit-identical to K1 (view_dep={view_dep}, T={T})")
             fwd_past = ((row_errors(dens_k[:, None], dens_p[:, None]) > FWD_RTOL)
                         | (row_errors(rgb_k, rgb_p) > FWD_RTOL))
 
@@ -611,7 +645,8 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
                              + ("" if bf16 or fm.tf32wg_layout(tuple(meta.dims(weights))) is None
                                 else " and k_tf_layout")
                              + f" bit-identical to its plain version; launch.K2.tf32wg / "
-                             f"launch.K2 {k2_wg[0]} / {k2_wg[1]}; "
+                             f"launch.K2 {k2_wg[0]} / {k2_wg[1]}, launch.K1.tf32wg / K1 / "
+                             f"K3.tf32wg / K3 {fwd_wg}; "
                              f"{1 - float(keep.mean()):.4f} "
                              f"of the points held out of the backward check (|z| < "
                              f"{UNAMBIGUOUS_Z})")
@@ -632,6 +667,12 @@ def check_kernels(bf16: bool = False, chain: str = None) -> dict:
         "K2_plain": median_ms(lambda: fm.fused_mlp_backward_plain(meta, pts_enc, view_enc,
                                                                    weights, g_d, g_rgb), n),
     }
+    if route.impl == "tf32wg":  # fused_mlp.cu's K1 / K3 on the same chain
+        old = mma_sync_route(route)
+        frags = fm.PackedWeights(route.dims, fm.pack_fragments_kernel(
+            route.dims, weights, transposed=False)[0], weights[1::2])
+        times["K1_mma_sync"] = median_ms(lambda: fm.launch_k1(old, pts_enc, view_enc, weights), n)
+        times["K3_mma_sync"] = median_ms(lambda: fm.launch_k3(old, pts_enc, view_enc, frags), n)
     if chain:  # every launch at the timed T gives the first one's bits (K2 and K1, K3)
         first = fm.launch_k2(route, pts_enc, view_enc, weights, g_d, g_rgb)
         f1, f3 = (fm.launch_k1(route, pts_enc, view_enc, weights),
@@ -698,11 +739,11 @@ def check_routes() -> dict:
     """routes: both C sizes entries (sparf_fused_mlp_sizes_tf32 and
     sparf_fused_mlp_wg_sizes) return 0 for every chain of route_chains'
     inside and a width code (-2, -4 or -7, whose message names
-    use_pallas=False) for every chain past it; the float32 K2 on wgmma
-    (sparf_fused_mlp_tf32wg_sizes) takes the chains its mirror
-    (fused_mlp.tf32wg_layout) takes and answers -7 to the rest; the op's
-    route (fused_mlp.route) runs K2 on wgmma at float32 exactly where the
-    mirror takes the chain, and on every chain past the domain raises
+    use_pallas=False) for every chain past it; the float32 kernels on wgmma
+    (sparf_fused_mlp_tf32wg_sizes) take the chains their mirror
+    (fused_mlp.tf32wg_layout) takes and answer -7 to the rest; the op's
+    route (fused_mlp.route) runs K1/K3 and K2 on wgmma at float32 exactly
+    where the mirror takes the chain, and on every chain past the domain raises
     ValueError naming use_pallas=False in both dtypes; the plans taken,
     counted."""
     from sparf_tpu_torch.models import nerf_mlp
@@ -725,24 +766,25 @@ def check_routes() -> dict:
                     failed.append(f"{name} {over}: rc {rc}")
                 key = f"{kind} {name} " + (f"{sizes[n - 1]}-point tiles" if rc == 0 else f"rc {rc}")
                 counts[key] = counts.get(key, 0) + 1
-            # the float32 K2 on wgmma: its C descriptor and its mirror pick the same chains
+            # the float32 kernels on wgmma: their C descriptor and its mirror pick the same chains
             sizes = (ctypes.c_int * 9)()
             rc = _build.tf32wg_entry(lib, "sizes")(c_dims, sizes)
             if rc not in (0, -7) or (rc == 0) != (fm.tf32wg_layout(tuple(dims)) is not None):
-                failed.append(f"fp32 K2 on wgmma {over}: rc {rc}, tf32wg_layout "
+                failed.append(f"fp32 kernels on wgmma {over}: rc {rc}, tf32wg_layout "
                               f"{fm.tf32wg_layout(tuple(dims)) is not None}")
-            key = f"{kind} fp32 K2 " + ("on wgmma" if rc == 0 else "on mma.sync")
+            key = f"{kind} fp32 K1/K2/K3 " + ("on wgmma" if rc == 0 else "on mma.sync")
             counts[key] = counts.get(key, 0) + 1
-            # the route the op launches on: K2's choice, or the refusal before any launch
+            # the route the op launches on: the kernels of K1, K2 and K3, or the
+            # refusal before any launch
             for bf16 in (False, True):
                 try:
-                    k2 = fm.route(tuple(dims), bf16).k2
+                    impl = fm.route(tuple(dims), bf16).impl
                 except ValueError as err:
-                    k2 = "refused" if "use_pallas=False" in str(err) else f"raised {err}"
+                    impl = "refused" if "use_pallas=False" in str(err) else f"raised {err}"
                 want = ("refused" if kind == "past" else "wg" if bf16
                         else "tf32" if fm.tf32wg_layout(tuple(dims)) is None else "tf32wg")
-                if k2 != want:
-                    failed.append(f"route {over} bf16={bf16}: {k2}, not {want}")
+                if impl != want:
+                    failed.append(f"route {over} bf16={bf16}: {impl}, not {want}")
     phase("routes", f"{len(inside)} chains inside the domain, {len(past)} past it, each in both "
                     f"dtypes: {counts}")
     if failed:
@@ -759,23 +801,23 @@ def kernel_plan(meta, weights, T: int = 262144) -> dict:
 
     route = meta.route(weights)
     x_rows = -(-T // 128) * 128
-    sizes, tf32wg = route.sizes, route.k2 == "tf32wg"
+    sizes, tf32wg = route.sizes, route.impl == "tf32wg"
     if meta.bf16:
         per_point = 2 * (sizes[4] + sizes[5])
     elif tf32wg:  # X and G, point-contiguous
-        per_point = 4 * (route.k2_sizes[4] + route.k2_sizes[5])
+        per_point = 4 * (sizes[4] + sizes[5])
     else:
         per_point = 4 * (sizes[3] + sizes[4])
-    tile = sizes[-1]
+    tile = (sizes if meta.bf16 else route.tf32_sizes)[-1]
     what = (f"{tile}-point tiles" + (", the warpgroups split the outputs" if meta.bf16 and tile == 64
-                                     else "") + (", K2 on wgmma" if tf32wg else ""))
+                                     else "") + (", K1/K2/K3 on wgmma" if tf32wg else ""))
     if meta.bf16:
         names = [f"wg {k}_wg{'_n' if tile == 64 else ''}" for k in ("k1", "k2", "k3")]
+    elif tf32wg:
+        names = ["wg k1_tf", "wg k2_tf", "wg k2_dw_tf", "wg k3_tf"]
     else:
         names = [f"tf32 {k}{'_w' if tile == 64 else ''}"
                  for k in ("k1_forward", "k2_backward", "k3_forward")]
-        if tf32wg:
-            names[1:2] = ["wg k2_tf", "wg k2_dw_tf"]
     return {"tile": tile, "workspace_bytes": x_rows * per_point, "what": what,
             "kernels": ptxas_summary(_build.BuildInfo.log, names)}
 
@@ -2355,12 +2397,17 @@ def check_multi() -> dict:
 
 def run_profile_phase() -> dict:
     """profile_step.py: 10 fine-stage steps at fp32 at the full shape."""
+    from sparf_tpu_torch.models import nerf_mlp
+    from sparf_tpu_torch.ops import fused_mlp as fm
     from sparf_tpu_torch.scripts import profile_step
 
     res = profile_step.main(["--stage", "fine", "--steps", "10"])
-    k1_ms = sum(k["ms_per_step"] for k in res["kernels"] if "k1_forward" in k["name"])
+    # the K1 that the presets' chain takes: on wgmma where its route says so
+    impl = fm.route(tuple(fm.chain_dims(nerf_mlp.MLPConfig())), False).impl
+    k1 = "k1_tf" if impl == "tf32wg" else "k1_forward"
+    k1_ms = sum(k["ms_per_step"] for k in res["kernels"] if k1 in k["name"])
     if res["platform"] != "cuda" or k1_ms <= 0:
-        raise AssertionError(f"profile: no device time for K1 (k1_forward): {res['kernels']}")
+        raise AssertionError(f"profile: no device time for K1 ({k1}): {res['kernels']}")
     phase("profile", f"fine stage, fp32, {res['window_ms_per_step']:.3f} ms per step, idle share "
                      f"{res['idle_share']:.3f}; top kernels, ms per step: "
                      + "; ".join(f"{k['name'][:60]} {k['ms_per_step']:.3f}"

@@ -1,18 +1,18 @@
 // The bf16 fused NeRF-MLP forward (K1, K3) and backward (K2), and the
-// float32 (3xTF32) backward, for Hopper (sm_90a) on warpgroup MMAs (wgmma)
-// fed by the Tensor Memory Accelerator (TMA). The float32 K2 has its own
-// note below ("The float32 K2").
+// float32 (3xTF32) ones, for Hopper (sm_90a) on warpgroup MMAs (wgmma) fed
+// by the Tensor Memory Accelerator (TMA). The float32 kernels have their own
+// notes below ("The float32 K2", "The float32 K1/K3").
 //
 // Replaces, at compute_dtype bfloat16, the Pallas TPU kernels of
 // sparf_tpu/ops/fused_mlp_vjp.py: K1 = _fwd_kernel (:175, launched by
 // _core_forward) and K2 = _bwd_kernel (:86, the custom_vjp backward); and of
 // sparf_tpu/ops/fused_mlp.py: K3 = _kernel (:97), the forward on weights
 // laid out once per call (k3_wg: K1's body, forward_tile, under a symbol of
-// its own, so K3 gives K1's bits). The float32 (3xTF32) K1 and K3, and K2
-// of the chains the float32 K2 below does not take, are fused_mlp.cu's
+// its own, so K3 gives K1's bits). The float32 (3xTF32) K1, K2 and K3 of
+// the chains the float32 kernels below do not take are fused_mlp.cu's
 // (mma.sync on packed fragments); this file is compiled once, beside that
 // file (ops/_build.py), and its entry points are sparf_fused_mlp_wg_* (bf16)
-// and sparf_fused_mlp_tf32wg_* (the float32 K2).
+// and sparf_fused_mlp_tf32wg_* (the float32 K1, K2 and K3).
 //
 // The compute_dtype contract of the TPU kernels: each dot takes its two
 // operands rounded to bf16 (round to nearest even) and sums in fp32; bias,
@@ -185,6 +185,51 @@
 //     128 accumulators; C7512 in the build log). A dW pass with both
 //     operands in shared memory (the g_z box split too, in two 96-KB
 //     stages) ran unserialized, and 0.7-0.9 ms slower.
+//
+// The float32 K1/K3 (k1_tf, k3_tf, on the forward half of k_tf_layout)
+// replace, at compute_dtype float32, sparf_tpu/ops/fused_mlp_vjp.py::
+// _fwd_kernel (:175, K1) and sparf_tpu/ops/fused_mlp.py::_kernel (:97, K3)
+// on the chains the float32 K2 takes (build_tf_desc: K1/K3 go where K2
+// goes); fused_mlp.cu's k1_forward / k3_forward run the others. One body
+// (ft_tile) under two symbols, so K3 gives K1's bits: K1 lays the forward
+// half out on each launch, K3 reads the one pack_weights laid out once per
+// call. The arithmetic is K2's 3xTF32 (the split above).
+//   * Bound on an H100 (T = 262,144, the presets' chain): three TF32
+//     products for each of ~527,872 multiply-adds per point, 1.677 ms at 495
+//     TFLOP/s (the benchmark's count, one product: 0.559 ms); device memory
+//     < 0.05 ms. Every 128-point tile streams the chain's hi and lo weights
+//     from L2: 4.2 MB a tile, 8.6 GB a launch.
+//   * Design: k2_tf's pass-1 tile, roles and shared memory (128 points, two
+//     consumer warpgroups of 64, one producer thread, a ring of three 32-KB
+//     stages, the activations in fp32 at act_at), without the workspace,
+//     the mask words and g_z; the epilogue writes [raw_density | raw_rgb].
+//     A stage holds one 16-column k-chunk of a layer's weights, its hi rows
+//     then its lo rows, 64 bytes a row (TMA's 64-byte swizzle, wgmma layout
+//     type 2), so the A fragments of a chunk are loaded and split once and
+//     feed all three products of its two k-steps (six m64nNk8 MMAs); K2's
+//     recompute loads and splits them once for its hi stages and again for
+//     its lo. The density unit and the RGB output are 8-wide products
+//     (m64n8k8) on one stage each that holds their 8 forward rows over every
+//     k-chunk (rows rd and rf of the last layer, behind K2's rows); the
+//     density's runs after the last trunk layer's features, before their
+//     epilogue overwrites the layer's input.
+//   * Limits (a) and (b) of the float32 K2's pass 1: this kernel addresses
+//     (a) in part: half the A loads and splits of K2's recompute for the
+//     same products, and no workspace stores beside the MMAs; the forward
+//     runs whole in less time than the recompute's MMAs took inside K2
+//     (2.85 ms). ptxas still serializes the register-fed wgmma (C7512,
+//     insufficient register resources: the 128 accumulators, the A fragments
+//     and the addresses fill the 168 registers a thread that ptxas allocates
+//     for a 384-thread block; the consumers' setmaxnreg does not raise it:
+//     the SASS uses R0-R167; 32 bytes spilled). (b) does not bind here: a
+//     timing-only build whose producer loads nothing ran 2.55-2.61 ms beside
+//     2.63-2.69, and a 2-block cluster that shared each stage by TMA
+//     multicast (half the L2 bytes) ran 3.88-3.91 ms, both blocks pacing
+//     each other's releases; it was not kept.
+//   * Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): K1 2.61-2.70
+//     ms and K3 2.56-2.60 ms at T = 262,144, beside 4.93-5.09 and 4.89-5.08
+//     ms of fused_mlp.cu's k1_forward and k3_forward in the same calls: 0.62-
+//     0.66 of the 3xTF32 bound (0.33 before).
 //
 // Timing-only builds (sparf_tpu_torch/kernel_split.py): K2_TIME_NO_FWD,
 // K2_TIME_NO_DW and K2_TIME_NO_GX drop the recompute's MMAs, the dW pass and
@@ -2060,10 +2105,12 @@ __host__ __device__ constexpr int tf_code(int rows) {
   return rows <= 32 ? 0 : (rows <= 64 ? 1 : (rows <= 128 ? 2 : 3));
 }
 
-// The chain as the float32 K2 runs it. Forward weights: 2 RF rows (hi, then
-// lo) x KF columns; per recomputed layer nm rows, the features (at the last
-// trunk layer units 1 .., the density unit is not recomputed), columns the
-// padded input [segment 1 | pad to 64 | segment 2 | pad to 32]. Transposed
+// The chain as the float32 K2 and K1/K3 run it. Forward weights: 2 RF rows
+// (hi, then lo) x KF columns; per layer but the last nm rows, the features
+// (at the last trunk layer units 1 ..), columns the padded input [segment 1
+// | pad to 64 | segment 2 | pad to 32]; behind them the rows only K1/K3 read,
+// 8 each: the RGB output's (units 0-2, from rf of the last layer) and the
+// density unit's (unit 0 of the last trunk layer, from rd). Transposed
 // weights: 2 RT rows x KT columns; per layer kp rows (the padded input),
 // columns g_z's: the features, and at the last trunk layer the density unit
 // at column nm. Workspace ([row][point], fp32): X, NX rows: pts_enc (rows 0
@@ -2080,6 +2127,7 @@ struct TfDesc {
   int kz[kMaxLayers];     // g_x's K: g_z columns padded to 32 (+ 32: the density chunk)
   int mz[kMaxLayers];     // dW rows: the outputs padded to 64
   int rf[kMaxLayers], rt[kMaxLayers];  // first row in the forward / transposed weights (hi)
+  int rd;                 // the density unit's forward rows
   int x1[kMaxLayers], x2[kMaxLayers];  // workspace rows of X's segments (x2 -1: none)
   int go[kMaxLayers];     // workspace row of g_z
   int po[kMaxLayers];     // the layer's dW (mz x kp) and db (mz) in a partial
@@ -2130,7 +2178,7 @@ int build_tf_desc(const int* dims, const void* const* params, TfDesc* d) {
     d->RF += d->nm[li];
     d->rt[li] = d->RT;
     d->RT += d->kp[li];
-    if (!last && d->kp[li] > d->KF) d->KF = d->kp[li];
+    if (d->kp[li] > d->KF) d->KF = d->kp[li];
     if (d->kz[li] > d->KT) d->KT = d->kz[li];
     d->x1[li] = li == 0 ? 0 : xf;
     if (li > 0) xf += w1;
@@ -2149,6 +2197,8 @@ int build_tf_desc(const int* dims, const void* const* params, TfDesc* d) {
     d->b[li] = static_cast<const float*>(params[2 * li + 1]);
   }
   if (d->out[d->n_layers - 1] != 3) return -3;
+  d->rd = d->RF + 8;  // behind the RGB output's 8 rows (rf of the last layer)
+  d->RF += 16;
   d->to[d->n_layers] = tiles;
   d->n_dw_tiles = tiles;
   d->n_params = off;
@@ -2161,10 +2211,11 @@ int build_tf_desc(const int* dims, const void* const* params, TfDesc* d) {
 __device__ __forceinline__ float tf32_hi(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
 }
-__device__ __forceinline__ void split_tf(const float (&x)[4][4], uint32_t (&hi)[4][4],
-                                         uint32_t (&lo)[4][4]) {
+template <int KS>
+__device__ __forceinline__ void split_tf(const float (&x)[KS][4], uint32_t (&hi)[KS][4],
+                                         uint32_t (&lo)[KS][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float h = tf32_hi(x[ks][i]);
@@ -2176,9 +2227,10 @@ __device__ __forceinline__ void split_tf(const float (&x)[4][4], uint32_t (&hi)[
 // keeps the A fragments' registers unchanged while the async MMAs that read
 // them are in flight, as register-fed wgmma requires: they stay live from
 // before the wgmma fence to after the wait
-__device__ __forceinline__ void fence_frags(uint32_t (&r)[4][4]) {
+template <int KS>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[KS][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[ks][i])::"memory");
 }
@@ -2188,6 +2240,17 @@ __device__ __forceinline__ void fence_frags(uint32_t (&r)[4][4]) {
 // B (8 x N, tf32, K-major in 128-byte-swizzled shared memory)
 template <int N>
 struct WgmmaTf;
+
+template <>
+struct WgmmaTf<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
 template <>
 struct WgmmaTf<32> {
@@ -2380,18 +2443,18 @@ __device__ __forceinline__ void store_cols(uint32_t act, float* __restrict__ dst
       }
 }
 
-// The A fragments of k-chunk kc of a layer's input, raw: the features from
-// the tile's buffer (li > 0, columns < k1p), else pts_enc (layer 0, or a
-// skip's second segment) or view_enc from device memory (zeros past T and
-// past the width).
-__device__ __forceinline__ void fwd_a(const TfDesc& d, int li, int kc, uint32_t act,
+// The A fragments of the KS k-steps of 8 from column c0 of a layer's input,
+// raw: the features from the tile's buffer (li > 0, columns < k1p), else
+// pts_enc (layer 0, or a skip's second segment) or view_enc from device
+// memory (zeros past T and past the width).
+template <int KS>
+__device__ __forceinline__ void fwd_a(const TfDesc& d, int li, int c0, uint32_t act,
                                       const float* __restrict__ pts,
                                       const float* __restrict__ view, int p0, int T,
-                                      const Lane& L, float (&a)[4][4]) {
-  const int c0 = 32 * kc;
+                                      const Lane& L, float (&a)[KS][4]) {
   if (li > 0 && c0 < d.k1p[li]) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = 64 * L.wg + L.r0 + 8 * (i & 1), c = c0 + 8 * ks + L.t + 4 * (i >> 1);
@@ -2403,7 +2466,7 @@ __device__ __forceinline__ void fwd_a(const TfDesc& d, int li, int kc, uint32_t 
   const float* src = pts_seg ? pts : view;
   const int width = pts_seg ? d.d_in : d.d_view, cb = li == 0 ? c0 : c0 - d.k1p[li];
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int P = p0 + 64 * L.wg + L.r0 + 8 * (i & 1), c = cb + 8 * ks + L.t + 4 * (i >> 1);
@@ -2439,12 +2502,12 @@ __device__ void tf_fwd_layer(const TfDesc& d, int li, Ring& ring, uint32_t act,
   float a[4][4];
 #pragma unroll 1
   for (int kc = 0; kc < nk; ++kc) {
-    fwd_a(d, li, kc, act, pts, view, p0, T, L, a);
+    fwd_a(d, li, 32 * kc, act, pts, view, p0, T, L, a);
     tf_chunk<N, true>(acc, a, ring, run, side);
   }
 #pragma unroll 1
   for (int kc = 0; kc < nk; ++kc) {
-    fwd_a(d, li, kc, act, pts, view, p0, T, L, a);
+    fwd_a(d, li, 32 * kc, act, pts, view, p0, T, L, a);
     tf_chunk<N, false>(acc, a, ring, run, side);
   }
   __syncwarp();  // the warp's loads of its rows are done: its rows take the output
@@ -2854,20 +2917,225 @@ __global__ void k2_reduce_tf(const __grid_constant__ TfDesc d, const float* __re
   out[j] = sum;
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K3 at float32: the forward on wgmma (header note, "The float32 K1/K3")
+// ---------------------------------------------------------------------------
+
+// The forward's weight maps: boxes of 16 columns (64 bytes, 64-byte swizzle)
+// x 8, 64, 128 or 256 rows
+struct TfFMaps {
+  CUtensorMap w[4];
+};
+__host__ __device__ constexpr int ft_code(int rows) {
+  return rows <= 8 ? 0 : (rows <= 64 ? 1 : (rows <= 128 ? 2 : 3));
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 64-byte swizzle
+// (layout type 2): rows of 64 bytes, SBO = 512 bytes between 8-row groups
+__device__ __forceinline__ uint64_t sdesc64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+// The forward's weight schedule, one ring stage per 16-column k-chunk of a
+// layer but the last (its nm rows of hi, then of lo: 64 bytes a row); behind
+// the last trunk layer's chunks the density unit's 8 rows over every
+// k-chunk in one stage, and the RGB output's the same way (chunk c's hi at
+// 1024 c, its lo at 1024 c + 512).
+__device__ void produce_ft(const TfFMaps& m, const TfDesc& d, Ring ring) {
+  Producer p{ring};
+  const uint64_t keep = policy_keep();
+  auto narrow = [&](int li, int r0) {
+    const int nk = d.kp[li] / 16;
+    p.issue(1024 * nk, [&](uint32_t dst, uint32_t fb) {
+      for (int kc = 0; kc < nk; ++kc) {
+        tma_load(dst + 1024 * kc, &m.w[0], fb, 16 * kc, r0, keep);
+        tma_load(dst + 1024 * kc + 512, &m.w[0], fb, 16 * kc, d.RF + r0, keep);
+      }
+    });
+  };
+  for (int li = 0; li + 1 < d.n_layers; ++li) {
+    const int h = d.nm[li], c = ft_code(h);
+    for (int kc = 0; kc < d.kp[li] / 16; ++kc)
+      p.issue(2 * h * 64, [&](uint32_t dst, uint32_t fb) {
+        tma_load(dst, &m.w[c], fb, 16 * kc, d.rf[li], keep);
+        tma_load(dst + h * 64, &m.w[c], fb, 16 * kc, d.RF + d.rf[li], keep);
+      });
+    if (d.dens[li]) narrow(li, d.rd);
+  }
+  narrow(d.n_layers - 1, d.rf[d.n_layers - 1]);
+}
+
+// A product of width N over every 16-column k-chunk of layer li's input,
+// from its biases at bias (a column per output): per chunk the A fragments
+// of its two k-steps, split into hi and lo once, and lo(A) hi(B) + hi(A)
+// hi(B) + hi(A) lo(B) for each k-step on the B tile at b (hi; lo at +
+// lo_off). STAGE: each chunk on a ring stage of its own (acquired and
+// released here), else chunk kc at b0 + 1024 kc.
+template <int N, bool STAGE>
+__device__ __forceinline__ void ft_product(float (&acc)[N / 2], const TfDesc& d, int li,
+                                           const float* __restrict__ bias, Ring& ring, uint32_t b0,
+                                           uint32_t lo_off, uint32_t act,
+                                           const float* __restrict__ pts,
+                                           const float* __restrict__ view, int p0, int T,
+                                           const Lane& L) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[4 * j + c] = __ldg(bias + 8 * j + 2 * L.t + (c & 1));
+#pragma unroll 1
+  for (int kc = 0; kc < d.kp[li] / 16; ++kc) {
+    float a[2][4];
+    fwd_a(d, li, 16 * kc, act, pts, view, p0, T, L, a);
+    uint32_t ah[2][4], al[2][4];
+    split_tf(a, ah, al);
+    int st = 0;
+    uint32_t b = b0 + 1024 * kc;
+    if constexpr (STAGE) {
+      st = ring.acquire();
+      b = ring.buf(st);
+    }
+    fence_frags(ah);
+    fence_frags(al);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      WgmmaTf<N>::mma(acc, al[ks], sdesc64(b + 32 * ks));
+      WgmmaTf<N>::mma(acc, ah[ks], sdesc64(b + 32 * ks));
+      WgmmaTf<N>::mma(acc, ah[ks], sdesc64(b + lo_off + 32 * ks));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(ah);
+    fence_frags(al);
+    if constexpr (STAGE) ring.release(st);
+  }
+}
+
+// An 8-wide product (the density unit, the RGB output) of layer li over its
+// one stage of every k-chunk, from the biases of its forward rows at r0.
+__device__ __forceinline__ void ft_narrow(float (&acc)[4], const TfDesc& d, int li, int r0,
+                                          const float* __restrict__ bias_f, Ring& ring,
+                                          uint32_t act, const float* __restrict__ pts,
+                                          const float* __restrict__ view, int p0, int T,
+                                          const Lane& L) {
+  const int st = ring.acquire();
+  ft_product<8, false>(acc, d, li, bias_f + r0, ring, ring.buf(st), 512, act, pts, view, p0, T, L);
+  ring.release(st);
+}
+
+// One forward layer li but the last (N = nm): the warpgroup's 64 points x N
+// features, then (the last trunk layer) the density unit, whose raw value
+// goes to out[:, 0]; ReLU into the tile's buffer, each warp its own rows.
+template <int N>
+__device__ void ft_layer(const TfDesc& d, int li, Ring& ring, uint32_t act,
+                         const float* __restrict__ bias_f, const float* __restrict__ pts,
+                         const float* __restrict__ view, float* __restrict__ out, int p0, int T,
+                         const Lane& L) {
+  float acc[N / 2];
+  ft_product<N, true>(acc, d, li, bias_f + d.rf[li], ring, 0, N * 64, act, pts, view, p0, T, L);
+  if (d.dens[li]) {
+    float dens[4];
+    ft_narrow(dens, d, li, d.rd, bias_f, ring, act, pts, view, p0, T, L);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int P = p0 + 64 * L.wg + L.r0 + 8 * h;
+      if (L.t == 0 && P < T) out[(size_t)P * 4] = dens[2 * h];
+    }
+  }
+  __syncwarp();  // the warp's loads of its rows are done: its rows take the output
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sts64(act + act_at(64 * L.wg + L.r0 + 8 * h, 8 * j + 2 * L.t),
+            fmaxf(acc[4 * j + 2 * h], 0.f), fmaxf(acc[4 * j + 2 * h + 1], 0.f));
+  __syncwarp();
+}
+
+// The forward of one 128-point tile, K1's and K3's body: out (T, 4) =
+// [raw_density | raw_rgb] on the forward half of k_tf_layout's weights.
+// Shared memory as k2_tf's: the ring (three 32-KB stages), the tile's
+// activations (fp32, act_at), the barriers.
+__device__ __forceinline__ void ft_tile(const TfFMaps& maps, const TfDesc& d,
+                                        const float* __restrict__ bias_f,
+                                        const float* __restrict__ pts,
+                                        const float* __restrict__ view, float* __restrict__ out,
+                                        int T) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gen;
+  const uint32_t s = aligned_base(smem_raw, &gen);
+  const uint32_t act = s + kTfActOff;
+  Ring ring = make_ring(s, kTfStageBytes, kTfStages, s + kTfBarOff);
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec();
+    if (threadIdx.x == kConsumers) produce_ft(maps, d, ring);
+    return;
+  }
+  setmaxnreg_inc();
+  const Lane L;
+  const int p0 = blockIdx.x * kTile, Lr = d.n_layers;
+  for (int li = 0; li + 1 < Lr; ++li) {
+    switch (d.nm[li]) {
+      case 64: ft_layer<64>(d, li, ring, act, bias_f, pts, view, out, p0, T, L); break;
+      case 128: ft_layer<128>(d, li, ring, act, bias_f, pts, view, out, p0, T, L); break;
+      default: ft_layer<256>(d, li, ring, act, bias_f, pts, view, out, p0, T, L); break;
+    }
+  }
+  float rgb[4];
+  ft_narrow(rgb, d, Lr - 1, d.rf[Lr - 1], bias_f, ring, act, pts, view, p0, T, L);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int P = p0 + 64 * L.wg + L.r0 + 8 * (c >> 1), col = 2 * L.t + (c & 1);
+    if (col < 3 && P < T) out[(size_t)P * 4 + 1 + col] = rgb[c];
+  }
+}
+
+// K1: the forward on the weights its launch laid out.
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k1_tf(const __grid_constant__ TfFMaps maps, const __grid_constant__ TfDesc d,
+      const float* __restrict__ bias_f, const float* __restrict__ pts,
+      const float* __restrict__ view, float* __restrict__ out, int T) {
+  ft_tile(maps, d, bias_f, pts, view, out, T);
+}
+
+// K3: the same body on the weights pack_weights laid out once per call (its
+// own symbol, so that a profile tells the two apart).
+__global__ void __launch_bounds__(kThreadsWg, 1)
+k3_tf(const __grid_constant__ TfFMaps maps, const __grid_constant__ TfDesc d,
+      const float* __restrict__ bias_f, const float* __restrict__ pts,
+      const float* __restrict__ view, float* __restrict__ out, int T) {
+  ft_tile(maps, d, bias_f, pts, view, out, T);
+}
+
+// output unit of forward row R (its layer in *li), or -1 (TfDesc note)
+__device__ __forceinline__ int tf_forward_unit(const TfDesc& d, int R, int* li) {
+  if (R >= d.rd) {
+    *li = d.n_feat - 1;
+    return R == d.rd ? 0 : -1;
+  }
+  int l = 0;
+  while (l + 1 < d.n_layers && R >= d.rf[l + 1]) ++l;
+  *li = l;
+  return R - d.rf[l] < d.out[l] - d.dens[l] ? R - d.rf[l] + d.dens[l] : -1;
+}
+
 // The weights in the TMA maps' layouts (ops/fused_mlp.py::tf32wg_weights_plain):
-// wf (2 RF x KF) rows of hi then of lo, W[feature of the row][input of the
-// column]; wt (2 RT x KT) the same over (padded input, g_z column); bias_f
-// (RF) b of the forward rows; zeros in the padding.
+// wf (2 RF x KF) rows of hi then of lo, W[unit of the row][input of the
+// column]; wt (2 RT x KT; null: K1/K3, which read only wf) the same over
+// (padded input, g_z column); bias_f (RF) b of the forward rows; zeros in the
+// padding.
 __global__ void k_tf_layout(const __grid_constant__ TfDesc d, float* __restrict__ wf,
                             float* __restrict__ wt, float* __restrict__ bias_f) {
-  const int nf = d.RF * d.KF, nt = d.RT * d.KT;
+  const int nf = d.RF * d.KF, nt = wt != nullptr ? d.RT * d.KT : 0;
   for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < nf + nt + d.RF;
        idx += gridDim.x * blockDim.x) {
     int li = 0, n = -1, k = -1;
     if (idx >= nf + nt) {
       const int R = idx - nf - nt;
-      while (li + 1 < d.n_layers && R >= d.rf[li + 1]) ++li;
-      n = R - d.rf[li] < d.out[li] - d.dens[li] ? R - d.rf[li] + d.dens[li] : -1;
+      n = tf_forward_unit(d, R, &li);
       bias_f[R] = n >= 0 ? d.b[li][n] : 0.f;
       continue;
     }
@@ -2879,8 +3147,7 @@ __global__ void k_tf_layout(const __grid_constant__ TfDesc d, float* __restrict_
       const int nf_ = d.out[li] - d.dens[li];  // the features, then (dens) the unit at nm
       n = C < nf_ ? C + d.dens[li] : (d.dens[li] && C == d.nm[li] ? 0 : -1);
     } else {
-      while (li + 1 < d.n_layers && R >= d.rf[li + 1]) ++li;
-      n = R - d.rf[li] < d.out[li] - d.dens[li] ? R - d.rf[li] + d.dens[li] : -1;
+      n = tf_forward_unit(d, R, &li);
       k = C;
     }
     const int i = k >= d.kp[li] ? -1
@@ -2895,22 +3162,40 @@ __global__ void k_tf_layout(const __grid_constant__ TfDesc d, float* __restrict_
 }
 
 // a 2D fp32 map over rows x cols (row-major), box {32 columns, box_rows},
-// 128-byte swizzle
-int make_map_f32(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
+// 128-byte swizzle (K1/K3's: {16 columns, box_rows}, 64-byte swizzle)
+int make_map_f32(CUtensorMap* m, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                 bool sw64 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -6;
   const cuuint64_t dims[2] = {cols, rows}, strides[1] = {cols * 4};
-  const cuuint32_t box[2] = {32, box_rows}, es[2] = {1, 1};
+  const cuuint32_t box[2] = {sw64 ? 16u : 32u, box_rows}, es[2] = {1, 1};
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
                         strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        sw64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -6;
 }
 
 int launch_tf_layout(const TfDesc& d, void* wf, void* wt, void* bias_f, cudaStream_t s) {
   k_tf_layout<<<264, 256, 0, s>>>(d, static_cast<float*>(wf), static_cast<float*>(wt),
                                   static_cast<float*>(bias_f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 (k1_tf) or K3 (k3_tf) on the forward half of wf (2 RF x KF) and bias_f
+int launch_ft(bool k3, const TfDesc& d, const void* wf, const void* bias_f, const float* pts,
+              const float* view, float* out, int T, cudaStream_t s) {
+  TfFMaps m;
+  memset(&m, 0, sizeof(m));
+  bool f[4] = {true};  // 8 rows: the density unit, the RGB output
+  for (int li = 0; li + 1 < d.n_layers; ++li) f[ft_code(d.nm[li])] = true;
+  for (int c = 0; c < 4; ++c)
+    if (f[c] && make_map_f32(&m.w[c], wf, 2 * d.RF, d.KF, c == 0 ? 8 : 32 << c, true) != 0)
+      return -6;
+  const auto kernel = k3 ? k3_tf : k1_tf;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmem);
+  kernel<<<(T + kTile - 1) / kTile, kThreadsWg, kTfSmem, s>>>(
+      m, d, static_cast<const float*>(bias_f), pts, view, out, T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2932,13 +3217,43 @@ int sparf_fused_mlp_tf32wg_sizes(const int* dims, int* sizes) {
   return 0;
 }
 
-// The weights in the float32 K2's layouts: the layout check.
+// The weights in the layouts of the float32 K2 and K1/K3 (wt null: the
+// forward half, for K3, once per call; else the layout check).
 int sparf_fused_mlp_tf32wg_layout(const int* dims, const void* const* params, void* wf, void* wt,
                               void* bias_f, void* stream) {
   TfDesc d;
   const int rc = build_tf_desc(dims, params, &d);
   if (rc < 0) return rc;
   return launch_tf_layout(d, wf, wt, bias_f, static_cast<cudaStream_t>(stream));
+}
+
+// K1 at float32 on wgmma: lays out the forward half of the weights into wf /
+// bias_f (scratch of 2 RF x KF and RF elements), then out (T, 4) =
+// [raw_density | raw_rgb].
+int sparf_fused_mlp_tf32wg_forward(const float* pts, const float* view, float* out, int T,
+                                   const int* dims, const void* const* params, void* wf,
+                                   void* bias_f, void* stream) {
+  TfDesc d;
+  int rc = build_tf_desc(dims, params, &d);
+  if (rc < 0) return rc;
+  if (T <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((rc = launch_tf_layout(d, wf, nullptr, bias_f, s)) != 0) return rc;
+  return launch_ft(false, d, wf, bias_f, pts, view, out, T, s);
+}
+
+// K3 at float32 on wgmma: out (T, 4) = [raw_density | raw_rgb] on the forward
+// half wf / bias_f that sparf_fused_mlp_tf32wg_layout laid out (wt null),
+// once per call.
+int sparf_fused_mlp_tf32wg_forward_packed(const float* pts, const float* view, float* out, int T,
+                                          const int* dims, const void* wf, const void* bias_f,
+                                          void* stream) {
+  static const void* const null_params[2 * kMaxLayers] = {};
+  TfDesc d;
+  const int rc = build_tf_desc(dims, null_params, &d);
+  if (rc < 0) return rc;
+  if (T <= 0) return 0;
+  return launch_ft(true, d, wf, bias_f, pts, view, out, T, static_cast<cudaStream_t>(stream));
 }
 
 // K2 at float32 on wgmma. gout (T, 4) = [g_density | g_rgb]; d_pts zeroed by

@@ -2,8 +2,8 @@
 """Where K2's time goes: times K2 at T = 262,144 on the full 8x256 chain
 beside timing-only builds that each drop one part of its work, and K1 and
 K3 (on pack_weights' layout) beside them, for the 3xTF32 variants
-(compute_dtype float32: K1 and K3 in csrc/fused_mlp.cu, K2 on wgmma in
-csrc/fused_mlp_wgmma.cu, k2_tf and k2_dw_tf) and the bf16 ones
+(compute_dtype float32: on wgmma in csrc/fused_mlp_wgmma.cu, K1 / K3 k1_tf
+/ k3_tf, K2 k2_tf and k2_dw_tf) and the bf16 ones
 (csrc/fused_mlp_wgmma.cu: k1_wg, k3_wg, k2_wg). Needs one CUDA card and
 nvcc.
 

@@ -6,8 +6,8 @@ include PyTorch's headers. It is built at first use into
 hash of the sources, so an edited source is never served from a stale build.
 Three compiles, run in parallel: fused_mlp.cu (K1, K2, K3 in 3xTF32 on
 mma.sync, entry points sparf_fused_mlp_*_tf32), fused_mlp_wgmma.cu (K1,
-K2, K3 at bf16 on wgmma and TMA, entry points sparf_fused_mlp_wg_*; K2 in
-3xTF32 on wgmma, sparf_fused_mlp_tf32wg_*) and fused_adam.cu (the
+K2, K3 at bf16 on wgmma and TMA, entry points sparf_fused_mlp_wg_*; K1, K2,
+K3 in 3xTF32 on wgmma, sparf_fused_mlp_tf32wg_*) and fused_adam.cu (the
 optimizer update, sparf_fused_adam; -fmad=false); one link makes the library.
 Nothing here runs at import time.
 """
@@ -122,7 +122,7 @@ def wg_entry(lib: ctypes.CDLL, name: str):
 
 
 def tf32wg_entry(lib: ctypes.CDLL, name: str):
-    """The C entry point sparf_fused_mlp_tf32wg_<name> (the float32 K2 on wgmma)."""
+    """The C entry point sparf_fused_mlp_tf32wg_<name> (the float32 kernels on wgmma)."""
     return getattr(lib, f"sparf_fused_mlp_tf32wg_{name}")
 
 
@@ -146,6 +146,8 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
             fn = getattr(lib, f"sparf_fused_mlp_wg_{name}")
             fn.argtypes, fn.restype = args, i
         for name, args in (("sizes", [p, p]), ("layout", [p, p, p, p, p, p]),
+                           ("forward", [p, p, p, i, p, p, p, p, p]),
+                           ("forward_packed", [p, p, p, i, p, p, p, p]),
                            ("backward", [p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, p])):
             fn = tf32wg_entry(lib, name)
             fn.argtypes, fn.restype = args, i

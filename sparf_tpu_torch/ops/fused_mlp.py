@@ -7,13 +7,12 @@ sparf_tpu/ops/fused_mlp_vjp.py (the `pallas_vjp` impl); K3 replaces `_kernel`
 of sparf_tpu/ops/fused_mlp.py (the `pallas` impl). The kernels live in
 sparf_tpu_torch/csrc/, whose header notes say what bounds them on an H100 and
 what their design does about it: every product runs on the tensor cores. For
-compute_dtype float32 K1 and K3 run 3xTF32 `mma.sync` on weights laid out
-once per call as ready MMA B fragments (fused_mlp.cu), and K2 runs 3xTF32
-`wgmma` on TMA-fed tiles of the weights' TF32 hi and lo where it takes the
-chain (the bf16 plan M's chains, the presets' among them), else
-fused_mlp.cu's `mma.sync` K2; for bfloat16 all three run `wgmma` on bf16
-tiles that TMA brings into shared memory, K3 on K1's body
-(fused_mlp_wgmma.cu).
+compute_dtype float32 K1, K2 and K3 run 3xTF32 `wgmma` on TMA-fed tiles of
+the weights' TF32 hi and lo where they take the chain (the bf16 plan M's
+chains, the presets' among them; K3 on K1's body), else fused_mlp.cu's
+3xTF32 `mma.sync` kernels (K1 and K3 on weights laid out as ready MMA B
+fragments); for bfloat16 all three run `wgmma` on bf16 tiles that TMA
+brings into shared memory, K3 on K1's body (fused_mlp_wgmma.cu).
 
 The kernels take every chain the Pallas kernels take within one block's
 shared memory: 1 to 16 layers of at most 512 features each (a last trunk
@@ -54,14 +53,16 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
     (`relu_mask_words_plain`), and per 64 points (a warpgroup's rows) the
     column sums of the fp32 g_z (db's partials).
   - `tf32wg_layout` is fused_mlp_wgmma.cu's build_tf_desc in Python (None
-    where the float32 wgmma K2 does not take the chain); `tf32wg_weights_plain`
-    the weights' hi / lo layouts its TMA maps read (`k_tf_layout` its kernel);
-    `tf32wg_workspace_plain` what its first pass stores for the dW pass:
-    every layer's input and every g_z as rows, each row point-contiguous,
-    and the ReLU mask words.
+    where the float32 kernels on wgmma do not take the chain);
+    `tf32wg_weights_plain` the weights' hi / lo layouts their TMA maps read
+    (`k_tf_layout` its kernel; K1/K3 read the forward half,
+    `unpack_tf32wg_forward` the way back); `tf32wg_workspace_plain` what
+    K2's first pass stores for the dW pass: every layer's input and every
+    g_z as rows, each row point-contiguous, and the ReLU mask words.
   - `pack_weights` lays the weights out for K3 once per call
-    (`PackedWeights`, the 3xTF32 fragments; `WgPackedWeights`, the bf16
-    forward layout); `fused_mlp_forward_packed_plain` is the eager chain on
+    (`WgPackedWeights`, the wgmma kernels' forward layout: bf16, or the
+    float32 hi and lo; `PackedWeights`, the 3xTF32 fragments of the other
+    float32 chains); `fused_mlp_forward_packed_plain` is the eager chain on
     them.
   - `route(dims, bf16)` (`FusedMeta.route`) is built once per chain and
     compute dtype, the first time a launch needs it: which implementation
@@ -80,8 +81,8 @@ bf16 matmul, whose CPU kernel rounds its output to bf16).
   - The tracer's counters `launch.K1` / `launch.K2` / `launch.K3` count kernel
     launches (not plain calls) of the float32 (3xTF32) variants, `launch.pack`
     pack_weights' layout kernel; `launch.<kernel>.bf16` the bf16 variants';
-    `launch.K2.tf32wg` the float32 K2's launches on wgmma (also in
-    `launch.K2`).
+    `launch.K1.tf32wg`, `launch.K2.tf32wg`, `launch.K3.tf32wg` the float32
+    kernels' launches on wgmma (also in `launch.K1` ..).
     `reset_launch_counts` / `launch_counts` set them to 0 and read them.
   - Spans (utils/tracing.py): `mlp.forward` over nerf_apply_fused and
     `mlp.backward` over FusedMLPFunction.backward, with `mlp.encode` (the
@@ -275,23 +276,29 @@ class PackedWeights:
 
 @dataclass
 class WgPackedWeights:
-    """K3's operands at bfloat16: the chain's dims, wf (RF, KF) bf16, the
-    forward weights the bf16 K3's TMA maps read, and bias_f (RF,) float32 in
-    their row order."""
+    """K3's operands on the wgmma kernels: the chain's dims, wf, the forward
+    weights their TMA maps read (bfloat16 (RF, KF), or at float32 (2 RF,
+    KF): the forward half of tf32wg_weights_plain, TF32 hi rows then lo),
+    and bias_f (RF,) float32 in their row order."""
 
     dims: Tuple[int, ...]
     wf: torch.Tensor
     bias_f: torch.Tensor
-    bf16: ClassVar[bool] = True
+
+    @property
+    def bf16(self) -> bool:
+        return self.wf.dtype == torch.bfloat16
 
 
 def pack_weights(params: Dict[str, Any], meta: FusedMeta):
-    """The weights laid out once for K3: at float32 as 3xTF32 fragments
-    (PackedWeights; on a CUDA device by k_pack, on the CPU by
-    pack_fragments_plain), at bfloat16 in the wgmma forward layout
-    (WgPackedWeights; k_wg_layout, or wgmma_layout_plain, which raises
-    ValueError for a chain the bf16 kernels do not take); the same bits
-    either way."""
+    """The weights laid out once for K3, in the forward layout of the wgmma
+    kernels (WgPackedWeights): at bfloat16 (k_wg_layout, or
+    wgmma_layout_plain, which raises ValueError for a chain the bf16 kernels
+    do not take), and at float32 on the chains the float32 kernels on wgmma
+    take (tf32wg_layout; on the card the route's impl) as the TF32 hi and lo
+    (k_tf_layout's forward half, or tf32wg_weights_plain's); on the other
+    float32 chains as 3xTF32 fragments (PackedWeights; k_pack, or
+    pack_fragments_plain); the same bits either way."""
     weights = [w.detach().contiguous() for w in flat_weights(params)]
     if len(weights) != 2 * (meta.n_feat + meta.n_rgb):
         raise ValueError(f"pack_weights: {len(weights) // 2} layers, meta says "
@@ -300,8 +307,10 @@ def pack_weights(params: Dict[str, Any], meta: FusedMeta):
     card = _on_card(weights[0])
     if card:
         _check_operands(weights[0], weights[1], weights)
-    if meta.bf16:
-        layout = wg_layout_kernel if card else wgmma_layout_plain
+    if meta.bf16 or (route(dims, False).impl == "tf32wg" if card
+                     else tf32wg_layout(dims) is not None):
+        layout = ((wg_layout_kernel if card else wgmma_layout_plain) if meta.bf16
+                  else tf32wg_weights_kernel if card else tf32wg_weights_plain)
         wf, _, bias_f = layout(dims, weights, transposed=False)
         packed = WgPackedWeights(dims, wf, bias_f)
     else:
@@ -359,11 +368,12 @@ def fused_mlp_forward_packed_plain(meta: FusedMeta, pts_enc: torch.Tensor,
                                    view_enc: torch.Tensor, packed
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's plain version: the eager chain on pack_weights' operands (each W
-    as the hi + lo of its fragments, or as read back from the bf16 forward
-    layout)."""
-    if packed.bf16:
-        weights = [t for layer in unpack_wgmma_layout(packed.dims, packed.wf, bias_f=packed.bias_f)
-                   for t in layer]
+    as the hi + lo of its fragments or of its float32 wgmma forward rows, or
+    as read back from the bf16 forward layout)."""
+    if isinstance(packed, WgPackedWeights):
+        layers = (unpack_wgmma_layout(packed.dims, packed.wf, bias_f=packed.bias_f) if packed.bf16
+                  else unpack_tf32wg_forward(packed.dims, packed.wf, packed.bias_f))
+        weights = [t for layer in layers for t in layer]
     else:
         Ws = unpack_fragments(packed.dims, packed.frag)
         weights = [t for W, b in zip(Ws, packed.biases) for t in (W, b)]
@@ -713,10 +723,11 @@ def bf16_workspace_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch
 
 
 # ---------------------------------------------------------------------------
-# the float32 K2 on wgmma (csrc/fused_mlp_wgmma.cu k2_tf, k2_dw_tf), plain
+# the float32 kernels on wgmma (csrc/fused_mlp_wgmma.cu k1_tf, k3_tf, k2_tf, k2_dw_tf), plain
 # ---------------------------------------------------------------------------
 
-K2_TF32WG = "launch.K2.tf32wg"  # counted once per launch of the float32 K2 on wgmma
+# counted once per launch of the float32 K1, K2 and K3 on wgmma (also in launch.K1 ..)
+K1_TF32WG, K2_TF32WG, K3_TF32WG = (f"launch.{k}.tf32wg" for k in ("K1", "K2", "K3"))
 
 
 @dataclass(frozen=True)
@@ -773,6 +784,11 @@ class TfLayer:
 
 @dataclass(frozen=True)
 class TfLayout:
+    """The layers, and the weights' and workspace's sizes. The forward rows:
+    each layer's nm features, then 8 rows of the RGB output (units 0-2, from
+    the last layer's rf) and 8 of the density unit (unit 0 of the last trunk
+    layer, from RD), which only K1/K3 read."""
+
     layers: Tuple[TfLayer, ...]
     RF: int  # forward weights: 2 RF rows (hi, then lo) x KF
     KF: int
@@ -780,6 +796,7 @@ class TfLayout:
     KT: int
     NX: int  # workspace rows: X NX, G NG; each row T_pad points
     NG: int
+    RD: int  # the density unit's forward rows
 
 
 @functools.lru_cache(maxsize=16)
@@ -815,11 +832,11 @@ def tf32wg_layout(dims: Tuple[int, ...]) -> Optional[TfLayout]:
                               NG))
         xf += w1 if li > 0 else 0
         RF, RT, NG = RF + nm, RT + k1p + c2, NG + out
-        KF = KF if last else max(KF, k1p + c2)
+        KF = max(KF, k1p + c2)
         KT = max(KT, kz)
     if layers[-1].out != 3:
         raise ValueError(_DESC_ERRORS[-3])
-    return TfLayout(tuple(layers), RF, KF, RT, KT, xf, NG) if take else None
+    return TfLayout(tuple(layers), RF + 16, KF, RT, KT, xf, NG, RF + 8) if take else None
 
 
 def _hi_lo(x: torch.Tensor) -> torch.Tensor:
@@ -828,26 +845,72 @@ def _hi_lo(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi, x - hi])
 
 
-def tf32wg_weights_plain(dims: Sequence[int], weights: Sequence[torch.Tensor]):
-    """The float32 wgmma K2's weights (k_tf_layout's plain version): (wf (2
-    RF, KF): the forward B operands, rows the layers' features, columns the
-    padded inputs; wt (2 RT, KT): g_x's, rows the padded inputs, columns
-    g_z's; each the TF32 hi rows, then the lo rows; bias_f (RF,) in the
-    forward row order); zeros in the padding."""
+@functools.lru_cache(maxsize=16)
+def _tf_forward_sources(dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward rows (RF, KF) then bias_f (RF,), flattened into one vector:
+    (the positions in it that hold a parameter, the index of that parameter
+    in the chain's flat parameters [W0, b0, W1, b1, ...] (flat_weights'
+    order, each W (out, in) row-major)); the other positions are padding."""
+    lay = tf32wg_layout(dims)
+    src = torch.full((lay.RF, lay.KF + 1), -1, dtype=torch.long)  # column KF: the bias
+    ofs = 0
+    for li, (L, (n_out, n_in, *_)) in enumerate(zip(lay.layers, _layers(dims))):
+        i = L.inputs()
+        blocks = [(L.rf, L.forward_units())] if L.nm else []  # (first row, units of the rows)
+        if L.dens:
+            blocks.append((lay.RD, torch.tensor([0] + [-1] * 7)))
+        if li == len(lay.layers) - 1:
+            blocks.append((L.rf, torch.tensor([0, 1, 2] + [-1] * 5)))
+        for r0, u in blocks:
+            src[r0: r0 + u.numel(), : L.kp] = torch.where(
+                (u[:, None] >= 0) & (i[None, :] >= 0), ofs + u[:, None] * n_in + i[None, :], -1)
+            src[r0: r0 + u.numel(), lay.KF] = torch.where(u >= 0, ofs + n_out * n_in + u, -1)
+        ofs += n_out * n_in + n_out
+    src = torch.cat([src[:, : lay.KF].reshape(-1), src[:, lay.KF]])
+    pos = torch.nonzero(src >= 0).reshape(-1)
+    return pos, src[pos]
+
+
+def tf32wg_weights_plain(dims: Sequence[int], weights: Sequence[torch.Tensor],
+                         transposed: bool = True):
+    """The weights of the float32 kernels on wgmma (k_tf_layout's plain
+    version): (wf (2 RF, KF): the forward B operands, rows the layers'
+    features, the RGB output's and the density unit's rows (TfLayout),
+    columns the padded inputs; wt (2 RT, KT): K2's g_x, rows the padded
+    inputs, columns g_z's (None without `transposed`: K1/K3 read only wf);
+    each the TF32 hi rows, then the lo rows; bias_f (RF,) in the forward row
+    order); zeros in the padding."""
     lay = tf32wg_layout(tuple(dims))
     if lay is None:
-        raise ValueError("the float32 wgmma K2 does not take this chain")
+        raise ValueError("the float32 kernels on wgmma do not take this chain")
     dev = weights[0].device
-    wf = torch.zeros((lay.RF, lay.KF), device=dev)
-    wt = torch.zeros((lay.RT, lay.KT), device=dev)
-    bias = torch.zeros(lay.RF, device=dev)
-    for L, W, b in zip(lay.layers, weights[::2], weights[1::2]):
-        if L.nm:
-            u = L.forward_units()
-            wf[L.rf: L.rf + L.nm, : L.kp] = _block(W, u, L.inputs())
-            bias[L.rf: L.rf + L.nm] = torch.where(u.to(dev) >= 0, b.detach()[u.clamp(min=0)], 0.0)
-        wt[L.rt: L.rt + L.kp, : L.kz] = _block(W, L.gz_units(), L.inputs()).t()
-    return _hi_lo(wf), _hi_lo(wt), bias
+    pos, src = (t.to(dev) for t in _tf_forward_sources(tuple(dims)))
+    fwd = torch.zeros(lay.RF * (lay.KF + 1), device=dev)
+    fwd[pos] = torch.cat([w.detach().reshape(-1) for w in weights])[src]
+    wf, bias = fwd[: lay.RF * lay.KF].view(lay.RF, lay.KF), fwd[lay.RF * lay.KF:]
+    wt = None
+    if transposed:
+        wt = torch.zeros((lay.RT, lay.KT), device=dev)
+        for L, W in zip(lay.layers, weights[::2]):
+            wt[L.rt: L.rt + L.kp, : L.kz] = _block(W, L.gz_units(), L.inputs()).t()
+        wt = _hi_lo(wt)
+    return _hi_lo(wf), wt, bias
+
+
+def unpack_tf32wg_forward(dims: Sequence[int], wf: torch.Tensor, bias_f: torch.Tensor):
+    """[(W, b)] per layer back from the forward half of tf32wg_weights_plain:
+    each W as hi + lo of its rows, exactly W."""
+    pos, src = (t.to(wf.device) for t in _tf_forward_sources(tuple(dims)))
+    RF = bias_f.numel()
+    layers = list(_layers(dims))
+    flat = wf.new_zeros(sum(n_out * n_in + n_out for n_out, n_in, *_ in layers))
+    flat[src] = torch.cat([(wf[:RF] + wf[RF:]).reshape(-1), bias_f])[pos]
+    out, ofs = [], 0
+    for n_out, n_in, *_ in layers:
+        out.append((flat[ofs: ofs + n_out * n_in].view(n_out, n_in),
+                    flat[ofs + n_out * n_in: ofs + n_out * n_in + n_out]))
+        ofs += n_out * n_in + n_out
+    return out
 
 
 def tf32wg_workspace_plain(meta: FusedMeta, pts_enc: torch.Tensor, view_enc: torch.Tensor,
@@ -926,26 +989,27 @@ def _on_card(t: torch.Tensor) -> bool:
 @dataclass(frozen=True, eq=False)
 class Route:
     """How the kernels run one chain at one compute dtype: its dims as the C
-    entries take them (`c_dims`), which implementation serves each role, and
-    the sizes their C sizes entries give for it.
+    entries take them (`c_dims`), the implementation that serves K1, K2 and
+    K3 (`impl`), and the sizes its C sizes entry gives for the chain
+    (`sizes`).
 
-    K1, K3 and the weight layouts run fused_mlp.cu's 3xTF32 kernels at
-    float32 (`sizes` from sparf_fused_mlp_sizes_tf32: [n_params,
-    n_frag_elems, n_part, x_total, g_total, n_splits, tile]) and
-    fused_mlp_wgmma.cu's bf16 ones at bfloat16 (sparf_fused_mlp_wg_sizes:
-    [n_params, wf elements, wt elements, RF, KX, KG, n_part, n_splits,
-    tile]). K2 runs `k2`: "tf32wg", fused_mlp_wgmma.cu's float32 K2, on the
-    chains sparf_fused_mlp_tf32wg_sizes takes (`k2_sizes`: [n_params, wf
-    elements, wt elements, RF, NX, NG, n_part, n_splits, tile]); "tf32",
-    fused_mlp.cu's K2, on the other float32 chains; "wg", the bf16 K2
-    (k2_sizes is sizes for both)."""
+    At float32, "tf32wg": fused_mlp_wgmma.cu's kernels on wgmma (k1_tf,
+    k3_tf, k2_tf ..) on the chains sparf_fused_mlp_tf32wg_sizes takes (the
+    plan M chains, the presets' 8x256 among them; sizes: [n_params, wf
+    elements, wt elements, RF, NX, NG, n_part, n_splits, n_dw_tiles]);
+    "tf32": fused_mlp.cu's mma.sync kernels on the other chains. Both keep
+    fused_mlp.cu's sizes, `tf32_sizes` (sparf_fused_mlp_sizes_tf32:
+    [n_params, n_frag_elems, n_part, x_total, g_total, n_splits, tile]; the
+    sizes of "tf32"). At bfloat16, "wg": fused_mlp_wgmma.cu's bf16 kernels
+    (sparf_fused_mlp_wg_sizes: [n_params, wf elements, wt elements, RF, KX,
+    KG, n_part, n_splits, tile]; tf32_sizes empty)."""
 
     dims: Tuple[int, ...]
     bf16: bool
-    k2: str
+    impl: str
     c_dims: Any
     sizes: Tuple[int, ...]
-    k2_sizes: Tuple[int, ...]
+    tf32_sizes: Tuple[int, ...]
 
 
 @functools.lru_cache(maxsize=64)
@@ -965,11 +1029,11 @@ def route(dims: Tuple[int, ...], bf16: bool) -> Route:
     rc, sizes = ask(wg_entry(lib, "sizes"), 9) if bf16 else ask(entry(lib, "sizes"), 7)
     _raise_rc(lib, rc, f"fused MLP ({'bf16' if bf16 else '3xTF32'})")
     if bf16:
-        return Route(dims, True, "wg", c_dims, sizes, sizes)
-    rc, k2_sizes = ask(tf32wg_entry(lib, "sizes"), 9)
+        return Route(dims, True, "wg", c_dims, sizes, ())
+    rc, wg_sizes = ask(tf32wg_entry(lib, "sizes"), 9)
     if rc not in (0, -7):  # -7: not one of its chains
-        _raise_rc(lib, rc, "K2 (fused MLP backward, on wgmma)")
-    return (Route(dims, False, "tf32wg", c_dims, sizes, k2_sizes) if rc == 0
+        _raise_rc(lib, rc, "fused MLP (3xTF32, on wgmma)")
+    return (Route(dims, False, "tf32wg", c_dims, wg_sizes, sizes) if rc == 0
             else Route(dims, False, "tf32", c_dims, sizes, sizes))
 
 
@@ -980,7 +1044,7 @@ def pack_fragments_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor],
     from sparf_tpu_torch.ops._build import entry, load_library
 
     r, lib, dev = route(tuple(dims), False), load_library(), weights[0].device
-    frag = torch.empty((2 if transposed else 1, r.sizes[1]), device=dev)
+    frag = torch.empty((2 if transposed else 1, r.tf32_sizes[1]), device=dev)
     rc = entry(lib, "pack")(r.c_dims, _ptrs(weights), frag[0].data_ptr(),
                             frag[1].data_ptr() if transposed else None,
                             torch.cuda.current_stream(dev).cuda_stream)
@@ -1007,25 +1071,29 @@ def wg_layout_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor],
             bias_f)
 
 
-def tf32wg_weights_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor]):
-    """k_tf_layout on the card: (wf, wt, bias_f) as tf32wg_weights_plain."""
+def tf32wg_weights_kernel(dims: Sequence[int], weights: Sequence[torch.Tensor],
+                          transposed: bool = True):
+    """k_tf_layout on the card: (wf, wt, bias_f) as tf32wg_weights_plain (wt
+    None without `transposed`)."""
     from sparf_tpu_torch.ops._build import load_library, tf32wg_entry
 
     r, lib, dev = route(tuple(dims), False), load_library(), weights[0].device
-    lay = tf32wg_layout(r.dims)
-    wf = torch.empty((2 * lay.RF, lay.KF), device=dev)
-    wt = torch.empty((2 * lay.RT, lay.KT), device=dev)
-    bias_f = torch.empty(lay.RF, device=dev)
-    rc = tf32wg_entry(lib, "layout")(r.c_dims, _ptrs(weights), wf.data_ptr(), wt.data_ptr(),
-                                     bias_f.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _, n_wf, n_wt, RF = r.sizes[:4]
+    wf = torch.empty((2 * RF, n_wf // (2 * RF)), device=dev)
+    wt = torch.empty((n_wt,), device=dev) if transposed else None
+    bias_f = torch.empty(RF, device=dev)
+    rc = tf32wg_entry(lib, "layout")(r.c_dims, _ptrs(weights), wf.data_ptr(),
+                                     wt.data_ptr() if transposed else None, bias_f.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_rc(lib, rc, "k_tf_layout")
-    return wf, wt, bias_f
+    return wf, wt.view(-1, tf32wg_layout(r.dims).KT) if transposed else None, bias_f
 
 
 def launch_k1(r: Route, pts_enc, view_enc, weights):
-    """K1 on the route: the weights laid out (k_pack, at bf16 k_wg_layout),
-    then the forward on them (k1_forward, at bf16 k1_wg)."""
-    from sparf_tpu_torch.ops._build import entry, load_library, wg_entry
+    """K1 on the route: the weights laid out (k_tf_layout's forward half
+    ("tf32wg"), k_pack ("tf32"), at bf16 k_wg_layout), then the forward on
+    them (k1_tf, k1_forward, k1_wg)."""
+    from sparf_tpu_torch.ops._build import entry, load_library, tf32wg_entry, wg_entry
 
     _check_operands(pts_enc, view_enc, weights)
     lib = load_library()
@@ -1033,44 +1101,55 @@ def launch_k1(r: Route, pts_enc, view_enc, weights):
     out = torch.empty((T, 4), dtype=torch.float32, device=dev)
     io = (pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, r.c_dims, _ptrs(weights))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if r.bf16:
-        wf = torch.empty(r.sizes[1], dtype=torch.bfloat16, device=dev)
-        bias_f = torch.empty(r.sizes[3], dtype=torch.float32, device=dev)
-        rc = wg_entry(lib, "forward")(*io, wf.data_ptr(), bias_f.data_ptr(), stream)
-    else:
+    if r.impl == "tf32":
         frag = torch.empty(r.sizes[1], device=dev)
         rc = entry(lib, "forward")(*io, frag.data_ptr(), 0, stream)
+    else:
+        wf = torch.empty(r.sizes[1], dtype=torch.bfloat16 if r.bf16 else torch.float32,
+                         device=dev)
+        bias_f = torch.empty(r.sizes[3], dtype=torch.float32, device=dev)
+        fn = wg_entry(lib, "forward") if r.bf16 else tf32wg_entry(lib, "forward")
+        rc = fn(*io, wf.data_ptr(), bias_f.data_ptr(), stream)
     _raise_rc(lib, rc, "K1 (fused MLP forward)")
     _counted("K1", r.bf16)
+    if r.impl == "tf32wg":
+        tracing.count(K1_TF32WG)
     return out[:, 0], out[:, 1:4]
 
 
 def launch_k3(r: Route, pts_enc, view_enc, packed):
-    """K3 on the route and pack_weights' layout: k3_forward on the 3xTF32
-    fragments, at bf16 k3_wg (K1's wgmma forward) on the forward layout."""
-    from sparf_tpu_torch.ops._build import entry, load_library, wg_entry
+    """K3 on the route and pack_weights' layout: k3_tf on the forward half of
+    k_tf_layout's ("tf32wg"), k3_forward on the 3xTF32 fragments ("tf32"), at
+    bf16 k3_wg (K1's wgmma forward) on the forward layout."""
+    from sparf_tpu_torch.ops._build import entry, load_library, tf32wg_entry, wg_entry
 
-    if packed.dims != r.dims or packed.bf16 != r.bf16:
-        raise ValueError("K3: packed weights of another chain or compute dtype")
-    layout, biases = (packed.wf, [packed.bias_f]) if r.bf16 else (packed.frag, packed.biases)
+    wg = r.impl != "tf32"  # the wgmma kernels' forward layout
+    if (packed.dims != r.dims or packed.bf16 != r.bf16
+            or isinstance(packed, WgPackedWeights) != wg):
+        raise ValueError("K3: packed weights of another chain, compute dtype or layout")
+    layout, biases = (packed.wf, [packed.bias_f]) if wg else (packed.frag, packed.biases)
     _check_operands(pts_enc, view_enc, biases)
+    # sizes[1]: the layout's elements, [3]: bias_f's
     if (layout.dtype != (torch.bfloat16 if r.bf16 else torch.float32)
             or layout.numel() != r.sizes[1] or not layout.is_contiguous()
-            or layout.device != pts_enc.device or (r.bf16 and biases[0].numel() != r.sizes[3])):
+            or layout.device != pts_enc.device or (wg and biases[0].numel() != r.sizes[3])):
         raise ValueError("K3 takes the contiguous layout of pack_weights on the points' device")
     lib = load_library()
     T, dev = pts_enc.shape[0], pts_enc.device
     out = torch.empty((T, 4), dtype=torch.float32, device=dev)
     io = (pts_enc.data_ptr(), view_enc.data_ptr(), out.data_ptr(), T, r.c_dims)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if r.bf16:
-        rc = wg_entry(lib, "forward_packed")(*io, layout.data_ptr(), biases[0].data_ptr(), stream)
+    if wg:
+        fn = wg_entry(lib, "forward_packed") if r.bf16 else tf32wg_entry(lib, "forward_packed")
+        rc = fn(*io, layout.data_ptr(), biases[0].data_ptr(), stream)
     else:
         params = (ctypes.c_void_p * (2 * len(biases)))(
             *[p for b in biases for p in (None, b.data_ptr())])
         rc = entry(lib, "forward")(*io, params, layout.data_ptr(), 1, stream)
     _raise_rc(lib, rc, "K3 (fused MLP forward, packed weights)")
     _counted("K3", r.bf16)
+    if r.impl == "tf32wg":
+        tracing.count(K3_TF32WG)
     return out[:, 0], out[:, 1:4]
 
 
@@ -1086,14 +1165,14 @@ def launch_k2(r: Route, pts_enc, view_enc, weights, g_density, g_rgb):
     lib = load_library()
     T, dev = pts_enc.shape[0], pts_enc.device
     f32, bf = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bfloat16, device=dev)
-    d_pts = torch.empty_like(pts_enc) if r.k2 == "tf32" else torch.zeros_like(pts_enc)
+    d_pts = torch.empty_like(pts_enc) if r.impl == "tf32" else torch.zeros_like(pts_enc)
     d_view = torch.empty_like(view_enc)
-    d_params = torch.empty(r.k2_sizes[0], **f32)
+    d_params = torch.empty(r.sizes[0], **f32)
     io = (pts_enc.data_ptr(), view_enc.data_ptr(), gout.data_ptr(), d_pts.data_ptr(),
           d_view.data_ptr(), d_params.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if r.k2 == "tf32":
-        _, n_frag, n_part, x_total, g_total, n_splits, _ = r.k2_sizes
+    if r.impl == "tf32":
+        _, n_frag, n_part, x_total, g_total, n_splits, _ = r.sizes
         x_rows = -(-T // K2_TILE) * K2_TILE
         frag = torch.empty((2, n_frag), **f32)
         partial = torch.empty(n_splits * n_part, **f32)
@@ -1104,7 +1183,7 @@ def launch_k2(r: Route, pts_enc, view_enc, weights, g_density, g_rgb):
                                     _ptrs(weights), stream)
     else:
         # X and G: bf16 columns per point (KX, KG), or float32 rows of points (NX, NG)
-        _, n_wf, n_wt, RF, n_x, n_g, n_part, n_splits, tile = r.k2_sizes
+        _, n_wf, n_wt, RF, n_x, n_g, n_part, n_splits, tile = r.sizes
         x_rows = -(-T // WG_TILE) * WG_TILE  # the workspace's rows
         bias_f = torch.empty(RF, **f32)
         # the recompute's ReLU mask words: per layer, block and consumer thread 4 x 32 bits
@@ -1130,7 +1209,7 @@ def launch_k2(r: Route, pts_enc, view_enc, weights, g_density, g_rgb):
                 masks.data_ptr(), partial.data_ptr(), T, r.c_dims, _ptrs(weights), stream)
     _raise_rc(lib, rc, "K2 (fused MLP backward)")
     _counted("K2", r.bf16)
-    if r.k2 == "tf32wg":
+    if r.impl == "tf32wg":
         tracing.count(K2_TF32WG)
     return d_pts, d_view, _split_flat(d_params, weights)
 

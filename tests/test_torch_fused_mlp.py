@@ -117,20 +117,29 @@ FULL = dict(barf_c2f=(0.3, 0.7))  # the 8x256 arch with skip at 4
 
 @pytest.mark.parametrize("view_dep", [True, False])
 def test_pack_weights_round_trips(view_dep):
-    """pack_weights lays each W out as mma.sync B fragments of hi = TF32(w),
-    lo = w - hi; hi + lo gives W back exactly, and the fragment (ks, nt),
-    lane (g, t), float c holds B[ks*8 + t + 4 (c % 2), nt*8 + g]."""
+    """pack_weights lays the presets' chain out for the float32 K3 on wgmma:
+    the forward half of tf32wg_weights_plain, hi = TF32(w) rows then lo = w -
+    hi rows; hi + lo gives every W and b back exactly. The mma.sync B
+    fragments of fused_mlp.cu (pack_fragments_plain, the chains outside plan
+    M) do too, and the fragment (ks, nt), lane (g, t), float c holds B[ks*8 +
+    t + 4 (c % 2), nt*8 + g]."""
     cfg = tmlp.MLPConfig(view_dep=view_dep)
     meta = fm.FusedMeta.from_cfg(cfg)
     params = tmlp.init_nerf_params(torch.Generator().manual_seed(1), cfg)
     weights = fm.flat_weights(params)
     packed = fm.pack_weights(params, meta)
-    assert list(packed.dims) == meta.dims(weights)
-    assert all(torch.equal(b, w) for b, w in zip(packed.biases, weights[1::2]))
-    f4 = packed.frag.view(-1, 4)
+    assert isinstance(packed, fm.WgPackedWeights) and not packed.bf16 and list(packed.dims) == meta.dims(weights)
+    RF = packed.bias_f.numel()
+    assert torch.equal(fm.tf32_round(packed.wf[:RF]), packed.wf[:RF])
+    assert float(packed.wf[RF:].abs().max()) <= 2.0 ** -11 * float(packed.wf[:RF].abs().max())
+    for (Wu, bu), W, b in zip(fm.unpack_tf32wg_forward(packed.dims, packed.wf, packed.bias_f),
+                              weights[::2], weights[1::2]):
+        assert torch.equal(Wu, W) and torch.equal(bu, b)
+    frag = fm.pack_fragments_plain(packed.dims, weights)
+    f4 = frag.view(-1, 4)
     assert torch.equal(fm.tf32_round(f4[:, :2]), f4[:, :2])  # the high parts are TF32 values
     assert float(f4[:, 2:].abs().max()) <= 2.0 ** -11 * float(f4[:, :2].abs().max())
-    for W, Wu in zip(weights[::2], fm.unpack_fragments(packed.dims, packed.frag)):
+    for W, Wu in zip(weights[::2], fm.unpack_fragments(packed.dims, frag)):
         assert torch.equal(Wu, W)
     # layer 0 (63 inputs padded to 64, 256 outputs): k-step 7, n-tile 3, lane 9 (g=2, t=1)
     frag0 = f4[: (64 // 8) * (256 // 8) * 32].view(8, 32, 32, 4)
@@ -139,11 +148,11 @@ def test_pack_weights_round_trips(view_dep):
     assert frag0[7, 3, 11, 1] == 0  # lane 11: t=3, row 7*8 + 3 + 4 = 63 is padding
     # the transposed set (K2's g_x) holds the same values in B = W order
     ft = fm.pack_fragments_plain(packed.dims, weights, transposed=True)
-    assert ft.numel() == packed.frag.numel()
-    assert torch.equal(torch.sort(ft).values, torch.sort(packed.frag).values)
+    assert ft.numel() == frag.numel()
+    assert torch.equal(torch.sort(ft).values, torch.sort(frag).values)
     # the skip layer (4) keeps its [feat | pts_enc] order: k-step 32 starts pts_enc
     ofs = sum(kp // 8 * np8 // 8 * 128 for *_, kp, np8 in list(fm._layers(packed.dims))[:4])
-    frag4 = packed.frag[ofs: ofs + 320 // 8 * 256 // 8 * 128].view(40, 32, 32, 4)
+    frag4 = frag[ofs: ofs + 320 // 8 * 256 // 8 * 128].view(40, 32, 32, 4)
     w = weights[8][0 * 8 + 0, 256]
     assert frag4[32, 0, 0, 0] == fm.tf32_round(w)
 
@@ -160,20 +169,24 @@ def test_pack_fragments_round_trip_past_four_extra_n_tiles(widths):
     n-tiles, 48 to 6, a 201-wide density layer to 26, view_enc 51 wide), and
     the wide plan's corner (512 features, both encodings 123 wide): hi + lo
     of the forward fragments gives W back exactly, and the transposed set
-    holds the same values."""
+    holds the same values; pack_weights packs them for fused_mlp.cu's K3
+    exactly where the float32 kernels on wgmma do not take the chain."""
     cfg = tmlp.MLPConfig(**widths)
     meta = fm.FusedMeta.from_cfg(cfg)
     params = tmlp.init_nerf_params(torch.Generator().manual_seed(2), cfg)
     weights = fm.flat_weights(params)
+    dims = tuple(meta.dims(weights))
     packed = fm.pack_weights(params, meta)
-    layers = list(fm._layers(packed.dims))
+    assert isinstance(packed, fm.PackedWeights) == (fm.tf32wg_layout(dims) is None)
+    frag = fm.pack_fragments_plain(dims, weights)
+    layers = list(fm._layers(dims))
     past4 = [x // 8 % 8 for *_, k1p, kp, n_pad in layers for x in (k1p, kp - k1p, n_pad)]
     assert max(past4) >= 5 or max(n_pad for *_, n_pad in layers) == 520
-    assert packed.frag.numel() == 4 * sum(kp // 8 * n_pad // 8 * 32 for *_, kp, n_pad in layers)
-    for W, Wu in zip(weights[::2], fm.unpack_fragments(packed.dims, packed.frag)):
+    assert frag.numel() == 4 * sum(kp // 8 * n_pad // 8 * 32 for *_, kp, n_pad in layers)
+    for W, Wu in zip(weights[::2], fm.unpack_fragments(dims, frag)):
         assert torch.equal(Wu, W)
-    ft = fm.pack_fragments_plain(packed.dims, weights, transposed=True)
-    assert torch.equal(torch.sort(ft).values, torch.sort(packed.frag).values)
+    ft = fm.pack_fragments_plain(dims, weights, transposed=True)
+    assert torch.equal(torch.sort(ft).values, torch.sort(frag).values)
 
 
 def test_tf32_round_is_nearest_ties_away():

@@ -291,7 +291,9 @@ def test_wide_chains_plain_kernels_match_pallas_interpret(monkeypatch, chain, dt
     with torch.no_grad():
         packed = fm.pack_weights(params_t, meta)
         dens_t, rgb_t = fm.fused_mlp_forward_packed_plain(meta, pts_enc, view_enc, packed)
-    assert isinstance(packed, fm.WgPackedWeights if bf16 else fm.PackedWeights)
+    dims = tuple(meta.dims(weights))
+    assert isinstance(packed, fm.PackedWeights if not bf16 and fm.tf32wg_layout(dims) is None
+                      else fm.WgPackedWeights)
     if bf16:
         _points_close(dens_t[:, None], np.asarray(dens_j)[:, None], FWD_REL, "K3 density", full)
         _points_close(rgb_t, rgb_j, FWD_REL, "K3 rgb", full)
@@ -316,8 +318,9 @@ def test_bf16_k3_layout_takes_what_the_bf16_kernels_take(chain):
                 fm.pack_weights(params, meta)
             continue
         packed = fm.pack_weights(params, meta)
-        assert isinstance(packed, fm.WgPackedWeights if dtype == torch.bfloat16
-                          else fm.PackedWeights)
+        f32 = (fm.PackedWeights if fm.tf32wg_layout(tuple(fm.chain_dims(cfg))) is None
+               else fm.WgPackedWeights)
+        assert isinstance(packed, fm.WgPackedWeights if dtype == torch.bfloat16 else f32)
 
 
 class _SizesLibrary:
@@ -364,20 +367,21 @@ def test_width_refusals_name_use_pallas_false(monkeypatch, rc):
 
 
 def test_route_asks_each_sizes_entry_once_and_picks_k2(monkeypatch):
-    """The route takes the float32 K2 on wgmma where its sizes entry takes
-    the chain, fused_mlp.cu's K2 where it answers -7, the bf16 K2 at
-    bfloat16, with the sizes of the entries that serve each role; a chain's
-    route asks each entry once."""
+    """The route takes the float32 kernels on wgmma (K1, K2 and K3) where
+    their sizes entry takes the chain, fused_mlp.cu's where it answers -7,
+    the bf16 kernels at bfloat16, with the sizes of the entry that serves
+    them (and at float32 fused_mlp.cu's); a chain's route asks each entry
+    once."""
     dims = tuple(fm.chain_dims(tmlp.MLPConfig()))
     fp32, tfwg, wg = tuple(range(1, 8)), tuple(range(11, 20)), tuple(range(21, 30))
-    for tf32wg_rc, k2 in ((0, "tf32wg"), (-7, "tf32")):
+    for tf32wg_rc, impl in ((0, "tf32wg"), (-7, "tf32")):
         lib = _route_on(monkeypatch, {"sizes_tf32": (0, fp32), "wg_sizes": (0, wg),
                                       "tf32wg_sizes": (tf32wg_rc, tfwg)})
         r = fm.route(dims, False)
-        assert (r.dims, r.bf16, r.k2, r.sizes) == (dims, False, k2, fp32)
-        assert r.k2_sizes == (tfwg if k2 == "tf32wg" else fp32)
+        assert (r.dims, r.bf16, r.impl, r.tf32_sizes) == (dims, False, impl, fp32)
+        assert r.sizes == (tfwg if impl == "tf32wg" else fp32)
         assert list(r.c_dims) == list(dims)
         r_bf16 = fm.route(dims, True)
-        assert (r_bf16.k2, r_bf16.sizes, r_bf16.k2_sizes) == ("wg", wg, wg)
+        assert (r_bf16.impl, r_bf16.sizes, r_bf16.tf32_sizes) == ("wg", wg, ())
         assert fm.route(dims, False) is r and fm.route(dims, True) is r_bf16
         assert sorted(lib.asked) == ["sizes_tf32", "tf32wg_sizes", "wg_sizes"]

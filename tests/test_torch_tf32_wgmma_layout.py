@@ -1,14 +1,19 @@
-"""The data layouts of the float32 K2 on wgmma (csrc/fused_mlp_wgmma.cu:
-k_tf_layout, k2_tf, k2_dw_tf), through their plain versions in
-ops/fused_mlp.py, on numpy-made weights and inputs at tiny T: the presets'
-8x256 chain (skip at 4, the 128-wide view head), a narrow chain and a chain
-without a skip.
+"""The data layouts of the float32 kernels on wgmma (csrc/fused_mlp_wgmma.cu:
+k_tf_layout, k2_tf, k2_dw_tf, and K1/K3's k1_tf, k3_tf), through their
+plain versions in ops/fused_mlp.py, on numpy-made weights and inputs at tiny
+T: the presets' 8x256 chain (skip at 4, the 128-wide view head), a narrow
+chain and a chain without a skip.
 
 - `tf32wg_weights_plain` (the weights in the layouts the TMA maps read; the
   kernel `k_tf_layout` is held to it bit for bit on the card by
-  chip_smoke.py): hi + lo rebuilds W exactly, hi is the TF32
-  round-to-nearest of W (as `k_pack` splits it), bias_f holds b, and every
-  padding position holds zeros.
+  chip_smoke.py): hi + lo rebuilds W exactly, the forward rows holding every
+  weight once (the RGB output's and the density unit's rows too, which only
+  K1/K3 read), hi is the TF32 round-to-nearest of W (as `k_pack` splits
+  it), bias_f holds b, and every padding position holds zeros.
+- `pack_weights` at float32 gives K3 that layout's forward half exactly
+  where `tf32wg_layout` takes the chain (fused_mlp.cu's fragments
+  elsewhere), and K3's plain forward on it matches the JAX package's forward
+  at tests/test_ops.py's 1e-5.
 - `tf32wg_workspace_plain` (what K2's first pass stores for the dW pass):
   X's rows are every layer's input, G's rows every g_z, exactly, each row
   point-contiguous; the dW products and db sums taken from them equal the
@@ -17,10 +22,16 @@ without a skip.
   kernels, and a chain to them exactly where the bf16 plan M takes it; the
   rest keep fused_mlp.cu's K2.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_parity import assert_close, t, to_np
+
+from sparf_tpu.models import nerf_mlp as jmlp
+from sparf_tpu_torch.convert import nerf_params_from_jax
 from sparf_tpu_torch.models import nerf_mlp as tmlp
 from sparf_tpu_torch.ops import fused_mlp as fm
 
@@ -72,16 +83,23 @@ def test_tf32wg_weights_hi_lo_rebuild_w(widths, view_dep):
     full_f, full_t = wf[: lay.RF] + wf[lay.RF:], wt[: lay.RT] + wt[lay.RT:]
     seen_f = torch.zeros_like(full_f, dtype=torch.bool)
     seen_t = torch.zeros_like(full_t, dtype=torch.bool)
-    for L, W, b in zip(lay.layers, weights[::2], weights[1::2]):
+    last = len(lay.layers) - 1
+    for li, (L, W, b) in enumerate(zip(lay.layers, weights[::2], weights[1::2])):
         i = L.inputs()
         cols = torch.nonzero(i >= 0).reshape(-1)
-        if L.nm:  # the forward rows: the features (the density unit is not recomputed)
-            u = L.forward_units()
+        # the forward rows: the features; the density unit's row at RD and the
+        # RGB output's at the last layer's rf, which only K1/K3 read
+        blocks = [(L.rf, L.forward_units())] if L.nm else []
+        if L.dens:
+            blocks.append((lay.RD, torch.tensor([0])))
+        if li == last:
+            blocks.append((L.rf, torch.arange(3)))
+        for r0, u in blocks:
             rows = torch.nonzero(u >= 0).reshape(-1)
-            assert torch.equal(_bits(full_f[L.rf + rows][:, cols]), _bits(W[u[rows]][:, i[cols]]))
-            assert torch.equal(_bits(bias_f[L.rf + rows]), _bits(b[u[rows]]))
-            seen_f[(L.rf + rows)[:, None], cols[None, :]] = True
-            assert rows.numel() == L.out - L.dens
+            assert torch.equal(_bits(full_f[r0 + rows][:, cols]), _bits(W[u[rows]][:, i[cols]]))
+            assert torch.equal(_bits(bias_f[r0 + rows]), _bits(b[u[rows]]))
+            seen_f[(r0 + rows)[:, None], cols[None, :]] = True
+        assert sum(int((u >= 0).sum()) for _, u in blocks) == L.out
         u = L.gz_units()
         gcols = torch.nonzero(u >= 0).reshape(-1)
         assert gcols.numel() == L.out  # every output, the density unit at column nm
@@ -90,9 +108,9 @@ def test_tf32wg_weights_hi_lo_rebuild_w(widths, view_dep):
         assert torch.equal(full_t[L.rt + torch.nonzero(i < 0).reshape(-1)],
                            torch.zeros_like(full_t[L.rt + torch.nonzero(i < 0).reshape(-1)]))
     assert not torch.any(full_f[~seen_f]) and not torch.any(full_t[~seen_t])
-    assert int(seen_f.sum()) == sum(int(W.numel()) for W in weights[:-2:2]) - lay.layers[
-        meta.n_feat - 1].n_in  # every weight but the last layer's and the density unit's
+    assert int(seen_f.sum()) == sum(int(W.numel()) for W in weights[::2])  # every weight once
     assert int(seen_t.sum()) == sum(int(W.numel()) for W in weights[::2])
+    assert lay.RF == lay.RD + 8 == lay.layers[-1].rf + 16
 
 
 @pytest.mark.parametrize("widths,view_dep", CASES, ids=IDS)
@@ -156,3 +174,48 @@ def test_tf32wg_layout_takes_exactly_the_plan_m_chains():
             dims = tuple(fm.chain_dims(tmlp.MLPConfig(view_dep=view_dep, **over)))
             plan_m = isinstance(fm._wg_plan(dims, False), fm.WgLayout)
             assert (fm.tf32wg_layout(dims) is not None) == plan_m, (over, view_dep)
+
+
+@pytest.mark.parametrize("widths,view_dep", CASES + [(w, True) for w in PAST.values()],
+                         ids=IDS + list(PAST))
+def test_pack_weights_gives_k3_the_forward_half_where_the_layout_takes_the_chain(widths,
+                                                                                  view_dep):
+    cfg = tmlp.MLPConfig(view_dep=view_dep, **widths)
+    meta = fm.FusedMeta.from_cfg(cfg)
+    params = tmlp.init_nerf_params(torch.Generator().manual_seed(4), cfg)
+    weights = fm.flat_weights(params)
+    dims = tuple(meta.dims(weights))
+    packed = fm.pack_weights(params, meta)
+    if fm.tf32wg_layout(dims) is None:
+        assert isinstance(packed, fm.PackedWeights)
+        assert torch.equal(_bits(packed.frag), _bits(fm.pack_fragments_plain(dims, weights)))
+        return
+    wf, wt, bias_f = fm.tf32wg_weights_plain(dims, weights)
+    assert isinstance(packed, fm.WgPackedWeights) and not packed.bf16 and packed.dims == dims
+    assert torch.equal(_bits(packed.wf), _bits(wf)) and torch.equal(_bits(packed.bias_f),
+                                                                     _bits(bias_f))
+    half = fm.tf32wg_weights_plain(dims, weights, transposed=False)
+    assert half[1] is None and torch.equal(_bits(half[0]), _bits(wf))
+
+
+@pytest.mark.parametrize("widths,view_dep", CASES[:1], ids=IDS[:1])
+def test_k3_plain_on_the_forward_half_matches_the_jax_forward(widths, view_dep):
+    """nerf_apply_fused without a gradient on the CPU (K3's plain version on
+    pack_weights' float32 WgPackedWeights) against the JAX package's nerf_apply
+    (view_dep False on this layout: test_torch_fused_mlp.py's
+    test_packed_plain_matches_pallas_k3)."""
+    kw = dict(view_dep=view_dep, barf_c2f=(0.3, 0.7), **widths)
+    cfg_j, cfg_t = jmlp.MLPConfig(**kw), tmlp.MLPConfig(**kw)
+    params_j = jmlp.init_nerf_params(jax.random.PRNGKey(5), cfg_j)
+    rng = np.random.RandomState(6)
+    pts = rng.normal(size=(1, 7, 4, 3)).astype(np.float32)
+    ray = rng.normal(size=(1, 7, 3)).astype(np.float32)
+    out_j = jax.jit(lambda p, x, r: jmlp.nerf_apply(p, cfg_j, x, r, jnp.asarray(0.45)))(
+        params_j, pts, ray)
+    params_t = nerf_params_from_jax(to_np(params_j))
+    packed = fm.pack_weights(params_t, fm.FusedMeta.from_cfg(cfg_t))
+    assert isinstance(packed, fm.WgPackedWeights) and not packed.bf16
+    with torch.no_grad():
+        out_t = fm.nerf_apply_fused(params_t, cfg_t, t(pts), t(ray), 0.45)
+    for k in ("rgb_samples", "density_samples"):
+        assert_close(out_t[k], out_j[k], atol=1e-5)
